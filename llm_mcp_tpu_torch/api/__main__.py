@@ -1,0 +1,62 @@
+"""`python -m llm_mcp_tpu_torch.api` — serve one model on the card.
+
+    python -m llm_mcp_tpu_torch.api --model llama-3.1-8b --max-slots 8 \\
+        --max-seq-len 4096 --port 8080
+
+Serves `POST /v1/chat/completions`, `GET /v1/models` and `GET /health`
+until SIGINT or SIGTERM. Weights are random from `--seed` (no checkpoint
+loading yet) and the tokenizer is the byte tokenizer. `--device cpu` runs
+the plain PyTorch versions of the kernels on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import threading
+
+import torch
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m llm_mcp_tpu_torch.api")
+    ap.add_argument("--model", default="llama-3.1-8b")
+    ap.add_argument("--max-slots", type=int, default=8)
+    ap.add_argument("--max-seq-len", type=int, default=4096)
+    ap.add_argument("--prefill-chunk", type=int, default=512)
+    ap.add_argument("--decode-chunk", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    log = logging.getLogger("main")
+
+    from ..executor import GenerationEngine
+    from .inference import serve
+
+    dtype = torch.bfloat16 if args.device != "cpu" else torch.float32
+    engine = GenerationEngine(
+        args.model,
+        max_slots=args.max_slots,
+        max_seq_len=args.max_seq_len,
+        prefill_chunk=args.prefill_chunk,
+        decode_chunk=args.decode_chunk,
+        seed=args.seed,
+        dtype=dtype,
+        device=args.device,
+    ).start()
+    api = serve({args.model: engine}, args.host, args.port)
+    log.info("serving %s on %s:%d (%s)", args.model, args.host, api.port, engine.device)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    stop.wait()
+    api.shutdown()
+    engine.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,623 @@
+"""Continuous-batching generation engine (counterpart of
+`llm_mcp_tpu/executor/engine.py:GenerationEngine`, local backend).
+
+One engine thread owns the model, the KV cache and every slot. Each loop
+iteration:
+
+  1. stages a ragged prefill group under the token-budget scheduler
+     (`scheduler.py`): up to `admit_batch` mid-prefill prompts' next
+     chunks packed back to back into one [T] token buffer;
+  2. runs one decode round (`decode_chunk` steps) for the active slots;
+  3. runs the staged group (`llama_prefill_chunk_ragged`) and activates
+     the prompts whose last chunk landed, sampling their first token;
+  4. emits the round's tokens and finishes slots (EOS, `max_tokens`, end
+     of the sequence);
+  5. admits queued requests: prompts of at most `prefill_chunk` tokens
+     prefill together (`llama_prefill`, batches of up to `admit_batch`),
+     longer ones reserve a slot and join the chunk queue.
+
+Decode rows and prefill rows are disjoint: a slot is decodable only once
+its whole prompt is in the cache. Free and mid-prefill slots are parked at
+`lengths = max_seq_len`, so the decode step's append writes nothing into
+them. The packing rules are the JAX engine's (rowids sorted, pads carry
+rowid R and position S, T on the pow2 ladder), so the two engines dispatch
+the same work. Unlike the JAX loop, a round's tokens are fetched before the
+next round starts (no pipelining yet).
+
+Left out until later slices: the prompt-prefix cache, paging, preemption
+and migration, speculation, constraints, the model zoo, tenants and the
+flight recorder.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+import uuid
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from ..models.configs import ModelConfig, get_config
+from ..models.llama import (
+    init_kv_cache,
+    init_llama_params,
+    llama_decode_step,
+    llama_prefill,
+    llama_prefill_chunk_ragged,
+)
+from ..ops.sampling import sample_tokens
+from ..utils.device import resolve_device
+from .common import fine_bucket, pow2_bucket
+from .scheduler import TokenBudgetScheduler
+from .tokenizer import ByteTokenizer
+
+log = logging.getLogger("executor")
+
+_DONE = object()  # end-of-stream sentinel on a request's queue
+
+
+@dataclass
+class GenRequest:
+    prompt_ids: list[int]
+    max_tokens: int = 256
+    temperature: float = 0.7
+    top_k: int = 0
+    top_p: float = 1.0
+    stop: list[str] = field(default_factory=list)
+    request_id: str = field(default_factory=lambda: uuid.uuid4().hex)
+    out: "queue.Queue[Any]" = field(default_factory=queue.Queue)
+    created_at: float = field(default_factory=time.time)
+
+
+@dataclass
+class _Slot:
+    req: GenRequest
+    generated: int = 0
+    text: str = ""
+    pending: bytes = b""
+    prompt_len: int = 0
+    first_token_at: float = 0.0
+    done: bool = False
+
+
+@dataclass
+class _PrefillState:
+    """A slot whose prompt is mid-way through chunked prefill."""
+
+    req: GenRequest
+    ids: list[int]
+    done: int = 0  # tokens already written into the cache
+
+
+@dataclass
+class _PrefillGroup:
+    """A staged ragged chunk group: metas row i ↔ descriptor row i."""
+
+    metas: list  # [(slot, _PrefillState, n)]
+    tokens: np.ndarray  # [T]
+    rowids: np.ndarray  # [T] (pads = R)
+    positions: np.ndarray  # [T] (pads = max_seq_len)
+    slots: np.ndarray  # [R]
+    starts: np.ndarray  # [R]
+    last_idx: np.ndarray  # [R]
+    n_tokens: int
+
+
+class GenerationEngine:
+    def __init__(
+        self,
+        model: str | ModelConfig = "tiny-llm",
+        *,
+        params: dict | None = None,
+        tokenizer: ByteTokenizer | None = None,
+        max_slots: int = 8,
+        max_seq_len: int = 512,
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        decode_chunk: int = 4,
+        prefill_chunk: int = 512,
+        admit_batch: int = 4,
+        target_ttft_ms: float = 2000.0,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cfg = get_config(model) if isinstance(model, str) else model
+        self.dtype = dtype
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.decode_chunk = decode_chunk
+        self.prefill_chunk = max(0, prefill_chunk)
+        self.admit_batch = max(1, admit_batch)
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self._sched = TokenBudgetScheduler(
+            target_ttft_ms=target_ttft_ms,
+            min_budget=min(64, self.prefill_chunk) if self.prefill_chunk else 1,
+        )
+        # packed-buffer capacity: the pow2 floor of a full group's tokens
+        cap = max(self.admit_batch * self.prefill_chunk, 1)
+        self._ragged_cap = 1 << (cap.bit_length() - 1)
+
+        if params is None:
+            g = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_llama_params(self.cfg, g, dtype=dtype, device=self.device)
+        self.params = params
+        cache = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device=self.device)
+        self._ck, self._cv = cache["k"], cache["v"]
+
+        # Host mirrors of per-slot state. Only active (decoding) slots hold
+        # an in-range length; free and mid-prefill slots park at
+        # max_seq_len so the decode step's append writes nothing there.
+        self._lengths = np.full(max_slots, max_seq_len, dtype=np.int32)
+        self._last_tok = np.zeros(max_slots, dtype=np.int32)
+        self._temp = np.zeros(max_slots, dtype=np.float32)
+        self._topk = np.zeros(max_slots, dtype=np.int32)
+        self._topp = np.ones(max_slots, dtype=np.float32)
+        self._slots: list[_Slot | None] = [None] * max_slots
+        self._prefills: dict[int, _PrefillState] = {}
+        self._prefill_q: deque[int] = deque()
+        self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+        # Only real text ids and eos may be sampled: the model vocab may be
+        # larger than the tokenizer's, and pad/bos are control ids.
+        allowed = np.ones(self.cfg.vocab_size, dtype=bool)
+        allowed[self.tokenizer.vocab_size:] = False
+        for bad in (self.tokenizer.pad_id, self.tokenizer.bos_id):
+            if bad != self.tokenizer.eos_id and 0 <= bad < self.cfg.vocab_size:
+                allowed[bad] = False
+        self._allowed = None if allowed.all() else torch.from_numpy(allowed).to(self.device)
+
+        self._admit: "queue.Queue[GenRequest]" = queue.Queue()
+        self._wake = threading.Event()
+        self._stop_evt = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- public surface ----------------------------------------------------
+
+    def start(self) -> "GenerationEngine":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="gen-engine", daemon=True)
+            self._thread.start()
+        return self
+
+    def shutdown(self) -> None:
+        self._stop_evt.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        self._abort_all("engine shutdown")
+
+    def submit(self, req: GenRequest) -> GenRequest:
+        if self._stop_evt.is_set():
+            req.out.put({"type": "error", "error": "engine shutdown"})
+            req.out.put(_DONE)
+            return req
+        self._admit.put(req)
+        self._wake.set()
+        return req
+
+    def generate_stream(
+        self,
+        prompt: str,
+        *,
+        max_tokens: int = 256,
+        temperature: float = 0.7,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stop: list[str] | None = None,
+    ) -> Iterator[dict[str, Any]]:
+        """Yield {"type":"token","text":...} events then a final
+        {"type":"done", "usage":..., "finish_reason":..., "ttft_ms":...}."""
+        req = GenRequest(
+            prompt_ids=self.tokenizer.encode(prompt),
+            max_tokens=max_tokens,
+            temperature=temperature,
+            top_k=top_k,
+            top_p=top_p,
+            stop=stop or [],
+        )
+        self.submit(req)
+        while True:
+            evt = req.out.get()
+            if evt is _DONE:
+                return
+            yield evt
+            if evt.get("type") == "done":
+                return
+
+    def generate(self, prompt: str, **kw: Any) -> dict[str, Any]:
+        """Non-streaming: returns {"text", "usage", "finish_reason"}."""
+        parts: list[str] = []
+        final: dict[str, Any] = {}
+        for evt in self.generate_stream(prompt, **kw):
+            if evt["type"] == "token":
+                parts.append(evt["text"])
+            elif evt["type"] == "done":
+                final = evt
+            elif evt["type"] == "error":
+                raise RuntimeError(evt.get("error", "generation failed"))
+        return {
+            "text": "".join(parts),
+            "usage": final.get("usage", {}),
+            "finish_reason": final.get("finish_reason", "stop"),
+        }
+
+    def slots_in_use(self) -> int:
+        return sum(1 for s in self._slots if s is not None) + len(self._prefills)
+
+    def queue_depth(self) -> int:
+        return self._admit.qsize()
+
+    # -- engine loop -------------------------------------------------------
+
+    def _run(self) -> None:
+        with torch.inference_mode():
+            while not self._stop_evt.is_set():
+                try:
+                    busy = self._step()
+                except Exception as e:  # a failed dispatch must not hang waiters
+                    log.exception("engine step failed")
+                    self._abort_all(f"engine step failed: {e}")
+                    self._ck.zero_()
+                    self._cv.zero_()
+                    busy = False
+                if not busy:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+
+    def _step(self) -> bool:
+        K, S = self.decode_chunk, self.max_seq_len
+        active = [
+            i for i, s in enumerate(self._slots) if s is not None and self._lengths[i] + K <= S
+        ]
+        group = self._stage_ragged_group(len(active))
+        round_out = None
+        if active:
+            round_out = self._decode_round(active)
+        if group is not None:
+            self._run_prefill_group(group)
+        if round_out is not None:
+            self._emit_round(*round_out)
+        admitted = self._admit_pending()
+        return bool(active or group is not None or admitted)
+
+    def _t(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _sample(self, logits, temps, topks, topps, active=None) -> torch.Tensor:
+        if self._allowed is not None:
+            logits = logits.masked_fill(~self._allowed, float("-inf"))
+        return sample_tokens(
+            logits, self._gen, self._t(temps), self._t(topks), self._t(topps), active=active
+        )
+
+    def _decode_round(self, active: list[int]):
+        """`decode_chunk` decode steps for the whole batch (parked rows ride
+        along and write nothing); returns the fetched tokens [K, B]."""
+        t0 = time.perf_counter()
+        S = self.max_seq_len
+        lens = self._t(self._lengths)
+        toks = self._t(self._last_tok)
+        temps, topks, topps = self._temp, self._topk, self._topp
+        outs = []
+        for _ in range(self.decode_chunk):
+            logits, self._ck, self._cv = llama_decode_step(
+                self.cfg, self.params, self._ck, self._cv, toks, lens
+            )
+            toks = self._sample(logits, temps, topks, topps, active=lens < S)
+            outs.append(toks)
+            lens = torch.where(lens < S, lens + 1, lens)
+        out = torch.stack(outs).cpu().numpy()  # the round's one host sync
+        self._sched.observe_decode(time.perf_counter() - t0)
+        base = self._lengths.copy()
+        for b in active:
+            self._lengths[b] = min(int(base[b]) + self.decode_chunk, S)
+            self._last_tok[b] = out[-1, b]
+        return out, active, base
+
+    def _emit_round(self, out: np.ndarray, active: list[int], base: np.ndarray) -> None:
+        for b in active:
+            s = self._slots[b]
+            if s is None or s.done:
+                continue
+            parts: list[str] = []
+            finish = None
+            for k in range(out.shape[0]):
+                emit, finish = self._process_token(s, int(out[k, b]), int(base[b]) + k)
+                if emit:
+                    parts.append(emit)
+                if finish is not None:
+                    break
+            if parts:
+                s.req.out.put({"type": "token", "text": "".join(parts)})
+            if finish is not None:
+                self._finish_slot(b, s, finish)
+
+    # -- admission ---------------------------------------------------------
+
+    def _free_slot(self, reserved: set[int]) -> int | None:
+        for i, s in enumerate(self._slots):
+            if s is None and i not in self._prefills and i not in reserved:
+                return i
+        return None
+
+    def _admit_pending(self) -> bool:
+        admitted = False
+        while True:
+            batch: list[tuple[int, GenRequest, list[int]]] = []
+            reserved: set[int] = set()
+            while len(batch) < self.admit_batch:
+                slot = self._free_slot(reserved)
+                if slot is None:
+                    break
+                try:
+                    req = self._admit.get_nowait()
+                except queue.Empty:
+                    break
+                ids = req.prompt_ids
+                # leave room for at least one decode chunk after the prompt
+                max_prompt = self.max_seq_len - self.decode_chunk
+                if len(ids) > max_prompt:  # keep the tail
+                    ids = ids[-max_prompt:]
+                if req.max_tokens <= 0:
+                    req.out.put({
+                        "type": "done",
+                        "finish_reason": "length",
+                        "usage": {
+                            "prompt_tokens": len(ids),
+                            "completion_tokens": 0,
+                            "total_tokens": len(ids),
+                        },
+                        "ttft_ms": 0.0,
+                    })
+                    req.out.put(_DONE)
+                    continue
+                admitted = True
+                if self.prefill_chunk and len(ids) > self.prefill_chunk:
+                    # long prompt: reserve the slot, prefill chunk by chunk
+                    self._prefills[slot] = _PrefillState(req=req, ids=list(ids))
+                    self._prefill_q.append(slot)
+                    continue
+                reserved.add(slot)
+                batch.append((slot, req, list(ids)))
+            if not batch:
+                break
+            try:
+                self._start_batch(batch)
+            except Exception as e:
+                log.exception("prefill failed")
+                for slot, req, _ in batch:
+                    s = self._slots[slot]
+                    if s is not None and s.req is req:
+                        self._free_now(slot)
+                    self._error(req, str(e))
+            if len(batch) < self.admit_batch:
+                break
+        return admitted
+
+    def _start_batch(self, batch: list[tuple[int, GenRequest, list[int]]]) -> None:
+        """Prefill up to admit_batch short prompts in one batch, insert
+        their K/V into their slots and sample their first tokens."""
+        A = len(batch)
+        Ab = 1 << (A - 1).bit_length()  # pow2 rows: pad rows are 1 harmless token
+        bucket = fine_bucket(max(len(ids) for _, _, ids in batch), self.max_seq_len)
+        tokens = np.zeros((Ab, bucket), dtype=np.int32)
+        lengths = np.ones((Ab,), dtype=np.int32)
+        for i, (_, _, ids) in enumerate(batch):
+            tokens[i, : len(ids)] = ids
+            lengths[i] = len(ids)
+        logits, ks, vs = llama_prefill(self.cfg, self.params, self._t(tokens), self._t(lengths))
+        for i, (slot, _, _) in enumerate(batch):
+            self._ck[:, slot, :, :bucket] = ks[:, i]
+            self._cv[:, slot, :, :bucket] = vs[:, i]
+        reqs = [req for _, req, _ in batch]
+        toks0 = self._sample(
+            logits[:A],
+            np.asarray([r.temperature for r in reqs], np.float32),
+            np.asarray([r.top_k for r in reqs], np.int32),
+            np.asarray([r.top_p for r in reqs], np.float32),
+        ).cpu().numpy()
+        for i, (slot, req, ids) in enumerate(batch):
+            self._activate_state(slot, req, ids, int(toks0[i]))
+
+    def _activate_state(self, slot: int, req: GenRequest, ids: list[int], tok0: int) -> None:
+        P = len(ids)
+        s = _Slot(req=req, prompt_len=P, first_token_at=time.time())
+        self._slots[slot] = s
+        self._lengths[slot] = P
+        self._last_tok[slot] = tok0
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
+        # tok0's K/V is written at position P by the first decode round
+        emit, finish = self._process_token(s, tok0, P - 1)
+        if emit:
+            req.out.put({"type": "token", "text": emit})
+        if finish is not None:
+            self._finish_slot(slot, s, finish)
+
+    # -- chunked (ragged) prefill ------------------------------------------
+
+    def _prefill_backlog(self) -> int:
+        return sum(len(st.ids) - st.done for st in self._prefills.values())
+
+    def _stage_ragged_group(self, n_active: int) -> _PrefillGroup | None:
+        """Pack up to admit_batch mid-prefill slots' next chunks back to
+        back into one [T] buffer under the scheduler's budget."""
+        if not self._prefill_q:
+            return None
+        oldest = min(self._prefills[s].req.created_at for s in self._prefill_q)
+        budget = self._sched.decide(self._prefill_backlog(), n_active, time.time() - oldest)
+        if budget <= 0:
+            return None
+        R = self.admit_batch
+        S = self.max_seq_len
+        cap = min(budget, self._ragged_cap)
+        picked: list[tuple[int, _PrefillState, int, int]] = []
+        used = 0
+        for slot in list(self._prefill_q):
+            if len(picked) >= R or used >= cap:
+                break
+            st = self._prefills[slot]
+            n = min(self.prefill_chunk, len(st.ids) - st.done, cap - used)
+            if n <= 0:
+                continue
+            picked.append((slot, st, st.done, n))
+            used += n
+        if not picked:
+            return None
+        T = pow2_bucket(used, self._ragged_cap, floor=min(32, self._ragged_cap))
+        tokens = np.zeros((T,), dtype=np.int32)
+        rowids = np.full((T,), R, dtype=np.int32)  # pads: row R
+        positions = np.full((T,), S, dtype=np.int32)  # pads: position S
+        slots = np.zeros((R,), dtype=np.int32)
+        starts = np.zeros((R,), dtype=np.int32)
+        last_idx = np.zeros((R,), dtype=np.int32)
+        metas = []
+        off = 0
+        for i, (slot, st, start, n) in enumerate(picked):
+            tokens[off: off + n] = st.ids[start: start + n]
+            rowids[off: off + n] = i
+            positions[off: off + n] = np.arange(start, start + n)
+            slots[i] = slot
+            starts[i] = start
+            last_idx[i] = off + n - 1
+            metas.append((slot, st, n))
+            off += n
+        return _PrefillGroup(
+            metas=metas, tokens=tokens, rowids=rowids, positions=positions,
+            slots=slots, starts=starts, last_idx=last_idx, n_tokens=used,
+        )
+
+    def _run_prefill_group(self, group: _PrefillGroup) -> None:
+        """Run one staged group, advance chunk progress and activate the
+        prompts whose last chunk landed."""
+        t0 = time.perf_counter()
+        try:
+            logits, self._ck, self._cv = llama_prefill_chunk_ragged(
+                self.cfg, self.params, self._ck, self._cv,
+                self._t(group.tokens), self._t(group.rowids), self._t(group.positions),
+                self._t(group.slots), self._t(group.starts), self._t(group.last_idx),
+            )
+            fin = []
+            for i, (slot, st, n) in enumerate(group.metas):
+                st.done += n
+                if st.done >= len(st.ids):
+                    fin.append((i, slot, st))
+            toks0 = None
+            if fin:
+                reqs = [st.req for _, _, st in fin]
+                toks0 = self._sample(
+                    logits[[i for i, _, _ in fin]],
+                    np.asarray([r.temperature for r in reqs], np.float32),
+                    np.asarray([r.top_k for r in reqs], np.int32),
+                    np.asarray([r.top_p for r in reqs], np.float32),
+                ).cpu().numpy()
+            else:
+                self._sync()
+            self._sched.observe_prefill(
+                group.n_tokens, time.perf_counter() - t0, padded_tokens=len(group.tokens)
+            )
+            for k, (_, slot, st) in enumerate(fin):
+                self._prefill_q.remove(slot)
+                del self._prefills[slot]
+                self._activate_state(slot, st.req, st.ids, int(toks0[k]))
+        except Exception as e:
+            log.exception("chunked prefill failed")
+            for slot, st, _ in group.metas:
+                if self._prefills.pop(slot, None) is not None:
+                    self._prefill_q.remove(slot)
+                    self._error(st.req, str(e))
+
+    # -- emission ----------------------------------------------------------
+
+    def _process_token(self, s: _Slot, tok: int, pos: int) -> tuple[str, str | None]:
+        """Advance one slot by one token: (text to emit, finish_reason | None).
+        `pos` is the cache position the token's K/V occupies."""
+        req = s.req
+        finish = None
+        emit = ""
+        cut = -1
+        if tok == self.tokenizer.eos_id:
+            finish = "stop"
+        else:
+            s.generated += 1
+            text, s.pending = self.tokenizer.decode_stream(s.pending, [tok])
+            # stop sequences trim before emission; scan the window where a
+            # stop could straddle the old/new text boundary
+            prev_len = len(s.text)
+            total = s.text + text
+            for stop_s in req.stop:
+                if not stop_s:
+                    continue
+                i = total.find(stop_s, max(0, prev_len - len(stop_s) + 1))
+                if i != -1 and (cut == -1 or i < cut):
+                    cut = i
+            if cut != -1:
+                emit = total[prev_len:cut]
+                s.text = total[:cut]
+                finish = "stop"
+            else:
+                emit = text
+                s.text = total
+            if finish is None and s.generated >= req.max_tokens:
+                finish = "length"
+            if finish is None and pos + 1 + self.decode_chunk > self.max_seq_len:
+                finish = "length"
+        if finish is not None and s.pending:
+            if cut == -1:
+                emit += self.tokenizer.decode_flush(s.pending)
+            s.pending = b""
+        return emit, finish
+
+    def _finish_slot(self, slot: int, s: _Slot, finish: str) -> None:
+        req = s.req
+        s.done = True
+        req.out.put({
+            "type": "done",
+            "finish_reason": finish,
+            "usage": {
+                "prompt_tokens": s.prompt_len,
+                "completion_tokens": s.generated,
+                "total_tokens": s.prompt_len + s.generated,
+            },
+            "ttft_ms": (s.first_token_at - req.created_at) * 1000.0,
+        })
+        req.out.put(_DONE)
+        if self._slots[slot] is s:
+            self._free_now(slot)
+
+    def _free_now(self, b: int) -> None:
+        self._slots[b] = None
+        self._lengths[b] = self.max_seq_len  # park
+
+    def _error(self, req: GenRequest, msg: str) -> None:
+        req.out.put({"type": "error", "error": msg})
+        req.out.put(_DONE)
+
+    def _abort_all(self, msg: str) -> None:
+        """Error every live, mid-prefill and queued request."""
+        for b, s in enumerate(self._slots):
+            if s is not None and not s.done:
+                s.done = True
+                self._error(s.req, msg)
+            self._free_now(b)
+        for slot in list(self._prefills):
+            self._error(self._prefills.pop(slot).req, msg)
+        self._prefill_q.clear()
+        while True:
+            try:
+                req = self._admit.get_nowait()
+            except queue.Empty:
+                break
+            self._error(req, msg)

@@ -1,0 +1,398 @@
+"""Attention kernels of the serving path (counterpart of
+`llm_mcp_tpu/kernels/attention.py`).
+
+Four CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
+
+  - `append_kv_bf16`           ← `_append_bf16_kernel`
+  - `decode_attend_bf16`       ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
+  - `flash_prefill_attention`  ← `_flash_prefill_kernel`
+  - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel` (unpaged)
+
+Each wrapper keeps the JAX function's layouts and arguments. It takes its
+plain PyTorch version (`*_plain`, beside it) only for tensors on the CPU;
+for CUDA tensors it checks device, dtype, shape and contiguity, allocates
+its outputs with `torch.empty`, launches its kernel on the current stream
+and raises if the launch is refused. `LAUNCHES[name]` counts the launches
+of each kernel, so a run can show that the main path went through it.
+
+The caches are updated in place (the JAX functions return new arrays):
+`append_kv_bf16` writes its rows into the tensors it is given.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
+DECODE_CHUNK = 256  # key positions per decode split (flash-decoding)
+MAX_G = 8  # most query heads per KV head the decode kernel takes
+
+LAUNCHES: dict[str, int] = {
+    "append_kv_bf16": 0,
+    "decode_attend_bf16": 0,
+    "flash_prefill_attention": 0,
+    "ragged_prefill_attend_bf16": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "append_kv_bf16": ("append_kv", [_P] * 6 + [_I] * 6 + [_P]),
+    "decode_attend_bf16": ("decode_attend", [_P] * 11 + [_I] * 9 + [_F, _P]),
+    "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
+    "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
+}
+
+
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _fn(symbol: str):
+    f = _FNS.get(symbol)
+    if f is None:
+        source, argtypes = _SIGNATURES[symbol]
+        f = getattr(build.load(source), symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FNS[symbol] = f
+    return f
+
+
+def _launch(name: str, symbol: str, *args) -> None:
+    """Call the C entry point (tensors pass as their data pointers) on the
+    current stream; count the launch, or raise if it was refused."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = _fn(symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _rows(slot_ids: torch.Tensor | None, n: int, device) -> torch.Tensor:
+    if slot_ids is None:
+        return torch.arange(n, dtype=torch.int32, device=device)
+    return slot_ids
+
+
+# ---------------------------------------------------------------------------
+# append_kv_bf16
+# ---------------------------------------------------------------------------
+
+
+def append_kv_plain(cache_k, cache_v, new_k, new_v, lengths, slot_ids=None):
+    """Plain version: scatter row b's K/V (all layers) to position
+    lengths[b] of cache row slot_ids[b], in place; rows with a position
+    outside [0, S) write nothing."""
+    S = cache_k.shape[3]
+    rows = _rows(slot_ids, new_k.shape[1], cache_k.device).long()
+    w = lengths.long()
+    live = (w >= 0) & (w < S)
+    b_idx, w_idx = rows[live], w[live]
+    cache_k[:, b_idx, :, w_idx] = new_k[:, live].transpose(0, 1).to(cache_k.dtype)
+    cache_v[:, b_idx, :, w_idx] = new_v[:, live].transpose(0, 1).to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def append_kv_bf16(
+    cache_k: torch.Tensor,  # [L, B, Hkv, S, hd] — updated in place
+    cache_v: torch.Tensor,
+    new_k: torch.Tensor,  # [L, Ba, Hkv, hd] — this step's K, all layers
+    new_v: torch.Tensor,
+    lengths: torch.Tensor,  # [Ba] int32 — write position per row (>= S: skip)
+    *,
+    slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Append one decode step's K/V for all layers into the cache, in place.
+    Returns the (same) cache tensors."""
+    if cache_k.device.type == "cpu":
+        return append_kv_plain(cache_k, cache_v, new_k, new_v, lengths, slot_ids)
+    name = "append_kv_bf16"
+    L, B, Hkv, S, hd = cache_k.shape
+    Ba = new_k.shape[1]
+    dev = cache_k.device
+    rows = _rows(slot_ids, Ba, dev)
+    for t in (cache_k, cache_v):
+        _check(name, t, torch.bfloat16, (L, B, Hkv, S, hd), dev)
+    for t in (new_k, new_v):
+        _check(name, t, torch.bfloat16, (L, Ba, Hkv, hd), dev)
+    for t in (lengths, rows):
+        _check(name, t, torch.int32, (Ba,), dev)
+    if hd % 8:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8")
+    _launch(
+        name, "append_kv_bf16", cache_k, cache_v, new_k, new_v,
+        lengths, rows, L, B, Ba, Hkv, S, hd,
+    )
+    return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# decode_attend_bf16
+# ---------------------------------------------------------------------------
+
+
+def decode_attend_plain(
+    q, new_k, new_v, cache_k, cache_v, layer, lengths, slot_ids=None, scale=0.0
+):
+    """Plain version, in f32: attend positions [0, w] of each row, position
+    w taking new_k/new_v. A parked row (w outside [0, S)) attends its new
+    vectors alone."""
+    Ba, Hkv, G, hd = q.shape
+    S = cache_k.shape[3]
+    sc = scale or hd**-0.5
+    rows = _rows(slot_ids, Ba, q.device).long()
+    k = cache_k[int(layer)].index_select(0, rows).float()  # [Ba, Hkv, S, hd]
+    v = cache_v[int(layer)].index_select(0, rows).float()
+    w = lengths.long()
+    we = torch.where((w >= 0) & (w < S), w, torch.zeros_like(w))
+    pos = torch.arange(S, device=q.device)
+    at_w = (pos[None, :] == we[:, None])[:, None, None, :]  # [Ba, 1, 1, S]
+    seen = (pos[None, :] <= we[:, None])[:, None, None, :]
+    qf = q.float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k) * sc
+    s_new = torch.einsum("bhgd,bhd->bhg", qf, new_k.float()) * sc
+    s = torch.where(at_w, s_new[..., None], s)
+    s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p_w = torch.sum(torch.where(at_w, p, torch.zeros_like(p)), dim=-1)  # [Ba, Hkv, G]
+    pv = torch.where(at_w, torch.zeros_like(p), p)
+    ctx = torch.einsum("bhgs,bhsd->bhgd", pv, v)
+    ctx = ctx + p_w[..., None] * new_v.float()[:, :, None, :]
+    return ctx.to(q.dtype)
+
+
+def decode_attend_bf16(
+    q: torch.Tensor,  # [Ba, Hkv, G, hd]
+    new_k: torch.Tensor,  # [Ba, Hkv, hd] — post-rope K for this step
+    new_v: torch.Tensor,  # [Ba, Hkv, hd]
+    cache_k: torch.Tensor,  # [L, B, Hkv, S, hd] — PRE-append cache
+    cache_v: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,  # [Ba] int32 — this step's position per row
+    *,
+    slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+    block_tables: torch.Tensor | None = None,
+    scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
+) -> torch.Tensor:
+    """One decode step's attention for one layer over the pre-append
+    cache; position lengths[b] takes the exact new_k/new_v. Returns
+    [Ba, Hkv, G, hd]."""
+    if block_tables is not None:
+        raise NotImplementedError(
+            "decode_attend_bf16: the paged (block-table) arm is not ported yet"
+        )
+    if q.device.type == "cpu":
+        return decode_attend_plain(
+            q, new_k, new_v, cache_k, cache_v, layer, lengths, slot_ids, scale
+        )
+    name = "decode_attend_bf16"
+    Ba, Hkv, G, hd = q.shape
+    L, B, _, S, _ = cache_k.shape
+    dev = q.device
+    rows = _rows(slot_ids, Ba, dev)
+    _check(name, q, torch.bfloat16, (Ba, Hkv, G, hd), dev)
+    for t in (new_k, new_v):
+        _check(name, t, torch.bfloat16, (Ba, Hkv, hd), dev)
+    for t in (cache_k, cache_v):
+        _check(name, t, torch.bfloat16, (L, B, Hkv, S, hd), dev)
+    for t in (lengths, rows):
+        _check(name, t, torch.int32, (Ba,), dev)
+    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    nsplit = -(-S // DECODE_CHUNK)
+    pm = torch.empty((Ba, Hkv, nsplit, G), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    _launch(
+        name, "decode_attend_bf16", q, new_k, new_v, cache_k,
+        cache_v, lengths, rows, pm, pl, pacc,
+        out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit,
+        float(scale or hd**-0.5),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flash_prefill_attention
+# ---------------------------------------------------------------------------
+
+
+def flash_prefill_plain(q, k, v, lengths, window=0, softcap=0.0, scale=0.0):
+    """Plain version, in f32: causal + length (+ window) masked softmax
+    attention; rows that see no key emit 0."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    sc = scale or hd**-0.5
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.matmul(q.float() * sc, kf.transpose(-1, -2))  # [B, H, S, S]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    mask = (kp <= qp)[None] & (kp[None] < lengths.long()[:, None, None])  # [B, S, S]
+    window = int(window)
+    if window > 0:
+        mask = mask & (qp - kp < window)[None]
+    mask = mask[:, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.matmul(p, vf) / torch.where(l > 0, l, torch.ones_like(l))
+    return out.to(q.dtype)
+
+
+def flash_prefill_attention(
+    q: torch.Tensor,  # [B, H, S, hd]
+    k: torch.Tensor,  # [B, Hkv, S, hd]
+    v: torch.Tensor,  # [B, Hkv, S, hd]
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    window: int = 0,  # sliding window (0 = global)
+    softcap: float = 0.0,  # score soft-capping (0 = off)
+    scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
+) -> torch.Tensor:
+    """Causal, length-masked GQA flash attention. Returns [B, H, S, hd]."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, lengths, window, softcap, scale)
+    name = "flash_prefill_attention"
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    dev = q.device
+    _check(name, q, torch.bfloat16, (B, H, S, hd), dev)
+    for t in (k, v):
+        _check(name, t, torch.bfloat16, (B, Hkv, S, hd), dev)
+    _check(name, lengths, torch.int32, (B,), dev)
+    if hd != HEAD_DIM or H % Hkv:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and H % Hkv == 0")
+    out = torch.empty_like(q)
+    _launch(
+        name, "flash_prefill_bf16", q, k, v, lengths, out,
+        B, H, Hkv, S, hd, int(window), float(softcap), float(scale or hd**-0.5),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ragged_prefill_attend_bf16
+# ---------------------------------------------------------------------------
+
+
+def ragged_prefill_plain(
+    q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots, starts, scale=0.0
+):
+    """Plain version, in f32, one packed segment at a time: row r's tokens
+    attend cache row slots[r] over [0, starts[r]) and their own segment
+    causally; the pad tokens after offsets[R] form one more segment with
+    no cached prefix."""
+    T, Hkv, G, hd = q.shape
+    R = slots.shape[0]
+    sc = scale or hd**-0.5
+    offs = [int(x) for x in offsets.tolist()] + [T]
+    st = [int(x) for x in starts.tolist()]
+    sl = [int(x) for x in slots.tolist()]
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for r in range(R + 1):
+        lo, hi = offs[r], offs[r + 1]
+        n = hi - lo
+        if n <= 0:
+            continue
+        qr = q[lo:hi].float().permute(1, 2, 0, 3)  # [Hkv, G, n, hd]
+        kr = k_self[lo:hi].float().permute(1, 0, 2)  # [Hkv, n, hd]
+        vr = v_self[lo:hi].float().permute(1, 0, 2)
+        s_self = torch.einsum("hgtd,hud->hgtu", qr, kr) * sc
+        causal = torch.tril(torch.ones(n, n, dtype=torch.bool, device=q.device))
+        s_self = torch.where(causal, s_self, torch.full_like(s_self, NEG_INF))
+        start = st[r] if r < R else 0
+        if start > 0:
+            kp = cache_k[int(layer), sl[r], :, :start].float()  # [Hkv, start, hd]
+            vp = cache_v[int(layer), sl[r], :, :start].float()
+            s_past = torch.einsum("hgtd,hsd->hgts", qr, kp) * sc
+            p = torch.softmax(torch.cat([s_past, s_self], dim=-1), dim=-1)
+            ctx = torch.einsum("hgts,hsd->hgtd", p[..., :start], vp)
+            ctx = ctx + torch.einsum("hgtu,hud->hgtd", p[..., start:], vr)
+        else:
+            p = torch.softmax(s_self, dim=-1)
+            ctx = torch.einsum("hgtu,hud->hgtd", p, vr)
+        out[lo:hi] = ctx.permute(2, 0, 1, 3)
+    return out.to(q.dtype)
+
+
+def ragged_prefill_attend_bf16(
+    q: torch.Tensor,  # [T, Hkv, G, hd] post-rope queries (packed)
+    k_self: torch.Tensor,  # [T, Hkv, hd] the chunk's own post-rope keys
+    v_self: torch.Tensor,  # [T, Hkv, hd]
+    cache_k: torch.Tensor,  # [L, B, Hkv, S, hd]
+    cache_v: torch.Tensor,
+    layer: int,
+    rowids: torch.Tensor,  # [T] int32 — descriptor row per token (pads = R)
+    offsets: torch.Tensor,  # [R+1] int32 — packed row boundaries
+    slots: torch.Tensor,  # [R] int32
+    starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
+    *,
+    scale: float = 0.0,
+    block_tables: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Ragged chunked-prefill attention over the bf16 cache (unpaged).
+    Returns [T, Hkv, G, hd]."""
+    if block_tables is not None:
+        raise NotImplementedError(
+            "ragged_prefill_attend_bf16: the block-table path is not ported yet"
+        )
+    if q.device.type == "cpu":
+        return ragged_prefill_plain(
+            q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots,
+            starts, scale,
+        )
+    name = "ragged_prefill_attend_bf16"
+    T, Hkv, G, hd = q.shape
+    L, B, _, S, _ = cache_k.shape
+    R = slots.shape[0]
+    dev = q.device
+    _check(name, q, torch.bfloat16, (T, Hkv, G, hd), dev)
+    for t in (k_self, v_self):
+        _check(name, t, torch.bfloat16, (T, Hkv, hd), dev)
+    for t in (cache_k, cache_v):
+        _check(name, t, torch.bfloat16, (L, B, Hkv, S, hd), dev)
+    _check(name, rowids, torch.int32, (T,), dev)
+    _check(name, offsets, torch.int32, (R + 1,), dev)
+    for t in (slots, starts):
+        _check(name, t, torch.int32, (R,), dev)
+    if hd != HEAD_DIM or 64 % G:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G dividing 64")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    out = torch.empty_like(q)
+    _launch(
+        name, "ragged_prefill_bf16", q, k_self, v_self, cache_k,
+        cache_v, rowids, offsets, slots, starts, out,
+        int(layer), T, R, B, Hkv, G, S, hd, float(scale or hd**-0.5),
+    )
+    return out

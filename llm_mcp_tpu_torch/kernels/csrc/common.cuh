@@ -1,0 +1,53 @@
+// Helpers shared by the port's attention kernels (sm_90a, plain C ABI).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+// Large finite negative used for masked scores: exp(NEG - m) underflows to
+// 0 without the inf - inf = NaN of a true -inf (the Pallas kernels use the
+// same -1e30).
+#define NEG_BIG (-1e30f)
+
+// 8 consecutive bf16 values (16 bytes) as floats. `p` must be 16-byte
+// aligned: every row the kernels read starts at a multiple of head_dim
+// elements, and head_dim is a multiple of 8.
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Reductions over the 16 lanes of a half-warp (the lanes that share a row
+// in the prefill tile).
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

@@ -1,0 +1,129 @@
+// ragged_prefill_attend_bf16: packed multi-row chunked prefill attention
+// over the bf16 cache (unpaged).
+//
+// Replaces: llm_mcp_tpu/kernels/attention.py `_ragged_prefill_bf16_kernel`
+// (behind `ragged_prefill_attend_bf16`), the identity-table (unpaged) path.
+// The block-table path comes with the prefix cache.
+//
+// A [T]-token buffer carries up to R rows' chunks back to back: row r
+// holds packed indices [offsets[r], offsets[r+1]); pad tokens after
+// offsets[R] carry rowid R. Each token attends (a) its row's cached prefix
+// cache[layer, slots[r], h, 0:starts[r]] and (b) the chunk's own K/V for
+// the tokens of its row at packed index <= its own. Both feed one online
+// softmax. Pads attend earlier pads, so their output is finite; the engine
+// drops it.
+//
+// Bound on the H100: operations, as for flash prefill: 4*hd flops per
+// attended (token, key) pair per query head. One CTA per (tile of 64/G
+// packed tokens, KV head): its 64 query rows are the G query heads of each
+// token, so all G heads share every K/V tile read. Like flash prefill this
+// first version computes with f32 FMA register tiles (tile_attention.cuh),
+// not tensor cores.
+//
+// Layouts: q [T, Hkv, G, hd]; k_self/v_self [T, Hkv, hd];
+// cache [L, B, Hkv, S, hd]; rowids [T], offsets [R+1], slots/starts [R]
+// int32; out like q.
+
+#include "tile_attention.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(tile::THREADS)
+ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
+                      const bf16* __restrict__ vs, const bf16* __restrict__ ck,
+                      const bf16* __restrict__ cv, const int* __restrict__ rowids,
+                      const int* __restrict__ offsets, const int* __restrict__ slots,
+                      const int* __restrict__ starts, bf16* __restrict__ out,
+                      int layer, int T, int R, int B, int Hkv, int G, int S,
+                      float scale) {
+  extern __shared__ float sm[];
+  const tile::Smem s(sm);
+  __shared__ int row_tok[tile::BQ];  // packed token of query row (-1: none)
+  __shared__ int row_rid[tile::BQ];  // its descriptor row (R: pad)
+  __shared__ int key_rid[tile::BK];  // descriptor row of each self key
+
+  const int TQ = tile::BQ / G;  // tokens per CTA
+  const int t0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid < tile::BQ) {
+    const int t = t0 + tid / G;
+    row_tok[tid] = t < T ? t : -1;
+    row_rid[tid] = t < T ? rowids[t] : -1;
+  }
+  for (int c = tid; c < tile::BQ * (tile::HD / 8); c += tile::THREADS) {
+    const int r = c / (tile::HD / 8);
+    const int d0 = (c % (tile::HD / 8)) * 8;
+    const int t = t0 + r / G;
+    const int g = r % G;
+    tile::load_q_chunk(
+        s, r, d0, t < T ? q + (((size_t)t * Hkv + h) * G + g) * tile::HD : nullptr, scale);
+  }
+  tile::State st;
+  st.init();
+  __syncthreads();
+
+  const int t_last = min(t0 + TQ, T) - 1;
+  // (a) cached prefix of every row with tokens in this tile
+  for (int r = 0; r < R; ++r) {
+    const int lo = offsets[r];
+    const int hi = offsets[r + 1];
+    const int start = min(starts[r], S);
+    if (hi <= lo || lo > t_last || hi <= t0 || start <= 0) continue;
+    const bf16* kbase = ck + (((size_t)layer * B + slots[r]) * Hkv + h) * (size_t)S * tile::HD;
+    const bf16* vbase = cv + (((size_t)layer * B + slots[r]) * Hkv + h) * (size_t)S * tile::HD;
+    for (int k0 = 0; k0 < start; k0 += tile::BK) {
+      const int nkeys = min(tile::BK, start - k0);
+      tile::step(
+          s, st, nkeys, 0.f,
+          [&](int kk, const bf16*& kp, const bf16*& vp) {
+            kp = kbase + (size_t)(k0 + kk) * tile::HD;
+            vp = vbase + (size_t)(k0 + kk) * tile::HD;
+          },
+          [&](int qr, int kk) { return row_rid[qr] == r; });
+    }
+  }
+  // (b) the chunk's own keys: from the first row's start up to the tile's
+  // last token, same row and packed index <= the query's
+  const int rid0 = t0 < T ? rowids[t0] : R;
+  const int u_lo = offsets[min(max(rid0, 0), R)];
+  for (int u0 = u_lo; u0 <= t_last; u0 += tile::BK) {
+    const int nkeys = min(tile::BK, t_last + 1 - u0);
+    if (tid < tile::BK) key_rid[tid] = tid < nkeys ? rowids[u0 + tid] : -2;
+    tile::step(
+        s, st, nkeys, 0.f,
+        [&](int kk, const bf16*& kp, const bf16*& vp) {
+          kp = ks + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
+          vp = vs + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
+        },
+        [&](int qr, int kk) {
+          return row_tok[qr] >= u0 + kk && key_rid[kk] == row_rid[qr];
+        });
+  }
+  tile::store(st, [&](int r) -> bf16* {
+    const int t = row_tok[r];
+    return t >= 0 ? out + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
+  });
+}
+
+}  // namespace
+
+extern "C" int ragged_prefill_bf16(const void* q, const void* ks, const void* vs,
+                                   const void* ck, const void* cv, const void* rowids,
+                                   const void* offsets, const void* slots,
+                                   const void* starts, void* out, int layer, int T,
+                                   int R, int B, int Hkv, int G, int S, int hd,
+                                   float scale, void* stream) {
+  if (hd != tile::HD || G < 1 || tile::BQ % G != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(ragged_prefill_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)tile::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int TQ = tile::BQ / G;
+  dim3 grid((T + TQ - 1) / TQ, Hkv);
+  ragged_prefill_kernel<<<grid, tile::THREADS, tile::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)ks, (const bf16*)vs, (const bf16*)ck, (const bf16*)cv,
+      (const int*)rowids, (const int*)offsets, (const int*)slots, (const int*)starts,
+      (bf16*)out, layer, T, R, B, Hkv, G, S, scale);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,84 @@
+"""Rotary position embeddings (counterpart of `llm_mcp_tpu/ops/rope.py`).
+
+Split-half convention, as in Llama. Frequencies and angles are float32,
+as in the JAX package: the llama3 wavelength bands are computed in f32 so
+both sides round the same way. Linear and yarn scaling come with the
+families that use them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / half))
+
+
+def rope_frequencies(
+    head_dim: int, theta: float, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim//2] for integer positions [...]."""
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
+    angles = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def llama3_rope_frequencies(
+    head_dim: int,
+    theta: float,
+    positions: torch.Tensor,
+    *,
+    factor: float,
+    orig_max: int,
+    low_freq_factor: float = 1.0,
+    high_freq_factor: float = 4.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Llama-3.1-style rope scaling (HF rope_type "llama3"): short
+    wavelengths keep the original frequency, long ones divide by `factor`,
+    and the band between interpolates smoothly."""
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
+    wavelen = 2.0 * math.pi / inv_freq
+    low_wl = orig_max / low_freq_factor
+    high_wl = orig_max / high_freq_factor
+    smooth = torch.clip(
+        (orig_max / wavelen - low_freq_factor)
+        / max(high_freq_factor - low_freq_factor, 1e-3),
+        0.0,
+        1.0,
+    )
+    blended = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    inv_freq = torch.where(
+        wavelen < high_wl, inv_freq,
+        torch.where(wavelen > low_wl, inv_freq / factor, blended),
+    )
+    angles = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_tables(cfg, head_dim: int, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Config-dispatched rope tables: the entry point every forward path uses."""
+    if cfg.rope_factor > 1.0 and cfg.rope_orig_max:
+        return llama3_rope_frequencies(
+            head_dim, cfg.rope_theta, positions,
+            factor=cfg.rope_factor, orig_max=cfg.rope_orig_max,
+        )
+    return rope_frequencies(head_dim, cfg.rope_theta, positions)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (split-half layout). x: [..., n_heads, head_dim];
+    cos/sin: [..., head_dim//2] broadcast over the heads axis. The rotation
+    runs in float32 (bf16 x times f32 tables promotes, as in JAX) and the
+    result is cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)

@@ -1,0 +1,215 @@
+"""The port's engine, HTTP surface and imports, end to end on the CPU.
+
+  - greedy tokens identical to the JAX `GenerationEngine` on one shared
+    `tiny-llm` parameter tree (f32; the JAX engine on its Pallas path in
+    interpret mode, prompt cache off), with one prompt longer than
+    `prefill_chunk` so ragged chunks interleave with decode rounds;
+  - `/v1/chat/completions` over SSE ends in `data: [DONE]`;
+  - every module of the port imports with `jax` and `llm_mcp_tpu`
+    blocked, and one CPU generate runs;
+  - entry points raise without CUDA unless `device="cpu"` is given.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+from llm_mcp_tpu_torch.models.configs import get_config
+from llm_mcp_tpu_torch.models.weights import params_from_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROMPTS = [
+    "user: hello there",
+    "user: " + "the quick brown fox jumps over the lazy dog " * 2,  # > prefill_chunk
+    "system: be brief\nuser: 2+2?",
+]
+ENGINE_KW = dict(max_slots=4, max_seq_len=128, prefill_chunk=32, decode_chunk=4)
+
+
+def _record_tokens(engine) -> dict:
+    """Wrap the engine's per-token hook to record emitted ids per request."""
+    seen: dict = {}
+    orig = engine._process_token
+
+    def rec(s, tok, pos):
+        seen.setdefault(s.req.request_id, []).append(int(tok))
+        return orig(s, tok, pos)
+
+    engine._process_token = rec
+    return seen
+
+
+def _run_all(engine, make_req) -> list[list[int]]:
+    seen = _record_tokens(engine)
+    reqs = [make_req(engine.tokenizer.encode(p)) for p in PROMPTS]
+    for r in reqs:  # concurrent: short prompts batch, the long one chunks
+        engine.submit(r)
+    for r in reqs:
+        while True:
+            evt = r.out.get(timeout=300)
+            if not isinstance(evt, dict) or evt.get("type") in ("done", "error"):
+                assert not isinstance(evt, dict) or evt["type"] == "done", evt
+                break
+    return [seen[r.request_id] for r in reqs]
+
+
+def test_engine_greedy_tokens_match_jax(monkeypatch):
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+    from llm_mcp_tpu.models.configs import get_config as jax_get_config
+    from llm_mcp_tpu.models.llama import init_llama_params
+
+    jparams = init_llama_params(
+        jax_get_config("tiny-llm"), jax.random.PRNGKey(0), dtype=jnp.float32
+    )
+    tparams = params_from_numpy(
+        jax.tree.map(np.asarray, jparams), get_config("tiny-llm"), "cpu", torch.float32
+    )
+    jeng = JaxEngine(
+        "tiny-llm", params=jparams, dtype=jnp.float32, prompt_cache_mb=0, **ENGINE_KW
+    ).start()
+    try:
+        assert jeng.attn_impl == "pallas" and jeng.ragged_prefill
+        want = _run_all(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine(
+        "tiny-llm", params=tparams, dtype=torch.float32, device="cpu", **ENGINE_KW
+    ).start()
+    try:
+        got = _run_all(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+    finally:
+        teng.shutdown()
+    assert len(PROMPTS[1]) + 1 > ENGINE_KW["prefill_chunk"]
+    assert [len(t) for t in got] == [12, 12, 12]
+    assert got == want
+
+
+def test_engine_events_and_stop_rules():
+    eng = GenerationEngine("tiny-llm", dtype=torch.float32, device="cpu", **ENGINE_KW).start()
+    try:
+        evts = list(eng.generate_stream("user: hi", max_tokens=5, temperature=0.0))
+        assert all(e["type"] == "token" for e in evts[:-1])
+        done = evts[-1]
+        assert done["type"] == "done" and done["finish_reason"] == "length"
+        assert done["usage"]["completion_tokens"] == 5
+        assert done["usage"]["total_tokens"] == done["usage"]["prompt_tokens"] + 5
+        assert done["ttft_ms"] >= 0
+        # a prompt at the context cap is left-truncated and stops at the cap
+        out = eng.generate("z" * 400, max_tokens=50, temperature=0.0)
+        assert out["finish_reason"] == "length"
+        assert out["usage"]["prompt_tokens"] == ENGINE_KW["max_seq_len"] - ENGINE_KW["decode_chunk"]
+        # max_tokens = 0 finishes at once
+        out = eng.generate("abc", max_tokens=0)
+        assert out["usage"]["completion_tokens"] == 0
+        # sampled requests run on the same path
+        out = eng.generate("abc", max_tokens=6, temperature=0.9, top_k=8, top_p=0.9)
+        assert out["usage"]["completion_tokens"] <= 6
+    finally:
+        eng.shutdown()
+
+
+def test_chat_completions_sse_ends_in_done():
+    from llm_mcp_tpu_torch.api.inference import serve
+
+    eng = GenerationEngine("tiny-llm", dtype=torch.float32, device="cpu", **ENGINE_KW).start()
+    api = serve({"tiny-llm": eng})
+    base = f"http://127.0.0.1:{api.port}"
+    try:
+        body = {
+            "model": "tiny-llm", "stream": True, "max_tokens": 6, "temperature": 0,
+            "messages": [{"role": "user", "content": "hello"}],
+        }
+        req = urllib.request.Request(
+            base + "/v1/chat/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            lines = [ln for ln in r.read().decode().splitlines() if ln.startswith("data: ")]
+        assert lines[-1] == "data: [DONE]"
+        chunks = [json.loads(ln[6:]) for ln in lines[:-1]]
+        assert chunks[0]["choices"][0]["delta"] == {"role": "assistant"}
+        assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+        assert chunks[-1]["usage"]["completion_tokens"] == 6
+        # the same request without streaming
+        body["stream"] = False
+        req = urllib.request.Request(
+            base + "/v1/chat/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.loads(r.read())
+        assert out["object"] == "chat.completion"
+        assert out["choices"][0]["finish_reason"] == "length"
+        with urllib.request.urlopen(base + "/v1/models", timeout=30) as r:
+            assert json.loads(r.read())["data"][0]["id"] == "tiny-llm"
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            assert json.loads(r.read())["engines"]["tiny-llm"]["device"] == "cpu"
+    finally:
+        api.shutdown()
+        eng.shutdown()
+
+
+_IMPORT_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["llm_mcp_tpu"] = None
+import torch
+import llm_mcp_tpu_torch
+for m in pkgutil.walk_packages(llm_mcp_tpu_torch.__path__, "llm_mcp_tpu_torch."):
+    importlib.import_module(m.name)
+from llm_mcp_tpu_torch.executor import GenerationEngine
+eng = GenerationEngine("tiny-llm", max_slots=2, max_seq_len=64, prefill_chunk=16,
+                       dtype=torch.float32, device="cpu").start()
+out = eng.generate("hello", max_tokens=4, temperature=0)
+eng.shutdown()
+assert out["usage"]["completion_tokens"] == 4, out
+bad = [k for k, v in sys.modules.items() if v is not None and
+       (k.split(".")[0] in ("jax", "jaxlib", "llm_mcp_tpu"))]
+assert not bad, bad
+print("IMPORT_OK")
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0 and "IMPORT_OK" in r.stdout, r.stdout + r.stderr
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is available")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine("tiny-llm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine("tiny-llm", device="cuda")
+    from llm_mcp_tpu_torch.api.__main__ import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "tiny-llm", "--port", "0"])
+    eng = GenerationEngine("tiny-llm", device="cpu", max_seq_len=64)
+    assert eng.device.type == "cpu"
+    eng.shutdown()

@@ -1,0 +1,174 @@
+"""Parity of the port's attention kernels with the JAX package's Pallas
+kernels.
+
+Inputs are made with numpy from a seed and fed to both sides. The JAX side
+runs its Pallas kernels in interpret mode, as `tests/test_kernel_parity.py`
+does (`interpret=True`, `impl="kernel"` for ragged prefill, the decode arm
+forced with `LLM_MCP_TPU_BF16_DECODE`). On the CPU the port's wrappers take
+their plain PyTorch versions, which is what is compared here, in f32:
+
+  - append: bitwise (a copy);
+  - attention: atol = rtol = 2e-5, the summation order differing (the
+    Pallas kernels fold key blocks with an online softmax, the plain
+    versions take one softmax over the whole row).
+
+The CUDA kernels themselves run only on the card: `tests/test_torch_cuda.py`
+holds each against its plain version there, in bf16.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import llm_mcp_tpu.kernels.attention as A
+from llm_mcp_tpu_torch.kernels import attention as P
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+# -- append ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_ids", [True, False])
+def test_append_kv_bitwise(with_ids):
+    rng = np.random.default_rng(15)
+    L, B, Hkv, S, hd = 2, 3, 2, 32, 128  # hd=128 runs the Pallas body
+    ck = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    nk = rng.standard_normal((L, B, Hkv, hd)).astype(np.float32)
+    nv = rng.standard_normal((L, B, Hkv, hd)).astype(np.float32)
+    lens = np.asarray([15, S, 16], np.int32)  # tile boundary + parked row
+    ids = np.asarray([1, 2, 0], np.int32) if with_ids else None
+    jk, jv = A.append_kv_bf16(
+        jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(nk), jnp.asarray(nv),
+        jnp.asarray(lens), slot_ids=None if ids is None else jnp.asarray(ids),
+        interpret=True,
+    )
+    tk, tv = _t(ck), _t(cv)
+    P.append_kv_bf16(
+        tk, tv, _t(nk), _t(nv), _t(lens), slot_ids=None if ids is None else _t(ids)
+    )
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# -- decode ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arm", ["whole", "blocked"])
+@pytest.mark.parametrize("case", ["mixed", "boundaries"])
+def test_decode_attend_matches_pallas(monkeypatch, arm, case):
+    monkeypatch.setenv("LLM_MCP_TPU_BF16_DECODE", arm)
+    A.decode_attend_bf16.clear_cache()  # the arm is read at trace time
+    rng = np.random.default_rng(7)
+    L, B, Hkv, G, S, hd = 2, 5, 2, 4, 256, 128
+    ck = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    nk = rng.standard_normal((B, Hkv, hd)).astype(np.float32)
+    nv = rng.standard_normal((B, Hkv, hd)).astype(np.float32)
+    if case == "mixed":  # empty row, mid row, full row, parked row, short
+        lens = np.asarray([0, 100, S - 1, S, 3], np.int32)
+    else:  # block-boundary fills of the blocked arm (BS = 256 / 128 / 64)
+        lens = np.asarray([63, 64, 127, 128, 255], np.int32)
+    ids = np.asarray([3, 0, 4, 1, 2], np.int32)  # permuted cache rows
+    scale = 0.07
+    out_j = np.asarray(A.decode_attend_bf16(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.int32(1), jnp.asarray(lens), slot_ids=jnp.asarray(ids),
+        scale=scale, interpret=True,
+    ))
+    out_t = P.decode_attend_bf16(
+        _t(q), _t(nk), _t(nv), _t(ck), _t(cv), 1, _t(lens), slot_ids=_t(ids), scale=scale
+    ).numpy()
+    live = lens < S
+    np.testing.assert_allclose(out_t[live], out_j[live], **TOL)
+    # a parked row's output is ignored by the engine: finite is the contract
+    assert np.isfinite(out_t).all()
+
+
+def test_decode_attend_rejects_block_tables():
+    z = torch.zeros((1, 1, 1, 8))
+    with pytest.raises(NotImplementedError):
+        P.decode_attend_bf16(
+            z, z[..., 0, :], z[..., 0, :], z[None, None], z[None, None], 0,
+            torch.zeros(1, dtype=torch.int32), block_tables=torch.zeros((1, 1)),
+        )
+
+
+# -- flash prefill -------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "S,lens,window,softcap,scale",
+    [
+        (64, [0, 37, 64], 0, 0.0, 0.0),  # empty, partial, full rows
+        (64, [5, 64, 50], 16, 0.0, 0.0),  # sliding window
+        (64, [64, 1, 33], 0, 30.0, 0.2),  # softcap + scale override
+        (256, [128, 129, 200], 0, 0.0, 0.0),  # block-boundary fills
+    ],
+)
+def test_flash_prefill_matches_pallas(S, lens, window, softcap, scale):
+    rng = np.random.default_rng(3)
+    B, H, Hkv, hd = 3, 4, 2, 64
+    q = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    ln = np.asarray(lens, np.int32)
+    out_j = np.asarray(A.flash_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ln),
+        window=window, softcap=softcap, scale=scale, interpret=True,
+    ))
+    out_t = P.flash_prefill_attention(
+        _t(q), _t(k), _t(v), _t(ln), window=window, softcap=softcap, scale=scale
+    ).numpy()
+    np.testing.assert_allclose(out_t, out_j, **TOL)
+    if 0 in lens:  # rows with no valid key emit exactly 0, not NaN
+        assert not out_t[lens.index(0)].any()
+
+
+# -- ragged prefill ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.3, 0.9])
+def test_ragged_prefill_matches_pallas(fill):
+    rng = np.random.default_rng(31)
+    L, B, Hkv, G, hd, S = 2, 6, 2, 2, 64, 128
+    R, T = 3, 32
+    lens = [10, 0, 14]  # row 1 empty; 24 real tokens < T: remainder pads
+    total = sum(lens)
+    offsets = np.zeros(R + 1, np.int32)
+    offsets[1:] = np.cumsum(lens)
+    rowids = np.concatenate(
+        [np.full(n, r, np.int32) for r, n in enumerate(lens)]
+        + [np.full(T - total, R, np.int32)]
+    )
+    base = int(fill * (S - 16))
+    # row 0: past inside a block; row 2: none at fill 0, else a deep past
+    starts = np.asarray([base + 5, 0, base], np.int32)
+    slots = np.asarray([4, 2, 0], np.int32)
+    ck = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    q = rng.standard_normal((T, Hkv, G, hd)).astype(np.float32)
+    ks = rng.standard_normal((T, Hkv, hd)).astype(np.float32)
+    vs = rng.standard_normal((T, Hkv, hd)).astype(np.float32)
+    sc = hd**-0.5
+    out_j = np.asarray(A.ragged_prefill_attend_bf16(
+        jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(ck),
+        jnp.asarray(cv), 1, jnp.asarray(rowids), jnp.asarray(offsets),
+        jnp.asarray(slots), jnp.asarray(starts), scale=sc, impl="kernel",
+        interpret=True, block_q=16,
+    ))
+    out_t = P.ragged_prefill_attend_bf16(
+        _t(q), _t(ks), _t(vs), _t(ck), _t(cv), 1, _t(rowids), _t(offsets),
+        _t(slots), _t(starts), scale=sc,
+    ).numpy()
+    np.testing.assert_allclose(out_t, out_j, **TOL)

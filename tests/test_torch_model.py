@@ -1,0 +1,185 @@
+"""Parity of the port's Llama decoder with the JAX package's on `tiny-llm`.
+
+One JAX parameter tree (f32) goes through `params_from_numpy` to the port,
+so both compute from the same weights; caches and tokens are made with
+numpy. The JAX side runs its Pallas path in interpret mode
+(`attn_impl="pallas"`, `LLM_MCP_TPU_RAGGED_IMPL=kernel`). Tolerances, in
+f32: logits within 1e-4 absolute, updated caches within 1e-5.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_mcp_tpu.models import llama as JL
+from llm_mcp_tpu.models.configs import get_config as jax_get_config
+from llm_mcp_tpu_torch.models import llama as TL
+from llm_mcp_tpu_torch.models.configs import get_config
+from llm_mcp_tpu_torch.models.weights import params_from_numpy
+from llm_mcp_tpu_torch.ops.rope import llama3_rope_frequencies, rope_tables
+
+LOGIT_TOL = dict(atol=1e-4, rtol=0)
+CACHE_TOL = dict(atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def shared():
+    jcfg = jax_get_config("tiny-llm")
+    jparams = JL.init_llama_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tree = jax.tree.map(np.asarray, jparams)
+    cfg = get_config("tiny-llm")
+    return jcfg, jparams, cfg, params_from_numpy(tree, cfg, "cpu", torch.float32), tree
+
+
+def _cache(rng, cfg, B, S):
+    shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.resolved_head_dim)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def test_llama_prefill_matches_jax(shared):
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(0)
+    B, S = 3, 32
+    tokens = rng.integers(3, 259, (B, S)).astype(np.int32)
+    lengths = np.asarray([32, 17, 1], np.int32)
+    jl, jk, jv = JL.llama_prefill(
+        jcfg, jparams, jnp.asarray(tokens), jnp.asarray(lengths), attn_impl="pallas"
+    )
+    tl, tk, tv = TL.llama_prefill(cfg, tparams, torch.from_numpy(tokens), torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+
+
+def test_llama_decode_step_matches_jax(shared):
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(1)
+    B, S = 4, 64
+    ck, cv = _cache(rng, cfg, B, S)
+    tokens = rng.integers(3, 259, (B,)).astype(np.int32)
+    lengths = np.asarray([5, 31, S, 63], np.int32)  # row 2 parked
+    jl, jk, jv = JL.llama_decode_step(
+        jcfg, jparams, jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(tokens),
+        jnp.asarray(lengths), attn_impl="pallas",
+    )
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    tl, tk, tv = TL.llama_decode_step(
+        cfg, tparams, tk, tv, torch.from_numpy(tokens), torch.from_numpy(lengths)
+    )
+    live = lengths < S  # a parked row's logits are discarded by the engine
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], **LOGIT_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+    assert np.isfinite(tl.numpy()).all()
+
+
+def test_llama_prefill_chunk_ragged_matches_jax(shared, monkeypatch):
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(2)
+    B, S, R, T = 4, 128, 3, 32
+    ck, cv = _cache(rng, cfg, B, S)
+    lens = [12, 9, 0]  # row 2 unused; 21 real tokens, 11 pads
+    starts = np.asarray([40, 0, 0], np.int32)  # a cached prefix, and none
+    slots = np.asarray([2, 0, 3], np.int32)
+    rowids = np.full(T, R, np.int32)
+    positions = np.full(T, S, np.int32)
+    last_idx = np.zeros(R, np.int32)
+    off = 0
+    for r, n in enumerate(lens):
+        rowids[off: off + n] = r
+        positions[off: off + n] = np.arange(starts[r], starts[r] + n)
+        last_idx[r] = off + n - 1 if n else 0
+        off += n
+    tokens = rng.integers(3, 259, (T,)).astype(np.int32)
+    args = (tokens, rowids, positions, slots, starts, last_idx)
+    jl, jk, jv = JL.llama_prefill_chunk_ragged(
+        jcfg, jparams, jnp.asarray(ck), jnp.asarray(cv), *map(jnp.asarray, args)
+    )
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    tl, tk, tv = TL.llama_prefill_chunk_ragged(
+        cfg, tparams, tk, tv, *map(torch.from_numpy, args)
+    )
+    np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], **LOGIT_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+
+
+def test_rope_llama3_matches_jax():
+    from llm_mcp_tpu.models.configs import get_config as jcfg_of
+    from llm_mcp_tpu.ops.rope import rope_tables as jax_rope_tables
+
+    pos = np.arange(0, 8192, 37, dtype=np.int32)
+    jc, js = jax_rope_tables(jcfg_of("llama-3.1-8b"), 128, jnp.asarray(pos))
+    tc, ts = rope_tables(get_config("llama-3.1-8b"), 128, torch.from_numpy(pos))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5, rtol=0)
+    c2, _ = llama3_rope_frequencies(128, 500_000.0, torch.from_numpy(pos), factor=8.0,
+                                    orig_max=8192)
+    assert c2.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["llama-3.1-8b", "llama-3.2-1b", "tiny-llm"])
+def test_configs_match_jax(name):
+    from llm_mcp_tpu.models.configs import get_config as jcfg_of
+
+    j, t = jcfg_of(name), get_config(name)
+    for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads", "ffn_hidden",
+              "rope_theta", "norm_eps", "rope_factor", "rope_orig_max",
+              "tie_embeddings", "resolved_head_dim", "attn_scale"):
+        assert getattr(t, f) == getattr(j, f), f
+    # the port computes the llama3 scaling with the default band factors
+    assert (j.llama3_low_freq_factor, j.llama3_high_freq_factor) == (1.0, 4.0)
+    if j.rope_factor > 1.0:
+        assert j.rope_type == "llama3"
+
+
+def test_params_from_numpy_checks_keys_and_shapes(shared):
+    *_, cfg, _, tree = shared
+    bad = dict(tree, layers=dict(tree["layers"], bq=np.zeros((2, 128), np.float32)))
+    with pytest.raises(KeyError, match="bq"):
+        params_from_numpy(bad, cfg)
+    missing = {k: v for k, v in tree.items() if k != "final_norm"}
+    with pytest.raises(KeyError, match="final_norm"):
+        params_from_numpy(missing, cfg)
+    wrong = dict(tree, embed=tree["embed"][:10])
+    with pytest.raises(ValueError, match="embed"):
+        params_from_numpy(wrong, cfg)
+
+
+def test_sampling_matches_jax_greedy_and_gumbel():
+    from llm_mcp_tpu.ops.sampling import sample_tokens as jax_sample
+    from llm_mcp_tpu_torch.ops.sampling import sample_tokens
+
+    rng = np.random.default_rng(4)
+    B, V = 6, 300
+    logits = rng.standard_normal((B, V)).astype(np.float32)
+    logits[0, 7] = logits[0, 9] = 50.0  # a tie: first index wins
+    zeros_i, ones_f = np.zeros(B, np.int32), np.ones(B, np.float32)
+    greedy_j = np.asarray(jax_sample(
+        jnp.asarray(logits), jax.random.PRNGKey(0), jnp.zeros(B), jnp.asarray(zeros_i),
+        jnp.asarray(ones_f),
+    ))
+    t = torch.from_numpy
+    greedy_t = sample_tokens(t(logits), None, torch.zeros(B), t(zeros_i), t(ones_f)).numpy()
+    np.testing.assert_array_equal(greedy_t, greedy_j)
+    assert greedy_t[0] == 7
+    # plain temperature: Gumbel-argmax over the full vocabulary
+    noise = rng.gumbel(size=(B, V)).astype(np.float32)
+    temp = np.full(B, 0.7, np.float32)
+    got = sample_tokens(t(logits), None, t(temp), t(zeros_i), t(ones_f), noise=t(noise))
+    np.testing.assert_array_equal(got.numpy(), np.argmax(logits / 0.7 + noise, axis=-1))
+    # mixed batch: greedy rows stay greedy, top-k rows stay in their top k
+    topk = np.asarray([0, 3, 3, 1, 5, 2], np.int32)
+    temp = np.asarray([0.0, 1.0, 1.0, 1.0, 1.0, 1.0], np.float32)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(5):
+        got = sample_tokens(t(logits), g, t(temp), t(topk), t(ones_f)).numpy()
+        assert got[0] == 7
+        for b in range(1, B):
+            assert got[b] in np.argsort(-logits[b])[: topk[b]]
