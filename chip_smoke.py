@@ -12,18 +12,34 @@ one run reads every check; the script then exits non-zero):
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      append bit for bit), and time kernel, plain version, library call
-     (where one computes the same function) and the bound with CUDA events;
+     (where one computes the same function) and the bound with CUDA events.
+     The paged kernels run on tables whose shared blocks were copied to the
+     prefix pool with the arena's donor blocks scrambled and one block per
+     row in another slot's arena home, at 64-token blocks (timed) and at
+     32 and 128 (checked);
   3. check the first two Llama-3.1-8B layers (full width, the served
      weights) on a small input: prefill, one decode step and one ragged
-     chunk through the kernels on the card against the same model
-     functions on the host CPU, where the wrappers take the plain versions;
+     chunk, unpaged and paged, through the kernels on the card against the
+     same model functions on the host CPU, where the wrappers take the
+     plain versions; and each paged call against the same call on
+     contiguous rows holding the same bytes;
   4. serve Llama-3.1-8B (full depth and width, random bf16 weights from a
-     seed) over HTTP and answer four concurrent chat completions (three
-     short prompts, one of about 1500 tokens that goes through ragged chunks;
+     seed, the engine's defaults: prompt cache 256 MiB, 64-token blocks)
+     over HTTP and answer four concurrent chat completions (three short
+     prompts, one of about 1500 tokens that goes through ragged chunks;
      three streaming), with every kernel launch counter set to 0 just
-     before and read just after: each kernel must have launched;
-  5. time one decode step (8 rows) and one 512-token ragged chunk of the
-     same model, with device time by kernel from torch.profiler.
+     before and read just after: each unpaged kernel must have launched;
+  5. serve prefix traffic on the same server: a cold request under a
+     1100-token system message, a second one that stores its 1024-token
+     prefix, one hit alone, four concurrent hits, and a trio under a short
+     system message
+     whose third request hits a 32-token entry unaligned (copy on write);
+     the counters are reset around it and both paged kernels must have
+     launched, with the ledger sound (no leak, no table left, no missing
+     pin) once all are done;
+  6. time one decode step (8 rows, unpaged and with the first 16 blocks
+     from the pool) and one 512-token ragged chunk of the same model, with
+     device time by kernel from torch.profiler.
 
 The last lines are the card (`nvidia-smi` name, power limit), one JSON
 line with the kernels and one with the run's result. Imports nothing of
@@ -48,7 +64,8 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # Append copies values and must match bit for bit.
 ATTN_TOL = {"atol": 1e-3, "rtol": 1e-2}
 TOL = {"append_kv_bf16": {"atol": 0.0, "rtol": 0.0}, "decode_attend_bf16": ATTN_TOL,
-       "flash_prefill_attention": ATTN_TOL, "ragged_prefill_attend_bf16": ATTN_TOL}
+       "decode_attend_bf16_paged": ATTN_TOL, "flash_prefill_attention": ATTN_TOL,
+       "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL}
 SOURCES = {
     "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
                        "llm_mcp_tpu/kernels/attention.py:2508"),
@@ -58,7 +75,18 @@ SOURCES = {
                                 "llm_mcp_tpu/kernels/attention.py:178"),
     "ragged_prefill_attend_bf16": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
                                    "llm_mcp_tpu/kernels/attention.py:2752"),
+    "decode_attend_bf16_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                                 "llm_mcp_tpu/kernels/attention.py:1312"),
+    "ragged_prefill_attend_bf16_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
+                                         "llm_mcp_tpu/kernels/attention.py:2752"),
 }
+# the kernels each served phase must launch (its counters are reset just
+# before it and read just after)
+CHAT_KERNELS = ("append_kv_bf16", "decode_attend_bf16", "flash_prefill_attention",
+                "ragged_prefill_attend_bf16")
+PREFIX_KERNELS = ("decode_attend_bf16_paged", "ragged_prefill_attend_bf16_paged")
+BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
+SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
 ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"]}
 # The model check runs the first CHECK_LAYERS layers in bf16 on the card and
 # on the host CPU. GEMMs and attention round and sum in other orders on the
@@ -214,7 +242,6 @@ def kernel_phase() -> dict[str, dict]:
         {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "lengths": lens.tolist(),
          "slot_ids": ids.tolist()},
     )
-    del kpost, vpost
 
     # flash prefill: an admission batch of 4 prompts in a 512 bucket
     Bp, Sp = 4, 512
@@ -256,7 +283,104 @@ def kernel_phase() -> dict[str, dict]:
         4.0 * hd * H * pairs, None,
         {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts},
     )
-    del ck, cv
+    # -- paged: the same work, read through block tables -----------------
+    # Each row's first SHARED_TOKENS come from the prefix pool (copied from
+    # row 0, as a stored prefix is); the arena's donor blocks are scrambled,
+    # so a read that goes to the arena where the table says pool fails; one
+    # more block per row lives in another slot's arena home.
+    def paged_case(bt: int):
+        nbs, nsh = S // bt, SHARED_TOKENS // bt
+        pk = ck[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+        pv = cv[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+        ak, av = ck.clone(), cv.clone()
+        ak[:, :, :, : nsh * bt] = rn(L, B, Hkv, nsh * bt, hd)
+        av[:, :, :, : nsh * bt] = rn(L, B, Hkv, nsh * bt, hd)
+        tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
+        tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
+        for b in range(B):  # block nsh of row b lives in row (b + 3) % B's home
+            tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
+            ak[:, b, :, nsh * bt: (nsh + 1) * bt] = rn(L, Hkv, bt, hd)
+            av[:, b, :, nsh * bt: (nsh + 1) * bt] = rn(L, Hkv, bt, hd)
+        return ak, av, {"block_tables": tbl, "pool_k": pk, "pool_v": pv}
+
+    lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
+    ids = i32([3, 0, 7, 1, 6, 2, 5, 4])
+    others: dict[str, dict] = {}  # the checked block sizes, by kernel
+    for bt in (32, 128, BLOCK_TOKENS):  # the timed case last
+        ak, av, pg = paged_case(bt)
+        dargs = (q, nk1, nv1, ak, av, 1, lens)
+        out = K.decode_attend_bf16(*dargs, slot_ids=ids, scale=scale, **pg)
+        ref = K.decode_attend_paged_plain(*dargs, pg["block_tables"], pg["pool_k"],
+                                          pg["pool_v"], ids, scale)
+        rargs = (qr, kr, vr, ak, av, 3, rowids, offsets, slots, st)
+        rout = K.ragged_prefill_attend_bf16(*rargs, scale=scale, **pg)
+        rref = K.ragged_prefill_paged_plain(*rargs, pg["block_tables"], pg["pool_k"],
+                                            pg["pool_v"], scale)
+        if bt != BLOCK_TOKENS:
+            for name, o, r in (("decode_attend_bf16_paged", out, ref),
+                               ("ragged_prefill_attend_bf16_paged", rout, rref)):
+                err, ratio = compare(name, o, r)
+                log(f"{name} at {bt}-token blocks: err {err:.3g} (err/limit {ratio:.3g})")
+                others.setdefault(name, {})[bt] = {
+                    "max_abs_err": err, "worst_err_over_limit": ratio}
+            del ak, av, pg
+            continue
+        tbl = pg["block_tables"]
+        nbs = S // bt
+        # library yardstick: SDPA on the contiguous-equivalent rows (gathered
+        # through the tables, outside the timed call)
+        kg = K.paged_gather(ak[1], pg["pool_k"][1], tbl[ids.long()])
+        vg = K.paged_gather(av[1], pg["pool_v"][1], tbl[ids.long()])
+        kg[rows, :, lens.long()[live]] = nk1[live]
+        vg[rows, :, lens.long()[live]] = nv1[live]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, kg, vg, attn_mask=amask, enable_gqa=True)
+        blocks = sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist())
+        record(
+            "decode_attend_bf16_paged", out, ref,
+            time_ms(lambda: K.decode_attend_bf16(*dargs, slot_ids=ids, scale=scale, **pg), 50),
+            time_ms(lambda: K.decode_attend_paged_plain(
+                *dargs, tbl, pg["pool_k"], pg["pool_v"], ids, scale), 10),
+            keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2 + blocks * 4,
+            4.0 * hd * G * Hkv * keys, time_ms(lib, 50),
+            {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "block_tokens": bt,
+             "pool": list(pg["pool_k"].shape), "lengths": lens.tolist(),
+             "slot_ids": ids.tolist(), "shared_tokens": SHARED_TOKENS,
+             "library": "SDPA, length mask, on the rows gathered through the tables"},
+        )
+        del kg, vg
+        # ragged: library yardstick is one masked SDPA over every row's
+        # gathered prefix plus the packed chunk's own keys
+        kp_ = K.paged_gather(ak[3], pg["pool_k"][3], tbl[slots.long()])
+        vp_ = K.paged_gather(av[3], pg["pool_v"][3], tbl[slots.long()])
+        keys_r = torch.cat([kp_[r, :, :s_] for r, s_ in enumerate(starts)] + [kr.transpose(0, 1)], 1)
+        vals_r = torch.cat([vp_[r, :, :s_] for r, s_ in enumerate(starts)] + [vr.transpose(0, 1)], 1)
+        P_ = sum(starts)
+        rid = rowids.long()
+        col_row = torch.cat([torch.full((s_,), r, device=dev) for r, s_ in enumerate(starts)])
+        pmask = rid[:, None] == col_row[None, :]
+        u = torch.arange(T, device=dev)
+        smask = (rid[:, None] == rid[None, :]) & (u[None, :] <= u[:, None])
+        rmask = torch.cat([pmask, smask], 1)
+        qh = qr.permute(1, 2, 0, 3).reshape(H, T, hd)
+        rlib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh[None], keys_r[None], vals_r[None], attn_mask=rmask, enable_gqa=True)
+        blocks_r = sum(-(-s_ // bt) for s_ in starts)
+        record(
+            "ragged_prefill_attend_bf16_paged", rout, rref,
+            time_ms(lambda: K.ragged_prefill_attend_bf16(*rargs, scale=scale, **pg), 10),
+            time_ms(lambda: K.ragged_prefill_paged_plain(
+                *rargs, tbl, pg["pool_k"], pg["pool_v"], scale), 5),
+            (2 * qr.numel() + 2 * kr.numel() + 2 * P_ * Hkv * hd) * 2 + blocks_r * 4,
+            4.0 * hd * H * pairs, time_ms(rlib, 10),
+            {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts,
+             "block_tokens": bt, "shared_tokens": SHARED_TOKENS,
+             "library": "SDPA, one call, block-causal mask over the gathered prefixes and the chunk"},
+        )
+        del kp_, vp_, keys_r, vals_r, rmask, ak, av, pg
+    for name, by_bt in others.items():
+        res[name]["other_block_sizes"] = by_bt
+    del ck, cv, kpost, vpost
     torch.cuda.empty_cache()
     return res
 
@@ -264,9 +388,12 @@ def kernel_phase() -> dict[str, dict]:
 def model_check(cfg, params, dev) -> dict:
     """The model's first CHECK_LAYERS layers (published widths, the served
     weights) on a small input: prefill, one decode step with a parked row
-    and one ragged chunk with pads, through the kernels on the card and
-    through the plain versions on the host CPU, which the wrappers take for
-    CPU tensors."""
+    and one ragged chunk with pads, unpaged and paged, through the kernels
+    on the card and through the plain versions on the host CPU, which the
+    wrappers take for CPU tensors. The paged calls read row 0's first block
+    from a pool row while its arena block holds other (scrambled) values;
+    on the card each must also agree with the same call on the contiguous
+    rows that hold the same bytes."""
     import dataclasses
 
     import torch
@@ -283,9 +410,11 @@ def model_check(cfg, params, dev) -> dict:
         return sub
 
     g = torch.Generator().manual_seed(7)
-    P0, S = 40, 256
+    P0, S, bt = 40, 256, BLOCK_TOKENS
+    nbs = S // bt
     toks = torch.randint(3, 259, (1, 64), generator=g, dtype=torch.int32)
     chunk = torch.randint(3, 259, (32,), generator=g, dtype=torch.int32)
+    junk = torch.randn((CHECK_LAYERS, cfg.n_kv_heads, bt, cfg.resolved_head_dim), generator=g)
 
     def run(d):
         p = first_layers(d)
@@ -297,16 +426,41 @@ def model_check(cfg, params, dev) -> dict:
         cache = TL.init_kv_cache(cut, 2, S, dtype=p["embed"].dtype, device=d)
         cache["k"][:, 0, :, :64] = ks[:, 0]
         cache["v"][:, 0, :, :64] = vs[:, 0]
-        ck, cv = cache["k"].clone(), cache["v"].clone()
+        # paged copy: row 0's block 0 moves to pool row 1 and its arena
+        # block is overwritten
+        pool = {n: torch.zeros((CHECK_LAYERS, 2) + tuple(junk.shape[1:]), dtype=cache[n].dtype,
+                               device=d) for n in ("k", "v")}
+        paged_cache = {}
+        for n in ("k", "v"):
+            pool[n][:, 1] = cache[n][:, 0, :, :bt]
+            paged_cache[n] = cache[n].clone()
+            paged_cache[n][:, 0, :, :bt] = junk.to(d, cache[n].dtype)
+        tbl = torch.arange(2 * nbs, dtype=torch.int32).reshape(2, nbs)
+        tbl[0, 0] = 2 * nbs + 1
+        paged = {"tbl": tbl.to(d), "k": pool["k"], "v": pool["v"]}
+        out = {"prefill": logits_p}
         # a fixed token, not the argmax: near-ties among 128k random logits
         # may round to another winner on the two sides
-        logits_d, ck, cv = TL.llama_decode_step(
-            cut, p, ck, cv, i32([65, 65]), i32([P0, S]))  # row 1 parked
-        logits_r, rk, _ = TL.llama_prefill_chunk_ragged(
-            cut, p, cache["k"], cache["v"], tokens=chunk.to(d),
-            rowids=i32([0] * 20 + [1] * 12), positions=i32(list(range(P0, P0 + 20)) + [S] * 12),
-            slots=i32([0]), starts=i32([P0]), last_idx=i32([19]))
-        return logits_p, logits_d[:1], logits_r, ck, rk
+        for tag, src, pg in (("", cache, None), ("_paged", paged_cache, paged)):
+            ck, cv = src["k"].clone(), src["v"].clone()
+            logits_d, ck, cv = TL.llama_decode_step(
+                cut, p, ck, cv, i32([65, 65]), i32([P0, S]), paged=pg)  # row 1 parked
+            rk, rv = src["k"].clone(), src["v"].clone()
+            logits_r, rk, _ = TL.llama_prefill_chunk_ragged(
+                cut, p, rk, rv, tokens=chunk.to(d),
+                rowids=i32([0] * 20 + [1] * 12),
+                positions=i32(list(range(P0, P0 + 20)) + [S] * 12),
+                slots=i32([0]), starts=i32([P0]), last_idx=i32([19]), paged=pg)
+            out["decode" + tag] = logits_d[:1]
+            out["ragged" + tag] = logits_r
+            out["decode_cache" + tag] = ck[:, 0, :, P0]  # the appended row
+            out["ragged_cache" + tag] = rk[:, 0, :, P0: P0 + 20]  # the chunk's rows
+        return out
+
+    def cosine(a, b):
+        a, b = a.float().cpu().flatten(), b.float().cpu().flatten()
+        return (torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+                (a - b).abs().max().item(), bool(torch.isfinite(a).all()))
 
     K.reset_launches()
     got = run(dev)
@@ -317,20 +471,24 @@ def model_check(cfg, params, dev) -> dict:
     report = {"layers": CHECK_LAYERS, "launches_in_check": per_call,
               "host_reference_s": time.perf_counter() - t0}
     bad = []
-    for name, a, b in zip(("prefill", "decode", "ragged", "decode_cache", "ragged_cache"), got, want):
-        a, b = a.float().cpu(), b.float()
-        cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
-        err = (a - b).abs().max().item()
+    for name in got:
+        cos, err, finite = cosine(got[name], want[name])
         report[name] = {"cosine": cos, "max_abs_err": err}
-        if not torch.isfinite(a).all() or not cos >= MODEL_COSINE:
+        if not finite or not cos >= MODEL_COSINE:
             bad.append(name)
+    for name in [n for n in got if n.endswith("_paged")]:
+        cos, err, _ = cosine(got[name], got[name[: -len("_paged")]])
+        report[name]["vs_contiguous_on_card"] = {"cosine": cos, "max_abs_err": err}
+        if not cos >= MODEL_COSINE:
+            bad.append(f"{name} vs contiguous")
     log(f"model check: {json.dumps(report)}")
     for name, n in per_call.items():
         if n <= 0:
             check_failed(f"model check: kernel {name} was not launched")
     if bad:
         check_failed(f"model check: {bad} through the kernels disagree with the plain "
-                     f"versions on the host (finite values with cosine >= {MODEL_COSINE} wanted)")
+                     f"versions on the host or with the contiguous rows (finite values "
+                     f"with cosine >= {MODEL_COSINE} wanted)")
     return report
 
 
@@ -377,40 +535,35 @@ def chat(base: str, model: str, prompt: str, stream: bool, out: dict, **kw) -> N
         out["error"] = f"{type(e).__name__}: {e}"
 
 
-def e2e_phase(engine) -> dict:
-    from llm_mcp_tpu_torch.api.inference import serve
+def e2e_phase(engine, base: str) -> dict:
+    """Four concurrent chats; every unpaged kernel must launch."""
     from llm_mcp_tpu_torch.kernels import attention as K
 
     model = engine.cfg.name
-    api = serve({model: engine}, "127.0.0.1", 0)
-    base = f"http://127.0.0.1:{api.port}"
-    try:
-        warm: dict = {}
-        chat(base, model, "warm up", True, warm, max_tokens=4, temperature=0)
-        if "error" in warm:
-            fail(f"warm-up request failed: {warm['error']}")
-        long_prompt = " ".join(f"item {i} is the {i % 7}th of its kind." for i in range(46))
-        reqs = [
-            ("short-1", "What is the capital of France?", True, {"temperature": 0}),
-            ("short-2", "Write a haiku about GPUs.", True, {"temperature": 0.7, "top_p": 0.9}),
-            ("short-3", "List three prime numbers.", False, {"temperature": 0}),
-            ("long", "Summarize this list: " + long_prompt, True, {"temperature": 0}),
-        ]
-        results = {name: {} for name, *_ in reqs}
-        K.reset_launches()
-        t0 = time.perf_counter()
-        threads = [
-            threading.Thread(target=chat, args=(base, model, p, s, results[n]), kwargs=kw)
-            for n, p, s, kw in reqs
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
-    finally:
-        api.shutdown()
+    warm: dict = {}
+    chat(base, model, "warm up", True, warm, max_tokens=4, temperature=0)
+    if "error" in warm:
+        fail(f"warm-up request failed: {warm['error']}")
+    long_prompt = " ".join(f"item {i} is the {i % 7}th of its kind." for i in range(46))
+    reqs = [
+        ("short-1", "What is the capital of France?", True, {"temperature": 0}),
+        ("short-2", "Write a haiku about GPUs.", True, {"temperature": 0.7, "top_p": 0.9}),
+        ("short-3", "List three prime numbers.", False, {"temperature": 0}),
+        ("long", "Summarize this list: " + long_prompt, True, {"temperature": 0}),
+    ]
+    results = {name: {} for name, *_ in reqs}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    threads = [
+        threading.Thread(target=chat, args=(base, model, p, s, results[n]), kwargs=kw)
+        for n, p, s, kw in reqs
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
     for name, r in results.items():
         if "error" in r or not r.get("finish"):
             fail(f"request {name} did not finish: {r}")
@@ -418,8 +571,8 @@ def e2e_phase(engine) -> dict:
             fail(f"request {name}: SSE stream did not end in data: [DONE]")
         if r["usage"].get("completion_tokens", 0) < 1:
             fail(f"request {name}: no tokens")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in CHAT_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     prompt_tokens = {n: r["usage"]["prompt_tokens"] for n, r in results.items()}
     if prompt_tokens["long"] <= engine.prefill_chunk:
@@ -445,11 +598,113 @@ def e2e_phase(engine) -> dict:
     return e2e
 
 
+# Prefix traffic (byte tokenizer: one token per byte, plus BOS). The long
+# system message makes A and B share about 1160 tokens, so B's activation
+# stores 1024 of them (16 blocks of 64, pool rows 16 of 32); then one hit
+# alone and four concurrent hits. The short one makes the trio share 37
+# tokens, so the second stores a 32-token entry, which the third hits
+# unaligned (its boundary block is copied on write): 6 hits in all.
+SYSTEM_LONG = " ".join(f"Rule {i}: answer plainly and cite rule {i % 9}." for i in range(28))
+SYSTEM_SHORT = "Reply in French only."
+
+
+def _messages(system: str, user: str) -> list[dict]:
+    return [{"role": "system", "content": system}, {"role": "user", "content": user}]
+
+
+def prefix_phase(engine, base: str) -> dict:
+    """Prefix-cache traffic over HTTP; both paged kernels must launch and
+    the ledger must be sound once every request is done."""
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    model = engine.cfg.name
+    if engine.paging_stats()["physical"] != 1.0:
+        fail("the engine's defaults did not turn physical paging on")
+    results: dict[str, dict] = {}
+
+    def run(batch: list[tuple[str, list, int]]) -> None:
+        threads = []
+        for name, msgs, n in batch:
+            results[name] = {}
+            threads.append(threading.Thread(
+                target=chat, args=(base, model, "", True, results[name]),
+                kwargs={"messages": msgs, "max_tokens": n, "temperature": 0}))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+
+    a_msgs = _messages(SYSTEM_LONG, "Question one: which rule comes first?")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    hits0 = engine.prefix_cache_stats()["hits"]
+    run([("A_cold", a_msgs, 32)])
+    run([("B_store", _messages(SYSTEM_LONG, "Question two: which rule comes last?"), 32)])
+    stored = engine.prefix_cache_stats()
+    # one hit alone: its TTFT against A's is what the hit skips; the four
+    # concurrent ones below also wait on the scheduler's budget while the
+    # first of them decode
+    run([("hit_solo", _messages(SYSTEM_LONG, "Question six: is rule 3 strict?"), 32)])
+    run([("hit_q3", _messages(SYSTEM_LONG, "Question three: name a rule."), 64),
+         ("hit_q4", _messages(SYSTEM_LONG, "Question four: count the rules."), 64),
+         ("hit_q5", _messages(SYSTEM_LONG, "Question five: quote rule 7."), 64),
+         ("hit_A_again", a_msgs, 64)])
+    for name, user in (("cow_1", "Hello, how are you?"), ("cow_2_store", "What time is it?"),
+                       ("cow_3_hit", "Bonjour, comment ca va?")):
+        run([(name, _messages(SYSTEM_SHORT, user), 16)])
+    wall = time.perf_counter() - t0
+    for _ in range(200):  # a slot is freed just after its last event goes out
+        pg = engine.paging_stats()
+        if pg["slot_tables"] == 0:
+            break
+        time.sleep(0.05)
+    launches = dict(K.LAUNCHES)
+    px = engine.prefix_cache_stats()
+    for name, r in results.items():
+        if "error" in r or not r.get("finish"):
+            fail(f"prefix request {name} did not finish: {r}")
+        if r.get("done") is not True:
+            fail(f"prefix request {name}: SSE stream did not end in data: [DONE]")
+    hits = px["hits"] - hits0
+    checks = {
+        "hits >= 5": hits >= 5,
+        "leaks == 0": pg["leaks"] == 0,
+        "slot_tables == 0": pg["slot_tables"] == 0,
+        "physical_cow_copies_total >= 1": pg["physical_cow_copies_total"] >= 1,
+        "physical_missing_pins == 0": pg["physical_missing_pins"] == 0,
+    }
+    for name in PREFIX_KERNELS:
+        checks[f"{name} launched"] = launches[name] > 0
+    ttft = {n: r.get("t_first") for n, r in results.items()}
+    report = {
+        "prompt_tokens": {n: r["usage"].get("prompt_tokens") for n, r in results.items()},
+        "completion_tokens": {n: r["usage"].get("completion_tokens") for n, r in results.items()},
+        "ttft_s": ttft,
+        "ttft_cold_A_s": ttft["A_cold"],
+        "ttft_hits_s": {n: t for n, t in ttft.items() if n.startswith("hit_")},
+        "prefix_cache": px, "entries_after_B": stored["entries"], "hits": hits,
+        "paging": {k: pg[k] for k in (
+            "block_tokens", "leaks", "slot_tables", "prefix_entries", "prefix_blocks",
+            "prefix_partition", "peak_sharing_ratio", "pinned_blocks_total",
+            "cow_copies_total", "physical_pool_rows", "physical_pool_rows_used",
+            "physical_pool_rows_peak", "physical_cow_copies_total", "physical_missing_pins",
+            "physical_table_uploads_total")},
+        "wall_s": wall, "launches": launches, "checks": checks,
+    }
+    log(f"prefix: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"prefix phase: {bad}")
+    return report
+
+
 def breakdown_phase(cfg, params, dev) -> dict:
     """Where a decode step and a ragged chunk spend their time, at served
-    shapes (8 rows at fill 1024; one 512-token chunk over a 1024-token
-    prefix): wall per call from CUDA events, device time by kernel from
-    torch.profiler, and the device's idle share (1 - busy / wall)."""
+    shapes (8 rows at fill 1024, unpaged and with the first 16 blocks of
+    every row read from the prefix pool; one 512-token chunk over a
+    1024-token prefix): wall per call from CUDA events, device time by
+    kernel from torch.profiler, and the device's idle share
+    (1 - busy / wall)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -464,10 +719,19 @@ def breakdown_phase(cfg, params, dev) -> dict:
         return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
     toks, lens = i32([65] * B), i32([P] * B)
+    bt, nsh = BLOCK_TOKENS, SHARED_TOKENS // BLOCK_TOKENS
+    nbs = S // bt
+    tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
+    tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
+    pshape = (cfg.n_layers, nsh, cfg.n_kv_heads, bt, cfg.resolved_head_dim)
+    paged = {"tbl": tbl, "k": torch.zeros(pshape, dtype=torch.bfloat16, device=dev),
+             "v": torch.zeros(pshape, dtype=torch.bfloat16, device=dev)}
     ragged = dict(tokens=i32([66] * T), rowids=i32([0] * T), positions=i32(range(P, P + T)),
                   slots=i32([0]), starts=i32([P]), last_idx=i32([T - 1]))
     calls = {
         "decode_step_b8": lambda: TL.llama_decode_step(cfg, params, ck, cv, toks, lens),
+        "decode_step_b8_paged": lambda: TL.llama_decode_step(
+            cfg, params, ck, cv, toks, lens, paged=paged),
         "ragged_chunk_512": lambda: TL.llama_prefill_chunk_ragged(cfg, params, ck, cv, **ragged),
     }
     out = {}
@@ -491,7 +755,7 @@ def breakdown_phase(cfg, params, dev) -> dict:
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
         }
     log(f"breakdown: {json.dumps(out)}")
-    del ck, cv, cache
+    del ck, cv, cache, paged
     torch.cuda.empty_cache()
     return out
 
@@ -533,10 +797,16 @@ def main() -> None:
     log(f"llama-3.1-8b random bf16 weights + cache in {time.time() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check = model_check(engine.cfg, engine.params, engine.device)
+    from llm_mcp_tpu_torch.api.inference import serve
+
     engine.start()
+    api = serve({engine.cfg.name: engine}, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{api.port}"
     try:
-        e2e = e2e_phase(engine)
+        e2e = e2e_phase(engine, base)
+        prefix = prefix_phase(engine, base)
     finally:
+        api.shutdown()
         engine.shutdown()
     breakdown = breakdown_phase(engine.cfg, engine.params, engine.device)
     if FAILURES:
@@ -548,11 +818,12 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces}
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
-        row["launches"] = e2e["launches"][name]
+        # launches on the served path that drives the kernel
+        row["launches"] = (prefix if name in PREFIX_KERNELS else e2e)["launches"][name]
         row.update(r)
         rows.append(row)
-    print(json.dumps({"e2e": e2e, "model_check": check, "breakdown": breakdown,
-                      "seconds": time.time() - t_start}), flush=True)
+    print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check,
+                      "breakdown": breakdown, "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

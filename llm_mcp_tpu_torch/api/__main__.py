@@ -6,7 +6,9 @@
 Serves `POST /v1/chat/completions`, `GET /v1/models` and `GET /health`
 until SIGINT or SIGTERM. Weights are random from `--seed` (no checkpoint
 loading yet) and the tokenizer is the byte tokenizer. `--device cpu` runs
-the plain PyTorch versions of the kernels on the CPU.
+the plain PyTorch versions of the kernels on the CPU. `--prompt-cache-mb`
+(default 256, as the JAX server) sizes the prompt-prefix cache and its
+paged pool; 0 turns it off.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-seq-len", type=int, default=4096)
     ap.add_argument("--prefill-chunk", type=int, default=512)
     ap.add_argument("--decode-chunk", type=int, default=4)
+    ap.add_argument("--prompt-cache-mb", type=int, default=256,
+                    help="prompt-prefix cache budget in MiB (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--host", default="127.0.0.1")
@@ -44,6 +48,7 @@ def main(argv: list[str] | None = None) -> None:
         max_seq_len=args.max_seq_len,
         prefill_chunk=args.prefill_chunk,
         decode_chunk=args.decode_chunk,
+        prompt_cache_mb=args.prompt_cache_mb,
         seed=args.seed,
         dtype=dtype,
         device=args.device,

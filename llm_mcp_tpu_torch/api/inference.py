@@ -48,6 +48,8 @@ class InferenceAPI:
                     "device": str(eng.device),
                     "slots_in_use": eng.slots_in_use(),
                     "queue_depth": eng.queue_depth(),
+                    "prefix_cache": eng.prefix_cache_stats(),
+                    "paging": eng.paging_stats(),
                 }
                 for name, eng in self.engines.items()
             },

@@ -24,19 +24,34 @@ rowid R and position S, T on the pow2 ladder), so the two engines dispatch
 the same work. Unlike the JAX loop, a round's tokens are fetched before the
 next round starts (no pipelining yet).
 
-Left out until later slices: the prompt-prefix cache, paging, preemption
-and migration, speculation, constraints, the model zoo, tenants and the
-flight recorder.
+Prompt-prefix cache and paged KV, as in the JAX engine
+(`prompt_cache_mb`, default 256): every slot owns a block table in the
+ledger (`paging.py`). At activation a prompt that shares at least
+`PREFIX_MIN` tokens with a recent prompt stores that prefix (length
+floored to a power of two). With physical paging (`physical.py`; block
+size in {32, 64, 128, 256} dividing `max_seq_len`) the entry's blocks are
+copied once into a device pool, and a later prompt that starts with it is
+admitted by pinning those blocks into its table: no row copies, except
+the boundary block of an unaligned entry, copied on write. Its suffix
+prefills through ragged chunks and its decode steps read the shared blocks
+from the pool through the paged kernels, chosen on the host whenever a
+row of the step has a non-identity table. Without physical paging an
+entry is a copy of the slot's rows, copied into every hit slot.
+
+Left out until later slices: host offload and preemption (`KVPool`),
+migration, the fleet prefix tier, speculation, constraints, the model zoo,
+tenants and the flight recorder.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
@@ -54,6 +69,8 @@ from ..models.llama import (
 from ..ops.sampling import sample_tokens
 from ..utils.device import resolve_device
 from .common import fine_bucket, pow2_bucket
+from .paging import PagedKVManager
+from .physical import PhysicalPool, pool_like
 from .scheduler import TokenBudgetScheduler
 from .tokenizer import ByteTokenizer
 
@@ -93,6 +110,7 @@ class _PrefillState:
     req: GenRequest
     ids: list[int]
     done: int = 0  # tokens already written into the cache
+    shared_len: int = 0  # prefix-cache hit: tokens of the entry it starts with
 
 
 @dataclass
@@ -124,6 +142,7 @@ class GenerationEngine:
         prefill_chunk: int = 512,
         admit_batch: int = 4,
         target_ttft_ms: float = 2000.0,
+        prompt_cache_mb: int = 256,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -149,6 +168,7 @@ class GenerationEngine:
         self.params = params
         cache = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device=self.device)
         self._ck, self._cv = cache["k"], cache["v"]
+        self._init_prefix_cache(prompt_cache_mb)
 
         # Host mirrors of per-slot state. Only active (decoding) slots hold
         # an in-range length; free and mid-prefill slots park at
@@ -254,6 +274,267 @@ class GenerationEngine:
     def queue_depth(self) -> int:
         return self._admit.qsize()
 
+    def prefix_cache_stats(self) -> dict[str, int]:
+        """Snapshot of the prompt-prefix cache (the cache itself belongs to
+        the engine thread)."""
+        return {
+            "entries": len(self._prefix_cache),
+            "bytes": self._prefix_cache_bytes,
+            "hits": self.prefix_cache_hits,
+            "misses": self.prefix_cache_misses,
+        }
+
+    def paging_stats(self) -> dict[str, float]:
+        """The block ledger's economy and audit (`leaks` is 0 when every
+        refcount is owed), plus the physical pool's counters when it is
+        on."""
+        out = self._paging.stats()
+        out["enabled"] = 1.0
+        out["leaks"] = float(self._paging.leak_count())
+        if self._phys is not None:
+            out.update(self._phys.stats())
+        out["physical"] = 1.0 if self._phys is not None else 0.0
+        return out
+
+    # -- prompt-prefix cache and paged KV ----------------------------------
+
+    PREFIX_MIN = 32  # shortest prefix worth caching (tokens)
+
+    def _init_prefix_cache(self, prompt_cache_mb: int) -> None:
+        """The ledger, and with physical paging the block tables and the
+        prefix pool: the JAX engine's construction and gate."""
+        self._prefix_cache: OrderedDict[tuple, dict] = OrderedDict()
+        # stored length -> {key: entry}: stored lengths are pow2-floored,
+        # so a lookup probes O(log S) buckets
+        self._prefix_by_len: dict[int, dict[tuple, dict]] = {}
+        self._prefix_cache_bytes = 0
+        self._prefix_budget = int(prompt_cache_mb) * (1 << 20) if self.prefill_chunk > 0 else 0
+        self._recent_prompts: deque[tuple] = deque(maxlen=16)
+        self.prefix_cache_hits = 0
+        self.prefix_cache_misses = 0
+        cache_bytes = 2 * self._ck.numel() * self._ck.element_size()
+        self._paging = PagedKVManager(
+            max_slots=self.max_slots,
+            max_seq_len=self.max_seq_len,
+            bytes_per_token=cache_bytes // max(1, self.max_slots * self.max_seq_len),
+            prefix_budget_bytes=self._prefix_budget,
+        )
+        self._phys: PhysicalPool | None = None
+        self._pool_k: torch.Tensor | None = None
+        self._pool_v: torch.Tensor | None = None
+        bt = self._paging.block_tokens
+        if (
+            os.environ.get("TPU_PAGED_PHYSICAL", "1") not in ("", "0", "false", "no", "off")
+            and self._prefix_budget > 0
+            and self._paging.prefix_partition >= 1
+            and self.max_seq_len % bt == 0
+            and bt in (32, 64, 128, 256)
+        ):
+            rows = self._paging.prefix_partition
+            self._phys = PhysicalPool(
+                n_slots=self.max_slots, seq_len=self.max_seq_len, block_tokens=bt,
+                pool_rows=rows,
+            )
+            self._pool_k = pool_like(self._ck, rows, bt)
+            self._pool_v = pool_like(self._cv, rows, bt)
+        log.info(
+            "paged KV: %d-token blocks, %d arena + %d prefix blocks, physical %s",
+            bt, self._paging.slot_partition, self._paging.prefix_partition,
+            self._phys is not None,
+        )
+
+    def _paged_operand(self, slots) -> dict | None:
+        """The model's `paged` operand when any of `slots` reads a block
+        through the pool (decided on the host from the tables), else None:
+        the unpaged kernels then run."""
+        if self._phys is None or not self._phys.paged(slots):
+            return None
+        return {"tbl": self._phys.device_table(self.device), "k": self._pool_k, "v": self._pool_v}
+
+    @staticmethod
+    def _common_len(a: tuple, b: tuple) -> int:
+        n = min(len(a), len(b))
+        i = 0
+        while i < n and a[i] == b[i]:
+            i += 1
+        return i
+
+    def _match_prefix(self, ids: list[int]) -> dict | None:
+        """Longest cached entry that is a STRICT prefix of `ids` (at least
+        one suffix token remains: the suffix chunk gives the first logits)."""
+        if not self._prefix_budget or not self._prefix_cache:
+            return None
+        t = tuple(ids)
+        best_key, best = None, None
+        for P in sorted(self._prefix_by_len, reverse=True):
+            if P >= len(t):
+                continue
+            e = self._prefix_by_len[P].get(t[:P])
+            if e is not None:
+                best_key, best = t[:P], e
+                break
+        if best is not None:
+            self._prefix_cache.move_to_end(best_key)  # LRU touch
+            self.prefix_cache_hits += 1
+        else:
+            self.prefix_cache_misses += 1
+        return best
+
+    def _start_cached(self, ent: dict, group: list) -> None:
+        """Admit a group of hits on one entry: the suffixes join the ragged
+        chunk queue at start = P. Physical entries are pinned into each
+        slot's table (only an unaligned boundary block is copied);
+        contiguous entries copy their rows into every slot."""
+        P = ent["P"]
+        if "k" in ent:
+            for slot, _, _ in group:
+                self._ck[:, slot, :, :P] = ent["k"][:, 0]
+                self._cv[:, slot, :, :P] = ent["v"][:, 0]
+        for slot, req, ids in group:
+            self._prefills[slot] = _PrefillState(req=req, ids=list(ids), done=P, shared_len=P)
+            self._prefill_q.append(slot)
+            ops = self._paging.admit_shared(slot, ent["key"], len(ids))
+            if "k" not in ent:
+                self._phys_admit(slot, ent, ops)
+
+    def _maybe_store_prefix(self, slot: int, ids: list[int]) -> None:
+        """At activation: if this prompt shares a long prefix with recent
+        traffic, store that prefix from the slot's rows [0, P0), which hold
+        exactly the prompt's KV whatever the admission path."""
+        if not self._prefix_budget:
+            return
+        t = tuple(ids)
+        best = 0
+        for other in self._recent_prompts:
+            if other is not t:
+                best = max(best, self._common_len(t, other))
+        p0 = min(best, len(t) - 1)  # a hit keeps >= 1 suffix token
+        if p0 < self.PREFIX_MIN:
+            return
+        p0 = 1 << (p0.bit_length() - 1)  # pow2 floor, as the JAX engine stores
+        key = t[:p0]
+        if key in self._prefix_cache:
+            return
+        # one ledger: the entry claims blocks from the prefix partition
+        # first, evicting LRU entries until it fits
+        while not self._paging.prefix_can_fit(p0) and self._prefix_cache:
+            self._evict_lru_prefix()
+        if self._paging.prefix_register(key, p0) is None:
+            return
+        L, _, Hkv, _, hd = self._ck.shape
+        nbytes = 2 * L * Hkv * hd * p0 * self._ck.element_size()
+        if self._phys is not None:
+            if not self._store_prefix_physical(slot, key):
+                self._paging.prefix_release(key)
+                self._phys.sweep(self._paging.alive)
+                return
+            ent = {"P": p0, "bytes": nbytes, "key": key}
+        else:
+            ent = {
+                "P": p0, "bytes": nbytes, "key": key,
+                "k": self._ck[:, slot: slot + 1, :, :p0].clone(),
+                "v": self._cv[:, slot: slot + 1, :, :p0].clone(),
+            }
+        self._prefix_cache[key] = ent
+        self._prefix_by_len.setdefault(p0, {})[key] = ent
+        self._prefix_cache_bytes += nbytes
+        while self._prefix_cache_bytes > self._prefix_budget and self._prefix_cache:
+            self._evict_lru_prefix()
+        log.info("prefix cache: stored a %d-token prefix (%d entries)", p0, len(self._prefix_cache))
+
+    def _evict_lru_prefix(self) -> None:
+        """Evict the least recently used entry. Its pool rows are reclaimed
+        only once no table pins its blocks any more."""
+        old_key, old = self._prefix_cache.popitem(last=False)
+        self._prefix_cache_bytes -= old["bytes"]
+        self._paging.prefix_release(old["key"])
+        if self._phys is not None:
+            self._phys.sweep(self._paging.alive)
+        bucket = self._prefix_by_len.get(old["P"])
+        if bucket is not None:
+            bucket.pop(old_key, None)
+            if not bucket:
+                del self._prefix_by_len[old["P"]]
+
+    def _store_prefix_physical(self, slot: int, key: tuple) -> bool:
+        """Copy a freshly registered entry's blocks into the pool, read
+        through the storing slot's own table (a sharer storing a longer
+        prefix copies its shared blocks pool to pool). False when the pool
+        has no rows; the caller releases the registration."""
+        ids = self._paging.prefix_ids(key)
+        if ids is None:
+            return False
+        rows = self._phys.register_prefix(ids)
+        if rows is None:
+            return False
+        for (in_arena, src, off), prow in zip(self._phys.row_sources(slot, len(ids)), rows):
+            if in_arena:
+                self._pool_put_arena(src, off, prow)
+            else:
+                self._pool_put_pool(src, prow)
+        return True
+
+    def _phys_admit(self, slot: int, ent: dict, ops: list[tuple]) -> None:
+        """Physical side of a hit: carry out the ledger's copy-on-write of
+        the boundary block (one whole block from the entry's pool row),
+        then re-key the slot's table row."""
+        for op in ops:
+            if op[0] != "cow":
+                continue
+            phys = self._phys.phys_of(op[2])
+            if phys is None:  # tripwire: unmapped entry block (audited)
+                self._phys.missing_pins += 1
+                continue
+            self._cow_block(slot, ent["P"] // self._paging.block_tokens, phys - self._phys.pool_base)
+            self._phys.cow_copies_total += 1
+        self._phys_rebuild(slot)
+
+    def _phys_rebuild(self, slot: int) -> None:
+        if self._phys is not None:
+            ids, shared_n = self._paging.table_view(slot)
+            self._phys.rebuild(slot, ids, shared_n)
+
+    def _phys_reset(self, slot: int) -> None:
+        """Slot released: its table row back to identity, then reclaim the
+        pool rows whose ledger ids just died."""
+        if self._phys is not None:
+            self._phys.reset(slot)
+            self._phys.sweep(self._paging.alive)
+
+    # Device block copies, in place on the engine's stream (the JAX
+    # engine's `_cow_block_raw`, `_pool_put_arena_raw`, `_pool_put_pool_raw`).
+
+    def _cow_block(self, slot: int, blk: int, prow: int) -> None:
+        """Pool row `prow` into block `blk` of the slot's arena row."""
+        bt = self._paging.block_tokens
+        self._ck[:, slot, :, blk * bt: (blk + 1) * bt] = self._pool_k[:, prow]
+        self._cv[:, slot, :, blk * bt: (blk + 1) * bt] = self._pool_v[:, prow]
+
+    def _pool_put_arena(self, row: int, off: int, prow: int) -> None:
+        """One block of arena row `row` at token offset `off` into pool row `prow`."""
+        bt = self._paging.block_tokens
+        self._pool_k[:, prow] = self._ck[:, row, :, off: off + bt]
+        self._pool_v[:, prow] = self._cv[:, row, :, off: off + bt]
+
+    def _pool_put_pool(self, src: int, dst: int) -> None:
+        self._pool_k[:, dst] = self._pool_k[:, src]
+        self._pool_v[:, dst] = self._pool_v[:, src]
+
+    def _reset_kv(self) -> None:
+        """After a failed step: the caches may hold partial writes, and a
+        prefix entry pointing at them would give wrong answers. Zero the
+        cache, drop every prefix entry, reset every table and zero the pool
+        (as the JAX engine's `_recover_cache`); `_abort_all` follows and
+        frees every slot's table, which returns the last pool rows."""
+        self._ck.zero_()
+        self._cv.zero_()
+        while self._prefix_cache:
+            self._evict_lru_prefix()
+        if self._phys is not None:
+            self._pool_k.zero_()
+            self._pool_v.zero_()
+            self._phys.reset_all()
+
     # -- engine loop -------------------------------------------------------
 
     def _run(self) -> None:
@@ -263,9 +544,8 @@ class GenerationEngine:
                     busy = self._step()
                 except Exception as e:  # a failed dispatch must not hang waiters
                     log.exception("engine step failed")
+                    self._reset_kv()
                     self._abort_all(f"engine step failed: {e}")
-                    self._ck.zero_()
-                    self._cv.zero_()
                     busy = False
                 if not busy:
                     self._wake.wait(timeout=0.05)
@@ -309,10 +589,11 @@ class GenerationEngine:
         lens = self._t(self._lengths)
         toks = self._t(self._last_tok)
         temps, topks, topps = self._temp, self._topk, self._topp
+        paged = self._paged_operand(active)  # the tables do not change in a round
         outs = []
         for _ in range(self.decode_chunk):
             logits, self._ck, self._cv = llama_decode_step(
-                self.cfg, self.params, self._ck, self._cv, toks, lens
+                self.cfg, self.params, self._ck, self._cv, toks, lens, paged=paged
             )
             toks = self._sample(logits, temps, topks, topps, active=lens < S)
             outs.append(toks)
@@ -323,6 +604,8 @@ class GenerationEngine:
         for b in active:
             self._lengths[b] = min(int(base[b]) + self.decode_chunk, S)
             self._last_tok[b] = out[-1, b]
+        # ledger: grow the tables to cover the advanced lengths
+        self._paging.extend_many({b: int(self._lengths[b]) for b in active})
         return out, active, base
 
     def _emit_round(self, out: np.ndarray, active: list[int], base: np.ndarray) -> None:
@@ -355,6 +638,8 @@ class GenerationEngine:
         admitted = False
         while True:
             batch: list[tuple[int, GenRequest, list[int]]] = []
+            # prefix-cache hits grouped by entry
+            hits: dict[int, tuple[dict, list]] = {}
             reserved: set[int] = set()
             while len(batch) < self.admit_batch:
                 slot = self._free_slot(reserved)
@@ -383,14 +668,35 @@ class GenerationEngine:
                     req.out.put(_DONE)
                     continue
                 admitted = True
+                ent = self._match_prefix(ids)
+                if ent is not None:
+                    # cached prefix: only the suffix prefills, in ragged chunks
+                    reserved.add(slot)
+                    hits.setdefault(id(ent), (ent, []))[1].append((slot, req, list(ids)))
+                    continue
                 if self.prefill_chunk and len(ids) > self.prefill_chunk:
-                    # long prompt: reserve the slot, prefill chunk by chunk
+                    # long prompt: reserve the slot, prefill chunk by chunk;
+                    # the ledger commits the prompt's blocks now
                     self._prefills[slot] = _PrefillState(req=req, ids=list(ids))
                     self._prefill_q.append(slot)
+                    self._paging.admit_slot(slot, len(ids))
                     continue
                 reserved.add(slot)
                 batch.append((slot, req, list(ids)))
+            for ent, group in hits.values():
+                try:
+                    self._start_cached(ent, group)
+                except Exception as e:
+                    log.exception("prefix-cache admission failed")
+                    for slot, req, _ in group:
+                        if self._prefills.pop(slot, None) is not None:
+                            self._prefill_q.remove(slot)
+                        self._paging.free_slot(slot)
+                        self._phys_reset(slot)
+                        self._error(req, str(e))
             if not batch:
+                if hits:
+                    continue  # hit slots consumed; more of the queue may admit
                 break
             try:
                 self._start_batch(batch)
@@ -430,8 +736,20 @@ class GenerationEngine:
         for i, (slot, req, ids) in enumerate(batch):
             self._activate_state(slot, req, ids, int(toks0[i]))
 
-    def _activate_state(self, slot: int, req: GenRequest, ids: list[int], tok0: int) -> None:
+    def _activate_state(
+        self, slot: int, req: GenRequest, ids: list[int], tok0: int, shared_len: int = 0
+    ) -> None:
         P = len(ids)
+        # the slot's rows [0, P) now hold exactly this prompt's KV: the
+        # moment to learn a shared prefix for later admissions
+        self._maybe_store_prefix(slot, ids)
+        self._recent_prompts.append(tuple(ids))
+        # ledger: batch admissions get their table here; the chunked and
+        # hit paths reserved one already (ensure extends it)
+        mgr = self._paging
+        mgr.ensure_slot(slot, P)
+        want = min(P + max(0, req.max_tokens) + self.decode_chunk, self.max_seq_len)
+        mgr.note_admit_cost(mgr.blocks_for(want) - shared_len // mgr.block_tokens)
         s = _Slot(req=req, prompt_len=P, first_token_at=time.time())
         self._slots[slot] = s
         self._lengths[slot] = P
@@ -508,6 +826,7 @@ class GenerationEngine:
                 self.cfg, self.params, self._ck, self._cv,
                 self._t(group.tokens), self._t(group.rowids), self._t(group.positions),
                 self._t(group.slots), self._t(group.starts), self._t(group.last_idx),
+                paged=self._paged_operand([slot for slot, _, _ in group.metas]),
             )
             fin = []
             for i, (slot, st, n) in enumerate(group.metas):
@@ -531,12 +850,14 @@ class GenerationEngine:
             for k, (_, slot, st) in enumerate(fin):
                 self._prefill_q.remove(slot)
                 del self._prefills[slot]
-                self._activate_state(slot, st.req, st.ids, int(toks0[k]))
+                self._activate_state(slot, st.req, st.ids, int(toks0[k]), st.shared_len)
         except Exception as e:
             log.exception("chunked prefill failed")
             for slot, st, _ in group.metas:
                 if self._prefills.pop(slot, None) is not None:
                     self._prefill_q.remove(slot)
+                    self._paging.free_slot(slot)  # reserved, not activated
+                    self._phys_reset(slot)
                     self._error(st.req, str(e))
 
     # -- emission ----------------------------------------------------------
@@ -600,24 +921,33 @@ class GenerationEngine:
     def _free_now(self, b: int) -> None:
         self._slots[b] = None
         self._lengths[b] = self.max_seq_len  # park
+        # ledger: drop the table (idempotent); its device row back to identity
+        self._paging.free_slot(b)
+        self._phys_reset(b)
 
     def _error(self, req: GenRequest, msg: str) -> None:
         req.out.put({"type": "error", "error": msg})
         req.out.put(_DONE)
 
     def _abort_all(self, msg: str) -> None:
-        """Error every live, mid-prefill and queued request."""
+        """Error every live, mid-prefill and queued request. Every slot and
+        ledger table is released before the first error goes out, so a
+        caller that sees the error sees the engine's state settled."""
+        failed = []
         for b, s in enumerate(self._slots):
             if s is not None and not s.done:
                 s.done = True
-                self._error(s.req, msg)
+                failed.append(s.req)
             self._free_now(b)
         for slot in list(self._prefills):
-            self._error(self._prefills.pop(slot).req, msg)
+            self._paging.free_slot(slot)
+            self._phys_reset(slot)
+            failed.append(self._prefills.pop(slot).req)
         self._prefill_q.clear()
         while True:
             try:
-                req = self._admit.get_nowait()
+                failed.append(self._admit.get_nowait())
             except queue.Empty:
                 break
+        for req in failed:
             self._error(req, msg)

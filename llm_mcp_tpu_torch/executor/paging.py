@@ -1,0 +1,631 @@
+"""Paged KV ledger: refcounted block tables with copy-on-write prefix
+sharing (counterpart of `llm_mcp_tpu/executor/paging.py`, copied whole;
+vLLM PagedAttention, Kwon et al. 2023; SGLang RadixAttention, Zheng et al.
+2024).
+
+The engine's KV arena is carved into fixed-size blocks of
+``TPU_KV_BLOCK_TOKENS`` token positions (default 64). Every live slot owns
+an ordered *block table*; a prefix-cache hit **pins** the entry's full
+blocks into the new slot's table (refcount++, no new allocation) instead
+of being charged for a fresh copy, and the first partially-shared boundary
+block is **copied-on-write** into a private block. Preemption keeps only
+the shared pins (ids) and frees the private tail.
+
+This layer is the block *economy* and stays pure host bookkeeping.
+``executor/physical.py`` makes it physical: it rebuilds per-slot device
+block tables from ``table_view()`` after every re-keying mutation, private
+blocks are identity-homed in the slot arena, and prefix pins resolve to
+rows of a separate device pool, so a prefix-cache hit admits with zero row
+copies and the attention kernels read K/V through the table. Pool-row
+reclamation keys on ``alive()``: a pool row outlives its evicted prefix
+entry for as long as sharer pins keep the ledger id referenced.
+
+One ledger: slot-arena blocks and prefix-cache blocks are allocated from a
+single id space sized
+``max_slots * blocks_per_slot + prefix_budget_bytes // block_bytes``, so
+the two budgets cannot jointly oversubscribe device memory.
+
+Every mutator returns a compact list of ops carrying block ids, never KV
+bytes; ``apply_ops`` replays them into a mirror manager. The manager is
+pure host code and replays byte for byte.
+
+Threading: one internal OrderedLock (rank 30); every public method is safe
+from the engine loop and HTTP threads. Allocation never blocks serving: if
+bookkeeping ever drifts past the ledger total (a bug), the allocator hands
+out an overflow id and counts it; ``audit()`` surfaces it and the request
+still runs.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Any, Callable, Iterable
+
+from ..utils.locks import OrderedLock
+
+log = logging.getLogger("paging")
+
+DEFAULT_BLOCK_TOKENS = 64
+
+# op tuples (first element is the kind) — the whole mirror protocol:
+#   ("alloc",   slot, ids)                      fresh private blocks appended
+#   ("pin",     slot, ids)                      shared blocks refcounted into table
+#   ("cow",     slot, src_id, dst_id)           boundary block copied-on-write
+#   ("free",    slot, ids)                      table dropped, blocks decref'd
+#   ("snap",    snap_id, slot, shared, private) preempt: private freed, pins parked
+#   ("restore", snap_id, slot, ids)             snap pins re-tabled + fresh private
+#   ("drop",    snap_id)                        snapshot discarded, pins decref'd
+#   ("pxalloc", key, ids, tokens)               prefix entry registered
+#   ("pxfree",  key)                            prefix entry evicted
+
+
+def block_tokens_from_env() -> int:
+    raw = os.environ.get("TPU_KV_BLOCK_TOKENS", "")
+    try:
+        v = int(raw) if raw else DEFAULT_BLOCK_TOKENS
+    except ValueError:
+        log.warning("bad TPU_KV_BLOCK_TOKENS=%r; using %d", raw, DEFAULT_BLOCK_TOKENS)
+        v = DEFAULT_BLOCK_TOKENS
+    return max(1, v)
+
+
+class PagedKVManager:
+    """Refcounted block tables over the slot KV arena + prefix partition.
+
+    All sizes are in *blocks* internally; callers speak tokens. Mutators
+    return op lists for follower mirroring (empty when nothing changed);
+    single-process engines simply discard them.
+    """
+
+    def __init__(
+        self,
+        *,
+        max_slots: int,
+        max_seq_len: int,
+        block_tokens: int | None = None,
+        bytes_per_token: int = 0,
+        prefix_budget_bytes: int = 0,
+    ):
+        bt = block_tokens if block_tokens else block_tokens_from_env()
+        self.block_tokens = max(1, int(bt))
+        self.max_slots = int(max_slots)
+        self.max_seq_len = int(max_seq_len)
+        self.blocks_per_slot = -(-self.max_seq_len // self.block_tokens)
+        self.bytes_per_token = int(bytes_per_token)
+        self.bytes_per_block = self.bytes_per_token * self.block_tokens
+        self.slot_partition = self.max_slots * self.blocks_per_slot
+        self.prefix_partition = (
+            int(prefix_budget_bytes) // self.bytes_per_block
+            if self.bytes_per_block > 0
+            else 0
+        )
+        self.total_blocks = self.slot_partition + self.prefix_partition
+
+        self._lock = OrderedLock("paging", rank=30)
+        # allocator: lazy fresh ids (`_next`) + recycled LIFO free list; the
+        # list may hold stale entries (alloc_exact takes from the middle via
+        # the set), skipped at pop time
+        self._free: list[int] = []
+        self._free_set: set[int] = set()
+        self._next = 0
+        self._rc: dict[int, int] = {}
+        # ownership maps — every refcount is owed to exactly one row here;
+        # audit() recomputes rc from these and flags any drift
+        self._tables: dict[int, list[int]] = {}  # slot -> ordered block ids
+        self._shared_n: dict[int, int] = {}  # slot -> leading pinned-shared count
+        self._prefix: dict[Any, tuple[list[int], int]] = {}  # key -> (ids, tokens)
+        self._snap_pins: dict[int, list[int]] = {}  # snap_id -> parked shared pins
+        self._snap_need: dict[int, int] = {}  # snap_id -> private blocks to restore
+        self._prefix_owned = 0
+
+        # counters / economy stats
+        self.allocs_total = 0
+        self.frees_total = 0
+        self.cow_copies_total = 0
+        self.double_free_errors = 0
+        self.ledger_overflow = 0
+        self.admit_total = 0
+        self.admit_shared_total = 0
+        self.pinned_blocks_total = 0  # blocks NOT allocated thanks to sharing
+        self.peak_sharing_ratio = 1.0
+        # expected private-block cost of one queued admission, used to price
+        # the admit queue in offered_blocks(); initialized to a full slot so
+        # zero-sharing behavior reduces exactly to the old slot-count
+        # accounting
+        self._ema_admit_blocks = float(self.blocks_per_slot)
+
+        # Observability tap (telemetry/recorder.py flight events): the
+        # engine injects a callback that receives each sharing-relevant ops
+        # list (pin / cow / snap / restore / drop / free-of-shared). The
+        # callback runs UNDER the rank-30 paging lock, so it must be
+        # non-blocking and must never take a ranked lock — the flight
+        # recorder's append satisfies both. None (the default) is free.
+        self.on_ops: "Callable[[list[tuple]], None] | None" = None
+
+    # -- allocator core (callers hold self._lock) ---------------------------
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks covering n_tokens positions (>= 1)."""
+        return max(1, -(-max(1, int(n_tokens)) // self.block_tokens))
+
+    def _alloc_ids(self, n: int) -> list[int]:
+        ids: list[int] = []
+        for _ in range(n):
+            bid = None
+            while self._free:
+                cand = self._free.pop()
+                if cand in self._free_set:
+                    self._free_set.discard(cand)
+                    bid = cand
+                    break
+            if bid is None:
+                bid = self._next
+                self._next += 1
+                if self._next > self.total_blocks:
+                    self.ledger_overflow += 1
+            self._rc[bid] = 1
+            ids.append(bid)
+        self.allocs_total += n
+        return ids
+
+    def _alloc_exact(self, ids: Iterable[int]) -> None:
+        """Follower-side mirror of the leader's allocation choices."""
+        for bid in ids:
+            if bid in self._free_set:
+                self._free_set.discard(bid)  # stale list entry skipped later
+            elif bid >= self._next:
+                self._next = bid + 1
+            elif bid in self._rc:
+                # leader and mirror streams diverged — count it, keep going
+                self.ledger_overflow += 1
+            self._rc[bid] = 1
+            self.allocs_total += 1
+
+    def _incref(self, bid: int) -> None:
+        self._rc[bid] = self._rc.get(bid, 0) + 1
+
+    def _decref(self, bid: int) -> None:
+        rc = self._rc.get(bid)
+        if rc is None:
+            self.double_free_errors += 1
+            return
+        if rc <= 1:
+            del self._rc[bid]
+            self._free.append(bid)
+            self._free_set.add(bid)
+            self.frees_total += 1
+        else:
+            self._rc[bid] = rc - 1
+
+    def _note_peak(self) -> None:
+        used = len(self._rc)
+        if used:
+            logical = sum(self._rc.values())
+            ratio = logical / used
+            if ratio > self.peak_sharing_ratio:
+                self.peak_sharing_ratio = ratio
+
+    def _notify(self, ops: list[tuple]) -> list[tuple]:
+        """Hand a mutation's ops to the injected observer (see on_ops in
+        __init__) and return them unchanged, so callers tack it onto their
+        return statement. Observer exceptions never break the ledger."""
+        cb = self.on_ops
+        if cb is not None and ops:
+            try:
+                cb(ops)
+            except Exception:  # noqa: BLE001
+                pass
+        return ops
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def admit_slot(self, slot: int, n_tokens: int) -> list[tuple]:
+        """Fresh (unshared) admission: allocate a private table covering
+        n_tokens."""
+        with self._lock:
+            ops = self._free_slot_locked(slot)  # defensive: stale table
+            ids = self._alloc_ids(self.blocks_for(n_tokens))
+            self._tables[slot] = ids
+            self._shared_n[slot] = 0
+            self.admit_total += 1
+            ops.append(("alloc", slot, list(ids)))
+            return ops
+
+    def admit_shared(self, slot: int, key: Any, n_tokens: int) -> list[tuple]:
+        """Prefix-hit admission: pin the entry's full blocks (no
+        allocation), copy-on-write the partial boundary block if the stored
+        prefix doesn't end on a block edge, then extend privately to
+        n_tokens. Falls back to admit_slot when the key is unknown (entry
+        raced an eviction)."""
+        with self._lock:
+            ent = self._prefix.get(key)
+            if ent is None:
+                pass  # fall through to plain admission below
+            else:
+                entry_ids, p0 = ent
+                ops = self._free_slot_locked(slot)
+                full = p0 // self.block_tokens
+                pinned = entry_ids[:full]
+                for bid in pinned:
+                    self._incref(bid)
+                table = list(pinned)
+                if pinned:
+                    ops.append(("pin", slot, list(pinned)))
+                    self.pinned_blocks_total += len(pinned)
+                if p0 % self.block_tokens:
+                    src = entry_ids[full]
+                    dst = self._alloc_ids(1)[0]
+                    table.append(dst)
+                    self.cow_copies_total += 1
+                    ops.append(("cow", slot, src, dst))
+                need = self.blocks_for(n_tokens)
+                if need > len(table):
+                    extra = self._alloc_ids(need - len(table))
+                    table.extend(extra)
+                    ops.append(("alloc", slot, extra))
+                self._tables[slot] = table
+                self._shared_n[slot] = len(pinned)
+                self.admit_total += 1
+                self.admit_shared_total += 1
+                self._note_peak()
+                return self._notify(ops)
+        return self.admit_slot(slot, n_tokens)
+
+    def ensure_slot(self, slot: int, n_tokens: int) -> list[tuple]:
+        """Extend an existing table to cover n_tokens, or admit a fresh one
+        — the activation path's single entry point (the table may or may
+        not predate it, depending on the chunked-prefill route)."""
+        with self._lock:
+            if slot in self._tables:
+                return self._extend_locked(slot, n_tokens)
+        return self.admit_slot(slot, n_tokens)
+
+    def _extend_locked(self, slot: int, n_tokens: int) -> list[tuple]:
+        table = self._tables.get(slot)
+        if table is None:
+            return []
+        need = self.blocks_for(n_tokens)
+        if need <= len(table):
+            return []
+        extra = self._alloc_ids(need - len(table))
+        table.extend(extra)
+        return [("alloc", slot, extra)]
+
+    def extend(self, slot: int, n_tokens: int) -> list[tuple]:
+        with self._lock:
+            return self._extend_locked(slot, n_tokens)
+
+    def extend_many(self, wants: dict[int, int]) -> list[tuple]:
+        """Batched decode-path extend: one lock acquisition per round."""
+        ops: list[tuple] = []
+        with self._lock:
+            for slot, n_tokens in wants.items():
+                ops.extend(self._extend_locked(slot, n_tokens))
+        return ops
+
+    def free_slot(self, slot: int) -> list[tuple]:
+        """Release a slot's table. Idempotent: a slot without a table (never
+        admitted, or already preempted) is a no-op — _free_now is the
+        engine's single release chokepoint and may fire after preempt."""
+        with self._lock:
+            return self._notify(self._free_slot_locked(slot))
+
+    def _free_slot_locked(self, slot: int) -> list[tuple]:
+        table = self._tables.pop(slot, None)
+        self._shared_n.pop(slot, None)
+        if not table:
+            return []
+        for bid in table:
+            self._decref(bid)
+        return [("free", slot, list(table))]
+
+    def has_table(self, slot: int) -> bool:
+        with self._lock:
+            return slot in self._tables
+
+    def covered_tokens(self, slot: int) -> int:
+        with self._lock:
+            table = self._tables.get(slot)
+            return len(table) * self.block_tokens if table else 0
+
+    def table_view(self, slot: int) -> tuple[list[int], int]:
+        """Ordered block ids plus leading shared-pin count for one slot
+        (copies). The physical layer (executor/physical.py) rebuilds its
+        device block-table row from this after any mutation that re-keys
+        the slot; logical position j in the returned list always covers
+        token range [j*block_tokens, (j+1)*block_tokens)."""
+        with self._lock:
+            table = self._tables.get(slot)
+            return (list(table) if table else [], self._shared_n.get(slot, 0))
+
+    def alive(self, bid: int) -> bool:
+        """True while a block id holds any reference (slot tables, prefix
+        entries, parked snapshot pins). Pool-row reclamation keys on this:
+        an evicted prefix entry's pool rows stay mapped until the last
+        sharer pin lets the ledger id die."""
+        with self._lock:
+            return bid in self._rc
+
+    def prefix_ids(self, key: Any) -> list[int] | None:
+        """Ledger block ids of a registered prefix entry, or None when the
+        key is unknown (raced an eviction)."""
+        with self._lock:
+            ent = self._prefix.get(key)
+            return list(ent[0]) if ent else None
+
+    def prefix_chains(self) -> list[tuple[Any, int]]:
+        """Snapshot of resident prefix entries as ``(key, tokens)`` pairs
+        — the routing tier's digest source (routing/prefix.py). Safe from
+        any thread; a digest built from a snapshot that races an eviction
+        only misprices one routing score until the next tag refresh."""
+        with self._lock:
+            return [(key, tokens) for key, (_, tokens) in self._prefix.items()]
+
+    # -- preempt / restore --------------------------------------------------
+
+    def preempt_slot(self, slot: int, snap_id: int) -> list[tuple]:
+        """Preemption keeps only the shared pins (ids, zero bytes) parked
+        under snap_id; the private tail is freed — its rows live in the
+        host snapshot."""
+        with self._lock:
+            table = self._tables.pop(slot, None)
+            sn = self._shared_n.pop(slot, 0)
+            if table is None:
+                return []
+            shared, private = table[:sn], table[sn:]
+            for bid in private:
+                self._decref(bid)
+            self._snap_pins[snap_id] = shared
+            self._snap_need[snap_id] = len(private)
+            return self._notify(
+                [("snap", snap_id, slot, list(shared), list(private))]
+            )
+
+    def restore_slot(self, slot: int, snap_id: int, n_tokens: int) -> list[tuple]:
+        """Re-table the parked shared pins and allocate a fresh private
+        tail covering n_tokens."""
+        with self._lock:
+            pinned = self._snap_pins.pop(snap_id, [])
+            self._snap_need.pop(snap_id, None)
+            ops = self._free_slot_locked(slot)
+            table = list(pinned)
+            need = self.blocks_for(n_tokens)
+            extra = self._alloc_ids(max(0, need - len(table)))
+            table.extend(extra)
+            self._tables[slot] = table
+            self._shared_n[slot] = len(pinned)
+            ops.append(("restore", snap_id, slot, list(extra)))
+            return self._notify(ops)
+
+    def drop_snap(self, snap_id: int) -> list[tuple]:
+        """Discard a snapshot's parked pins (request aborted/finished while
+        offloaded, or the pool drained). Idempotent."""
+        with self._lock:
+            pins = self._snap_pins.pop(snap_id, None)
+            had_need = self._snap_need.pop(snap_id, None) is not None
+            if pins is None and not had_need:
+                return []
+            for bid in pins or ():
+                self._decref(bid)
+            return self._notify([("drop", snap_id)])
+
+    # -- prefix partition (the folded prefix budget) -------------------------
+
+    def prefix_can_fit(self, n_tokens: int) -> bool:
+        with self._lock:
+            return self._prefix_owned + self.blocks_for(n_tokens) <= self.prefix_partition
+
+    def prefix_register(self, key: Any, n_tokens: int) -> list[tuple] | None:
+        """Claim blocks for a new prefix entry; None when the partition is
+        full (caller evicts LRU entries and retries, or skips the store)."""
+        with self._lock:
+            if key in self._prefix:
+                return []
+            n = self.blocks_for(n_tokens)
+            if self._prefix_owned + n > self.prefix_partition:
+                return None
+            ids = self._alloc_ids(n)
+            self._prefix[key] = (ids, int(n_tokens))
+            self._prefix_owned += n
+            return [("pxalloc", key, list(ids), int(n_tokens))]
+
+    def prefix_release(self, key: Any) -> list[tuple]:
+        """Drop the cache's own reference; blocks stay alive while live
+        tables or snapshots still pin them."""
+        with self._lock:
+            ent = self._prefix.pop(key, None)
+            if ent is None:
+                return []
+            ids, _ = ent
+            self._prefix_owned -= len(ids)
+            for bid in ids:
+                self._decref(bid)
+            return [("pxfree", key)]
+
+    # -- mirroring ----------------------------------------------------------
+
+    def apply_ops(self, ops: Iterable[tuple]) -> None:
+        """Replay a leader's op stream into this mirror. Ids are explicit —
+        no allocation policy needs to match, only the stream order (one TCP
+        channel preserves it)."""
+        with self._lock:
+            for op in ops:
+                kind = op[0]
+                if kind == "alloc":
+                    _, slot, ids = op
+                    self._alloc_exact(ids)
+                    self._tables.setdefault(slot, [])
+                    self._shared_n.setdefault(slot, 0)
+                    self._tables[slot].extend(ids)
+                elif kind == "pin":
+                    _, slot, ids = op
+                    for bid in ids:
+                        self._incref(bid)
+                    table = self._tables.setdefault(slot, [])
+                    table.extend(ids)
+                    self._shared_n[slot] = self._shared_n.get(slot, 0) + len(ids)
+                    self.pinned_blocks_total += len(ids)
+                elif kind == "cow":
+                    _, slot, _src, dst = op
+                    self._alloc_exact([dst])
+                    self._tables.setdefault(slot, []).append(dst)
+                    self._shared_n.setdefault(slot, 0)
+                    self.cow_copies_total += 1
+                elif kind == "free":
+                    _, slot, _ids = op
+                    self._free_slot_locked(slot)
+                elif kind == "snap":
+                    snap_id, slot = op[1], op[2]
+                    table = self._tables.pop(slot, None)
+                    sn = self._shared_n.pop(slot, 0)
+                    if table is not None:
+                        shared, private = table[:sn], table[sn:]
+                        for bid in private:
+                            self._decref(bid)
+                        self._snap_pins[snap_id] = shared
+                        self._snap_need[snap_id] = len(private)
+                elif kind == "restore":
+                    snap_id, slot, ids = op[1], op[2], op[3]
+                    pinned = self._snap_pins.pop(snap_id, [])
+                    self._snap_need.pop(snap_id, None)
+                    self._free_slot_locked(slot)
+                    self._alloc_exact(ids)
+                    self._tables[slot] = list(pinned) + list(ids)
+                    self._shared_n[slot] = len(pinned)
+                elif kind == "drop":
+                    snap_id = op[1]
+                    pins = self._snap_pins.pop(snap_id, None)
+                    self._snap_need.pop(snap_id, None)
+                    for bid in pins or ():
+                        self._decref(bid)
+                elif kind == "pxalloc":
+                    _, key, ids, tokens = op
+                    if key not in self._prefix:
+                        self._alloc_exact(ids)
+                        self._prefix[key] = (list(ids), int(tokens))
+                        self._prefix_owned += len(ids)
+                elif kind == "pxfree":
+                    key = op[1]
+                    ent = self._prefix.pop(key, None)
+                    if ent is not None:
+                        ids, _ = ent
+                        self._prefix_owned -= len(ids)
+                        for bid in ids:
+                            self._decref(bid)
+                else:
+                    raise ValueError(f"unknown paging op {kind!r}")
+            self._note_peak()
+
+    # -- admission economy --------------------------------------------------
+
+    def note_admit_cost(self, n_blocks: int) -> None:
+        """Record one admission's private-block commitment (allocated now +
+        expected decode growth) for pricing the queue in offered_blocks()."""
+        n = max(0.0, float(n_blocks))
+        self._ema_admit_blocks = 0.8 * self._ema_admit_blocks + 0.2 * n
+
+    def ema_admit_blocks(self) -> float:
+        return self._ema_admit_blocks
+
+    def offered_blocks(self, wants: dict[int, int], queued: int) -> float:
+        """Offered load in unique-block terms for the admission watermark:
+
+        - every block referenced by a live table or parked snapshot counts
+          ONCE (this is where sharing multiplies capacity);
+        - each live slot additionally reserves the blocks it is committed
+          to grow into (``wants``: slot -> target token count — decode
+          growth is a promise already made at admission);
+        - parked snapshots reserve the private blocks their restore will
+          re-allocate;
+        - the admit queue is priced at the EMA private-block cost of recent
+          admissions (initialized to a full slot, so with zero sharing this
+          whole function reduces to the old slot-count accounting).
+
+        Divide by blocks_per_slot for slot-equivalents.
+        """
+        with self._lock:
+            seen: set[int] = set()
+            for table in self._tables.values():
+                seen.update(table)
+            for pins in self._snap_pins.values():
+                seen.update(pins)
+            offered = float(len(seen))
+            for slot, n_tokens in wants.items():
+                table = self._tables.get(slot)
+                have = len(table) if table else 0
+                want = self.blocks_for(n_tokens)
+                if want > have:
+                    offered += want - have
+            offered += float(sum(self._snap_need.values()))
+            offered += max(0, int(queued)) * self._ema_admit_blocks
+            return offered
+
+    # -- observability ------------------------------------------------------
+
+    def stats(self) -> dict[str, float]:
+        with self._lock:
+            used = len(self._rc)
+            logical = sum(self._rc.values())
+            return {
+                "block_tokens": float(self.block_tokens),
+                "blocks_per_slot": float(self.blocks_per_slot),
+                "blocks_total": float(self.total_blocks),
+                "blocks_used": float(used),
+                "blocks_free": float(self.total_blocks - used),
+                "logical_blocks": float(logical),
+                "sharing_ratio": (logical / used) if used else 1.0,
+                "peak_sharing_ratio": self.peak_sharing_ratio,
+                "slot_tables": float(len(self._tables)),
+                "prefix_entries": float(len(self._prefix)),
+                "prefix_blocks": float(self._prefix_owned),
+                "prefix_partition": float(self.prefix_partition),
+                "snap_parked": float(len(self._snap_pins)),
+                "pinned_blocks_total": float(self.pinned_blocks_total),
+                "cow_copies_total": float(self.cow_copies_total),
+                "allocs_total": float(self.allocs_total),
+                "frees_total": float(self.frees_total),
+                "double_free_errors": float(self.double_free_errors),
+                "ledger_overflow": float(self.ledger_overflow),
+                "admit_total": float(self.admit_total),
+                "admit_shared_total": float(self.admit_shared_total),
+                "ema_admit_blocks": self._ema_admit_blocks,
+            }
+
+    def audit(self) -> dict[str, int]:
+        """Recompute refcounts from the ownership maps and diff against the
+        allocator's ledger. All-zero means no leaks, no double frees, no
+        drift; asserted at quiesce."""
+        with self._lock:
+            want: dict[int, int] = {}
+            for table in self._tables.values():
+                for bid in table:
+                    want[bid] = want.get(bid, 0) + 1
+            for ids, _ in self._prefix.values():
+                for bid in ids:
+                    want[bid] = want.get(bid, 0) + 1
+            for pins in self._snap_pins.values():
+                for bid in pins:
+                    want[bid] = want.get(bid, 0) + 1
+            leaked = sum(1 for bid in self._rc if bid not in want)
+            missing = sum(1 for bid in want if bid not in self._rc)
+            mismatched = sum(
+                1 for bid, n in want.items() if bid in self._rc and self._rc[bid] != n
+            )
+            return {
+                "leaked_blocks": leaked,
+                "missing_blocks": missing,
+                "refcount_mismatches": mismatched,
+                "double_free_errors": self.double_free_errors,
+                "ledger_overflow": self.ledger_overflow,
+            }
+
+    def leak_count(self) -> int:
+        """The audit's faults as one number (0 = sound)."""
+        a = self.audit()
+        return (
+            a["leaked_blocks"]
+            + a["missing_blocks"]
+            + a["refcount_mismatches"]
+            + a["double_free_errors"]
+        )

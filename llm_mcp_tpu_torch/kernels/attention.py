@@ -1,12 +1,19 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Four CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
+Six CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
 
-  - `append_kv_bf16`           ← `_append_bf16_kernel`
-  - `decode_attend_bf16`       ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
-  - `flash_prefill_attention`  ← `_flash_prefill_kernel`
-  - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel` (unpaged)
+  - `append_kv_bf16`             ← `_append_bf16_kernel`
+  - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
+  - `decode_attend_bf16_paged`   ← `_attend_bf16_paged_kernel`
+  - `flash_prefill_attention`    ← `_flash_prefill_kernel`
+  - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel`, identity tables
+  - `ragged_prefill_attend_bf16_paged` ← the same body's block-table path
+
+The two paged kernels are what `decode_attend_bf16` and
+`ragged_prefill_attend_bf16` launch when given `block_tables` (the
+physical layout of `executor/physical.py`); `paged_gather` is their plain
+versions' read side.
 
 Each wrapper keeps the JAX function's layouts and arguments. It takes its
 plain PyTorch version (`*_plain`, beside it) only for tensors on the CPU;
@@ -35,8 +42,10 @@ MAX_G = 8  # most query heads per KV head the decode kernel takes
 LAUNCHES: dict[str, int] = {
     "append_kv_bf16": 0,
     "decode_attend_bf16": 0,
+    "decode_attend_bf16_paged": 0,
     "flash_prefill_attention": 0,
     "ragged_prefill_attend_bf16": 0,
+    "ragged_prefill_attend_bf16_paged": 0,
 }
 
 
@@ -51,8 +60,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "append_kv_bf16": ("append_kv", [_P] * 6 + [_I] * 6 + [_P]),
     "decode_attend_bf16": ("decode_attend", [_P] * 11 + [_I] * 9 + [_F, _P]),
+    "decode_attend_bf16_paged": ("decode_attend", [_P] * 14 + [_I] * 12 + [_F, _P]),
     "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
     "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
+    "ragged_prefill_bf16_paged": ("ragged_prefill", [_P] * 13 + [_I] * 11 + [_F, _P]),
 }
 
 
@@ -95,6 +106,56 @@ def _rows(slot_ids: torch.Tensor | None, n: int, device) -> torch.Tensor:
     if slot_ids is None:
         return torch.arange(n, dtype=torch.int32, device=device)
     return slot_ids
+
+
+def paged_gather(arena, pool, tables, *, nbs=None):
+    """Block-indirect gather (counterpart of JAX's `paged_gather`, plain
+    indexing there too): the contiguous-equivalent rows of each table row.
+
+    arena  [B, Hx, S, *rest]    layer-selected slot arena (identity homes)
+    pool   [PXB, Hx, bt, *rest] layer-selected prefix pool
+    tables [A, nsel] int        per-row block tables; a prefix of the full
+        table may be passed, with `nbs` naming the full blocks per slot
+    returns [A, Hx, nsel*bt, *rest]
+
+    Ids below B*nbs read arena block (id % nbs) of row (id // nbs); the
+    others read pool row (id - B*nbs). Out-of-range ids are clamped, as in
+    JAX."""
+    B, Hx, S = arena.shape[0], arena.shape[1], arena.shape[2]
+    rest = tuple(arena.shape[3:])
+    A, nsel = tables.shape
+    nbs = nsel if nbs is None else nbs
+    bt = S // nbs
+    pool_base = B * nbs
+    blk = arena.reshape(B, Hx, nbs, bt, *rest)
+    t = tables.long()
+    safe = t.clamp(0, pool_base - 1)
+    # advanced indices at axes 0 and 2 (split by a slice) land in front:
+    # [A, nsel, Hx, bt, *rest]
+    arena_take = blk[safe // nbs, :, safe % nbs]
+    pidx = (t - pool_base).clamp(0, max(pool.shape[0] - 1, 0))
+    pool_take = pool[pidx]
+    ina = (t < pool_base).reshape(A, nsel, *([1] * (arena_take.ndim - 2)))
+    g = torch.where(ina, arena_take, pool_take)
+    return g.transpose(1, 2).reshape(A, Hx, nsel * bt, *rest)
+
+
+def _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev) -> tuple[int, int, int]:
+    """Check the paged operands; returns (nbs, bt, pool rows)."""
+    if block_tables.dim() != 2 or block_tables.shape[1] < 1 or S % block_tables.shape[1]:
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} must be "
+                         f"[rows, nbs] with nbs dividing S={S}")
+    nbs = block_tables.shape[1]
+    bt = S // nbs
+    if pool_k is None or pool_v is None:
+        raise ValueError(f"{name}: block_tables need pool_k and pool_v")
+    pxb = pool_k.shape[1] if pool_k.dim() == 5 else 0
+    if pxb < 1:
+        raise ValueError(f"{name}: the prefix pool needs at least one row")
+    for t in (pool_k, pool_v):
+        _check(name, t, torch.bfloat16, (L, pxb, Hkv, bt, hd), dev)
+    _check(name, block_tables, torch.int32, (block_tables.shape[0], nbs), dev)
+    return nbs, bt, pxb
 
 
 # ---------------------------------------------------------------------------
@@ -160,12 +221,33 @@ def decode_attend_plain(
     """Plain version, in f32: attend positions [0, w] of each row, position
     w taking new_k/new_v. A parked row (w outside [0, S)) attends its new
     vectors alone."""
+    rows = _rows(slot_ids, q.shape[0], q.device).long()
+    k = cache_k[int(layer)].index_select(0, rows)  # [Ba, Hkv, S, hd]
+    v = cache_v[int(layer)].index_select(0, rows)
+    return _decode_rows_plain(q, new_k, new_v, k, v, lengths, scale)
+
+
+def decode_attend_paged_plain(
+    q, new_k, new_v, cache_k, cache_v, layer, lengths, block_tables, pool_k, pool_v,
+    slot_ids=None, scale=0.0,
+):
+    """Plain version of the paged arm: `paged_gather` of each row's table
+    (block_tables [B, nbs], rows picked by slot_ids), then the same math
+    as `decode_attend_plain`."""
+    rows = _rows(slot_ids, q.shape[0], q.device).long()
+    tbl = block_tables.index_select(0, rows.to(block_tables.device))
+    li = int(layer)
+    k = paged_gather(cache_k[li], pool_k[li], tbl)
+    v = paged_gather(cache_v[li], pool_v[li], tbl)
+    return _decode_rows_plain(q, new_k, new_v, k, v, lengths, scale)
+
+
+def _decode_rows_plain(q, new_k, new_v, k, v, lengths, scale):
+    """Decode attention over gathered rows k/v [Ba, Hkv, S, hd], in f32."""
     Ba, Hkv, G, hd = q.shape
-    S = cache_k.shape[3]
+    S = k.shape[2]
     sc = scale or hd**-0.5
-    rows = _rows(slot_ids, Ba, q.device).long()
-    k = cache_k[int(layer)].index_select(0, rows).float()  # [Ba, Hkv, S, hd]
-    v = cache_v[int(layer)].index_select(0, rows).float()
+    k, v = k.float(), v.float()
     w = lengths.long()
     we = torch.where((w >= 0) & (w < S), w, torch.zeros_like(w))
     pos = torch.arange(S, device=q.device)
@@ -194,21 +276,25 @@ def decode_attend_bf16(
     lengths: torch.Tensor,  # [Ba] int32 — this step's position per row
     *,
     slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
-    block_tables: torch.Tensor | None = None,
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool_k: torch.Tensor | None = None,  # [L, PXB, Hkv, bt, hd] prefix pool
+    pool_v: torch.Tensor | None = None,
     scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
 ) -> torch.Tensor:
     """One decode step's attention for one layer over the pre-append
-    cache; position lengths[b] takes the exact new_k/new_v. Returns
-    [Ba, Hkv, G, hd]."""
-    if block_tables is not None:
-        raise NotImplementedError(
-            "decode_attend_bf16: the paged (block-table) arm is not ported yet"
-        )
+    cache; position lengths[b] takes the exact new_k/new_v. With
+    `block_tables` every block is read through cache row slot_ids[b]'s
+    table (`decode_attend_bf16_paged`). Returns [Ba, Hkv, G, hd]."""
     if q.device.type == "cpu":
+        if block_tables is not None:
+            return decode_attend_paged_plain(
+                q, new_k, new_v, cache_k, cache_v, layer, lengths, block_tables,
+                pool_k, pool_v, slot_ids, scale,
+            )
         return decode_attend_plain(
             q, new_k, new_v, cache_k, cache_v, layer, lengths, slot_ids, scale
         )
-    name = "decode_attend_bf16"
+    name = "decode_attend_bf16" if block_tables is None else "decode_attend_bf16_paged"
     Ba, Hkv, G, hd = q.shape
     L, B, _, S, _ = cache_k.shape
     dev = q.device
@@ -229,11 +315,21 @@ def decode_attend_bf16(
     pl = torch.empty_like(pm)
     pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
+    sc = float(scale or hd**-0.5)
+    if block_tables is None:
+        _launch(
+            name, "decode_attend_bf16", q, new_k, new_v, cache_k,
+            cache_v, lengths, rows, pm, pl, pacc,
+            out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit, sc,
+        )
+        return out
+    nbs, bt, pxb = _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev)
+    if block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
     _launch(
-        name, "decode_attend_bf16", q, new_k, new_v, cache_k,
-        cache_v, lengths, rows, pm, pl, pacc,
-        out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit,
-        float(scale or hd**-0.5),
+        name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
+        cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
+        out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit, nbs, bt, pxb, sc,
     )
     return out
 
@@ -345,6 +441,23 @@ def ragged_prefill_plain(
     return out.to(q.dtype)
 
 
+def ragged_prefill_paged_plain(
+    q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots, starts,
+    block_tables, pool_k, pool_v, scale=0.0,
+):
+    """Plain version of the block-table path: `paged_gather` of each
+    descriptor row's table (block_tables [B, nbs] gathered at slots), then
+    the same math as `ragged_prefill_plain` over the gathered rows."""
+    li = int(layer)
+    tbl = block_tables.index_select(0, slots.long().to(block_tables.device))
+    krows = paged_gather(cache_k[li], pool_k[li], tbl)  # [R, Hkv, S, hd]
+    vrows = paged_gather(cache_v[li], pool_v[li], tbl)
+    own = torch.arange(slots.shape[0], dtype=torch.int32, device=slots.device)
+    return ragged_prefill_plain(
+        q, k_self, v_self, krows[None], vrows[None], 0, rowids, offsets, own, starts, scale
+    )
+
+
 def ragged_prefill_attend_bf16(
     q: torch.Tensor,  # [T, Hkv, G, hd] post-rope queries (packed)
     k_self: torch.Tensor,  # [T, Hkv, hd] the chunk's own post-rope keys
@@ -358,20 +471,24 @@ def ragged_prefill_attend_bf16(
     starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
     *,
     scale: float = 0.0,
-    block_tables: torch.Tensor | None = None,
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool_k: torch.Tensor | None = None,  # [L, PXB, Hkv, bt, hd] prefix pool
+    pool_v: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Ragged chunked-prefill attention over the bf16 cache (unpaged).
-    Returns [T, Hkv, G, hd]."""
-    if block_tables is not None:
-        raise NotImplementedError(
-            "ragged_prefill_attend_bf16: the block-table path is not ported yet"
-        )
+    """Ragged chunked-prefill attention over the bf16 cache. With
+    `block_tables` each row's cached prefix is read through the table of
+    its slot (`ragged_prefill_attend_bf16_paged`). Returns [T, Hkv, G, hd]."""
     if q.device.type == "cpu":
+        if block_tables is not None:
+            return ragged_prefill_paged_plain(
+                q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots,
+                starts, block_tables, pool_k, pool_v, scale,
+            )
         return ragged_prefill_plain(
             q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots,
             starts, scale,
         )
-    name = "ragged_prefill_attend_bf16"
+    name = "ragged_prefill_attend_bf16" if block_tables is None else "ragged_prefill_attend_bf16_paged"
     T, Hkv, G, hd = q.shape
     L, B, _, S, _ = cache_k.shape
     R = slots.shape[0]
@@ -390,9 +507,20 @@ def ragged_prefill_attend_bf16(
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(q)
+    sc = float(scale or hd**-0.5)
+    if block_tables is None:
+        _launch(
+            name, "ragged_prefill_bf16", q, k_self, v_self, cache_k,
+            cache_v, rowids, offsets, slots, starts, out,
+            int(layer), T, R, B, Hkv, G, S, hd, sc,
+        )
+        return out
+    nbs, bt, pxb = _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev)
+    # the descriptor rows' tables, as JAX's `_ragged_tables` gathers them
+    tbl = block_tables.index_select(0, slots.long()).contiguous()
     _launch(
-        name, "ragged_prefill_bf16", q, k_self, v_self, cache_k,
-        cache_v, rowids, offsets, slots, starts, out,
-        int(layer), T, R, B, Hkv, G, S, hd, float(scale or hd**-0.5),
+        name, "ragged_prefill_bf16_paged", q, k_self, v_self, cache_k,
+        cache_v, rowids, offsets, slots, starts, tbl, pool_k, pool_v, out,
+        int(layer), T, R, B, Hkv, G, S, hd, nbs, bt, pxb, sc,
     )
     return out

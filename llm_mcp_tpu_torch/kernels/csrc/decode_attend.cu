@@ -22,10 +22,23 @@
 // them yet: the append runs after all layers). A row parked at w >= S
 // attends its new vectors alone (w is clamped to 0) and reads no cache.
 //
+// Paged arm (`decode_attend_bf16_paged`). Replaces
+// `_attend_bf16_paged_kernel` (same file), whose Pallas body streams each
+// bt-token block with its own DMA, resolved through the row's block table
+// to an arena home or a prefix-pool row. Here the split kernel is the same
+// with one change: every key position p of cache row `row` finds its K/V
+// through tbl[row * nbs + p / bt] (paged.cuh), so a 64-key tile may span
+// two blocks (bt = 32) or sit inside one (bt >= 64), and blocks may live in
+// other slots' arena homes or in the pool. The override at w holds in
+// whichever block w lives. The read is the same bytes as the contiguous
+// arm plus one 4-byte table entry per key (L1-resident), so the bound is
+// unchanged.
+//
 // Layouts: q [Ba, Hkv, G, hd]; new_k/new_v [Ba, Hkv, hd];
-// cache [L, B, Hkv, S, hd]; lengths/slot_ids [Ba] int32; out like q.
+// cache [L, B, Hkv, S, hd]; lengths/slot_ids [Ba] int32; out like q;
+// paged: tbl [B, nbs] int32, pool [L, PXB, Hkv, bt, hd].
 
-#include "common.cuh"
+#include "paged.cuh"
 
 namespace {
 
@@ -38,6 +51,7 @@ constexpr int THREADS = 128;  // one thread per output dim in the PV phase
 constexpr size_t SMEM_FLOATS = MAXG * HD + DK * KPAD + DK * HD + MAXG * DK;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
+template <bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     const bf16* __restrict__ nv, const bf16* __restrict__ ck,
@@ -45,7 +59,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     const int* __restrict__ slot_ids, float* __restrict__ pm,
                     float* __restrict__ pl, float* __restrict__ pacc, int layer,
                     int B, int Hkv, int G, int S, int chunk, int nsplit,
-                    float scale) {
+                    float scale, PagedKV pkv) {
   extern __shared__ float sm[];
   float* qs = sm;                 // [MAXG][HD] scaled queries
   float* ks = qs + MAXG * HD;     // [DK][KPAD]
@@ -102,6 +116,12 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
         if (pos == we) {
           load8(nkp + d0, kf);
           load8(nvp + d0, vf);
+        } else if constexpr (PAGED) {
+          const bf16* kp;
+          const bf16* vp;
+          paged_row(pkv, ck, cv, layer, B, Hkv, h, S, HD, row, pos, kp, vp);
+          load8(kp + d0, kf);
+          load8(vp + d0, vf);
         } else {
           load8(kbase + (size_t)pos * HD + d0, kf);
           load8(vbase + (size_t)pos * HD + d0, vf);
@@ -199,6 +219,29 @@ decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl
   }
 }
 
+template <bool PAGED>
+int launch(const void* q, const void* nk, const void* nv, const void* ck, const void* cv,
+           const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
+           void* out, int layer, int B, int Ba, int Hkv, int G, int S, int hd, int chunk,
+           int nsplit, float scale, PagedKV pg, void* stream) {
+  if (hd != HD || G > MAXG || G < 1 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_split_kernel<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(nsplit, Hkv, Ba);
+  decode_split_kernel<PAGED><<<grid, THREADS, SMEM_BYTES, st>>>(
+      (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck,
+      (const bf16*)cv, (const int*)lengths, (const int*)slot_ids, (float*)pm,
+      (float*)pl, (float*)pacc, layer, B, Hkv, G, S, chunk, nsplit, scale, pg);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_combine_kernel<<<dim3(Hkv, Ba), THREADS, 0, st>>>(
+      (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv,
+      G, nsplit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int decode_attend_bf16(const void* q, const void* nk, const void* nv,
@@ -208,20 +251,21 @@ extern "C" int decode_attend_bf16(const void* q, const void* nk, const void* nv,
                                   int layer, int B, int Ba, int Hkv, int G,
                                   int S, int hd, int chunk, int nsplit,
                                   float scale, void* stream) {
-  if (hd != HD || G > MAXG || G < 1 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(nsplit, Hkv, Ba);
-  decode_split_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck,
-      (const bf16*)cv, (const int*)lengths, (const int*)slot_ids, (float*)pm,
-      (float*)pl, (float*)pacc, layer, B, Hkv, G, S, chunk, nsplit, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_combine_kernel<<<dim3(Hkv, Ba), THREADS, 0, st>>>(
-      (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv,
-      G, nsplit);
-  return (int)cudaGetLastError();
+  return launch<false>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc, out, layer, B,
+                       Ba, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, stream);
+}
+
+extern "C" int decode_attend_bf16_paged(const void* q, const void* nk, const void* nv,
+                                        const void* ck, const void* cv,
+                                        const void* lengths, const void* slot_ids,
+                                        const void* tbl, const void* pool_k,
+                                        const void* pool_v, void* pm, void* pl,
+                                        void* pacc, void* out, int layer, int B, int Ba,
+                                        int Hkv, int G, int S, int hd, int chunk,
+                                        int nsplit, int nbs, int bt, int pxb,
+                                        float scale, void* stream) {
+  if (nbs <= 0 || bt <= 0 || nbs * bt != S || pxb <= 0) return (int)cudaErrorInvalidValue;
+  const PagedKV pg{(const int*)tbl, (const bf16*)pool_k, (const bf16*)pool_v, nbs, bt, pxb};
+  return launch<true>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc, out, layer, B,
+                      Ba, Hkv, G, S, hd, chunk, nsplit, scale, pg, stream);
 }

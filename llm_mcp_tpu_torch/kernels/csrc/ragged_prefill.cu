@@ -2,8 +2,16 @@
 // over the bf16 cache (unpaged).
 //
 // Replaces: llm_mcp_tpu/kernels/attention.py `_ragged_prefill_bf16_kernel`
-// (behind `ragged_prefill_attend_bf16`), the identity-table (unpaged) path.
-// The block-table path comes with the prefix cache.
+// (behind `ragged_prefill_attend_bf16`), both its identity-table path
+// (`ragged_prefill_bf16`) and its block-table path
+// (`ragged_prefill_bf16_paged`). In the Pallas body the cached prefix of
+// each row streams block by block, each block's DMA resolved through the
+// row's table to an arena home or a prefix-pool row (lines 2801-2834). Here the
+// paged arm resolves every key position p of descriptor row r through
+// tbl[r * nbs + p / bt] (paged.cuh; the wrapper gathers the engine's
+// [B, nbs] table to the R rows, as `_ragged_tables` does). A 64-key tile
+// may span two blocks (bt = 32), and a block may live in another slot's
+// arena home or in the pool. The self segment needs no table.
 //
 // A [T]-token buffer carries up to R rows' chunks back to back: row r
 // holds packed indices [offsets[r], offsets[r+1]); pad tokens after
@@ -22,12 +30,14 @@
 //
 // Layouts: q [T, Hkv, G, hd]; k_self/v_self [T, Hkv, hd];
 // cache [L, B, Hkv, S, hd]; rowids [T], offsets [R+1], slots/starts [R]
-// int32; out like q.
+// int32; out like q; paged: tbl [R, nbs] int32, pool [L, PXB, Hkv, bt, hd].
 
+#include "paged.cuh"
 #include "tile_attention.cuh"
 
 namespace {
 
+template <bool PAGED>
 __global__ void __launch_bounds__(tile::THREADS)
 ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
                       const bf16* __restrict__ vs, const bf16* __restrict__ ck,
@@ -35,7 +45,7 @@ ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
                       const int* __restrict__ offsets, const int* __restrict__ slots,
                       const int* __restrict__ starts, bf16* __restrict__ out,
                       int layer, int T, int R, int B, int Hkv, int G, int S,
-                      float scale) {
+                      float scale, PagedKV pg) {
   extern __shared__ float sm[];
   const tile::Smem s(sm);
   __shared__ int row_tok[tile::BQ];  // packed token of query row (-1: none)
@@ -77,8 +87,12 @@ ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
       tile::step(
           s, st, nkeys, 0.f,
           [&](int kk, const bf16*& kp, const bf16*& vp) {
-            kp = kbase + (size_t)(k0 + kk) * tile::HD;
-            vp = vbase + (size_t)(k0 + kk) * tile::HD;
+            if constexpr (PAGED) {
+              paged_row(pg, ck, cv, layer, B, Hkv, h, S, tile::HD, r, k0 + kk, kp, vp);
+            } else {
+              kp = kbase + (size_t)(k0 + kk) * tile::HD;
+              vp = vbase + (size_t)(k0 + kk) * tile::HD;
+            }
           },
           [&](int qr, int kk) { return row_rid[qr] == r; });
     }
@@ -106,6 +120,25 @@ ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
   });
 }
 
+template <bool PAGED>
+int launch(const void* q, const void* ks, const void* vs, const void* ck, const void* cv,
+           const void* rowids, const void* offsets, const void* slots, const void* starts,
+           void* out, int layer, int T, int R, int B, int Hkv, int G, int S, int hd,
+           float scale, PagedKV pg, void* stream) {
+  if (hd != tile::HD || G < 1 || tile::BQ % G != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(ragged_prefill_kernel<PAGED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)tile::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int TQ = tile::BQ / G;
+  dim3 grid((T + TQ - 1) / TQ, Hkv);
+  ragged_prefill_kernel<PAGED><<<grid, tile::THREADS, tile::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)ks, (const bf16*)vs, (const bf16*)ck, (const bf16*)cv,
+      (const int*)rowids, (const int*)offsets, (const int*)slots, (const int*)starts,
+      (bf16*)out, layer, T, R, B, Hkv, G, S, scale, pg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ragged_prefill_bf16(const void* q, const void* ks, const void* vs,
@@ -114,16 +147,21 @@ extern "C" int ragged_prefill_bf16(const void* q, const void* ks, const void* vs
                                    const void* starts, void* out, int layer, int T,
                                    int R, int B, int Hkv, int G, int S, int hd,
                                    float scale, void* stream) {
-  if (hd != tile::HD || G < 1 || tile::BQ % G != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(ragged_prefill_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)tile::SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int TQ = tile::BQ / G;
-  dim3 grid((T + TQ - 1) / TQ, Hkv);
-  ragged_prefill_kernel<<<grid, tile::THREADS, tile::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)ks, (const bf16*)vs, (const bf16*)ck, (const bf16*)cv,
-      (const int*)rowids, (const int*)offsets, (const int*)slots, (const int*)starts,
-      (bf16*)out, layer, T, R, B, Hkv, G, S, scale);
-  return (int)cudaGetLastError();
+  return launch<false>(q, ks, vs, ck, cv, rowids, offsets, slots, starts, out, layer, T, R,
+                       B, Hkv, G, S, hd, scale, PagedKV{}, stream);
+}
+
+extern "C" int ragged_prefill_bf16_paged(const void* q, const void* ks, const void* vs,
+                                         const void* ck, const void* cv,
+                                         const void* rowids, const void* offsets,
+                                         const void* slots, const void* starts,
+                                         const void* tbl, const void* pool_k,
+                                         const void* pool_v, void* out, int layer, int T,
+                                         int R, int B, int Hkv, int G, int S, int hd,
+                                         int nbs, int bt, int pxb, float scale,
+                                         void* stream) {
+  if (nbs <= 0 || bt <= 0 || nbs * bt != S || pxb <= 0) return (int)cudaErrorInvalidValue;
+  const PagedKV pg{(const int*)tbl, (const bf16*)pool_k, (const bf16*)pool_v, nbs, bt, pxb};
+  return launch<true>(q, ks, vs, ck, cv, rowids, offsets, slots, starts, out, layer, T, R,
+                      B, Hkv, G, S, hd, scale, pg, stream);
 }

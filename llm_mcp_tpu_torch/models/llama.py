@@ -16,6 +16,11 @@ prompts, ragged prefill for packed chunks, decode attention over the
 pre-append cache and one post-layer append for decode steps. The cache is
 updated in place (the JAX functions return new arrays); the functions
 return it all the same, so call sites read like their JAX counterparts.
+
+`paged={"tbl", "k", "v"}` (the physical block tables [B, nbs] and the
+prefix pool [L, PXB, Hkv, bt, hd] of `executor/physical.py`) makes the
+attention reads go through the tables. Writes stay table-free: they land
+at private positions, which are identity-homed in the arena.
 """
 
 from __future__ import annotations
@@ -122,6 +127,13 @@ def init_kv_cache(
     }
 
 
+def _paged_kw(paged: dict | None) -> dict:
+    """The attention wrappers' paged arguments from a `paged` operand."""
+    if paged is None:
+        return {}
+    return {"block_tables": paged["tbl"], "pool_k": paged["k"], "pool_v": paged["v"]}
+
+
 def _layer(params: Params, li: int) -> Params:
     return {k: v[li] for k, v in params["layers"].items()}
 
@@ -221,8 +233,9 @@ def llama_prefill_chunk_ragged(
     slots: torch.Tensor,  # [R] int32 — engine slot per descriptor row
     starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
     last_idx: torch.Tensor,  # [R] int32 — packed index of each row's last token
+    paged: dict | None = None,  # {"tbl","k","v"} physical paging operand
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Ragged chunked prefill (unpaged): each layer attends every row's
+    """Ragged chunked prefill: each layer attends every row's
     cached prefix plus its own causal segment, then writes the chunk's K/V
     at (slot, position). Reads come before writes in every layer. Pad
     tokens carry position S and write nothing (JAX drops those scatters;
@@ -259,10 +272,12 @@ def llama_prefill_chunk_ragged(
         ctx = ragged_prefill_attend_bf16(
             q.reshape(T, Hkv, G, hd).contiguous(), k.contiguous(), v.contiguous(),
             cache_k, cache_v, li, rowids, offsets, slots, starts, scale=cfg.attn_scale,
+            **_paged_kw(paged),
         )
         h = _attn_residual(cfg, lp, ctx.reshape(T, H * hd), h)
         h = _ffn_residual(cfg, lp, h)
-        # writes last: this layer's reads above saw the pre-write cache
+        # writes last: this layer's reads above saw the pre-write cache;
+        # positional and table-free (private positions are identity-homed)
         cache_k[li][wslot, :, wpos] = k[keep].to(cache_k.dtype)
         cache_v[li][wslot, :, wpos] = v[keep].to(cache_v.dtype)
     last = h[torch.clamp(last_idx.long(), 0, T - 1)]  # [R, D]
@@ -278,6 +293,7 @@ def llama_decode_step(
     tokens: torch.Tensor,  # [Ba] int32 — last emitted token per row
     lengths: torch.Tensor,  # [Ba] int32 — position to write per row
     slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+    paged: dict | None = None,  # {"tbl","k","v"} physical paging operand
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One batched autoregressive step, with the structure of JAX's
     `_decode_step_bf16`: every layer reads the cache unchanged and
@@ -301,6 +317,7 @@ def llama_decode_step(
         ctx = decode_attend_bf16(
             q.reshape(Ba, Hkv, H // Hkv, hd).contiguous(), k.contiguous(), v.contiguous(),
             cache_k, cache_v, li, lengths, slot_ids=slot_ids, scale=cfg.attn_scale,
+            **_paged_kw(paged),
         )
         h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
         h = _ffn_residual(cfg, lp, h)

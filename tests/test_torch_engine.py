@@ -2,8 +2,13 @@
 
   - greedy tokens identical to the JAX `GenerationEngine` on one shared
     `tiny-llm` parameter tree (f32; the JAX engine on its Pallas path in
-    interpret mode, prompt cache off), with one prompt longer than
-    `prefill_chunk` so ragged chunks interleave with decode rounds;
+    interpret mode), with the prompt cache off and one prompt longer than
+    `prefill_chunk` so ragged chunks interleave with decode rounds; and
+    with the prompt cache on over a sequence that stores prefixes and hits
+    them, aligned and copy-on-write, through physical paging and through
+    contiguous entries (a block size the physical gate refuses);
+  - after a failed step the engine drops every prefix entry and table and
+    serves the next request hit-free and right;
   - `/v1/chat/completions` over SSE ends in `data: [DONE]`;
   - every module of the port imports with `jax` and `llm_mcp_tpu`
     blocked, and one CPU generate runs;
@@ -64,11 +69,7 @@ def _run_all(engine, make_req) -> list[list[int]]:
     return [seen[r.request_id] for r in reqs]
 
 
-def test_engine_greedy_tokens_match_jax(monkeypatch):
-    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
-    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
-    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
-    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+def _jax_params():
     from llm_mcp_tpu.models.configs import get_config as jax_get_config
     from llm_mcp_tpu.models.llama import init_llama_params
 
@@ -78,6 +79,16 @@ def test_engine_greedy_tokens_match_jax(monkeypatch):
     tparams = params_from_numpy(
         jax.tree.map(np.asarray, jparams), get_config("tiny-llm"), "cpu", torch.float32
     )
+    return jparams, tparams
+
+
+def test_engine_greedy_tokens_match_jax(monkeypatch):
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_params()
     jeng = JaxEngine(
         "tiny-llm", params=jparams, dtype=jnp.float32, prompt_cache_mb=0, **ENGINE_KW
     ).start()
@@ -89,7 +100,8 @@ def test_engine_greedy_tokens_match_jax(monkeypatch):
     finally:
         jeng.shutdown()
     teng = GenerationEngine(
-        "tiny-llm", params=tparams, dtype=torch.float32, device="cpu", **ENGINE_KW
+        "tiny-llm", params=tparams, dtype=torch.float32, device="cpu", prompt_cache_mb=0,
+        **ENGINE_KW,
     ).start()
     try:
         got = _run_all(
@@ -99,6 +111,127 @@ def test_engine_greedy_tokens_match_jax(monkeypatch):
         teng.shutdown()
     assert len(PROMPTS[1]) + 1 > ENGINE_KW["prefill_chunk"]
     assert [len(t) for t in got] == [12, 12, 12]
+    assert got == want
+
+
+# Prefix traffic on the byte tokenizer (one token per byte): B shares 90+
+# tokens with A, so its activation stores A's first 64 tokens (one aligned
+# block); C hits it. E shares 40 with D (another system message, nothing in
+# common with the first), so it stores 32 tokens, and F hits those
+# unaligned: its boundary block is copied on write.
+SYS1 = "system: You are a careful assistant. Answer in one short line, and never guess.\nuser: "
+SYS2 = "sys: terse mode, no lists please\nuser: "
+PREFIX_PROMPTS = [SYS1 + "what is 2+2?", SYS1 + "name a color", SYS1 + "spell cat",
+                  SYS2 + "hi", SYS2 + "yo", SYS2 + "ok then"]
+PREFIX_KW = dict(max_slots=4, max_seq_len=256, prefill_chunk=32, decode_chunk=4,
+                 prompt_cache_mb=1)
+
+
+def _run_seq(engine, make_req, prompts) -> list[list[int]]:
+    """One request at a time, so both engines store and hit alike."""
+    seen = _record_tokens(engine)
+    out = []
+    for p in prompts:
+        r = make_req(engine.tokenizer.encode(p))
+        engine.submit(r)
+        while True:
+            evt = r.out.get(timeout=300)
+            if not isinstance(evt, dict) or evt.get("type") in ("done", "error"):
+                assert not isinstance(evt, dict) or evt["type"] == "done", evt
+                break
+        out.append(seen[r.request_id])
+    return out
+
+
+@pytest.mark.parametrize("block_tokens,physical", [("64", True), ("16", False)])
+def test_engine_prefix_cache_greedy_tokens_match_jax(monkeypatch, block_tokens, physical):
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", block_tokens)  # read at construction
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_params()
+    jeng = JaxEngine("tiny-llm", params=jparams, dtype=jnp.float32, **PREFIX_KW).start()
+    try:
+        assert (jeng._phys is not None) == physical
+        want = _run_seq(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        jstats = jeng.prefix_cache_stats()
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine(
+        "tiny-llm", params=tparams, dtype=torch.float32, device="cpu", **PREFIX_KW
+    ).start()
+    try:
+        got = _run_seq(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        tstats = teng.prefix_cache_stats()
+        paging = teng.paging_stats()
+    finally:
+        teng.shutdown()
+    assert got == want
+    assert tstats["hits"] == jstats["hits"] == 2
+    assert tstats == jstats
+    assert paging["leaks"] == 0 and paging["slot_tables"] == 0
+    assert paging["physical"] == float(physical)
+    if physical:  # 32 is not a multiple of 64: F's boundary block copies
+        assert paging["cow_copies_total"] == 1
+        assert paging["physical_cow_copies_total"] == 1
+        assert paging["physical_missing_pins"] == 0
+        assert paging["physical_pool_rows_used"] == 2  # one block per entry
+
+
+def test_engine_failed_step_drops_prefix_state(monkeypatch):
+    """A step that raises mid-decode errors its requests and leaves no
+    prefix entry, ledger table or pool row behind; the next request with
+    the same prefix is served hit-free, with the tokens of a fresh engine."""
+    from llm_mcp_tpu_torch.executor import engine as E
+
+    _, tparams = _jax_params()
+    kw = dict(params=tparams, dtype=torch.float32, device="cpu", **PREFIX_KW)
+    fresh = GenerationEngine("tiny-llm", **kw).start()
+    try:
+        want = _run_seq(
+            fresh, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS[2:3],
+        )
+    finally:
+        fresh.shutdown()
+    eng = GenerationEngine("tiny-llm", **kw).start()
+    try:
+        for p in PREFIX_PROMPTS[:2]:
+            eng.generate(p, max_tokens=4, temperature=0.0)
+        assert eng.prefix_cache_stats()["entries"] == 1
+        real = E.llama_decode_step
+        calls = {"n": 0}
+
+        def flaky(*a, **k):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("injected step failure")
+            return real(*a, **k)
+
+        monkeypatch.setattr(E, "llama_decode_step", flaky)
+        with pytest.raises(RuntimeError, match="injected"):
+            eng.generate(PREFIX_PROMPTS[2], max_tokens=8, temperature=0.0)
+        monkeypatch.setattr(E, "llama_decode_step", real)
+        st, pg = eng.prefix_cache_stats(), eng.paging_stats()
+        assert st["entries"] == 0 and st["hits"] == 1
+        assert pg["leaks"] == 0 and pg["slot_tables"] == 0 and pg["blocks_used"] == 0
+        assert pg["physical_pool_rows_used"] == 0
+        assert not eng._pool_k.any() and not eng._ck.any()
+        got = _run_seq(
+            eng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS[2:3],
+        )
+        assert eng.prefix_cache_stats()["hits"] == 1  # no new hit
+    finally:
+        eng.shutdown()
     assert got == want
 
 
@@ -177,11 +310,15 @@ import llm_mcp_tpu_torch
 for m in pkgutil.walk_packages(llm_mcp_tpu_torch.__path__, "llm_mcp_tpu_torch."):
     importlib.import_module(m.name)
 from llm_mcp_tpu_torch.executor import GenerationEngine
-eng = GenerationEngine("tiny-llm", max_slots=2, max_seq_len=64, prefill_chunk=16,
-                       dtype=torch.float32, device="cpu").start()
-out = eng.generate("hello", max_tokens=4, temperature=0)
+eng = GenerationEngine("tiny-llm", max_slots=2, max_seq_len=128, prefill_chunk=16,
+                       dtype=torch.float32, device="cpu", prompt_cache_mb=1).start()
+sys_msg = "system: the same long preamble for both requests\nuser: "
+for q in ("hello", "again", "third"):  # the second stores, the third hits
+    out = eng.generate(sys_msg + q, max_tokens=4, temperature=0)
+    assert out["usage"]["completion_tokens"] == 4, out
+hits, pg = eng.prefix_cache_stats()["hits"], eng.paging_stats()
 eng.shutdown()
-assert out["usage"]["completion_tokens"] == 4, out
+assert hits == 1 and pg["physical"] == 1.0 and pg["leaks"] == 0, (hits, pg)
 bad = [k for k, v in sys.modules.items() if v is not None and
        (k.split(".")[0] in ("jax", "jaxlib", "llm_mcp_tpu"))]
 assert not bad, bad

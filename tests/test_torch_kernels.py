@@ -4,10 +4,11 @@ kernels.
 Inputs are made with numpy from a seed and fed to both sides. The JAX side
 runs its Pallas kernels in interpret mode, as `tests/test_kernel_parity.py`
 does (`interpret=True`, `impl="kernel"` for ragged prefill, the decode arm
-forced with `LLM_MCP_TPU_BF16_DECODE`). On the CPU the port's wrappers take
+forced with `LLM_MCP_TPU_BF16_DECODE`, `paged` for the block-table arm).
+On the CPU the port's wrappers take
 their plain PyTorch versions, which is what is compared here, in f32:
 
-  - append: bitwise (a copy);
+  - append and `paged_gather`: bitwise (copies);
   - attention: atol = rtol = 2e-5, the summation order differing (the
     Pallas kernels fold key blocks with an online softmax, the plain
     versions take one softmax over the whole row).
@@ -95,13 +96,87 @@ def test_decode_attend_matches_pallas(monkeypatch, arm, case):
     assert np.isfinite(out_t).all()
 
 
-def test_decode_attend_rejects_block_tables():
-    z = torch.zeros((1, 1, 1, 8))
-    with pytest.raises(NotImplementedError):
-        P.decode_attend_bf16(
-            z, z[..., 0, :], z[..., 0, :], z[None, None], z[None, None], 0,
-            torch.zeros(1, dtype=torch.int32), block_tables=torch.zeros((1, 1)),
-        )
+# -- paged decode ------------------------------------------------------------
+#
+# The construction of `tests/test_kernel_parity.py` (`_paged_split`,
+# `_paged_tables`): blocks [0, nshared) of every slot share one content,
+# one copy of them goes to the pool, the tables point there, and the arena's
+# donor blocks are scrambled. One more block resolves to a foreign arena
+# home (another slot's row), its own home scrambled. A read that goes to
+# the arena where the table says pool (or to its own home) then fails.
+
+
+def _paged_case(rng, L, B, H, S, hd, bt, nshared):
+    """(ref, arena, pool) for K or V, and the tables: `ref` is the
+    contiguous cache the paged read must reproduce."""
+    nbs = S // bt
+    x = rng.standard_normal((L, B, H, S, hd)).astype(np.float32)
+    for j in range(nshared):
+        x[:, :, :, j * bt:(j + 1) * bt] = x[:, :1, :, j * bt:(j + 1) * bt]
+    tbl = np.arange(B * nbs, dtype=np.int32).reshape(B, nbs)
+    tbl[:, :nshared] = B * nbs + np.arange(nshared, dtype=np.int32)
+    pool = np.zeros((L, nbs, H, bt, hd), np.float32)
+    for j in range(nshared):
+        pool[:, j] = x[:, 0, :, j * bt:(j + 1) * bt]
+    if nshared < nbs:  # slot 1's block nshared lives in slot 2's home
+        j = nshared
+        x[:, 1, :, j * bt:(j + 1) * bt] = x[:, 2, :, j * bt:(j + 1) * bt]
+        tbl[1, j] = 2 * nbs + j
+    ref = x.copy()
+    for j in range(nshared):
+        x[:, :, :, j * bt:(j + 1) * bt] = rng.standard_normal(x[:, :, :, j * bt:(j + 1) * bt].shape)
+    if nshared < nbs:
+        x[:, 1, :, nshared * bt:(nshared + 1) * bt] = rng.standard_normal((L, H, bt, hd))
+    return ref, x, pool, tbl
+
+
+@pytest.mark.parametrize("bt", [32, 64])
+@pytest.mark.parametrize("fill", [0.4, 0.9])
+def test_decode_attend_paged_matches_pallas(monkeypatch, fill, bt):
+    monkeypatch.setenv("LLM_MCP_TPU_BF16_DECODE", "paged")
+    A.decode_attend_bf16.clear_cache()  # the arm is read at trace time
+    rng = np.random.default_rng(22)
+    L, B, Hkv, G, S, hd = 2, 3, 2, 2, 256, 64
+    nshared = min(S // bt, round(fill * S / bt))
+    ref_k, ck, pk, tbl = _paged_case(rng, L, B, Hkv, S, hd, bt, nshared)
+    ref_v, cv, pv, _ = _paged_case(rng, L, B, Hkv, S, hd, bt, nshared)
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    nk = rng.standard_normal((B, Hkv, hd)).astype(np.float32)
+    nv = rng.standard_normal((B, Hkv, hd)).astype(np.float32)
+    base = int(fill * (S - 2))
+    lens = ((base + rng.integers(0, S // 8, B)) % (S - 1)).astype(np.int32)
+    ids = rng.permutation(B).astype(np.int32)
+    out_j = np.asarray(A.decode_attend_bf16(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.int32(1), jnp.asarray(lens), slot_ids=jnp.asarray(ids),
+        block_tables=jnp.asarray(tbl), pool_k=jnp.asarray(pk), pool_v=jnp.asarray(pv),
+        interpret=True,
+    ))
+    out_t = P.decode_attend_bf16(
+        _t(q), _t(nk), _t(nv), _t(ck), _t(cv), 1, _t(lens), slot_ids=_t(ids),
+        block_tables=_t(tbl), pool_k=_t(pk), pool_v=_t(pv),
+    ).numpy()
+    np.testing.assert_allclose(out_t, out_j, **TOL)
+    # and the contiguous reference the tables stand for
+    want = P.decode_attend_plain(_t(q), _t(nk), _t(nv), _t(ref_k), _t(ref_v), 1, _t(lens), _t(ids))
+    np.testing.assert_allclose(out_t, want.numpy(), **TOL)
+
+
+def test_paged_gather_bitwise_matches_jax():
+    rng = np.random.default_rng(24)
+    B, H, S, hd, bt = 3, 2, 256, 16, 64
+    nbs = S // bt
+    arena = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    pool = rng.standard_normal((5, H, bt, hd)).astype(np.float32)
+    tbl = rng.integers(0, B * nbs + 5, (4, nbs)).astype(np.int32)  # arena and pool ids
+    got = P.paged_gather(_t(arena), _t(pool), _t(tbl)).numpy()
+    want = np.asarray(A.paged_gather(jnp.asarray(arena), jnp.asarray(pool), jnp.asarray(tbl)))
+    np.testing.assert_array_equal(got, want)
+    # a table prefix, with nbs naming the full blocks per slot
+    got = P.paged_gather(_t(arena), _t(pool), _t(tbl[:, :2]), nbs=nbs).numpy()
+    want = np.asarray(A.paged_gather(
+        jnp.asarray(arena), jnp.asarray(pool), jnp.asarray(tbl[:, :2]), nbs=nbs))
+    np.testing.assert_array_equal(got, want)
 
 
 # -- flash prefill -------------------------------------------------------------
@@ -170,5 +245,55 @@ def test_ragged_prefill_matches_pallas(fill):
     out_t = P.ragged_prefill_attend_bf16(
         _t(q), _t(ks), _t(vs), _t(ck), _t(cv), 1, _t(rowids), _t(offsets),
         _t(slots), _t(starts), scale=sc,
+    ).numpy()
+    np.testing.assert_allclose(out_t, out_j, **TOL)
+
+
+@pytest.mark.parametrize("bt", [32, 64])
+@pytest.mark.parametrize("fill", [0.4, 0.9])
+def test_ragged_prefill_paged_matches_pallas(fill, bt):
+    """The scrambled tables of `test_kernel_parity.py:_ragged_case`: slot
+    4's prefix resolves through pool rows and slot 2's arena home, slot 0's
+    through a pool row and slot 5's home."""
+    rng = np.random.default_rng(31)
+    L, B, Hkv, G, hd, S, pxb = 2, 6, 2, 2, 64, 128, 4
+    R, T = 3, 32
+    lens = [10, 0, 14]  # row 1 empty; 24 real tokens < T: remainder pads
+    total = sum(lens)
+    offsets = np.zeros(R + 1, np.int32)
+    offsets[1:] = np.cumsum(lens)
+    rowids = np.concatenate(
+        [np.full(n, r, np.int32) for r, n in enumerate(lens)]
+        + [np.full(T - total, R, np.int32)]
+    )
+    base = int(fill * (S - 16))
+    starts = np.asarray([base + 5, 0, max(1, base)], np.int32)
+    slots = np.asarray([4, 2, 0], np.int32)
+    nbs = S // bt
+    tbl = np.arange(B * nbs, dtype=np.int32).reshape(B, nbs)
+    tbl[4, 0] = B * nbs + 1
+    tbl[4, 1] = 2 * nbs + 1
+    if nbs > 2:
+        tbl[4, 2] = B * nbs + 3
+    tbl[0, 0] = B * nbs + 0
+    tbl[0, 1] = 5 * nbs + 1
+    ck = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, S, hd)).astype(np.float32)
+    pk = rng.standard_normal((L, pxb, Hkv, bt, hd)).astype(np.float32)
+    pv = rng.standard_normal((L, pxb, Hkv, bt, hd)).astype(np.float32)
+    q = rng.standard_normal((T, Hkv, G, hd)).astype(np.float32)
+    ks = rng.standard_normal((T, Hkv, hd)).astype(np.float32)
+    vs = rng.standard_normal((T, Hkv, hd)).astype(np.float32)
+    sc = hd**-0.5
+    out_j = np.asarray(A.ragged_prefill_attend_bf16(
+        jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(ck),
+        jnp.asarray(cv), 1, jnp.asarray(rowids), jnp.asarray(offsets),
+        jnp.asarray(slots), jnp.asarray(starts), scale=sc, impl="kernel",
+        interpret=True, block_q=16, block_tables=jnp.asarray(tbl),
+        pool_k=jnp.asarray(pk), pool_v=jnp.asarray(pv),
+    ))
+    out_t = P.ragged_prefill_attend_bf16(
+        _t(q), _t(ks), _t(vs), _t(ck), _t(cv), 1, _t(rowids), _t(offsets),
+        _t(slots), _t(starts), scale=sc, block_tables=_t(tbl), pool_k=_t(pk), pool_v=_t(pv),
     ).numpy()
     np.testing.assert_allclose(out_t, out_j, **TOL)

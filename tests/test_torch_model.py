@@ -3,8 +3,11 @@
 One JAX parameter tree (f32) goes through `params_from_numpy` to the port,
 so both compute from the same weights; caches and tokens are made with
 numpy. The JAX side runs its Pallas path in interpret mode
-(`attn_impl="pallas"`, `LLM_MCP_TPU_RAGGED_IMPL=kernel`). Tolerances, in
-f32: logits within 1e-4 absolute, updated caches within 1e-5.
+(`attn_impl="pallas"`, `LLM_MCP_TPU_RAGGED_IMPL=kernel`, and
+`LLM_MCP_TPU_BF16_DECODE=paged` for the paged decode arm). The paged cases
+give both sides the same `paged={"tbl", "k", "v"}` operand: tables whose
+blocks resolve to pool rows and to another slot's arena home. Tolerances,
+in f32: logits within 1e-4 absolute, updated caches within 1e-5.
 """
 
 from __future__ import annotations
@@ -104,6 +107,88 @@ def test_llama_prefill_chunk_ragged_matches_jax(shared, monkeypatch):
     tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
     tl, tk, tv = TL.llama_prefill_chunk_ragged(
         cfg, tparams, tk, tv, *map(torch.from_numpy, args)
+    )
+    np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], **LOGIT_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+
+
+def _paged_operand(rng, cfg, B, S, bt):
+    """Tables [B, S/bt] with pool rows and a foreign arena home, and a
+    random pool [L, 3, Hkv, bt, hd] for K and V (numpy)."""
+    nbs = S // bt
+    tbl = np.arange(B * nbs, dtype=np.int32).reshape(B, nbs)
+    tbl[0, 0], tbl[0, 1] = B * nbs + 2, B * nbs + 0  # pool rows, out of order
+    tbl[1, 0] = 3 * nbs + 2  # slot 3's home block 2
+    tbl[2, 1] = B * nbs + 1
+    shape = (cfg.n_layers, 3, cfg.n_kv_heads, bt, cfg.resolved_head_dim)
+    return (tbl, rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def test_llama_decode_step_paged_matches_jax(shared, monkeypatch):
+    monkeypatch.setenv("LLM_MCP_TPU_BF16_DECODE", "paged")
+    from llm_mcp_tpu.kernels.attention import decode_attend_bf16
+
+    decode_attend_bf16.clear_cache()  # the arm is read at trace time
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(5)
+    B, S, bt = 4, 128, 32
+    ck, cv = _cache(rng, cfg, B, S)
+    tbl, pk, pv = _paged_operand(rng, cfg, B, S, bt)
+    tokens = rng.integers(3, 259, (B,)).astype(np.int32)
+    lengths = np.asarray([70, 40, S, 100], np.int32)  # row 2 parked
+    jl, jk, jv = JL.llama_decode_step(
+        jcfg, jparams, jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(tokens),
+        jnp.asarray(lengths), attn_impl="pallas",
+        paged={"tbl": jnp.asarray(tbl), "k": jnp.asarray(pk), "v": jnp.asarray(pv)},
+    )
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    t = torch.from_numpy
+    tl, tk, tv = TL.llama_decode_step(
+        cfg, tparams, tk, tv, t(tokens), t(lengths),
+        paged={"tbl": t(tbl), "k": t(pk), "v": t(pv)},
+    )
+    live = lengths < S
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], **LOGIT_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+    # the tables mattered: the same step over the bare arena differs
+    flat, _, _ = TL.llama_decode_step(
+        cfg, tparams, torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
+        t(tokens), t(lengths))
+    assert not np.allclose(flat.numpy()[:2], tl.numpy()[:2], atol=1e-3)
+
+
+def test_llama_prefill_chunk_ragged_paged_matches_jax(shared, monkeypatch):
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(6)
+    B, S, R, T, bt = 4, 128, 3, 32, 32
+    ck, cv = _cache(rng, cfg, B, S)
+    tbl, pk, pv = _paged_operand(rng, cfg, B, S, bt)
+    lens = [12, 9, 0]  # row 2 unused
+    starts = np.asarray([40, 33, 0], np.int32)  # prefixes through the tables
+    slots = np.asarray([0, 1, 3], np.int32)
+    rowids = np.full(T, R, np.int32)
+    positions = np.full(T, S, np.int32)
+    last_idx = np.zeros(R, np.int32)
+    off = 0
+    for r, n in enumerate(lens):
+        rowids[off: off + n] = r
+        positions[off: off + n] = np.arange(starts[r], starts[r] + n)
+        last_idx[r] = off + n - 1 if n else 0
+        off += n
+    tokens = rng.integers(3, 259, (T,)).astype(np.int32)
+    args = (tokens, rowids, positions, slots, starts, last_idx)
+    jl, jk, jv = JL.llama_prefill_chunk_ragged(
+        jcfg, jparams, jnp.asarray(ck), jnp.asarray(cv), *map(jnp.asarray, args),
+        paged={"tbl": jnp.asarray(tbl), "k": jnp.asarray(pk), "v": jnp.asarray(pv)},
+    )
+    t = torch.from_numpy
+    tk, tv = t(ck.copy()), t(cv.copy())
+    tl, tk, tv = TL.llama_prefill_chunk_ragged(
+        cfg, tparams, tk, tv, *map(t, args), paged={"tbl": t(tbl), "k": t(pk), "v": t(pv)},
     )
     np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], **LOGIT_TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
