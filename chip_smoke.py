@@ -11,12 +11,15 @@ one run reads every check; the script then exits non-zero):
      nvcc per source, in parallel) and print ptxas's register report;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
-     append bit for bit), and time kernel, plain version, library call
-     (where one computes the same function) and the bound with CUDA events.
-     The paged kernels run on tables whose shared blocks were copied to the
-     prefix pool with the arena's donor blocks scrambled and one block per
-     row in another slot's arena home, at 64-token blocks (timed) and at
-     32 and 128 (checked);
+     the appends bit for bit), and time kernel, plain version, library
+     call (where one computes the same function) and the bound with CUDA
+     events. The paged kernels run on tables whose shared blocks were
+     copied to the prefix pool with the arena's donor blocks scrambled and
+     one block per row in another slot's arena home, at 64-token blocks
+     (timed) and at 32 and 128 (checked). The five int8 entry points run
+     at the int8 path's shapes (a fused [32, 16, 17, 4096, 128] cache, 8
+     compacted rows), each against its plain version with the same
+     requantization group;
   3. check the first two Llama-3.1-8B layers (full width, the served
      weights) on a small input: prefill, one decode step and one ragged
      chunk, unpaged and paged, through the kernels on the card against the
@@ -39,7 +42,17 @@ one run reads every check; the script then exits non-zero):
      pin) once all are done;
   6. time one decode step (8 rows, unpaged and with the first 16 blocks
      from the pool) and one 512-token ragged chunk of the same model, with
-     device time by kernel from torch.profiler.
+     device time by kernel from torch.profiler;
+  7. drop the bf16 engine and serve the int8 configuration (int8 weights,
+     int8 KV cache, 16 slots): the 2-layer model check at int8, then the
+     chats and prefix traffic of 4 and 5 over HTTP with the counters set
+     to 0 just before and read just after: all five int8 entry points must
+     have launched and no bf16-cache kernel, decode must have run
+     compacted, the ledger must audit clean and the packed scales must
+     equal "s" bit for bit; then the breakdown of 6 at int8 (8 decode rows
+     of 16 slots through slot_ids). Before it, the int8 GEMM behind `qdot`
+     is timed at the decode step's shapes with the weight row-major and
+     K-contiguous (the layout the engine stores).
 
 The last lines are the card (`nvidia-smi` name, power limit), one JSON
 line with the kernels and one with the run's result. Imports nothing of
@@ -48,6 +61,8 @@ JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -58,14 +73,20 @@ import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 # Element by element, |kernel - plain| <= atol + rtol * |plain|. Both sides
 # accumulate in f32 and round the output to bf16 once, so they may differ
 # by one bf16 step (at most 2^-7 relative); atol covers values near zero.
 # Append copies values and must match bit for bit.
 ATTN_TOL = {"atol": 1e-3, "rtol": 1e-2}
-TOL = {"append_kv_bf16": {"atol": 0.0, "rtol": 0.0}, "decode_attend_bf16": ATTN_TOL,
+# The int8 kernels are held to the same rule against their plain versions
+# with the same requantization group; the int8 append is bitwise.
+BITWISE = {"atol": 0.0, "rtol": 0.0}
+TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL,
        "decode_attend_bf16_paged": ATTN_TOL, "flash_prefill_attention": ATTN_TOL,
-       "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL}
+       "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL,
+       "append_kv_q8": BITWISE, "decode_attend_q8": ATTN_TOL, "decode_attend_q8_paged": ATTN_TOL,
+       "ragged_prefill_attend_q8": ATTN_TOL, "ragged_prefill_attend_q8_paged": ATTN_TOL}
 SOURCES = {
     "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
                        "llm_mcp_tpu/kernels/attention.py:2508"),
@@ -79,15 +100,31 @@ SOURCES = {
                                  "llm_mcp_tpu/kernels/attention.py:1312"),
     "ragged_prefill_attend_bf16_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
                                          "llm_mcp_tpu/kernels/attention.py:2752"),
+    "append_kv_q8": ("llm_mcp_tpu_torch/kernels/csrc/append_kv_q8.cu",
+                     "llm_mcp_tpu/kernels/attention.py:2349"),
+    "decode_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                         "llm_mcp_tpu/kernels/attention.py:330"),
+    "decode_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                               "llm_mcp_tpu/kernels/attention.py:581"),
+    "ragged_prefill_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
+                                 "llm_mcp_tpu/kernels/attention.py:2908"),
+    "ragged_prefill_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
+                                       "llm_mcp_tpu/kernels/attention.py:2908"),
 }
 # the kernels each served phase must launch (its counters are reset just
 # before it and read just after)
 CHAT_KERNELS = ("append_kv_bf16", "decode_attend_bf16", "flash_prefill_attention",
                 "ragged_prefill_attend_bf16")
 PREFIX_KERNELS = ("decode_attend_bf16_paged", "ragged_prefill_attend_bf16_paged")
+# the int8 served phase (chats and prefix traffic on the int8 engine) must
+# launch all five int8 entry points, and the admission prefill
+Q8_KERNELS = ("append_kv_q8", "decode_attend_q8", "decode_attend_q8_paged",
+              "ragged_prefill_attend_q8", "ragged_prefill_attend_q8_paged")
+Q8_SLOTS = 16  # the int8 engine's max_slots: 4 chats decode compacted at Ba = 8
 BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
 SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
-ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"]}
+ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"],
+                 "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"]}
 # The model check runs the first CHECK_LAYERS layers in bf16 on the card and
 # on the host CPU. GEMMs and attention round and sum in other orders on the
 # two, so it compares logits and caches by cosine similarity.
@@ -138,6 +175,66 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def compare(name, out, ref) -> tuple[float, float]:
+    """Max abs error and the largest |out - ref| / limit over elements."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    limit = TOL[name]["atol"] + TOL[name]["rtol"] * r.abs()
+    ratio = torch_where_ratio(diff, limit)
+    err = diff.max().item()
+    if not (o.isfinite().all() and math.isfinite(err)) or not (diff <= limit).all():
+        n_bad = int((~(diff <= limit)).sum().item())
+        check_failed(f"{name}: {n_bad} of {diff.numel()} elements beyond "
+                     f"|err| <= {TOL[name]['atol']} + {TOL[name]['rtol']}*|ref| "
+                     f"(max_abs_err {err}, worst err/limit {ratio})")
+    return err, ratio
+
+
+def torch_where_ratio(diff, limit) -> float:
+    """max |err| / limit over the elements that differ (0 if none)."""
+    import torch
+
+    return torch.where(diff > 0, diff / limit, torch.zeros_like(diff)).max().item()
+
+
+def _record(res, name, out, ref, ms, plain_ms, bytes_, ops_ms, library_ms, shape):
+    """One kernel row: error against the plain version, times, and the
+    bound: the larger of the bytes over the HBM rate and `ops_ms`, the
+    operations over the peak rate of their type."""
+    err, ratio = compare(name, out, ref)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    res[name] = {
+        "max_abs_err": err, "tol": TOL[name], "worst_err_over_limit": ratio,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, ops_ms), "bound_by": "bytes" if t_bytes >= ops_ms else "operations",
+        "library_ms": library_ms, "shape": shape,
+    }
+    log(f"{name}: err {err:.3g} (err/limit {ratio:.3g}) ms {ms:.4f} plain {plain_ms:.4f} "
+        f"bound {res[name]['bound_ms']:.4f} ({res[name]['bound_by']}) library {library_ms}")
+
+
+def _ragged_sdpa(qr, kr, vr, rowids, starts, kp, vp):
+    """The ragged kernels' library yardstick: one SDPA call with a
+    block-causal mask over every descriptor row's prefix (kp/vp
+    [R, Hkv, S, hd], gathered outside the timed call) and the packed
+    chunk's own keys. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    T, Hkv, G, hd = qr.shape
+    dev = qr.device
+    rid = rowids.long()
+    col_row = torch.cat([torch.full((s_,), r, device=dev) for r, s_ in enumerate(starts)])
+    u = torch.arange(T, device=dev)
+    mask = torch.cat([rid[:, None] == col_row[None, :],
+                      (rid[:, None] == rid[None, :]) & (u[None, :] <= u[:, None])], 1)
+    qh = qr.permute(1, 2, 0, 3).reshape(Hkv * G, T, hd)
+    keys = torch.cat([kp[r, :, :s_] for r, s_ in enumerate(starts)] + [kr.transpose(0, 1)], 1)
+    vals = torch.cat([vp[r, :, :s_] for r, s_ in enumerate(starts)] + [vr.transpose(0, 1)], 1)
+    return lambda: F.scaled_dot_product_attention(
+        qh[None], keys[None], vals[None], attn_mask=mask, enable_gqa=True)
+
+
 def kernel_phase() -> dict[str, dict]:
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -160,31 +257,7 @@ def kernel_phase() -> dict[str, dict]:
     ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
     res: dict[str, dict] = {}
 
-    def compare(name, out, ref) -> tuple[float, float]:
-        """Max abs error and the largest |out - ref| / limit over elements."""
-        o, r = out.float(), ref.float()
-        diff = (o - r).abs()
-        limit = TOL[name]["atol"] + TOL[name]["rtol"] * r.abs()
-        ratio = torch.where(diff > 0, diff / limit, torch.zeros_like(diff)).max().item()
-        err = diff.max().item()
-        if not (torch.isfinite(o).all() and math.isfinite(err)) or not (diff <= limit).all():
-            n_bad = int((~(diff <= limit)).sum().item())
-            check_failed(f"{name}: {n_bad} of {diff.numel()} elements beyond "
-                         f"|err| <= {TOL[name]['atol']} + {TOL[name]['rtol']}*|ref| "
-                         f"(max_abs_err {err}, worst err/limit {ratio})")
-        return err, ratio
-
-    def record(name, out, ref, ms, plain_ms, bytes_, flops, library_ms, shape):
-        err, ratio = compare(name, out, ref)
-        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        res[name] = {
-            "max_abs_err": err, "tol": TOL[name], "worst_err_over_limit": ratio,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "shape": shape,
-        }
-        log(f"{name}: err {err:.3g} (err/limit {ratio:.3g}) ms {ms:.4f} plain {plain_ms:.4f} "
-            f"bound {res[name]['bound_ms']:.4f} ({res[name]['bound_by']}) library {library_ms}")
+    record = functools.partial(_record, res)
 
     # append: one decode step's K/V for all 32 layers, 8 rows
     nk, nv = rn(L, B, Hkv, hd), rn(L, B, Hkv, hd)
@@ -238,7 +311,7 @@ def kernel_phase() -> dict[str, dict]:
                                              scale=scale), 50),
         time_ms(lambda: K.decode_attend_plain(q, nk1, nv1, ck, cv, 1, lens, ids, scale), 10),
         keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2,
-        4.0 * hd * G * Hkv * keys, time_ms(lib, 50),
+        4.0 * hd * G * Hkv * keys / BF16_FLOPS * 1e3, time_ms(lib, 50),
         {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "lengths": lens.tolist(),
          "slot_ids": ids.tolist()},
     )
@@ -255,7 +328,7 @@ def kernel_phase() -> dict[str, dict]:
         "flash_prefill_attention", out, ref,
         time_ms(lambda: K.flash_prefill_attention(qp, kp, vp, lp, scale=scale), 20),
         time_ms(lambda: K.flash_prefill_plain(qp, kp, vp, lp, scale=scale), 10),
-        (2 * qp.numel() + 2 * kp.numel()) * 2, 4.0 * hd * H * pairs,
+        (2 * qp.numel() + 2 * kp.numel()) * 2, 4.0 * hd * H * pairs / BF16_FLOPS * 1e3,
         time_ms(lambda: F.scaled_dot_product_attention(qp, kx, vx, is_causal=True), 20),
         {"q": [Bp, H, Sp, hd], "lengths": lp.tolist()},
     )
@@ -275,14 +348,18 @@ def kernel_phase() -> dict[str, dict]:
     ref = K.ragged_prefill_plain(*args, scale=scale)
     # past + causal self pairs of every row; the pads attend earlier pads
     pairs = sum(s * n + n * (n + 1) // 2 for s, n in zip(starts, ns)) + n_pad * (n_pad + 1) // 2
+    ragged_sdpa = functools.partial(_ragged_sdpa, qr, kr, vr, rowids, starts)
+    rlib = ragged_sdpa(ck[3][slots.long()], cv[3][slots.long()])
     record(
         "ragged_prefill_attend_bf16", out, ref,
         time_ms(lambda: K.ragged_prefill_attend_bf16(*args, scale=scale), 10),
         time_ms(lambda: K.ragged_prefill_plain(*args, scale=scale), 5),
         (2 * qr.numel() + 2 * kr.numel() + 2 * sum(starts) * Hkv * hd) * 2,
-        4.0 * hd * H * pairs, None,
-        {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts},
+        4.0 * hd * H * pairs / BF16_FLOPS * 1e3, time_ms(rlib, 10),
+        {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts,
+         "library": "SDPA, one call, block-causal mask over the prefixes and the chunk"},
     )
+    del rlib
     # -- paged: the same work, read through block tables -----------------
     # Each row's first SHARED_TOKENS come from the prefix pool (copied from
     # row 0, as a stored prefix is); the arena's donor blocks are scrambled,
@@ -342,29 +419,17 @@ def kernel_phase() -> dict[str, dict]:
             time_ms(lambda: K.decode_attend_paged_plain(
                 *dargs, tbl, pg["pool_k"], pg["pool_v"], ids, scale), 10),
             keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2 + blocks * 4,
-            4.0 * hd * G * Hkv * keys, time_ms(lib, 50),
+            4.0 * hd * G * Hkv * keys / BF16_FLOPS * 1e3, time_ms(lib, 50),
             {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "block_tokens": bt,
              "pool": list(pg["pool_k"].shape), "lengths": lens.tolist(),
              "slot_ids": ids.tolist(), "shared_tokens": SHARED_TOKENS,
              "library": "SDPA, length mask, on the rows gathered through the tables"},
         )
         del kg, vg
-        # ragged: library yardstick is one masked SDPA over every row's
-        # gathered prefix plus the packed chunk's own keys
-        kp_ = K.paged_gather(ak[3], pg["pool_k"][3], tbl[slots.long()])
-        vp_ = K.paged_gather(av[3], pg["pool_v"][3], tbl[slots.long()])
-        keys_r = torch.cat([kp_[r, :, :s_] for r, s_ in enumerate(starts)] + [kr.transpose(0, 1)], 1)
-        vals_r = torch.cat([vp_[r, :, :s_] for r, s_ in enumerate(starts)] + [vr.transpose(0, 1)], 1)
+        # ragged: the same SDPA over the prefixes gathered through the tables
+        rlib = ragged_sdpa(K.paged_gather(ak[3], pg["pool_k"][3], tbl[slots.long()]),
+                           K.paged_gather(av[3], pg["pool_v"][3], tbl[slots.long()]))
         P_ = sum(starts)
-        rid = rowids.long()
-        col_row = torch.cat([torch.full((s_,), r, device=dev) for r, s_ in enumerate(starts)])
-        pmask = rid[:, None] == col_row[None, :]
-        u = torch.arange(T, device=dev)
-        smask = (rid[:, None] == rid[None, :]) & (u[None, :] <= u[:, None])
-        rmask = torch.cat([pmask, smask], 1)
-        qh = qr.permute(1, 2, 0, 3).reshape(H, T, hd)
-        rlib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh[None], keys_r[None], vals_r[None], attn_mask=rmask, enable_gqa=True)
         blocks_r = sum(-(-s_ // bt) for s_ in starts)
         record(
             "ragged_prefill_attend_bf16_paged", rout, rref,
@@ -372,12 +437,12 @@ def kernel_phase() -> dict[str, dict]:
             time_ms(lambda: K.ragged_prefill_paged_plain(
                 *rargs, tbl, pg["pool_k"], pg["pool_v"], scale), 5),
             (2 * qr.numel() + 2 * kr.numel() + 2 * P_ * Hkv * hd) * 2 + blocks_r * 4,
-            4.0 * hd * H * pairs, time_ms(rlib, 10),
+            4.0 * hd * H * pairs / BF16_FLOPS * 1e3, time_ms(rlib, 10),
             {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts,
              "block_tokens": bt, "shared_tokens": SHARED_TOKENS,
              "library": "SDPA, one call, block-causal mask over the gathered prefixes and the chunk"},
         )
-        del kp_, vp_, keys_r, vals_r, rmask, ak, av, pg
+        del rlib, ak, av, pg
     for name, by_bt in others.items():
         res[name]["other_block_sizes"] = by_bt
     del ck, cv, kpost, vpost
@@ -385,28 +450,286 @@ def kernel_phase() -> dict[str, dict]:
     return res
 
 
-def model_check(cfg, params, dev) -> dict:
+def kernel_phase_q8() -> dict[str, dict]:
+    """The five int8 entry points against their plain versions at the int8
+    served path's shapes: a fused [32, 16, 17, 4096, 128] cache (16 slots,
+    made by `fuse_prompt_kv` from random bf16 K/V, so scales are as the
+    engine writes them) read by 8 compacted rows through slot_ids, with
+    the requantization group the wrappers pass (256 keys contiguous, bt
+    paged); the paged ones at 64-token blocks (timed), 32 and 128
+    (checked). The library yardstick is SDPA over the same rows
+    dequantized to bf16 outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.llama import fuse_prompt_kv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    L, B, Hkv, G, S, hd, Ba = 32, Q8_SLOTS, 8, 4, 4096, 128, 8
+    H, Hs, Hf = Hkv * G, 2 * Hkv, 2 * Hkv + 1
+    scale = hd**-0.5
+    res: dict[str, dict] = {}
+    record = functools.partial(_record, res)
+
+    def fill(c, rows, lo, hi):
+        """Rows `rows` (a slice or index) of c over tokens [lo, hi),
+        quantized from fresh random bf16 K/V, layer by layer."""
+        for li in range(L):
+            n = len(range(*rows.indices(c["q"].shape[1]))) if isinstance(rows, slice) else 1
+            e = fuse_prompt_kv(rn(n, Hkv, hi - lo, hd), rn(n, Hkv, hi - lo, hd))
+            c["q"][li, rows, :, lo:hi] = e["q"] if isinstance(rows, slice) else e["q"][0]
+            c["s"][li, rows, :, lo:hi] = e["s"] if isinstance(rows, slice) else e["s"][0]
+
+    cache = {"q": torch.empty((L, B, Hf, S, hd), dtype=torch.int8, device=dev),
+             "s": torch.empty((L, B, Hs, S), dtype=torch.bfloat16, device=dev)}
+    fill(cache, slice(None), 0, S)
+    ids = i32([3, 0, 12, 1, 6, 9, 15, 4])  # compacted rows: slot_ids into 16 slots
+
+    def dequant(pay, ss):
+        """[R, Hf, T, hd] int8 and [R, Hs, T] scales -> bf16 K and V rows."""
+        k = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16)
+        v = (pay[:, Hkv:Hs].float() * ss[:, Hkv:, :, None].float()).to(torch.bfloat16)
+        return k, v
+
+    # append: one step's K/V for all 32 layers, 8 rows (one parked)
+    nk, nv = rn(L, Ba, Hkv, hd), rn(L, Ba, Hkv, hd)
+    lens = i32([5, 700, 1500, 2047, 2048, 3000, S, 4095])
+    got = {k: v.clone() for k, v in cache.items()}
+    K.append_kv_q8(got, {}, nk, nv, lens, slot_ids=ids)
+    want = K.append_kv_q8_plain({k: v.clone() for k, v in cache.items()}, nk, nv, lens, ids)
+    torch.cuda.synchronize()
+    # bitwise over the whole cache ("q" with the pseudo-head, and "s");
+    # the element-wise line reads the written rows
+    if not (torch.equal(got["q"], want["q"]) and torch.equal(got["s"], want["s"])):
+        check_failed("append_kv_q8: the cache differs from its plain version's")
+    wl = lens < S
+    b_w, w_w = ids.long()[wl], lens.long()[wl]
+    live_rows = int(wl.sum().item())
+    record(
+        "append_kv_q8", got["q"][:, b_w, :, w_w], want["q"][:, b_w, :, w_w],
+        time_ms(lambda: K.append_kv_q8(got, {}, nk, nv, lens, slot_ids=ids), 50),
+        time_ms(lambda: K.append_kv_q8_plain(got, nk, nv, lens, ids), 20),
+        live_rows * L * (2 * Hkv * hd * 2 + Hf * hd + Hs * 2), 0.0, None,
+        {"cache": [L, B, Hf, S, hd], "new": [L, Ba, Hkv, hd], "lengths": lens.tolist(),
+         "library": "none: no one PyTorch call quantizes, packs and writes"},
+    )
+    del got, want
+
+    # decode: 8 compacted rows at fills 1/8 to full, one parked
+    q, nk1, nv1 = rn(Ba, Hkv, G, hd), rn(Ba, Hkv, hd), rn(Ba, Hkv, hd)
+    lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
+    group = K.q8_group(S)
+    keys = sum(w + 1 if w < S else 1 for w in lens.tolist())
+    live = lens < S
+    rows = torch.arange(Ba, device=dev)[live]
+    qs = q.reshape(Ba, H, 1, hd)
+    pos = torch.arange(S, device=dev)[None, :]
+    amask = torch.where(live[:, None], pos <= lens[:, None], pos < 1)[:, None, None, :]
+    dbytes = keys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2
+    dops_ms = 4.0 * hd * G * Hkv * keys / INT8_OPS * 1e3
+
+    def sdpa_rows(pay, ss):
+        k, v = dequant(pay, ss)
+        k[rows, :, lens.long()[live]] = nk1[live]
+        v[rows, :, lens.long()[live]] = nv1[live]
+        return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=amask, enable_gqa=True)
+
+    out = K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=scale)
+    ref = K.decode_attend_q8_plain(q, nk1, nv1, cache, 1, lens, ids, scale, group)
+    lib = sdpa_rows(cache["q"][1][ids.long()], cache["s"][1][ids.long()])
+    record(
+        "decode_attend_q8", out, ref,
+        time_ms(lambda: K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids,
+                                           scale=scale), 50),
+        time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, cache, 1, lens, ids, scale,
+                                                 group), 10),
+        dbytes, dops_ms, time_ms(lib, 50),
+        {"q": [Ba, Hkv, G, hd], "cache": [L, B, Hf, S, hd], "lengths": lens.tolist(),
+         "slot_ids": ids.tolist(), "group": group,
+         "library": "SDPA, length mask, on the rows dequantized to bf16"},
+    )
+    del lib
+
+    # ragged: 4 rows (1900 tokens) with cached int8 prefixes in T = 2048
+    T, R = 2048, 4
+    starts, ns = [0, 512, 1024, 1536], [500, 480, 460, 460]
+    n_pad = T - sum(ns)
+    rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [R] * n_pad)
+    offsets = i32([sum(ns[:r]) for r in range(R + 1)])
+    slots, st = i32([2, 5, 12, 7]), i32(starts)
+    qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    past = sum(s_ * n for s_, n in zip(starts, ns))
+    selfp = sum(n * (n + 1) // 2 for n in ns) + n_pad * (n_pad + 1) // 2
+    rops_ms = (4.0 * hd * H * past / INT8_OPS + 4.0 * hd * H * selfp / BF16_FLOPS) * 1e3
+    rbytes = (2 * qr.numel() + 2 * kr.numel()) * 2 + sum(starts) * Hkv * (2 * hd + 2 * 2)
+
+    def sdpa_ragged(pay, ss):
+        return _ragged_sdpa(qr, kr, vr, rowids, starts, *dequant(pay, ss))
+
+    rargs = (qr, kr, vr, cache, 3, rowids, offsets, slots, st)
+    out = K.ragged_prefill_attend_q8(*rargs, scale=scale)
+    ref = K.ragged_prefill_q8_plain(*rargs, scale)
+    rlib = sdpa_ragged(cache["q"][3][slots.long()], cache["s"][3][slots.long()])
+    rshape = {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts,
+              "library": "SDPA, one call, block-causal mask over the prefixes dequantized "
+                         "to bf16 and the chunk"}
+    record(
+        "ragged_prefill_attend_q8", out, ref,
+        time_ms(lambda: K.ragged_prefill_attend_q8(*rargs, scale=scale), 10),
+        time_ms(lambda: K.ragged_prefill_q8_plain(*rargs, scale), 5),
+        rbytes, rops_ms, time_ms(rlib, 10), rshape,
+    )
+    del rlib
+
+    # paged: each row's first SHARED_TOKENS from pool rows copied from row 0,
+    # the arena's donors refilled with other values, block nsh of each row
+    # in another slot's home
+    others: dict[str, dict] = {}
+    for bt in (32, 128, BLOCK_TOKENS):  # the timed case last
+        nbs, nsh = S // bt, SHARED_TOKENS // bt
+        pool = {
+            "q": cache["q"][:, 0, :, : nsh * bt].reshape(L, Hf, nsh, bt, hd).transpose(1, 2)
+            .contiguous(),
+            "s": cache["s"][:, 0, :, : nsh * bt].reshape(L, Hs, nsh, bt).transpose(1, 2)
+            .contiguous(),
+        }
+        arena = {k: v.clone() for k, v in cache.items()}
+        fill(arena, slice(None), 0, nsh * bt)
+        tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
+        tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
+        for b in range(B):  # block nsh of row b lives in row (b + 3) % B's home
+            tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
+        fill(arena, slice(None), nsh * bt, (nsh + 1) * bt)
+        pg = {"block_tables": tbl, "pool_k": pool}
+        dargs = (q, nk1, nv1, arena, {}, 1, lens)
+        out = K.decode_attend_q8(*dargs, slot_ids=ids, scale=scale, **pg)
+        ref = K.decode_attend_q8_plain(q, nk1, nv1, arena, 1, lens, ids, scale, bt, tbl, pool)
+        prargs = (qr, kr, vr, arena, 3, rowids, offsets, slots, st)
+        rout = K.ragged_prefill_attend_q8(*prargs, scale=scale, block_tables=tbl, pool=pool)
+        rref = K.ragged_prefill_q8_plain(*prargs, scale, tbl, pool)
+        if bt != BLOCK_TOKENS:
+            for name, o, r in (("decode_attend_q8_paged", out, ref),
+                               ("ragged_prefill_attend_q8_paged", rout, rref)):
+                err, ratio = compare(name, o, r)
+                log(f"{name} at {bt}-token blocks: err {err:.3g} (err/limit {ratio:.3g})")
+                others.setdefault(name, {})[bt] = {"max_abs_err": err, "worst_err_over_limit": ratio}
+            del arena, pool, pg
+            continue
+        blocks = sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist())
+        lib = sdpa_rows(K.paged_gather(arena["q"][1], pool["q"][1], tbl[ids.long()]),
+                        K.paged_gather(arena["s"][1], pool["s"][1], tbl[ids.long()]))
+        record(
+            "decode_attend_q8_paged", out, ref,
+            time_ms(lambda: K.decode_attend_q8(*dargs, slot_ids=ids, scale=scale, **pg), 50),
+            time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, arena, 1, lens, ids, scale,
+                                                     bt, tbl, pool), 10),
+            dbytes + blocks * 4, dops_ms, time_ms(lib, 50),
+            {"q": [Ba, Hkv, G, hd], "cache": [L, B, Hf, S, hd], "block_tokens": bt,
+             "group": bt, "pool": list(pool["q"].shape), "lengths": lens.tolist(),
+             "slot_ids": ids.tolist(), "shared_tokens": SHARED_TOKENS,
+             "library": "SDPA, length mask, on the rows gathered through the tables and "
+                        "dequantized to bf16"},
+        )
+        del lib
+        rlib = sdpa_ragged(K.paged_gather(arena["q"][3], pool["q"][3], tbl[slots.long()]),
+                           K.paged_gather(arena["s"][3], pool["s"][3], tbl[slots.long()]))
+        record(
+            "ragged_prefill_attend_q8_paged", rout, rref,
+            time_ms(lambda: K.ragged_prefill_attend_q8(*prargs, scale=scale, block_tables=tbl,
+                                                       pool=pool), 10),
+            time_ms(lambda: K.ragged_prefill_q8_plain(*prargs, scale, tbl, pool), 5),
+            rbytes + sum(-(-s_ // bt) for s_ in starts) * 4, rops_ms, time_ms(rlib, 10),
+            dict(rshape, block_tokens=bt, shared_tokens=SHARED_TOKENS,
+                 library="SDPA, one call, block-causal mask over the prefixes gathered "
+                         "through the tables and dequantized to bf16, and the chunk"),
+        )
+        del rlib, arena, pool, pg
+    for name, by_bt in others.items():
+        res[name]["other_block_sizes"] = by_bt
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_gemm_phase() -> dict:
+    """The int8 GEMM behind `qdot` (`torch._int_mm`) at the decode step's
+    shapes (32 padded rows; Llama-3.1-8B's wqkv, wo, w13 and w2), with the
+    payload row-major [K, N] and K-contiguous (`quant.gemm_layout`, what
+    the engine stores), beside the bf16 product of the same shape: the
+    measurement behind the layout choice. Both layouts must give the same
+    int32 result."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    M, out = 32, {}
+    sums = {"row_major_ms": 0.0, "k_contiguous_ms": 0.0, "bf16_ms": 0.0}
+    for name, (Kd, N) in {"wqkv": (4096, 6144), "wo": (4096, 4096), "w13": (4096, 28672),
+                          "w2": (14336, 4096)}.items():
+        a = torch.randint(-127, 128, (M, Kd), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (Kd, N), generator=g, device=dev, dtype=torch.int8)
+        bk = b.t().contiguous().t()
+        xa = torch.randn((M, Kd), generator=g, device=dev).to(torch.bfloat16)
+        wb = torch.randn((Kd, N), generator=g, device=dev).to(torch.bfloat16)
+        if not torch.equal(torch._int_mm(a, b), torch._int_mm(a, bk)):
+            check_failed(f"int8 GEMM {name}: the two layouts give different products")
+        row = {"row_major_ms": time_ms(lambda: torch._int_mm(a, b), 20),
+               "k_contiguous_ms": time_ms(lambda: torch._int_mm(a, bk), 20),
+               "bf16_ms": time_ms(lambda: xa @ wb, 20),
+               "int8_bound_ms": Kd * N / HBM_BYTES_PER_S * 1e3}
+        out[name] = row
+        for k in sums:
+            sums[k] += row[k]
+        del a, b, bk, xa, wb
+    out["per_layer_sum"] = sums
+    log(f"int8 GEMM at M = {M}: {json.dumps(out)}")
+    return out
+
+
+def _tree(fn, *trees):
+    """fn over the leaves of KV trees of one structure (a tensor, or the
+    fused int8 cache's dict)."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def model_check(cfg, params, dev, quantized: bool = False) -> dict:
     """The model's first CHECK_LAYERS layers (published widths, the served
     weights) on a small input: prefill, one decode step with a parked row
     and one ragged chunk with pads, unpaged and paged, through the kernels
     on the card and through the plain versions on the host CPU, which the
     wrappers take for CPU tensors. The paged calls read row 0's first block
-    from a pool row while its arena block holds other (scrambled) values;
-    on the card each must also agree with the same call on the contiguous
-    rows that hold the same bytes."""
+    from a pool row while its arena block holds other values; on the card
+    each must also agree with the same call on the contiguous rows that
+    hold the same bytes. `quantized`: int8 weights (the served ones) and
+    the fused int8 KV cache; the caches are compared as their int8 K|V
+    payload heads and their scales."""
     import dataclasses
 
     import torch
 
+    from llm_mcp_tpu_torch.executor.physical import pool_like
     from llm_mcp_tpu_torch.kernels import attention as K
     from llm_mcp_tpu_torch.models import llama as TL
 
     cut = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
     host = torch.device("cpu")
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def first_layers(d):
-        sub = {k: v.to(d) for k, v in params.items() if k != "layers"}
-        sub["layers"] = {k: v[:CHECK_LAYERS].to(d) for k, v in params["layers"].items()}
+        sub = {k: _tree(lambda v: v.to(d), v) for k, v in params.items() if k != "layers"}
+        sub["layers"] = {k: _tree(lambda v: v[:CHECK_LAYERS].to(d), v)
+                         for k, v in params["layers"].items()}
         return sub
 
     g = torch.Generator().manual_seed(7)
@@ -414,7 +737,9 @@ def model_check(cfg, params, dev) -> dict:
     nbs = S // bt
     toks = torch.randint(3, 259, (1, 64), generator=g, dtype=torch.int32)
     chunk = torch.randint(3, 259, (32,), generator=g, dtype=torch.int32)
-    junk = torch.randn((CHECK_LAYERS, cfg.n_kv_heads, bt, cfg.resolved_head_dim), generator=g)
+    junk = torch.randn((CHECK_LAYERS, 1, Hkv, bt, hd), generator=g)
+    if quantized:  # other values for the overwritten arena block, as the cache holds them
+        junk = TL.fuse_prompt_kv(junk.to(torch.bfloat16), -junk.to(torch.bfloat16))
 
     def run(d):
         p = first_layers(d)
@@ -422,19 +747,19 @@ def model_check(cfg, params, dev) -> dict:
         def i32(x):
             return torch.as_tensor(x, dtype=torch.int32, device=d)
 
-        logits_p, ks, vs = TL.llama_prefill(cut, p, toks.to(d), i32([P0]))
-        cache = TL.init_kv_cache(cut, 2, S, dtype=p["embed"].dtype, device=d)
-        cache["k"][:, 0, :, :64] = ks[:, 0]
-        cache["v"][:, 0, :, :64] = vs[:, 0]
+        logits_p, ks, vs = TL.llama_prefill(cut, p, toks.to(d), i32([P0]), quant_kv=quantized)
+        cache = TL.init_kv_cache(cut, 2, S, dtype=torch.bfloat16, device=d, quantized=quantized)
+        for n, new in (("k", ks), ("v", vs)):
+            _tree(lambda c, x: c[:, 0, :, :64].copy_(x[:, 0]), cache[n], new)
         # paged copy: row 0's block 0 moves to pool row 1 and its arena
         # block is overwritten
-        pool = {n: torch.zeros((CHECK_LAYERS, 2) + tuple(junk.shape[1:]), dtype=cache[n].dtype,
-                               device=d) for n in ("k", "v")}
-        paged_cache = {}
+        pool, paged_cache = {}, {}
         for n in ("k", "v"):
-            pool[n][:, 1] = cache[n][:, 0, :, :bt]
-            paged_cache[n] = cache[n].clone()
-            paged_cache[n][:, 0, :, :bt] = junk.to(d, cache[n].dtype)
+            pool[n] = pool_like(cache[n], 2, bt)
+            _tree(lambda pl, c: pl[:, 1].copy_(c[:, 0, :, :bt]), pool[n], cache[n])
+            paged_cache[n] = _tree(lambda c: c.clone(), cache[n])
+            _tree(lambda c, j: c[:, 0, :, :bt].copy_(j[:, 0]), paged_cache[n],
+                  _tree(lambda j: j.to(d), junk) if n == "k" or not quantized else {})
         tbl = torch.arange(2 * nbs, dtype=torch.int32).reshape(2, nbs)
         tbl[0, 0] = 2 * nbs + 1
         paged = {"tbl": tbl.to(d), "k": pool["k"], "v": pool["v"]}
@@ -442,10 +767,10 @@ def model_check(cfg, params, dev) -> dict:
         # a fixed token, not the argmax: near-ties among 128k random logits
         # may round to another winner on the two sides
         for tag, src, pg in (("", cache, None), ("_paged", paged_cache, paged)):
-            ck, cv = src["k"].clone(), src["v"].clone()
+            ck, cv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
             logits_d, ck, cv = TL.llama_decode_step(
                 cut, p, ck, cv, i32([65, 65]), i32([P0, S]), paged=pg)  # row 1 parked
-            rk, rv = src["k"].clone(), src["v"].clone()
+            rk, rv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
             logits_r, rk, _ = TL.llama_prefill_chunk_ragged(
                 cut, p, rk, rv, tokens=chunk.to(d),
                 rowids=i32([0] * 20 + [1] * 12),
@@ -453,8 +778,14 @@ def model_check(cfg, params, dev) -> dict:
                 slots=i32([0]), starts=i32([P0]), last_idx=i32([19]), paged=pg)
             out["decode" + tag] = logits_d[:1]
             out["ragged" + tag] = logits_r
-            out["decode_cache" + tag] = ck[:, 0, :, P0]  # the appended row
-            out["ragged_cache" + tag] = rk[:, 0, :, P0: P0 + 20]  # the chunk's rows
+            if quantized:  # int8 K|V payload heads (as numbers) and scales
+                out["decode_cache" + tag] = ck["q"][:, 0, : 2 * Hkv, P0]
+                out["decode_scales" + tag] = ck["s"][:, 0, :, P0]
+                out["ragged_cache" + tag] = rk["q"][:, 0, : 2 * Hkv, P0: P0 + 20]
+                out["ragged_scales" + tag] = rk["s"][:, 0, :, P0: P0 + 20]
+            else:
+                out["decode_cache" + tag] = ck[:, 0, :, P0]  # the appended row
+                out["ragged_cache" + tag] = rk[:, 0, :, P0: P0 + 20]  # the chunk's rows
         return out
 
     def cosine(a, b):
@@ -465,10 +796,10 @@ def model_check(cfg, params, dev) -> dict:
     K.reset_launches()
     got = run(dev)
     torch.cuda.synchronize()
-    per_call = dict(K.LAUNCHES)
+    per_call = {n: c for n, c in K.LAUNCHES.items() if (n in Q8_KERNELS) == quantized}
     t0 = time.perf_counter()
     want = run(host)
-    report = {"layers": CHECK_LAYERS, "launches_in_check": per_call,
+    report = {"layers": CHECK_LAYERS, "quantized": quantized, "launches_in_check": per_call,
               "host_reference_s": time.perf_counter() - t0}
     bad = []
     for name in got:
@@ -481,7 +812,7 @@ def model_check(cfg, params, dev) -> dict:
         report[name]["vs_contiguous_on_card"] = {"cosine": cos, "max_abs_err": err}
         if not cos >= MODEL_COSINE:
             bad.append(f"{name} vs contiguous")
-    log(f"model check: {json.dumps(report)}")
+    log(f"model check{' int8' if quantized else ''}: {json.dumps(report)}")
     for name, n in per_call.items():
         if n <= 0:
             check_failed(f"model check: kernel {name} was not launched")
@@ -535,8 +866,9 @@ def chat(base: str, model: str, prompt: str, stream: bool, out: dict, **kw) -> N
         out["error"] = f"{type(e).__name__}: {e}"
 
 
-def e2e_phase(engine, base: str) -> dict:
-    """Four concurrent chats; every unpaged kernel must launch."""
+def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> dict:
+    """Four concurrent chats; every kernel of `kernels` must launch (the
+    counters are set to 0 first unless the caller owns them)."""
     from llm_mcp_tpu_torch.kernels import attention as K
 
     model = engine.cfg.name
@@ -552,7 +884,8 @@ def e2e_phase(engine, base: str) -> dict:
         ("long", "Summarize this list: " + long_prompt, True, {"temperature": 0}),
     ]
     results = {name: {} for name, *_ in reqs}
-    K.reset_launches()
+    if reset:
+        K.reset_launches()
     t0 = time.perf_counter()
     threads = [
         threading.Thread(target=chat, args=(base, model, p, s, results[n]), kwargs=kw)
@@ -571,7 +904,7 @@ def e2e_phase(engine, base: str) -> dict:
             fail(f"request {name}: SSE stream did not end in data: [DONE]")
         if r["usage"].get("completion_tokens", 0) < 1:
             fail(f"request {name}: no tokens")
-    for name in CHAT_KERNELS:
+    for name in kernels:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     prompt_tokens = {n: r["usage"]["prompt_tokens"] for n, r in results.items()}
@@ -612,9 +945,9 @@ def _messages(system: str, user: str) -> list[dict]:
     return [{"role": "system", "content": system}, {"role": "user", "content": user}]
 
 
-def prefix_phase(engine, base: str) -> dict:
-    """Prefix-cache traffic over HTTP; both paged kernels must launch and
-    the ledger must be sound once every request is done."""
+def prefix_phase(engine, base: str, kernels=PREFIX_KERNELS, reset: bool = True) -> dict:
+    """Prefix-cache traffic over HTTP; every kernel of `kernels` must launch
+    and the ledger must be sound once every request is done."""
     from llm_mcp_tpu_torch.kernels import attention as K
 
     model = engine.cfg.name
@@ -635,7 +968,8 @@ def prefix_phase(engine, base: str) -> dict:
             t.join(timeout=600)
 
     a_msgs = _messages(SYSTEM_LONG, "Question one: which rule comes first?")
-    K.reset_launches()
+    if reset:
+        K.reset_launches()
     t0 = time.perf_counter()
     hits0 = engine.prefix_cache_stats()["hits"]
     run([("A_cold", a_msgs, 32)])
@@ -673,7 +1007,7 @@ def prefix_phase(engine, base: str) -> dict:
         "physical_cow_copies_total >= 1": pg["physical_cow_copies_total"] >= 1,
         "physical_missing_pins == 0": pg["physical_missing_pins"] == 0,
     }
-    for name in PREFIX_KERNELS:
+    for name in kernels:
         checks[f"{name} launched"] = launches[name] > 0
     ttft = {n: r.get("t_first") for n, r in results.items()}
     report = {
@@ -698,41 +1032,47 @@ def prefix_phase(engine, base: str) -> dict:
     return report
 
 
-def breakdown_phase(cfg, params, dev) -> dict:
+def breakdown_phase(cfg, params, dev, quantized: bool = False) -> dict:
     """Where a decode step and a ragged chunk spend their time, at served
     shapes (8 rows at fill 1024, unpaged and with the first 16 blocks of
     every row read from the prefix pool; one 512-token chunk over a
     1024-token prefix): wall per call from CUDA events, device time by
     kernel from torch.profiler, and the device's idle share
-    (1 - busy / wall)."""
+    (1 - busy / wall). `quantized`: the int8 engine's weights over a fused
+    int8 cache of Q8_SLOTS rows, the 8 decode rows compacted through
+    slot_ids as the engine runs them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from llm_mcp_tpu_torch.executor.physical import pool_like
     from llm_mcp_tpu_torch.models import llama as TL
 
-    B, S, P, T = 8, 4096, 1024, 512
-    cache = TL.init_kv_cache(cfg, B, S, dtype=torch.bfloat16, device=dev)
+    Ba, S, P, T = 8, 4096, 1024, 512
+    B = Q8_SLOTS if quantized else Ba
+    cache = TL.init_kv_cache(cfg, B, S, dtype=torch.bfloat16, device=dev, quantized=quantized)
     ck, cv = cache["k"], cache["v"]
 
     def i32(x):
         return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
-    toks, lens = i32([65] * B), i32([P] * B)
+    toks, lens = i32([65] * Ba), i32([P] * Ba)
+    ids = i32(range(0, 2 * Ba, 2)) if quantized else None
     bt, nsh = BLOCK_TOKENS, SHARED_TOKENS // BLOCK_TOKENS
     nbs = S // bt
     tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
     tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
-    pshape = (cfg.n_layers, nsh, cfg.n_kv_heads, bt, cfg.resolved_head_dim)
-    paged = {"tbl": tbl, "k": torch.zeros(pshape, dtype=torch.bfloat16, device=dev),
-             "v": torch.zeros(pshape, dtype=torch.bfloat16, device=dev)}
+    paged = {"tbl": tbl, "k": pool_like(ck, nsh, bt), "v": pool_like(cv, nsh, bt)}
     ragged = dict(tokens=i32([66] * T), rowids=i32([0] * T), positions=i32(range(P, P + T)),
                   slots=i32([0]), starts=i32([P]), last_idx=i32([T - 1]))
+    tag = "_q8" if quantized else ""
     calls = {
-        "decode_step_b8": lambda: TL.llama_decode_step(cfg, params, ck, cv, toks, lens),
-        "decode_step_b8_paged": lambda: TL.llama_decode_step(
-            cfg, params, ck, cv, toks, lens, paged=paged),
-        "ragged_chunk_512": lambda: TL.llama_prefill_chunk_ragged(cfg, params, ck, cv, **ragged),
+        f"decode_step{tag}_b8": lambda: TL.llama_decode_step(
+            cfg, params, ck, cv, toks, lens, slot_ids=ids),
+        f"decode_step{tag}_b8_paged": lambda: TL.llama_decode_step(
+            cfg, params, ck, cv, toks, lens, slot_ids=ids, paged=paged),
+        f"ragged_chunk{tag}_512": lambda: TL.llama_prefill_chunk_ragged(
+            cfg, params, ck, cv, **ragged),
     }
     out = {}
     for name, fn in calls.items():
@@ -754,7 +1094,7 @@ def breakdown_phase(cfg, params, dev) -> dict:
             "idle_share": 1.0 - busy / ms if kern else "not measured",
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
         }
-    log(f"breakdown: {json.dumps(out)}")
+    log(f"breakdown{' int8' if quantized else ''}: {json.dumps(out)}")
     del ck, cv, cache, paged
     torch.cuda.empty_cache()
     return out
@@ -785,7 +1125,10 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
 
     kernels = kernel_phase()
+    kernels.update(kernel_phase_q8())
+    gemm = int8_gemm_phase()
 
+    from llm_mcp_tpu_torch.api.inference import serve
     from llm_mcp_tpu_torch.executor import GenerationEngine
 
     t0 = time.time()
@@ -797,8 +1140,6 @@ def main() -> None:
     log(f"llama-3.1-8b random bf16 weights + cache in {time.time() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check = model_check(engine.cfg, engine.params, engine.device)
-    from llm_mcp_tpu_torch.api.inference import serve
-
     engine.start()
     api = serve({engine.cfg.name: engine}, "127.0.0.1", 0)
     base = f"http://127.0.0.1:{api.port}"
@@ -809,6 +1150,13 @@ def main() -> None:
         api.shutdown()
         engine.shutdown()
     breakdown = breakdown_phase(engine.cfg, engine.params, engine.device)
+    # the bf16 engine goes before the int8 one is built, so the peak reads
+    # one engine at a time
+    del engine, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8 = q8_served_phase()
+    breakdown.update(q8.pop("breakdown"))
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
@@ -819,16 +1167,78 @@ def main() -> None:
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         # launches on the served path that drives the kernel
-        row["launches"] = (prefix if name in PREFIX_KERNELS else e2e)["launches"][name]
+        served = q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS else e2e
+        row["launches"] = served["launches"][name]
         row.update(r)
         rows.append(row)
-    print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check,
-                      "breakdown": breakdown, "seconds": time.time() - t_start}), flush=True)
+    print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
+                      "int8_gemm": gemm, "breakdown": breakdown,
+                      "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def q8_served_phase() -> dict:
+    """Llama-3.1-8B with int8 weights and the int8 KV cache (`quant=int8
+    kv_quant=int8`, Q8_SLOTS slots, full depth, the engine's defaults
+    otherwise): the 2-layer model check, then the chats and the prefix
+    traffic of the bf16 phases over HTTP, with every counter set to 0 just
+    before and read just after. All five int8 entry points and the
+    admission prefill must have launched, no bf16-cache kernel, decode must
+    have run compacted, the ledger must audit clean and the packed scales
+    must equal "s" bit for bit."""
+    import torch
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    engine = GenerationEngine(
+        "llama-3.1-8b", max_slots=Q8_SLOTS, max_seq_len=4096, prefill_chunk=512, seed=0,
+        quant="int8", kv_quant="int8", device="cuda",
+    )
+    torch.cuda.synchronize()
+    built = {"s": time.time() - t0, "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "compaction": engine.decode_compact}
+    log(f"llama-3.1-8b int8 weights + int8 cache: {json.dumps(built)}")
+    check = model_check(engine.cfg, engine.params, engine.device, quantized=True)
+    engine.start()
+    api = serve({engine.cfg.name: engine}, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{api.port}"
+    try:
+        K.reset_launches()
+        rounds0 = engine.compact_rounds
+        e2e = e2e_phase(engine, base, kernels=(), reset=False)
+        prefix = prefix_phase(engine, base, kernels=(), reset=False)
+        launches = dict(K.LAUNCHES)
+        compacted = engine.compact_rounds - rounds0
+        audit = engine.kv_scale_audit()
+    finally:
+        api.shutdown()
+        engine.shutdown()
+    checks = {f"{n} launched": launches[n] > 0
+              for n in Q8_KERNELS + ("flash_prefill_attention",)}
+    for n in ("append_kv_bf16", "decode_attend_bf16", "decode_attend_bf16_paged",
+              "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged"):
+        checks[f"{n} not launched"] = launches[n] == 0
+    checks["decode ran compacted"] = compacted > 0
+    checks["packed scales == s"] = audit == 0
+    report = {"engine": built, "model_check": check, "launches": launches,
+              "compacted_rounds": compacted, "kv_scale_audit_mismatches": audit,
+              "e2e": e2e, "prefix": prefix, "checks": checks}
+    log(f"int8 served: {json.dumps({'launches': launches, 'compacted_rounds': compacted, 'checks': checks})}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"int8 served phase: {bad}")
+    report["breakdown"] = breakdown_phase(engine.cfg, engine.params, engine.device,
+                                          quantized=True)
+    return report
 
 
 if __name__ == "__main__":

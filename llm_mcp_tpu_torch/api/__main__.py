@@ -9,12 +9,22 @@ loading yet) and the tokenizer is the byte tokenizer. `--device cpu` runs
 the plain PyTorch versions of the kernels on the CPU. `--prompt-cache-mb`
 (default 256, as the JAX server) sizes the prompt-prefix cache and its
 paged pool; 0 turns it off.
+
+`--quant int8` serves int8 weights and `--kv-quant int8` the int8 KV
+cache (the JAX package's serving configuration of record is both);
+`--decode-compact auto|on|off` sets slot compaction. Their defaults come
+from `TPU_QUANT`, `TPU_KV_QUANT` and `TPU_DECODE_COMPACT`, as the JAX
+server reads them; the engine warns about an unknown value and drops it.
+
+    python -m llm_mcp_tpu_torch.api --model llama-3.1-8b --max-slots 16 \\
+        --quant int8 --kv-quant int8
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import threading
 
@@ -30,6 +40,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--decode-chunk", type=int, default=4)
     ap.add_argument("--prompt-cache-mb", type=int, default=256,
                     help="prompt-prefix cache budget in MiB (0 = off)")
+    ap.add_argument("--quant", default=os.environ.get("TPU_QUANT", ""),
+                    help='weights: "" (bf16) or int8 (env TPU_QUANT)')
+    ap.add_argument("--kv-quant", default=os.environ.get("TPU_KV_QUANT", ""),
+                    help='KV cache: "" (bf16) or int8 (env TPU_KV_QUANT)')
+    ap.add_argument("--decode-compact", default=os.environ.get("TPU_DECODE_COMPACT", "auto"),
+                    help="slot compaction: auto|on|off (env TPU_DECODE_COMPACT)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--host", default="127.0.0.1")
@@ -49,6 +65,9 @@ def main(argv: list[str] | None = None) -> None:
         prefill_chunk=args.prefill_chunk,
         decode_chunk=args.decode_chunk,
         prompt_cache_mb=args.prompt_cache_mb,
+        quant=args.quant,
+        kv_quant=args.kv_quant,
+        decode_compact=args.decode_compact,
         seed=args.seed,
         dtype=dtype,
         device=args.device,

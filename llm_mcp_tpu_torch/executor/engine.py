@@ -38,6 +38,18 @@ from the pool through the paged kernels, chosen on the host whenever a
 row of the step has a non-identity table. Without physical paging an
 entry is a copy of the slot's rows, copied into every hit slot.
 
+int8, as the JAX engine (`quant`, `kv_quant`, `decode_compact`): with
+`quant="int8"` the weights are int8 (`models/quant.py`; made directly in
+int8 when none are passed, quantized when bf16 ones are) in the fused
+single-device layout (`wqkv`, `w13`), stored K-contiguous for the int8
+GEMM (`gemm_layout`); with `kv_quant="int8"` the KV cache
+is the fused int8 layout (`k = {"q", "s"}`, `v = {}`), and every path
+that moves cache rows (admission, prefix entries, pool copies, copy on
+write, recovery) moves the payload with all its heads and the plain
+scales together. Slot compaction (`decode_compact`, on by default with the
+int8 cache): a decode round runs only a pow2 bucket of the active rows
+(floor 8), each reading its cache row through `slot_ids`.
+
 Left out until later slices: host offload and preemption (`KVPool`),
 migration, the fleet prefix tier, speculation, constraints, the model zoo,
 tenants and the flight recorder.
@@ -66,6 +78,12 @@ from ..models.llama import (
     llama_prefill,
     llama_prefill_chunk_ragged,
 )
+from ..models.quant import (
+    fuse_layer_weights,
+    gemm_layout,
+    init_llama_params_quantized,
+    quantize_params,
+)
 from ..ops.sampling import sample_tokens
 from ..utils.device import resolve_device
 from .common import fine_bucket, pow2_bucket
@@ -77,6 +95,25 @@ from .tokenizer import ByteTokenizer
 log = logging.getLogger("executor")
 
 _DONE = object()  # end-of-stream sentinel on a request's queue
+
+
+def _map(fn, *trees):
+    """fn over the leaves of KV trees of one structure: a tensor, or the
+    fused int8 cache's dict ({"q", "s"}, or {} for its V side)."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(*trees) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    for t in trees:
+        out.extend(t.values() if isinstance(t, dict) else [t])
+    return out
+
+
+def _nbytes(*trees) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(*trees))
 
 
 @dataclass
@@ -143,11 +180,30 @@ class GenerationEngine:
         admit_batch: int = 4,
         target_ttft_ms: float = 2000.0,
         prompt_cache_mb: int = 256,
+        quant: str = "",
+        kv_quant: str = "",
+        decode_compact: str = "auto",
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.cfg = get_config(model) if isinstance(model, str) else model
         self.dtype = dtype
+        # the JAX engine's options and warnings: int8 weights, int8 KV, and
+        # slot compaction (auto = on with the int8 cache, on one device)
+        self.quant = quant
+        if self.quant and self.quant != "int8":
+            log.warning("unknown quant mode %r (supported: int8); serving unquantized", quant)
+            self.quant = ""
+        self.kv_quant = kv_quant
+        if self.kv_quant and self.kv_quant != "int8":
+            log.warning("unknown kv_quant mode %r (supported: int8); using %s cache",
+                        kv_quant, dtype)
+            self.kv_quant = ""
+        dc = (decode_compact or "auto").lower()
+        if dc not in ("auto", "on", "off"):
+            log.warning("unknown decode_compact mode %r (auto|on|off); using auto", dc)
+            dc = "auto"
+        self.decode_compact = dc == "on" or (dc == "auto" and self.kv_quant == "int8")
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.decode_chunk = decode_chunk
@@ -164,9 +220,15 @@ class GenerationEngine:
 
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_llama_params(self.cfg, g, dtype=dtype, device=self.device)
+            init = init_llama_params_quantized if self.quant else init_llama_params
+            params = init(self.cfg, g, dtype, device=self.device)
+        if self.quant:
+            # a no-op on an int8 tree; then the single-device fused layout,
+            # stored K-contiguous for the int8 GEMM
+            params = gemm_layout(fuse_layer_weights(quantize_params(params)))
         self.params = params
-        cache = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device=self.device)
+        cache = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device=self.device,
+                              quantized=self.kv_quant == "int8")
         self._ck, self._cv = cache["k"], cache["v"]
         self._init_prefix_cache(prompt_cache_mb)
 
@@ -182,6 +244,7 @@ class GenerationEngine:
         self._prefills: dict[int, _PrefillState] = {}
         self._prefill_q: deque[int] = deque()
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.compact_rounds = 0  # decode rounds that ran compacted
 
         # Only real text ids and eos may be sampled: the model vocab may be
         # larger than the tokenizer's, and pad/bos are control ids.
@@ -312,7 +375,9 @@ class GenerationEngine:
         self._recent_prompts: deque[tuple] = deque(maxlen=16)
         self.prefix_cache_hits = 0
         self.prefix_cache_misses = 0
-        cache_bytes = 2 * self._ck.numel() * self._ck.element_size()
+        # the pytree byte count, as JAX's: the same budget gives the same
+        # prefix partition and pool rows
+        cache_bytes = _nbytes(self._ck, self._cv)
         self._paging = PagedKVManager(
             max_slots=self.max_slots,
             max_seq_len=self.max_seq_len,
@@ -320,8 +385,8 @@ class GenerationEngine:
             prefix_budget_bytes=self._prefix_budget,
         )
         self._phys: PhysicalPool | None = None
-        self._pool_k: torch.Tensor | None = None
-        self._pool_v: torch.Tensor | None = None
+        self._pool_k = None  # like the cache: a tensor or the fused dict
+        self._pool_v = None
         bt = self._paging.block_tokens
         if (
             os.environ.get("TPU_PAGED_PHYSICAL", "1") not in ("", "0", "false", "no", "off")
@@ -388,8 +453,8 @@ class GenerationEngine:
         P = ent["P"]
         if "k" in ent:
             for slot, _, _ in group:
-                self._ck[:, slot, :, :P] = ent["k"][:, 0]
-                self._cv[:, slot, :, :P] = ent["v"][:, 0]
+                _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._ck, ent["k"])
+                _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._cv, ent["v"])
         for slot, req, ids in group:
             self._prefills[slot] = _PrefillState(req=req, ids=list(ids), done=P, shared_len=P)
             self._prefill_q.append(slot)
@@ -421,8 +486,9 @@ class GenerationEngine:
             self._evict_lru_prefix()
         if self._paging.prefix_register(key, p0) is None:
             return
-        L, _, Hkv, _, hd = self._ck.shape
-        nbytes = 2 * L * Hkv * hd * p0 * self._ck.element_size()
+        # the entry's bytes: every leaf's per-(row, token) bytes times p0
+        nbytes = sum(x.numel() // (x.shape[1] * x.shape[3]) * p0 * x.element_size()
+                     for x in _leaves(self._ck, self._cv))
         if self._phys is not None:
             if not self._store_prefix_physical(slot, key):
                 self._paging.prefix_release(key)
@@ -432,8 +498,8 @@ class GenerationEngine:
         else:
             ent = {
                 "P": p0, "bytes": nbytes, "key": key,
-                "k": self._ck[:, slot: slot + 1, :, :p0].clone(),
-                "v": self._cv[:, slot: slot + 1, :, :p0].clone(),
+                "k": _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._ck),
+                "v": _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._cv),
             }
         self._prefix_cache[key] = ent
         self._prefix_by_len.setdefault(p0, {})[key] = ent
@@ -502,23 +568,43 @@ class GenerationEngine:
             self._phys.sweep(self._paging.alive)
 
     # Device block copies, in place on the engine's stream (the JAX
-    # engine's `_cow_block_raw`, `_pool_put_arena_raw`, `_pool_put_pool_raw`).
+    # engine's `_cow_block_raw`, `_pool_put_arena_raw`, `_pool_put_pool_raw`),
+    # over every leaf: a fused int8 block moves all its payload heads (the
+    # packed pseudo-head too) and its plain scales together.
 
     def _cow_block(self, slot: int, blk: int, prow: int) -> None:
         """Pool row `prow` into block `blk` of the slot's arena row."""
         bt = self._paging.block_tokens
-        self._ck[:, slot, :, blk * bt: (blk + 1) * bt] = self._pool_k[:, prow]
-        self._cv[:, slot, :, blk * bt: (blk + 1) * bt] = self._pool_v[:, prow]
+        for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
+            _map(lambda a, b: a[:, slot, :, blk * bt: (blk + 1) * bt].copy_(b[:, prow]), c, p)
 
     def _pool_put_arena(self, row: int, off: int, prow: int) -> None:
         """One block of arena row `row` at token offset `off` into pool row `prow`."""
         bt = self._paging.block_tokens
-        self._pool_k[:, prow] = self._ck[:, row, :, off: off + bt]
-        self._pool_v[:, prow] = self._cv[:, row, :, off: off + bt]
+        for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
+            _map(lambda a, b: b[:, prow].copy_(a[:, row, :, off: off + bt]), c, p)
 
     def _pool_put_pool(self, src: int, dst: int) -> None:
-        self._pool_k[:, dst] = self._pool_k[:, src]
-        self._pool_v[:, dst] = self._pool_v[:, src]
+        for p in _leaves(self._pool_k, self._pool_v):
+            p[:, dst] = p[:, src]
+
+    def kv_scale_audit(self) -> int:
+        """Positions (layer, row, head, token) of the arena and the pool
+        where the fused int8 cache's packed pseudo-head and its plain
+        scales "s" disagree in any bit. Every write and copy path keeps
+        them equal, so 0 is sound; a bf16 cache or one without the
+        pseudo-head has nothing to audit."""
+        bad = 0
+        for c in (self._ck, self._pool_k):
+            if not isinstance(c, dict) or c["q"].shape[2] == c["s"].shape[2]:
+                continue
+            Hs = c["s"].shape[2]
+            nb = Hs * c["s"].element_size()
+            packed = c["q"][:, :, Hs, :, :nb].reshape(*c["q"].shape[:2], -1, Hs, nb // Hs)
+            plain = c["s"].transpose(2, 3).contiguous().view(torch.int8)
+            plain = plain.reshape(packed.shape)
+            bad += int((packed != plain).any(dim=-1).sum().item())
+        return bad
 
     def _reset_kv(self) -> None:
         """After a failed step: the caches may hold partial writes, and a
@@ -526,13 +612,13 @@ class GenerationEngine:
         cache, drop every prefix entry, reset every table and zero the pool
         (as the JAX engine's `_recover_cache`); `_abort_all` follows and
         frees every slot's table, which returns the last pool rows."""
-        self._ck.zero_()
-        self._cv.zero_()
+        for x in _leaves(self._ck, self._cv):
+            x.zero_()
         while self._prefix_cache:
             self._evict_lru_prefix()
         if self._phys is not None:
-            self._pool_k.zero_()
-            self._pool_v.zero_()
+            for x in _leaves(self._pool_k, self._pool_v):
+                x.zero_()
             self._phys.reset_all()
 
     # -- engine loop -------------------------------------------------------
@@ -582,27 +668,53 @@ class GenerationEngine:
         )
 
     def _decode_round(self, active: list[int]):
-        """`decode_chunk` decode steps for the whole batch (parked rows ride
-        along and write nothing); returns the fetched tokens [K, B]."""
+        """`decode_chunk` decode steps. Uncompacted, the whole batch runs
+        (parked rows ride along and write nothing); compacted, a pow2
+        bucket Ba of the active rows (floor min(8, B)), each reading its
+        cache row through `slot_ids`, and at Ba == B the uncompacted step.
+        Returns the fetched tokens [K, B]."""
         t0 = time.perf_counter()
-        S = self.max_seq_len
-        lens = self._t(self._lengths)
-        toks = self._t(self._last_tok)
-        temps, topks, topps = self._temp, self._topk, self._topp
+        B, S, K = self.max_slots, self.max_seq_len, self.decode_chunk
+        nact = len(active)
+        Ba = pow2_bucket(nact, B, floor=min(8, B)) if self.decode_compact else B
+        if Ba < B:
+            # pad rows are parked (w = S: the append writes nothing) and aim
+            # at a row that is neither active nor mid-prefill, as in JAX
+            in_round = set(active)
+            free = next(
+                (i for i in range(B) if self._slots[i] is None and i not in self._prefills),
+                next((i for i in range(B) if self._slots[i] is None),
+                     next(i for i in range(B) if i not in in_round)),
+            )
+            rows = np.full(Ba, free, dtype=np.int32)
+            rows[:nact] = active
+            lens_in = np.full(Ba, S, dtype=np.int32)
+            lens_in[:nact] = self._lengths[active]
+            slot_ids = self._t(rows)
+        else:
+            rows, lens_in, slot_ids = np.arange(B), self._lengths, None
+        lens = self._t(lens_in)
+        toks = self._t(self._last_tok[rows])
+        temps, topks, topps = self._temp[rows], self._topk[rows], self._topp[rows]
         paged = self._paged_operand(active)  # the tables do not change in a round
         outs = []
-        for _ in range(self.decode_chunk):
+        for _ in range(K):
             logits, self._ck, self._cv = llama_decode_step(
-                self.cfg, self.params, self._ck, self._cv, toks, lens, paged=paged
+                self.cfg, self.params, self._ck, self._cv, toks, lens, slot_ids=slot_ids,
+                paged=paged,
             )
             toks = self._sample(logits, temps, topks, topps, active=lens < S)
             outs.append(toks)
             lens = torch.where(lens < S, lens + 1, lens)
-        out = torch.stack(outs).cpu().numpy()  # the round's one host sync
+        got = torch.stack(outs).cpu().numpy()  # the round's one host sync
         self._sched.observe_decode(time.perf_counter() - t0)
+        self.compact_rounds += int(Ba < B)
+        n = nact if Ba < B else B  # the rows of `got` that are slots' own
+        out = np.zeros((K, B), dtype=got.dtype)
+        out[:, rows[:n]] = got[:, :n]
         base = self._lengths.copy()
         for b in active:
-            self._lengths[b] = min(int(base[b]) + self.decode_chunk, S)
+            self._lengths[b] = min(int(base[b]) + K, S)
             self._last_tok[b] = out[-1, b]
         # ledger: grow the tables to cover the advanced lengths
         self._paging.extend_many({b: int(self._lengths[b]) for b in active})
@@ -722,10 +834,11 @@ class GenerationEngine:
         for i, (_, _, ids) in enumerate(batch):
             tokens[i, : len(ids)] = ids
             lengths[i] = len(ids)
-        logits, ks, vs = llama_prefill(self.cfg, self.params, self._t(tokens), self._t(lengths))
+        logits, ks, vs = llama_prefill(self.cfg, self.params, self._t(tokens), self._t(lengths),
+                                       quant_kv=self.kv_quant == "int8")
         for i, (slot, _, _) in enumerate(batch):
-            self._ck[:, slot, :, :bucket] = ks[:, i]
-            self._cv[:, slot, :, :bucket] = vs[:, i]
+            _map(lambda c, k: c[:, slot, :, :bucket].copy_(k[:, i]), self._ck, ks)
+            _map(lambda c, v: c[:, slot, :, :bucket].copy_(v[:, i]), self._cv, vs)
         reqs = [req for _, req, _ in batch]
         toks0 = self._sample(
             logits[:A],

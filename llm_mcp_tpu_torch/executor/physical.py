@@ -41,11 +41,16 @@ import numpy as np
 import torch
 
 
-def pool_like(cache: torch.Tensor, pool_rows: int, block_tokens: int) -> torch.Tensor:
+def pool_like(cache, pool_rows: int, block_tokens: int):
     """Zeroed prefix pool for a KV cache ``[L, B, Hkv, S, hd]``: the slot
     axis becomes ``pool_rows`` and the S axis ``block_tokens``, giving
     ``[L, pool_rows, Hkv, block_tokens, hd]`` on the cache's device. One
-    pool row holds one block's tokens across all layers."""
+    pool row holds one block's tokens across all layers. A fused int8
+    cache maps leaf by leaf, as JAX maps its pytree:
+    ``{"q": [L, rows, 2*Hkv+p, bt, hd], "s": [L, rows, 2*Hkv, bt]}``, and
+    its empty V side ``{}`` stays ``{}``."""
+    if isinstance(cache, dict):
+        return {k: pool_like(v, pool_rows, block_tokens) for k, v in cache.items()}
     shape = (cache.shape[0], pool_rows, cache.shape[2], block_tokens) + tuple(cache.shape[4:])
     return torch.zeros(shape, dtype=cache.dtype, device=cache.device)
 

@@ -1,7 +1,7 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Six CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
+Eleven CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
 
   - `append_kv_bf16`             ← `_append_bf16_kernel`
   - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
@@ -9,11 +9,22 @@ Six CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
   - `flash_prefill_attention`    ← `_flash_prefill_kernel`
   - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel`, identity tables
   - `ragged_prefill_attend_bf16_paged` ← the same body's block-table path
+  - `append_kv_q8`               ← `_append_q8_kernel` with the quantization
+                                   and scale packing of `append_kv_q8`
+  - `decode_attend_q8`           ← `_attend_q8_kernel` + `_attend_q8_blocked_kernel`
+  - `decode_attend_q8_paged`     ← `_attend_q8_paged_kernel`
+  - `ragged_prefill_attend_q8`   ← `_ragged_prefill_q8_kernel`, identity tables
+  - `ragged_prefill_attend_q8_paged` ← the same body's block-table path
 
-The two paged kernels are what `decode_attend_bf16` and
-`ragged_prefill_attend_bf16` launch when given `block_tables` (the
-physical layout of `executor/physical.py`); `paged_gather` is their plain
-versions' read side.
+The paged kernels are what the decode and ragged wrappers launch when
+given `block_tables` (the physical layout of `executor/physical.py`);
+`paged_gather` is their plain versions' read side.
+
+The int8 kernels read and write the fused int8 cache of
+`models/llama.py:init_kv_cache(quantized=True)`: `{"q": int8 [L, B,
+2*Hkv + p, S, hd], "s": [L, B, 2*Hkv, S]}`, K heads then V heads, and with
+p = 1 a pseudo-head carrying the same scales bit-packed
+(`models/quant.py:pack_scales`).
 
 Each wrapper keeps the JAX function's layouts and arguments. It takes its
 plain PyTorch version (`*_plain`, beside it) only for tensors on the CPU;
@@ -23,7 +34,7 @@ and raises if the launch is refused. `LAUNCHES[name]` counts the launches
 of each kernel, so a run can show that the main path went through it.
 
 The caches are updated in place (the JAX functions return new arrays):
-`append_kv_bf16` writes its rows into the tensors it is given.
+the appends write their rows into the tensors they are given.
 """
 
 from __future__ import annotations
@@ -46,6 +57,11 @@ LAUNCHES: dict[str, int] = {
     "flash_prefill_attention": 0,
     "ragged_prefill_attend_bf16": 0,
     "ragged_prefill_attend_bf16_paged": 0,
+    "append_kv_q8": 0,
+    "decode_attend_q8": 0,
+    "decode_attend_q8_paged": 0,
+    "ragged_prefill_attend_q8": 0,
+    "ragged_prefill_attend_q8_paged": 0,
 }
 
 
@@ -64,6 +80,11 @@ _SIGNATURES = {
     "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
     "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_bf16_paged": ("ragged_prefill", [_P] * 13 + [_I] * 11 + [_F, _P]),
+    "append_kv_q8": ("append_kv_q8", [_P] * 6 + [_I] * 6 + [_P]),
+    "decode_attend_q8": ("decode_attend", [_P] * 11 + [_I] * 11 + [_F, _P]),
+    "decode_attend_q8_paged": ("decode_attend", [_P] * 14 + [_I] * 13 + [_F, _P]),
+    "ragged_prefill_q8": ("ragged_prefill", [_P] * 10 + [_I] * 9 + [_F, _P]),
+    "ragged_prefill_q8_paged": ("ragged_prefill", [_P] * 13 + [_I] * 12 + [_F, _P]),
 }
 
 
@@ -408,12 +429,26 @@ def ragged_prefill_plain(
     attend cache row slots[r] over [0, starts[r]) and their own segment
     causally; the pad tokens after offsets[R] form one more segment with
     no cached prefix."""
+    li = int(layer)
+    sl = [int(x) for x in slots.tolist()]
+
+    def past(r, start):
+        return cache_k[li, sl[r], :, :start].float(), cache_v[li, sl[r], :, :start].float(), None, None
+
+    return _ragged_rows_plain(q, k_self, v_self, past, offsets, starts, scale)
+
+
+def _ragged_rows_plain(q, k_self, v_self, past, offsets, starts, scale):
+    """The ragged plain math. `past(r, start)` gives row r's cached prefix
+    as (k, v) [Hkv, start, hd] in f32 and, for an int8 cache, its dequant
+    scales (kss, vss) [Hkv, start] (else None): the scores take kss after
+    the dot and the probabilities vss before the PV product, as the JAX
+    q8 kernel does."""
     T, Hkv, G, hd = q.shape
-    R = slots.shape[0]
+    R = starts.shape[0]
     sc = scale or hd**-0.5
     offs = [int(x) for x in offsets.tolist()] + [T]
     st = [int(x) for x in starts.tolist()]
-    sl = [int(x) for x in slots.tolist()]
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for r in range(R + 1):
         lo, hi = offs[r], offs[r + 1]
@@ -428,11 +463,14 @@ def ragged_prefill_plain(
         s_self = torch.where(causal, s_self, torch.full_like(s_self, NEG_INF))
         start = st[r] if r < R else 0
         if start > 0:
-            kp = cache_k[int(layer), sl[r], :, :start].float()  # [Hkv, start, hd]
-            vp = cache_v[int(layer), sl[r], :, :start].float()
-            s_past = torch.einsum("hgtd,hsd->hgts", qr, kp) * sc
+            kp, vp, kss, vss = past(r, start)
+            s_past = torch.einsum("hgtd,hsd->hgts", qr, kp)
+            if kss is not None:
+                s_past = s_past * kss[:, None, None, :]
+            s_past = s_past * sc
             p = torch.softmax(torch.cat([s_past, s_self], dim=-1), dim=-1)
-            ctx = torch.einsum("hgts,hsd->hgtd", p[..., :start], vp)
+            pp = p[..., :start] if vss is None else p[..., :start] * vss[:, None, None, :]
+            ctx = torch.einsum("hgts,hsd->hgtd", pp, vp)
             ctx = ctx + torch.einsum("hgtu,hud->hgtd", p[..., start:], vr)
         else:
             p = torch.softmax(s_self, dim=-1)
@@ -522,5 +560,324 @@ def ragged_prefill_attend_bf16(
         name, "ragged_prefill_bf16_paged", q, k_self, v_self, cache_k,
         cache_v, rowids, offsets, slots, starts, tbl, pool_k, pool_v, out,
         int(layer), T, R, B, Hkv, G, S, hd, nbs, bt, pxb, sc,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 (fused cache): append_kv_q8, decode_attend_q8, ragged_prefill_attend_q8
+# ---------------------------------------------------------------------------
+
+
+def fused_q8_heads(cache_k: dict) -> tuple[int, int]:
+    """(Hkv, p) of a fused int8 cache: the payload carries 2*Hkv K|V heads
+    plus p in {0, 1} packed-scale pseudo-heads; "s" has exactly 2*Hkv."""
+    Hs = cache_k["s"].shape[2]
+    return Hs // 2, cache_k["q"].shape[2] - Hs
+
+
+def q8_group(seq_len: int) -> int:
+    """Keys per probability requantization group of the contiguous decode
+    arm: the first of 256/128/64/32 dividing S (JAX's blocked-arm BS), 0
+    when none does (JAX then takes its exact f32 fallback)."""
+    return next((c for c in (256, 128, 64, 32) if seq_len % c == 0), 0)
+
+
+def _check_fused(name, cache_k, L, B, Hkv, S, hd, dev) -> None:
+    """Check a fused int8 cache (or pool) on the card."""
+    Hf = cache_k["q"].shape[2]
+    if fused_q8_heads(cache_k) not in ((Hkv, 0), (Hkv, 1)):
+        raise ValueError(f"{name}: payload has {Hf} heads, expected 2*Hkv (+1)")
+    _check(name, cache_k["q"], torch.int8, (L, B, Hf, S, hd), dev)
+    _check(name, cache_k["s"], torch.bfloat16, (L, B, 2 * Hkv, S), dev)
+
+
+def append_kv_q8_plain(cache_k, new_k, new_v, lengths, slot_ids=None):
+    """Plain version, in place: quantize row b's K/V of every layer
+    (`quantize_kv`), pack its scales and write payload heads
+    [0, 2*Hkv + p) and plain scales at position lengths[b] of cache row
+    slot_ids[b]; rows outside [0, S) write nothing."""
+    from ..models.llama import quantize_kv  # models import the kernels
+    from ..models.quant import pack_scales
+
+    cq, cs = cache_k["q"], cache_k["s"]
+    S, hd = cq.shape[3], cq.shape[4]
+    _, p = fused_q8_heads(cache_k)
+    kq = quantize_kv(new_k, scale_dtype=cs.dtype)
+    vq = quantize_kv(new_v, scale_dtype=cs.dtype)
+    s_new = torch.cat([kq["s"], vq["s"]], dim=2)  # [L, Ba, 2*Hkv]
+    pay = torch.cat([kq["q"], vq["q"]], dim=2)  # [L, Ba, 2*Hkv, hd]
+    if p:
+        pay = torch.cat([pay, pack_scales(s_new[..., None], hd)[..., 0, :]], dim=2)
+    rows = _rows(slot_ids, new_k.shape[1], cq.device).long()
+    w = lengths.long()
+    live = (w >= 0) & (w < S)
+    b_idx, w_idx = rows[live], w[live]
+    cq[:, b_idx, :, w_idx] = pay[:, live].transpose(0, 1)
+    cs[:, b_idx, :, w_idx] = s_new[:, live].transpose(0, 1)
+    return cache_k
+
+
+def append_kv_q8(
+    cache_k: dict,  # fused {"q": int8 [L, B, 2*Hkv+p, S, hd], "s": [L, B, 2*Hkv, S]}
+    cache_v: dict,  # {} — V rides cache_k's head axis
+    new_k: torch.Tensor,  # [L, Ba, Hkv, hd] — this step's K, all layers
+    new_v: torch.Tensor,
+    lengths: torch.Tensor,  # [Ba] int32 — write position per row (>= S: skip)
+    *,
+    slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+) -> tuple[dict, dict]:
+    """Quantize and append one decode step's K/V for all layers into the
+    fused int8 cache, in place, bit for bit what JAX's `append_kv_q8`
+    writes. Returns the (same) caches."""
+    if cache_k["q"].device.type == "cpu":
+        return append_kv_q8_plain(cache_k, new_k, new_v, lengths, slot_ids), cache_v
+    name = "append_kv_q8"
+    L, B, Hf, S, hd = cache_k["q"].shape
+    Ba, Hkv = new_k.shape[1], new_k.shape[2]
+    dev = cache_k["q"].device
+    rows = _rows(slot_ids, Ba, dev)
+    _check_fused(name, cache_k, L, B, Hkv, S, hd, dev)
+    for t in (new_k, new_v):
+        _check(name, t, torch.bfloat16, (L, Ba, Hkv, hd), dev)
+    for t in (lengths, rows):
+        _check(name, t, torch.int32, (Ba,), dev)
+    if hd != HEAD_DIM:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM}")
+    _launch(name, "append_kv_q8", cache_k["q"], cache_k["s"], new_k, new_v, lengths, rows,
+            L, B, Ba, Hkv, Hf, S)
+    return cache_k, cache_v
+
+
+def _q8_rows(cache_k, layer, rows, block_tables=None, pool=None):
+    """Layer `layer` of the fused cache at cache rows `rows` (through their
+    tables when given): payload [R, Hf, S, hd] and scales [R, 2*Hkv, S]."""
+    li = int(layer)
+    pay, ss = cache_k["q"][li], cache_k["s"][li]
+    if block_tables is None:
+        return pay.index_select(0, rows), ss.index_select(0, rows)
+    tbl = block_tables.index_select(0, rows.to(block_tables.device))
+    return paged_gather(pay, pool["q"][li], tbl), paged_gather(ss, pool["s"][li], tbl)
+
+
+def decode_attend_q8_plain(
+    q, new_k, new_v, cache_k, layer, lengths, slot_ids=None, scale=0.0, group=0,
+    block_tables=None, pool_k=None,
+):
+    """Plain version, in f32, of the int8 decode kernels. With p = 1 the
+    scales are read from the packed pseudo-head, as the kernel reads them.
+    q is requantized per (h, g) row; the s8 x s8 dots are exact integers
+    in f32 (|sum| < 2^24); position w takes the exact new_k/new_v. The
+    probabilities times the V scales are requantized to int8 per `group`
+    keys (the JAX blocked arm's BS, the paged arm's bt; `group = S` is the
+    whole-S arm): p8 does not change when p is scaled by a constant, so
+    one max over the row stands for JAX's running max. `group = 0` is the
+    exact math of JAX's `_decode_attend_q8_fallback` (no requantization).
+    A parked row (w outside [0, S)) attends its new vectors alone."""
+    from ..models.quant import INV127, unpack_scales
+
+    Ba, Hkv, G, hd = q.shape
+    rows = _rows(slot_ids, Ba, q.device).long()
+    pay, ss = _q8_rows(cache_k, layer, rows, block_tables, pool_k)
+    S = pay.shape[2]
+    Hs = ss.shape[1]
+    if fused_q8_heads(cache_k)[1]:
+        ss = unpack_scales(pay[:, Hs], Hs, ss.dtype)
+    ss = ss.float()
+    kss, vss = ss[:, :Hkv], ss[:, Hkv:]
+    k8, v8 = pay[:, :Hkv].float(), pay[:, Hkv:Hs].float()
+    sc = scale or hd**-0.5
+    w = lengths.long()
+    we = torch.where((w >= 0) & (w < S), w, torch.zeros_like(w))
+    pos = torch.arange(S, device=q.device)
+    at_w = (pos[None, :] == we[:, None])[:, None, None, :]  # [Ba, 1, 1, S]
+    seen = (pos[None, :] <= we[:, None])[:, None, None, :]
+    qf = q.float()
+    s_new = torch.einsum("bhgd,bhd->bhg", qf, new_k.float()) * sc
+    if group:
+        qsc = torch.clamp(qf.abs().amax(dim=-1) * INV127, min=1e-30)  # [Ba, Hkv, G]
+        q8 = torch.round(qf / qsc[..., None])
+        s = torch.einsum("bhgd,bhsd->bhgs", q8, k8) * (sc * qsc)[..., None]
+    else:
+        s = torch.einsum("bhgd,bhsd->bhgs", qf * sc, k8)
+    s = s * kss[:, :, None, :]
+    s = torch.where(at_w, s_new[..., None], s)
+    s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+    p = torch.where(seen, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    p_w = torch.sum(torch.where(at_w, p, torch.zeros_like(p)), dim=-1)  # [Ba, Hkv, G]
+    pv = torch.where(at_w, torch.zeros_like(p), p * vss[:, :, None, :])
+    if group:
+        nb = S // group
+        pg = pv.reshape(Ba, Hkv, G, nb, group)
+        psc = torch.clamp(pg.amax(dim=-1) * INV127, min=1e-30)  # [Ba, Hkv, G, nb]
+        p8 = torch.round(pg / psc[..., None])
+        ci = torch.einsum("bhgjk,bhjkd->bhgjd", p8, v8.reshape(Ba, Hkv, nb, group, hd))
+        ctx = (ci * psc[..., None]).sum(dim=3)
+    else:
+        ctx = torch.einsum("bhgs,bhsd->bhgd", pv, v8)
+    ctx = ctx + p_w[..., None] * new_v.float()[:, :, None, :]
+    return (ctx / l[..., None]).to(q.dtype)
+
+
+def decode_attend_q8(
+    q: torch.Tensor,  # [Ba, Hkv, G, hd]
+    new_k: torch.Tensor,  # [Ba, Hkv, hd] — post-rope K for this step
+    new_v: torch.Tensor,  # [Ba, Hkv, hd]
+    cache_k: dict,  # fused int8 cache — PRE-append
+    cache_v: dict,  # {}
+    layer: int,
+    lengths: torch.Tensor,  # [Ba] int32 — this step's position per row
+    *,
+    slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool_k: dict | None = None,  # {"q": int8 [L, PXB, 2*Hkv+p, bt, hd], "s": [L, PXB, 2*Hkv, bt]}
+    scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
+) -> torch.Tensor:
+    """One decode step's attention for one layer over the fused int8 cache
+    (pre-append; position lengths[b] takes the exact new_k/new_v). The
+    probabilities are requantized per `q8_group(S)` keys, or per block of
+    bt keys through `block_tables` (`decode_attend_q8_paged`), as JAX's
+    blocked and paged arms do. Returns [Ba, Hkv, G, hd]."""
+    S = cache_k["q"].shape[3]
+    group = q8_group(S) if block_tables is None else S // block_tables.shape[1]
+    if q.device.type == "cpu":
+        return decode_attend_q8_plain(
+            q, new_k, new_v, cache_k, layer, lengths, slot_ids, scale, group,
+            block_tables, pool_k,
+        )
+    name = "decode_attend_q8" if block_tables is None else "decode_attend_q8_paged"
+    Ba, Hkv, G, hd = q.shape
+    L, B, Hf, _, _ = cache_k["q"].shape
+    dev = q.device
+    rows = _rows(slot_ids, Ba, dev)
+    _check(name, q, torch.bfloat16, (Ba, Hkv, G, hd), dev)
+    for t in (new_k, new_v):
+        _check(name, t, torch.bfloat16, (Ba, Hkv, hd), dev)
+    _check_fused(name, cache_k, L, B, Hkv, S, hd, dev)
+    for t in (lengths, rows):
+        _check(name, t, torch.int32, (Ba,), dev)
+    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    if group <= 0 or DECODE_CHUNK % group:
+        raise ValueError(f"{name}: requantization group {group} must divide {DECODE_CHUNK}")
+    nsplit = -(-S // DECODE_CHUNK)
+    pm = torch.empty((Ba, Hkv, nsplit, G), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    sc = float(scale or hd**-0.5)
+    if block_tables is None:
+        _launch(
+            name, "decode_attend_q8", q, new_k, new_v, cache_k["q"], cache_k["s"],
+            lengths, rows, pm, pl, pacc, out,
+            int(layer), B, Ba, Hkv, Hf, G, S, hd, DECODE_CHUNK, nsplit, group, sc,
+        )
+        return out
+    nbs, bt, pxb = _check_paged_q8(name, block_tables, pool_k, L, B, Hkv, Hf, S, hd, dev)
+    if block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
+    _launch(
+        name, "decode_attend_q8_paged", q, new_k, new_v, cache_k["q"], cache_k["s"],
+        lengths, rows, block_tables, pool_k["q"], pool_k["s"], pm, pl, pacc, out,
+        int(layer), B, Ba, Hkv, Hf, G, S, hd, DECODE_CHUNK, nsplit, nbs, bt, pxb, sc,
+    )
+    return out
+
+
+def _check_paged_q8(name, block_tables, pool, L, B, Hkv, Hf, S, hd, dev) -> tuple[int, int, int]:
+    """Check the paged int8 operands; returns (nbs, bt, pool rows)."""
+    if block_tables.dim() != 2 or block_tables.shape[1] < 1 or S % block_tables.shape[1]:
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} must be "
+                         f"[rows, nbs] with nbs dividing S={S}")
+    nbs = block_tables.shape[1]
+    bt = S // nbs
+    if not pool or pool["q"].dim() != 5 or pool["q"].shape[1] < 1:
+        raise ValueError(f"{name}: block_tables need a prefix pool with at least one row")
+    pxb = pool["q"].shape[1]
+    if pool["q"].shape[2] != Hf:
+        raise ValueError(f"{name}: pool payload has {pool['q'].shape[2]} heads, cache {Hf}")
+    _check_fused(name, pool, L, pxb, Hkv, bt, hd, dev)
+    _check(name, block_tables, torch.int32, (block_tables.shape[0], nbs), dev)
+    return nbs, bt, pxb
+
+
+def ragged_prefill_q8_plain(
+    q, k_self, v_self, cache_k, layer, rowids, offsets, slots, starts, scale=0.0,
+    block_tables=None, pool=None,
+):
+    """Plain version, in f32: the ragged math over each descriptor row's
+    int8 past (payload as f32, dequantized after the dots by the plain
+    scales, which are read through the same tables as the payload) and the
+    chunk's own exact keys."""
+    Hkv = q.shape[1]
+    pay, ss = _q8_rows(cache_k, layer, slots.long(), block_tables, pool)
+
+    def past(r, start):
+        return (pay[r, :Hkv, :start].float(), pay[r, Hkv: 2 * Hkv, :start].float(),
+                ss[r, :Hkv, :start].float(), ss[r, Hkv:, :start].float())
+
+    return _ragged_rows_plain(q, k_self, v_self, past, offsets, starts, scale)
+
+
+def ragged_prefill_attend_q8(
+    q: torch.Tensor,  # [T, Hkv, G, hd] post-rope queries (packed)
+    k_self: torch.Tensor,  # [T, Hkv, hd] the chunk's own post-rope keys, exact
+    v_self: torch.Tensor,  # [T, Hkv, hd]
+    cache_k: dict,  # fused int8 cache
+    layer: int,
+    rowids: torch.Tensor,  # [T] int32 — descriptor row per token (pads = R)
+    offsets: torch.Tensor,  # [R+1] int32 — packed row boundaries
+    slots: torch.Tensor,  # [R] int32
+    starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
+    *,
+    scale: float = 0.0,
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool: dict | None = None,  # the fused prefix pool
+) -> torch.Tensor:
+    """Ragged chunked-prefill attention over the fused int8 cache: int8
+    past keys dequantized (no requantization), the chunk's own segment in
+    exact bf16. With `block_tables` each row's prefix, payload and scales,
+    is read through its slot's table (`ragged_prefill_attend_q8_paged`).
+    Returns [T, Hkv, G, hd]."""
+    if q.device.type == "cpu":
+        return ragged_prefill_q8_plain(
+            q, k_self, v_self, cache_k, layer, rowids, offsets, slots, starts, scale,
+            block_tables, pool,
+        )
+    name = "ragged_prefill_attend_q8" if block_tables is None else "ragged_prefill_attend_q8_paged"
+    T, Hkv, G, hd = q.shape
+    L, B, Hf, S, _ = cache_k["q"].shape
+    R = slots.shape[0]
+    dev = q.device
+    _check(name, q, torch.bfloat16, (T, Hkv, G, hd), dev)
+    for t in (k_self, v_self):
+        _check(name, t, torch.bfloat16, (T, Hkv, hd), dev)
+    _check_fused(name, cache_k, L, B, Hkv, S, hd, dev)
+    _check(name, rowids, torch.int32, (T,), dev)
+    _check(name, offsets, torch.int32, (R + 1,), dev)
+    for t in (slots, starts):
+        _check(name, t, torch.int32, (R,), dev)
+    if hd != HEAD_DIM or 64 % G:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G dividing 64")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    out = torch.empty_like(q)
+    sc = float(scale or hd**-0.5)
+    if block_tables is None:
+        _launch(
+            name, "ragged_prefill_q8", q, k_self, v_self, cache_k["q"], cache_k["s"],
+            rowids, offsets, slots, starts, out,
+            int(layer), T, R, B, Hkv, Hf, G, S, hd, sc,
+        )
+        return out
+    nbs, bt, pxb = _check_paged_q8(name, block_tables, pool, L, B, Hkv, Hf, S, hd, dev)
+    tbl = block_tables.index_select(0, slots.long()).contiguous()
+    _launch(
+        name, "ragged_prefill_q8_paged", q, k_self, v_self, cache_k["q"], cache_k["s"],
+        rowids, offsets, slots, starts, tbl, pool["q"], pool["s"], out,
+        int(layer), T, R, B, Hkv, Hf, G, S, hd, nbs, bt, pxb, sc,
     )
     return out

@@ -9,7 +9,8 @@
 // half-warp), and accumulates P.V. Scores and the output stay on chip.
 //
 // Shared memory (floats): Q^T [HD][65] (pre-scaled), K^T [HD][65],
-// V [64][HD], P^T [64][65]. The padded strides keep the column reads
+// V [64][HD], P^T [64][65], and the key tile's int8 dequant scales
+// kss/vss [64] (`step_q8`). The padded strides keep the column reads
 // conflict-free.
 
 #pragma once
@@ -23,7 +24,7 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int PAD = 65;
 constexpr int THREADS = 256;
-constexpr size_t SMEM_FLOATS = HD * PAD + HD * PAD + BK * HD + BK * PAD;
+constexpr size_t SMEM_FLOATS = HD * PAD + HD * PAD + BK * HD + BK * PAD + 2 * BK;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 struct Smem {
@@ -31,8 +32,11 @@ struct Smem {
   float* kT;
   float* v;
   float* pT;
+  float* kss;
+  float* vss;
   __device__ explicit Smem(float* base)
-      : qT(base), kT(base + HD * PAD), v(base + 2 * HD * PAD), pT(base + 2 * HD * PAD + BK * HD) {}
+      : qT(base), kT(base + HD * PAD), v(base + 2 * HD * PAD), pT(base + 2 * HD * PAD + BK * HD),
+        kss(base + 2 * HD * PAD + BK * HD + BK * PAD), vss(kss + BK) {}
 };
 
 struct State {
@@ -66,14 +70,19 @@ __device__ __forceinline__ void load_q_chunk(const Smem& s, int r, int d0, const
   for (int e = 0; e < 8; ++e) s.qT[(d0 + e) * PAD + r] = f[e] * scale;
 }
 
+// The tile's scores, online softmax and P.V once K^T and V are in shared
+// memory. SCALED: an int8 tile whose scores take kss[kk] after the dot and
+// whose probabilities take vss[kk] before P.V (the row sum l keeps the bare
+// probabilities), as `_ragged_prefill_q8_kernel` dequantizes.
+template <bool SCALED, class Mask>
+__device__ void step_tile(const Smem& s, State& st, int nkeys, float softcap, Mask mask);
+
 // One key tile. `kv_row(kk, kp, vp)` points kp/vp at key kk's K and V rows
 // (kk < nkeys); `mask(r, kk)` says whether row r may attend key kk.
 template <class KvRow, class Mask>
 __device__ void step(const Smem& s, State& st, int nkeys, float softcap, KvRow kv_row,
                      Mask mask) {
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
   for (int c = tid; c < BK * (HD / 8); c += THREADS) {
     const int kk = c / (HD / 8);
     const int d0 = (c % (HD / 8)) * 8;
@@ -95,7 +104,55 @@ __device__ void step(const Smem& s, State& st, int nkeys, float softcap, KvRow k
     }
   }
   __syncthreads();
+  step_tile<false>(s, st, nkeys, softcap, mask);
+}
 
+// One int8 key tile. `kv_row(kk, kp, vp, ks, vs)` points kp/vp at key kk's
+// int8 K and V rows and gives its scales; the values convert on load.
+template <class KvRowQ8, class Mask>
+__device__ void step_q8(const Smem& s, State& st, int nkeys, KvRowQ8 kv_row, Mask mask) {
+  const int tid = threadIdx.x;
+  for (int c = tid; c < BK * (HD / 8); c += THREADS) {
+    const int kk = c / (HD / 8);
+    const int d0 = (c % (HD / 8)) * 8;
+    float kf[8], vf[8];
+    if (kk < nkeys) {
+      const int8_t* kp;
+      const int8_t* vp;
+      float ks, vs;
+      kv_row(kk, kp, vp, ks, vs);
+      const uint2 kr = *reinterpret_cast<const uint2*>(kp + d0);
+      const uint2 vr = *reinterpret_cast<const uint2*>(vp + d0);
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&kr);
+      const int8_t* vb = reinterpret_cast<const int8_t*>(&vr);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kf[e] = (float)kb[e];
+        vf[e] = (float)vb[e];
+      }
+      if (d0 == 0) {
+        s.kss[kk] = ks;
+        s.vss[kk] = vs;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s.kT[(d0 + e) * PAD + kk] = kf[e];
+      s.v[kk * HD + d0 + e] = vf[e];
+    }
+  }
+  __syncthreads();
+  step_tile<true>(s, st, nkeys, 0.f, mask);
+}
+
+template <bool SCALED, class Mask>
+__device__ void step_tile(const Smem& s, State& st, int nkeys, float softcap, Mask mask) {
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
   float sc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -123,6 +180,7 @@ __device__ void step(const Smem& s, State& st, int nkeys, float softcap, KvRow k
     for (int j = 0; j < 4; ++j) {
       const int kk = tx + 16 * j;
       float v = sc[i][j];
+      if constexpr (SCALED) v *= s.kss[kk];
       if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
       ok[j] = (kk < nkeys) && mask(r, kk);
       sc[i][j] = ok[j] ? v : NEG_BIG;
@@ -134,7 +192,12 @@ __device__ void step(const Smem& s, State& st, int nkeys, float softcap, KvRow k
     for (int j = 0; j < 4; ++j) {
       const float p = ok[j] ? __expf(sc[i][j] - m_new) : 0.f;
       sum += p;
-      s.pT[(tx + 16 * j) * PAD + r] = p;
+      if constexpr (SCALED) {
+        // a masked key's scale may be stale shared memory: keep its 0 a 0
+        s.pT[(tx + 16 * j) * PAD + r] = ok[j] ? p * s.vss[tx + 16 * j] : 0.f;
+      } else {
+        s.pT[(tx + 16 * j) * PAD + r] = p;
+      }
     }
     sum = half_sum(sum);
     const float alpha = __expf(st.m[i] - m_new);

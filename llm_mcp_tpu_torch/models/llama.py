@@ -17,6 +17,14 @@ pre-append cache and one post-layer append for decode steps. The cache is
 updated in place (the JAX functions return new arrays); the functions
 return it all the same, so call sites read like their JAX counterparts.
 
+int8, as in the JAX package: a weight leaf may be `{"q", "s"}`
+(`quant.py`; products through `qdot`, w8a8), the layers may carry the
+fused `wqkv`/`w13`, and the KV cache may be the fused int8 form of
+`init_kv_cache(quantized=True)`, `k = {"q", "s"}` with `v = {}`: then
+prefill quantizes each layer's K/V into cache entries (`fuse_prompt_kv`),
+ragged chunks read through `ragged_prefill_attend_q8` and write fused rows,
+and decode steps take `_decode_step_q8`.
+
 `paged={"tbl", "k", "v"}` (the physical block tables [B, nbs] and the
 prefix pool [L, PXB, Hkv, bt, hd] of `executor/physical.py`) makes the
 attention reads go through the tables. Writes stay table-free: they land
@@ -32,11 +40,15 @@ import torch.nn.functional as F
 
 from ..kernels.attention import (
     append_kv_bf16,
+    append_kv_q8,
     decode_attend_bf16,
+    decode_attend_q8,
     flash_prefill_attention,
     ragged_prefill_attend_bf16,
+    ragged_prefill_attend_q8,
 )
 from ..ops.norms import rms_norm
+from .quant import INV127, embed_lookup, logits_head, pack_scales, qdot, scale_pack_width
 from ..ops.rope import apply_rope, rope_tables
 from .configs import ModelConfig
 
@@ -45,8 +57,10 @@ Params = dict[str, Any]
 LAYER_KEYS = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
 
-def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
-    """Expected shape of every parameter, in the parameter tree's layout."""
+def param_shapes(cfg: ModelConfig, fused: bool = False) -> dict[str, Any]:
+    """Expected shape of every parameter, in the parameter tree's layout;
+    with `fused`, the single-device layout of `quant.fuse_layer_weights`
+    (`wqkv`, `w13` in place of wq/wk/wv and w1/w3)."""
     hd = cfg.resolved_head_dim
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
@@ -66,6 +80,12 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
             "w2": (L, Fh, D),
         },
     }
+    if fused:
+        ls = shapes["layers"]
+        ls["wqkv"] = (L, D, (H + 2 * Hkv) * hd)
+        ls["w13"] = (L, D, 2 * Fh)
+        for k in ("wq", "wk", "wv", "w1", "w3"):
+            del ls[k]
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
@@ -118,24 +138,80 @@ def init_kv_cache(
     max_seq: int,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cpu",
-) -> dict[str, torch.Tensor]:
-    """Zeroed KV cache buffers {"k", "v"}, each [L, B, Hkv, S, hd]."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    quantized: bool = False,
+) -> dict[str, Any]:
+    """Zeroed KV cache buffers {"k", "v"}, each [L, B, Hkv, S, hd]; with
+    `quantized` the fused int8 layout of the JAX package:
+
+        k = {"q": int8 [L, B, 2*Hkv + p, S, hd], "s": dtype [L, B, 2*Hkv, S]}
+        v = {}  (V rides k's head axis)
+
+    Payload heads [0, Hkv) are K, [Hkv, 2*Hkv) V, and with p = 1
+    (`scale_pack_width`) head 2*Hkv carries each position's scales
+    bit-packed, so a decode kernel reads payload and scales of a position
+    from one row block; "s" holds the same scales for every other reader."""
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    if quantized:
+        p = scale_pack_width(Hkv, hd, dtype)
+        return {
+            "k": {
+                "q": torch.zeros((L, batch, 2 * Hkv + p, max_seq, hd), dtype=torch.int8,
+                                 device=device),
+                "s": torch.zeros((L, batch, 2 * Hkv, max_seq), dtype=dtype, device=device),
+            },
+            "v": {},
+        }
+    shape = (L, batch, Hkv, max_seq, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
 
 
+def quantize_kv(kv: torch.Tensor, scale_dtype: torch.dtype | None = None) -> dict:
+    """K or V rows to the int8 cache form over the last (head_dim) axis:
+    `s = max|x| * INV127` per row, `q = round(x / max(s, 1e-30))` (half
+    to even), 0 where s == 0; the scales are cast to `scale_dtype` after
+    the payload is divided by the float32 s."""
+    f = kv.float()
+    s = f.abs().amax(dim=-1) * INV127
+    q = torch.where(
+        s[..., None] > 0, torch.round(f / torch.clamp(s, min=1e-30)[..., None]),
+        torch.zeros_like(f),
+    ).to(torch.int8)
+    return {"q": q, "s": s.to(scale_dtype or kv.dtype)}
+
+
+def fuse_prompt_kv(kh: torch.Tensor, vh: torch.Tensor, scale_dtype=None) -> dict:
+    """Prompt K/V rows [..., Hkv, S, hd] to the fused cache entry: one int8
+    payload (K heads | V heads | the packed-scale pseudo-head when it
+    fits) plus the plain scales [..., 2*Hkv, S]."""
+    hd, Hkv = kh.shape[-1], kh.shape[-3]
+    kq = quantize_kv(kh, scale_dtype=scale_dtype)
+    vq = quantize_kv(vh, scale_dtype=scale_dtype)
+    s = torch.cat([kq["s"], vq["s"]], dim=-2)
+    pay = torch.cat([kq["q"], vq["q"]], dim=-3)
+    if scale_pack_width(Hkv, hd, s.dtype):
+        pay = torch.cat([pay, pack_scales(s, hd)], dim=-3)
+    return {"q": pay, "s": s}
+
+
+def _cache_shape(cache) -> tuple[int, ...]:
+    return tuple(cache["q"].shape if isinstance(cache, dict) else cache.shape)
+
+
 def _paged_kw(paged: dict | None) -> dict:
-    """The attention wrappers' paged arguments from a `paged` operand."""
+    """The bf16 attention wrappers' paged arguments from a `paged` operand."""
     if paged is None:
         return {}
     return {"block_tables": paged["tbl"], "pool_k": paged["k"], "pool_v": paged["v"]}
 
 
 def _layer(params: Params, li: int) -> Params:
-    return {k: v[li] for k, v in params["layers"].items()}
+    return {
+        k: {n: t[li] for n, t in v.items()} if isinstance(v, dict) else v[li]
+        for k, v in params["layers"].items()
+    }
 
 
 def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -143,29 +219,39 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor):
-    """Q/K/V projections on [..., D] activations; flat outputs."""
-    return x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    """Q/K/V projections on [..., D] activations; flat outputs. The fused
+    `wqkv` is one product whose columns are the separate ones'."""
+    if "wqkv" in lp:
+        hd = cfg.resolved_head_dim
+        nq, nk = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        qkv = qdot(x, lp["wqkv"])
+        return qkv[..., :nq], qkv[..., nq: nq + nk], qkv[..., nq + nk:]
+    return qdot(x, lp["wq"]), qdot(x, lp["wk"]), qdot(x, lp["wv"])
 
 
 def _attn_residual(cfg: ModelConfig, lp: Params, ctx: torch.Tensor, h: torch.Tensor):
-    return h + ctx @ lp["wo"]
+    return h + qdot(ctx, lp["wo"])
 
 
 def _ffn_residual(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     x = _norm(cfg, h, lp["ffn_norm"])
-    gate = F.silu(x @ lp["w1"])
-    up = x @ lp["w3"]
-    return h + (gate * up) @ lp["w2"]
+    if "w13" in lp:
+        g13 = qdot(x, lp["w13"])
+        Fh = g13.shape[-1] // 2
+        return h + qdot(F.silu(g13[..., :Fh]) * g13[..., Fh:], lp["w2"])
+    gate = F.silu(qdot(x, lp["w1"]))
+    up = qdot(x, lp["w3"])
+    return h + qdot(gate * up, lp["w2"])
 
 
 def _embed_in(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    return embed_lookup(params["embed"], tokens)
 
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = _norm(cfg, h, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ head).float()
+    src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return logits_head(src, h, tied=cfg.tie_embeddings)
 
 
 def prefill_layer(
@@ -203,9 +289,13 @@ def llama_prefill(
     params: Params,
     tokens: torch.Tensor,  # [B, S] int32 (right-padded prompts)
     lengths: torch.Tensor,  # [B] int32 true prompt lengths
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    quant_kv: bool = False,
+) -> tuple[torch.Tensor, Any, Any]:
     """Causal self-attention over fresh prompts (no past KV). Returns
-    (last_logits [B, V] f32, k [L, B, Hkv, S, hd], v [...])."""
+    (last_logits [B, V] f32, k [L, B, Hkv, S, hd], v [...]); with
+    `quant_kv` each layer's K/V is quantized as it is made into the fused
+    cache entry form, k = {"q": [L, B, 2*Hkv+p, S, hd], "s": [L, B, 2*Hkv, S]}
+    and v = {}, so the bf16 prompt KV of all layers never exists at once."""
     B, S = tokens.shape
     h = _embed_in(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
@@ -213,11 +303,19 @@ def llama_prefill(
     ks, vs = [], []
     for li in range(cfg.n_layers):
         h, (kh, vh) = prefill_layer(cfg, _layer(params, li), h, cos, sin, lengths)
-        ks.append(kh)
-        vs.append(vh)
-    # empty rows (length 0) read position 0, as JAX's clamping gather does
-    last_idx = torch.clamp(lengths.long() - 1, min=0)
+        if quant_kv:
+            ks.append(fuse_prompt_kv(kh, vh))
+        else:
+            ks.append(kh)
+            vs.append(vh)
+    # a row of length 0 reads the last position: JAX's take_along_axis at
+    # index -1 wraps to S - 1
+    last_idx = (lengths.long() - 1) % S
     last = h[torch.arange(B, device=h.device), last_idx]
+    if quant_kv:
+        return _logits(cfg, params, last), {
+            "q": torch.stack([k["q"] for k in ks]), "s": torch.stack([k["s"] for k in ks])
+        }, {}
     return _logits(cfg, params, last), torch.stack(ks), torch.stack(vs)
 
 
@@ -225,8 +323,8 @@ def llama_prefill(
 def llama_prefill_chunk_ragged(
     cfg: ModelConfig,
     params: Params,
-    cache_k: torch.Tensor,  # [L, B, Hkv, S, hd] — updated in place
-    cache_v: torch.Tensor,
+    cache_k: Any,  # [L, B, Hkv, S, hd] or the fused int8 dict — updated in place
+    cache_v: Any,
     tokens: torch.Tensor,  # [T] int32 — packed chunks, rows back to back
     rowids: torch.Tensor,  # [T] int32 — descriptor row per token, sorted; pads = R
     positions: torch.Tensor,  # [T] int32 — cache position per token; pads = S
@@ -239,9 +337,11 @@ def llama_prefill_chunk_ragged(
     cached prefix plus its own causal segment, then writes the chunk's K/V
     at (slot, position). Reads come before writes in every layer. Pad
     tokens carry position S and write nothing (JAX drops those scatters;
-    here they are masked out). Returns (logits [R, V] f32, cache_k,
-    cache_v)."""
-    L, B, _, S, hd = cache_k.shape
+    here they are masked out). A fused int8 cache is read through
+    `ragged_prefill_attend_q8` and written as `fuse_prompt_kv` rows.
+    Returns (logits [R, V] f32, cache_k, cache_v)."""
+    quantized = isinstance(cache_k, dict)
+    L, B, _, S, hd = _cache_shape(cache_k)
     Hkv, H = cfg.n_kv_heads, cfg.n_heads
     G = H // Hkv
     T = tokens.shape[0]
@@ -269,27 +369,82 @@ def llama_prefill_chunk_ragged(
         q = apply_rope(q.reshape(T, H, hd), cos, sin)
         k = apply_rope(k.reshape(T, Hkv, hd), cos, sin)
         v = v.reshape(T, Hkv, hd)
-        ctx = ragged_prefill_attend_bf16(
-            q.reshape(T, Hkv, G, hd).contiguous(), k.contiguous(), v.contiguous(),
-            cache_k, cache_v, li, rowids, offsets, slots, starts, scale=cfg.attn_scale,
-            **_paged_kw(paged),
-        )
+        qg, k, v = q.reshape(T, Hkv, G, hd).contiguous(), k.contiguous(), v.contiguous()
+        if quantized:
+            ctx = ragged_prefill_attend_q8(
+                qg, k, v, cache_k, li, rowids, offsets, slots, starts, scale=cfg.attn_scale,
+                block_tables=None if paged is None else paged["tbl"],
+                pool=None if paged is None else paged["k"],
+            )
+        else:
+            ctx = ragged_prefill_attend_bf16(
+                qg, k, v, cache_k, cache_v, li, rowids, offsets, slots, starts,
+                scale=cfg.attn_scale, **_paged_kw(paged),
+            )
         h = _attn_residual(cfg, lp, ctx.reshape(T, H * hd), h)
         h = _ffn_residual(cfg, lp, h)
         # writes last: this layer's reads above saw the pre-write cache;
         # positional and table-free (private positions are identity-homed)
-        cache_k[li][wslot, :, wpos] = k[keep].to(cache_k.dtype)
-        cache_v[li][wslot, :, wpos] = v[keep].to(cache_v.dtype)
+        if quantized:
+            rows = fuse_prompt_kv(k[keep].transpose(0, 1), v[keep].transpose(0, 1),
+                                  scale_dtype=cache_k["s"].dtype)
+            cache_k["q"][li][wslot, :, wpos] = rows["q"].transpose(0, 1)
+            cache_k["s"][li][wslot, :, wpos] = rows["s"].T
+        else:
+            cache_k[li][wslot, :, wpos] = k[keep].to(cache_k.dtype)
+            cache_v[li][wslot, :, wpos] = v[keep].to(cache_v.dtype)
     last = h[torch.clamp(last_idx.long(), 0, T - 1)]  # [R, D]
     return _logits(cfg, params, last), cache_k, cache_v
+
+
+def _decode_step_q8(
+    cfg: ModelConfig,
+    params: Params,
+    cache_k: dict,  # fused int8 cache — updated in place
+    cache_v: dict,  # {}
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    slot_ids: torch.Tensor | None = None,
+    paged: dict | None = None,
+) -> tuple[torch.Tensor, dict, dict]:
+    """Decode step over the fused int8 cache, JAX's `_decode_step_q8`:
+    `decode_attend_q8` per layer over the unchanged cache (position
+    lengths[b] from the exact K/V), then one `append_kv_q8` that
+    quantizes and writes every layer's row."""
+    _, _, _, S, hd = _cache_shape(cache_k)
+    Ba = tokens.shape[0]
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    h = _embed_in(cfg, params, tokens)  # [Ba, D]
+    cos, sin = rope_tables(cfg, hd, lengths)  # [Ba, hd/2]
+    knew, vnew = [], []
+    for li in range(cfg.n_layers):
+        lp = _layer(params, li)
+        x = _norm(cfg, h, lp["attn_norm"])
+        q, k, v = _qkv(cfg, lp, x)
+        q = apply_rope(q.reshape(Ba, 1, H, hd), cos[:, None], sin[:, None])[:, 0]
+        k = apply_rope(k.reshape(Ba, 1, Hkv, hd), cos[:, None], sin[:, None])[:, 0]
+        v = v.reshape(Ba, Hkv, hd)
+        ctx = decode_attend_q8(
+            q.reshape(Ba, Hkv, H // Hkv, hd).contiguous(), k.contiguous(), v.contiguous(),
+            cache_k, cache_v, li, lengths, slot_ids=slot_ids, scale=cfg.attn_scale,
+            block_tables=None if paged is None else paged["tbl"],
+            pool_k=None if paged is None else paged["k"],
+        )
+        h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
+        h = _ffn_residual(cfg, lp, h)
+        knew.append(k)
+        vnew.append(v)
+    append_kv_q8(cache_k, cache_v, torch.stack(knew), torch.stack(vnew), lengths,
+                 slot_ids=slot_ids)
+    return _logits(cfg, params, h), cache_k, cache_v
 
 
 @torch.no_grad()
 def llama_decode_step(
     cfg: ModelConfig,
     params: Params,
-    cache_k: torch.Tensor,  # [L, B, Hkv, S, hd] — updated in place
-    cache_v: torch.Tensor,
+    cache_k: Any,  # [L, B, Hkv, S, hd] or the fused int8 dict — updated in place
+    cache_v: Any,
     tokens: torch.Tensor,  # [Ba] int32 — last emitted token per row
     lengths: torch.Tensor,  # [Ba] int32 — position to write per row
     slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
@@ -300,7 +455,10 @@ def llama_decode_step(
     `decode_attend_bf16` takes position lengths[b] from the step's exact
     K/V; the per-layer K/V rows stack up and ONE `append_kv_bf16` writes
     them after the last layer. Rows parked at lengths >= S write nothing.
-    Returns (logits [Ba, V] f32, cache_k, cache_v)."""
+    A fused int8 cache takes `_decode_step_q8`. Returns (logits [Ba, V]
+    f32, cache_k, cache_v)."""
+    if isinstance(cache_k, dict):
+        return _decode_step_q8(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids, paged)
     L, B, Hkv, S, hd = cache_k.shape
     Ba = tokens.shape[0]
     H = cfg.n_heads

@@ -4,7 +4,11 @@
 `params_from_numpy` takes a parameter tree in the JAX package's layout as
 numpy arrays (for example `jax.tree.map(np.asarray, params)`) and returns
 the same tree as tensors on `device`. It is how the two implementations
-are made to compute from the same weights. Reading safetensors
+are made to compute from the same weights. The tree may be the JAX
+package's int8 form (`quantize_params`, `init_llama_params_quantized`):
+a quantized leaf is `{"q": int8, "s": scales}`, its payload copied exactly
+and its scales converted to `dtype`; and it may carry the single-device
+fused keys `wqkv`/`w13` (`fuse_layer_weights`). Reading safetensors
 checkpoints comes with real checkpoints, in a later slice.
 """
 
@@ -27,7 +31,26 @@ def params_from_numpy(
 ) -> dict[str, Any]:
     """Convert a numpy parameter tree, checking every key and shape against
     `cfg`. Raises on a missing key, an unknown key or a wrong shape."""
-    expected = param_shapes(cfg)
+    expected = param_shapes(cfg, fused="wqkv" in tree.get("layers", {}))
+
+    def tensor(arr, want, path) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(want):
+            raise ValueError(f"{path}: shape {arr.shape}, expected {want}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    def quantized(val: dict, want: tuple, path: str) -> dict[str, torch.Tensor]:
+        if set(val) != {"q", "s"}:
+            raise KeyError(f"{path}: a quantized leaf holds exactly 'q' and 's', got {sorted(val)}")
+        q = np.asarray(val["q"])
+        if q.dtype != np.int8 or tuple(q.shape) != tuple(want):
+            raise ValueError(f"{path}/q: {q.dtype} {q.shape}, expected int8 {want}")
+        # scales are per output channel: the contraction axis drops (the
+        # embedding's scales are per row, its last axis drops)
+        cut = -1 if path == "embed" else -2
+        s_want = tuple(want[:cut]) + (tuple(want[cut + 1:]) if cut == -2 else ())
+        return {"q": torch.from_numpy(q.copy()).to(device),
+                "s": tensor(val["s"], s_want, f"{path}/s")}
 
     def convert(node: dict[str, Any], spec: dict[str, Any], path: str) -> dict[str, Any]:
         unknown = sorted(set(node) - set(spec))
@@ -43,13 +66,10 @@ def params_from_numpy(
                 if not isinstance(val, dict):
                     raise TypeError(f"{path}{key}: expected a sub-tree")
                 out[key] = convert(val, want, f"{path}{key}/")
-                continue
-            arr = np.asarray(val)
-            if tuple(arr.shape) != tuple(want):
-                raise ValueError(f"{path}{key}: shape {arr.shape}, expected {want}")
-            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-                device=device, dtype=dtype
-            )
+            elif isinstance(val, dict):
+                out[key] = quantized(val, want, f"{path}{key}")
+            else:
+                out[key] = tensor(val, want, f"{path}{key}")
         return out
 
     return convert(tree, expected, "")

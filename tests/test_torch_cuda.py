@@ -112,3 +112,134 @@ def test_cuda_paged_kernels_match_plain(bt):
     ref = P.ragged_prefill_paged_plain(*args, tbl, pk, pv)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     torch.cuda.synchronize()
+
+
+def _fused_cache(g, dev, L, B, Hkv, S, hd, packed=True):
+    """A random fused int8 cache on the card: int8 payload, bf16 scales
+    around 0.02, and with `packed` the pseudo-head holding the same scales
+    (`pack_scales`), as the engine's writes keep it."""
+    from llm_mcp_tpu_torch.models.quant import pack_scales
+
+    pay = torch.randint(-127, 128, (L, B, 2 * Hkv, S, hd), generator=g, device=dev,
+                        dtype=torch.int8)
+    s = (torch.rand((L, B, 2 * Hkv, S), generator=g, device=dev) * 0.04).to(torch.bfloat16)
+    if packed:
+        pay = torch.cat([pay, pack_scales(s, hd)], dim=2)
+    return {"q": pay.contiguous(), "s": s}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_cuda_q8_kernels_match_plain(packed):
+    """The int8 kernels against their plain versions on the card: append
+    bitwise ("q" and "s", the packed pseudo-head included), the decode
+    kernel with the same requantization group (the contiguous wrapper's
+    q8_group(S)) and the ragged kernel, element by element within
+    |err| <= 1e-3 + 1e-2*|ref| (both sides round the output to bf16 once;
+    a probability that the two sides' exp rounds to neighbouring int8
+    steps moves the output by far less); with the packed pseudo-head
+    (p = 1) and without it (p = 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    tol = dict(atol=1e-3, rtol=1e-2)
+    L, B, Hkv, G, S, hd = 2, 4, 2, 4, 640, 128
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    # append: bitwise
+    nk, nv = rn(L, 3, Hkv, hd), rn(L, 3, Hkv, hd)
+    lens, ids = i32([0, S, 300]), i32([2, 0, 3])
+    got = {k: v.clone() for k, v in cache.items()}
+    P.append_kv_q8(got, {}, nk, nv, lens, slot_ids=ids)
+    want = P.append_kv_q8_plain({k: v.clone() for k, v in cache.items()}, nk, nv, lens, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got["q"], want["q"]) and torch.equal(got["s"], want["s"])
+    # decode: S = 640 requantizes per 128 keys (q8_group)
+    q, nk1, nv1 = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens, ids = i32([0, 257, S - 1, S]), i32([3, 1, 0, 2])
+    out = P.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk1, nv1, cache, 1, lens, ids, 0.09, P.q8_group(S))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    # ragged: rows with and without a cached prefix, and pads
+    T, R = 96, 3
+    rowids = i32([0] * 40 + [1] * 30 + [2] * 10 + [3] * 16)
+    offsets, slots, starts = i32([0, 40, 70, 80]), i32([1, 3, 0]), i32([100, 0, 333])
+    qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    args = (qr, kr, vr, cache, 0, rowids, offsets, slots, starts)
+    out = P.ragged_prefill_attend_q8(*args)
+    ref = P.ragged_prefill_q8_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [32, 64, 128])
+def test_cuda_q8_paged_kernels_match_plain(bt):
+    """The paged int8 kernels against their plain versions: pool rows in
+    shuffled order and a foreign arena home under scrambled arena blocks,
+    requantization per bt keys, a parked decode row and a ragged pad tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(bt + 1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    tol = dict(atol=1e-3, rtol=1e-2)
+    L, B, Hkv, G, S, hd = 2, 4, 2, 4, 512, 128
+    nbs, pxb = S // bt, 6
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd)
+    pool = _fused_cache(g, dev, L, pxb, Hkv, bt, hd)
+    tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+    for b in range(B):
+        tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+    tbl[1, 3] = 2 * nbs + 3
+    tbl = tbl.to(dev)
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens, ids = i32([5, 3 * bt + 7, S - 1, S]), i32([1, 3, 0, 2])
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09,
+                             block_tables=tbl, pool_k=pool)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, bt, tbl, pool)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    T, R = 96, 3
+    rowids = i32([0] * 40 + [1] * 30 + [2] * 10 + [3] * 16)
+    offsets, slots, starts = i32([0, 40, 70, 80]), i32([1, 3, 0]), i32([3 * bt + 9, 0, 100])
+    qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    args = (qr, kr, vr, cache, 0, rowids, offsets, slots, starts)
+    out = P.ragged_prefill_attend_q8(*args, block_tables=tbl, pool=pool)
+    ref = P.ragged_prefill_q8_plain(*args, 0.0, tbl, pool)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_qdot_int8_gemm_is_bitwise_the_host():
+    """w8a8 `qdot` on the card (the int8 GEMM of `torch._int_mm`, rows
+    padded, the payload row-major or K-contiguous) equals the same call on
+    the host CPU bit for bit: the int8 operands are the same and the int32
+    sum is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from llm_mcp_tpu_torch.models.quant import qdot, quantize_weight
+
+    g = torch.Generator().manual_seed(5)
+    w = quantize_weight(torch.randn((512, 384), generator=g).to(torch.bfloat16))
+    # the row-major payload and the K-contiguous one of `gemm_layout`
+    kmajor = {"q": w["q"].t().contiguous().t(), "s": w["s"]}
+    for rows in (1, 8, 17, 40):
+        x = torch.randn((rows, 512), generator=g).to(torch.bfloat16)
+        host = qdot(x, w)
+        for ww in (w, kmajor):
+            card = qdot(x.cuda(), {k: v.cuda() for k, v in ww.items()})
+            assert torch.equal(card.cpu(), host), rows

@@ -9,6 +9,13 @@
     contiguous entries (a block size the physical gate refuses);
   - after a failed step the engine drops every prefix entry and table and
     serves the next request hit-free and right;
+  - the same at int8 (`quant="int8", kv_quant="int8"` on one shared JAX
+    int8 tree): prefix traffic through physical paging (64-token blocks)
+    and contiguous entries, with equal prefix partitions, pool rows and
+    hit counts, and the fused cache's packed scales equal to "s" bit for
+    bit after it; three concurrent chats at `max_slots=16`, so that slot
+    compaction runs (Ba = 8) on both; and `quant` alone and `kv_quant`
+    alone;
   - `/v1/chat/completions` over SSE ends in `data: [DONE]`;
   - every module of the port imports with `jax` and `llm_mcp_tpu`
     blocked, and one CPU generate runs;
@@ -186,6 +193,168 @@ def test_engine_prefix_cache_greedy_tokens_match_jax(monkeypatch, block_tokens, 
         assert paging["physical_pool_rows_used"] == 2  # one block per entry
 
 
+def _jax_q8_params():
+    """One JAX int8 tree (direct init, f32 scales) for both engines; each
+    fuses it as its engine does."""
+    from llm_mcp_tpu.models.configs import get_config as jax_get_config
+    from llm_mcp_tpu.models.quant import init_llama_params_quantized
+
+    jparams = init_llama_params_quantized(
+        jax_get_config("tiny-llm"), jax.random.PRNGKey(0), scale_dtype=jnp.float32
+    )
+    tparams = params_from_numpy(
+        jax.tree.map(np.asarray, jparams), get_config("tiny-llm"), "cpu", torch.float32
+    )
+    return jparams, tparams
+
+
+@pytest.mark.parametrize("block_tokens,physical", [("64", True), ("16", False)])
+def test_engine_q8_prefix_greedy_tokens_match_jax(monkeypatch, block_tokens, physical):
+    """int8 weights and int8 KV with the prompt cache on: the prefix
+    sequence above through physical paging (pin-only hits, one copy on
+    write, the paged int8 kernels' plain versions) and contiguous entries."""
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", block_tokens)
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_q8_params()
+    q8 = dict(quant="int8", kv_quant="int8")
+    jeng = JaxEngine("tiny-llm", params=jparams, dtype=jnp.float32, **q8, **PREFIX_KW).start()
+    try:
+        assert (jeng._phys is not None) == physical
+        want = _run_seq(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        jstats, jpaging = jeng.prefix_cache_stats(), jeng.paging_stats()
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine(
+        "tiny-llm", params=tparams, dtype=torch.float32, device="cpu", **q8, **PREFIX_KW
+    ).start()
+    try:
+        assert isinstance(teng._ck, dict) and teng._cv == {} and "wqkv" in teng.params["layers"]
+        got = _run_seq(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        tstats, paging = teng.prefix_cache_stats(), teng.paging_stats()
+        audit = teng.kv_scale_audit()
+    finally:
+        teng.shutdown()
+    assert got == want
+    assert tstats["hits"] == jstats["hits"] == 2
+    assert tstats == jstats
+    for k in ("prefix_partition", "blocks_total", "block_tokens"):
+        assert paging[k] == jpaging[k], k
+    assert paging["leaks"] == 0 and paging["slot_tables"] == 0
+    assert paging["physical"] == float(physical)
+    if physical:
+        assert paging["physical_pool_rows"] == jpaging["physical_pool_rows"]
+        assert paging["physical_cow_copies_total"] == 1
+        assert paging["physical_missing_pins"] == 0
+    assert audit == 0
+
+
+def test_engine_q8_compaction_greedy_tokens_match_jax(monkeypatch):
+    """Three concurrent chats at max_slots=16 (one through ragged chunks):
+    each decode round runs Ba = 8 rows through slot_ids on both engines."""
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_q8_params()
+    kw = dict(ENGINE_KW, max_slots=16, quant="int8", kv_quant="int8", prompt_cache_mb=0)
+    jeng = JaxEngine("tiny-llm", params=jparams, dtype=jnp.float32, decode_compact="on",
+                     **kw).start()
+    try:
+        assert jeng.decode_compact
+        want = _run_all(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine("tiny-llm", params=tparams, dtype=torch.float32, device="cpu",
+                            **kw).start()
+    try:
+        assert teng.decode_compact  # auto: on with the int8 cache
+        got = _run_all(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+        assert teng.compact_rounds > 0 and teng.kv_scale_audit() == 0
+    finally:
+        teng.shutdown()
+    assert [len(t) for t in got] == [12, 12, 12]
+    assert got == want
+
+
+@pytest.mark.parametrize("quant,kv_quant", [("int8", ""), ("", "int8")])
+def test_engine_one_int8_option_greedy_tokens_match_jax(monkeypatch, quant, kv_quant):
+    """The options are independent: int8 weights over a float cache, and
+    float weights over the int8 cache."""
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_q8_params() if quant else _jax_params()
+    kw = dict(ENGINE_KW, quant=quant, kv_quant=kv_quant, prompt_cache_mb=0)
+    jeng = JaxEngine("tiny-llm", params=jparams, dtype=jnp.float32, **kw).start()
+    try:
+        want = _run_all(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine("tiny-llm", params=tparams, dtype=torch.float32, device="cpu",
+                            **kw).start()
+    try:
+        assert isinstance(teng._ck, dict) == bool(kv_quant)
+        got = _run_all(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=12, temperature=0.0)
+        )
+    finally:
+        teng.shutdown()
+    assert got == want
+
+
+def test_kv_scale_audit_after_appends_and_block_copies():
+    """Appends, pool copies (arena to pool, pool to pool) and a
+    copy-on-write on the fused cache keep the packed pseudo-head equal to
+    "s" bit for bit; a copy that moves the payload and not "s" is seen."""
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    eng = GenerationEngine("tiny-llm", dtype=torch.float32, device="cpu", max_slots=2,
+                           max_seq_len=128, prompt_cache_mb=1, quant="int8", kv_quant="int8")
+    assert eng._phys is not None and eng._pool_k["q"].shape[1] >= 2
+    cfg, g = eng.cfg, torch.Generator().manual_seed(0)
+    shape = (cfg.n_layers, 2, cfg.n_kv_heads, cfg.resolved_head_dim)
+    for w in ([5, 70], [6, 128], [64, 71]):  # row 1 parked once
+        K.append_kv_q8(eng._ck, eng._cv, torch.randn(shape, generator=g),
+                       torch.randn(shape, generator=g), torch.tensor(w, dtype=torch.int32))
+    eng._pool_put_arena(0, 0, 0)
+    eng._pool_put_pool(0, 1)
+    eng._cow_block(1, 1, 1)
+    assert eng._pool_k["s"][:, 1].any() and eng.kv_scale_audit() == 0
+    eng._ck["q"][:, 1, :, 6] = eng._ck["q"][:, 0, :, 6]  # payload moved, "s" not
+    assert eng.kv_scale_audit() == cfg.n_layers * 2 * cfg.n_kv_heads
+    eng.shutdown()
+
+
+def test_engine_drops_unknown_int8_options(caplog):
+    eng = GenerationEngine("tiny-llm", dtype=torch.float32, device="cpu", max_seq_len=64,
+                           quant="int4", kv_quant="fp8", decode_compact="sometimes")
+    assert (eng.quant, eng.kv_quant, eng.decode_compact) == ("", "", False)
+    assert not isinstance(eng._ck, dict)
+    text = caplog.text
+    assert "unknown quant mode" in text and "unknown kv_quant mode" in text
+    assert "unknown decode_compact mode" in text
+    eng.shutdown()
+
+
 def test_engine_failed_step_drops_prefix_state(monkeypatch):
     """A step that raises mid-decode errors its requests and leaves no
     prefix entry, ledger table or pool row behind; the next request with
@@ -319,6 +488,16 @@ for q in ("hello", "again", "third"):  # the second stores, the third hits
 hits, pg = eng.prefix_cache_stats()["hits"], eng.paging_stats()
 eng.shutdown()
 assert hits == 1 and pg["physical"] == 1.0 and pg["leaks"] == 0, (hits, pg)
+# the int8 serving configuration, the same traffic: a hit through the pool
+eng = GenerationEngine("tiny-llm", max_slots=2, max_seq_len=128, prefill_chunk=16,
+                       dtype=torch.float32, device="cpu", prompt_cache_mb=1,
+                       quant="int8", kv_quant="int8").start()
+for q in ("hello", "again", "third"):
+    out = eng.generate(sys_msg + q, max_tokens=4, temperature=0)
+    assert out["usage"]["completion_tokens"] == 4, out
+hits, audit = eng.prefix_cache_stats()["hits"], eng.kv_scale_audit()
+eng.shutdown()
+assert hits == 1 and audit == 0, (hits, audit)
 bad = [k for k, v in sys.modules.items() if v is not None and
        (k.split(".")[0] in ("jax", "jaxlib", "llm_mcp_tpu"))]
 assert not bad, bad
@@ -347,6 +526,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--model", "tiny-llm", "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "tiny-llm", "--port", "0", "--quant", "int8", "--kv-quant", "int8"])
     eng = GenerationEngine("tiny-llm", device="cpu", max_seq_len=64)
     assert eng.device.type == "cpu"
     eng.shutdown()

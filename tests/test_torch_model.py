@@ -8,6 +8,16 @@ numpy. The JAX side runs its Pallas path in interpret mode
 give both sides the same `paged={"tbl", "k", "v"}` operand: tables whose
 blocks resolve to pool rows and to another slot's arena home. Tolerances,
 in f32: logits within 1e-4 absolute, updated caches within 1e-5.
+
+The int8 cases share one JAX int8 tree (`init_llama_params_quantized`,
+f32 scales, then `fuse_layer_weights`, as the single-device engine runs
+it) and fused int8 caches (`LLM_MCP_TPU_Q8_DECODE=paged` for the paged
+decode arm; the contiguous arm's whole-S group equals the port's at
+S = 128). K/V differ between the two in the last bits (rope and the f32
+epilogues round differently), so a quantized cache is compared as: int8
+payload heads within 1 on at most Q8_PAYLOAD_FRAC of the elements, scales
+(plain and unpacked from the pseudo-head) within 1e-6 relative; and the
+port's pseudo-head unpacks to its own "s" bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from llm_mcp_tpu_torch.ops.rope import llama3_rope_frequencies, rope_tables
 
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
 CACHE_TOL = dict(atol=1e-5, rtol=0)
+Q8_PAYLOAD_FRAC = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +68,24 @@ def test_llama_prefill_matches_jax(shared):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **CACHE_TOL)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **CACHE_TOL)
+
+
+def test_llama_prefill_length0_row_matches_jax(shared):
+    """A length-0 row reads the last position, as JAX's take_along_axis at
+    index -1 does (it wraps to S - 1)."""
+    jcfg, jparams, cfg, tparams, _ = shared
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(3, 259, (3, 32)).astype(np.int32)
+    lengths = np.asarray([32, 0, 5], np.int32)
+    jl, _, _ = JL.llama_prefill(
+        jcfg, jparams, jnp.asarray(tokens), jnp.asarray(lengths), attn_impl="pallas"
+    )
+    tl, _, _ = TL.llama_prefill(cfg, tparams, torch.from_numpy(tokens), torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    # row 1 is position S - 1 of its (empty) row, not position 0
+    at0, _, _ = TL.llama_prefill(cfg, tparams, torch.from_numpy(tokens[1:2]),
+                                 torch.from_numpy(np.asarray([1], np.int32)))
+    assert not np.allclose(tl.numpy()[1], at0.numpy()[0], atol=1e-3)
 
 
 def test_llama_decode_step_matches_jax(shared):
@@ -268,3 +297,144 @@ def test_sampling_matches_jax_greedy_and_gumbel():
         assert got[0] == 7
         for b in range(1, B):
             assert got[b] in np.argsort(-logits[b])[: topk[b]]
+
+
+# -- int8 weights and the fused int8 cache -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shared_q8():
+    from llm_mcp_tpu.models import quant as JQ
+
+    jcfg = jax_get_config("tiny-llm")
+    jparams = JQ.fuse_layer_weights(
+        JQ.init_llama_params_quantized(jcfg, jax.random.PRNGKey(0), scale_dtype=jnp.float32))
+    cfg = get_config("tiny-llm")
+    tree = jax.tree.map(np.asarray, jparams)
+    return jcfg, jparams, cfg, params_from_numpy(tree, cfg, "cpu", torch.float32)
+
+
+def _fused_cache(rng, cfg, B, S, rows=None):
+    """A random fused int8 cache (numpy) with a consistent pseudo-head."""
+    from llm_mcp_tpu.models.quant import pack_scales
+
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    pay = rng.integers(-127, 128, (L, B, 2 * Hkv, S, hd), dtype=np.int8)
+    s = (rng.random((L, B, 2 * Hkv, S), dtype=np.float32) * 0.02).astype(np.float32)
+    return {"q": np.concatenate([pay, np.asarray(pack_scales(jnp.asarray(s), hd))], 2), "s": s}
+
+
+def _assert_q8_cache_close(got: dict, want: dict, cfg) -> None:
+    from llm_mcp_tpu_torch.models.quant import unpack_scales
+
+    Hs = 2 * cfg.n_kv_heads
+    gq, wq = got["q"].numpy().astype(np.int32), np.asarray(want["q"]).astype(np.int32)
+    d = np.abs(gq[:, :, :Hs] - wq[:, :, :Hs])
+    assert d.max() <= 1 and (d > 0).mean() <= Q8_PAYLOAD_FRAC, (d.max(), (d > 0).mean())
+    ws = np.asarray(want["s"])
+    np.testing.assert_allclose(got["s"].numpy(), ws, rtol=1e-6, atol=0)
+    packed = unpack_scales(got["q"][:, :, Hs], Hs, got["s"].dtype)
+    assert torch.equal(packed, got["s"])
+    np.testing.assert_allclose(
+        unpack_scales(torch.from_numpy(np.array(want["q"])[:, :, Hs]), Hs, got["s"].dtype).numpy(),
+        ws, rtol=1e-6, atol=0)
+
+
+def test_llama_prefill_q8_matches_jax(shared_q8):
+    jcfg, jparams, cfg, tparams = shared_q8
+    rng = np.random.default_rng(10)
+    tokens = rng.integers(3, 259, (3, 32)).astype(np.int32)
+    lengths = np.asarray([32, 17, 1], np.int32)
+    jl, jk, jv = JL.llama_prefill(jcfg, jparams, jnp.asarray(tokens), jnp.asarray(lengths),
+                                  attn_impl="pallas", quant_kv=True)
+    tl, tk, tv = TL.llama_prefill(cfg, tparams, torch.from_numpy(tokens),
+                                  torch.from_numpy(lengths), quant_kv=True)
+    assert tv == jv == {}
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    _assert_q8_cache_close(tk, jk, cfg)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_llama_decode_step_q8_matches_jax(shared_q8, monkeypatch, paged):
+    """`_decode_step_q8` through `llama_decode_step` on a fused cache:
+    unpaged (JAX's whole-S arm, group S = 128 on both sides) and paged
+    (JAX's paged arm, group bt = 32), with a parked row and compaction
+    ids."""
+    monkeypatch.setenv("LLM_MCP_TPU_Q8_DECODE", "paged" if paged else "auto")
+    from llm_mcp_tpu.kernels.attention import decode_attend_q8
+
+    decode_attend_q8.clear_cache()  # the arm is read at trace time
+    jcfg, jparams, cfg, tparams = shared_q8
+    rng = np.random.default_rng(11)
+    B, S, bt = 4, 128, 32
+    cache = _fused_cache(rng, cfg, B, S)
+    tokens = rng.integers(3, 259, (3,)).astype(np.int32)
+    lengths = np.asarray([70, S, 100], np.int32)  # row 1 parked
+    ids = np.asarray([2, 3, 0], np.int32)
+    jpg = tpg = None
+    if paged:
+        pool = _fused_cache(rng, cfg, 3, bt)
+        tbl = np.arange(B * (S // bt), dtype=np.int32).reshape(B, S // bt)
+        tbl[2, 0], tbl[2, 1] = B * (S // bt) + 2, B * (S // bt) + 0  # pool rows
+        tbl[0, 0] = 3 * (S // bt) + 2  # slot 3's home block 2
+        jpg = {"tbl": jnp.asarray(tbl), "k": {k: jnp.asarray(v) for k, v in pool.items()},
+               "v": {}}
+        tpg = {"tbl": torch.from_numpy(tbl), "k": {k: torch.from_numpy(v) for k, v in pool.items()},
+               "v": {}}
+    jl, jk, jv = JL.llama_decode_step(
+        jcfg, jparams, {k: jnp.asarray(v) for k, v in cache.items()}, {}, jnp.asarray(tokens),
+        jnp.asarray(lengths), attn_impl="pallas", slot_ids=jnp.asarray(ids), paged=jpg,
+    )
+    tc = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    tl, tk, tv = TL.llama_decode_step(
+        cfg, tparams, tc, {}, torch.from_numpy(tokens), torch.from_numpy(lengths),
+        slot_ids=torch.from_numpy(ids), paged=tpg,
+    )
+    assert tk is tc and tv == jv == {}
+    live = lengths < S
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], **LOGIT_TOL)
+    _assert_q8_cache_close(tk, jk, cfg)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_llama_prefill_chunk_ragged_q8_matches_jax(shared_q8, monkeypatch, paged):
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    jcfg, jparams, cfg, tparams = shared_q8
+    rng = np.random.default_rng(12)
+    B, S, R, T, bt = 4, 128, 3, 32, 32
+    cache = _fused_cache(rng, cfg, B, S)
+    lens = [12, 9, 0]
+    starts = np.asarray([40, 33 if paged else 0, 0], np.int32)
+    slots = np.asarray([0, 1, 3], np.int32)
+    rowids = np.full(T, R, np.int32)
+    positions = np.full(T, S, np.int32)
+    last_idx = np.zeros(R, np.int32)
+    off = 0
+    for r, n in enumerate(lens):
+        rowids[off: off + n] = r
+        positions[off: off + n] = np.arange(starts[r], starts[r] + n)
+        last_idx[r] = off + n - 1 if n else 0
+        off += n
+    tokens = rng.integers(3, 259, (T,)).astype(np.int32)
+    args = (tokens, rowids, positions, slots, starts, last_idx)
+    jpg = tpg = None
+    if paged:
+        pool = _fused_cache(rng, cfg, 3, bt)
+        tbl = np.arange(B * (S // bt), dtype=np.int32).reshape(B, S // bt)
+        tbl[0, 0], tbl[0, 1] = B * (S // bt) + 2, B * (S // bt) + 0
+        tbl[1, 0] = 3 * (S // bt) + 2
+        jpg = {"tbl": jnp.asarray(tbl), "k": {k: jnp.asarray(v) for k, v in pool.items()},
+               "v": {}}
+        tpg = {"tbl": torch.from_numpy(tbl), "k": {k: torch.from_numpy(v) for k, v in pool.items()},
+               "v": {}}
+    jl, jk, jv = JL.llama_prefill_chunk_ragged(
+        jcfg, jparams, {k: jnp.asarray(v) for k, v in cache.items()}, {},
+        *map(jnp.asarray, args), paged=jpg,
+    )
+    tc = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    tl, tk, tv = TL.llama_prefill_chunk_ragged(
+        cfg, tparams, tc, {}, *map(torch.from_numpy, args), paged=tpg,
+    )
+    assert tv == jv == {}
+    np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], **LOGIT_TOL)
+    _assert_q8_cache_close(tk, jk, cfg)

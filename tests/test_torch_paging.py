@@ -197,6 +197,19 @@ def test_pool_like_matches_jax_shape():
     assert got.dtype == ck.dtype and not got.any()
 
 
+def test_pool_like_maps_the_fused_int8_cache_as_jax():
+    fused = {"q": torch.zeros((2, 3, 5, 128, 16), dtype=torch.int8),
+             "s": torch.zeros((2, 3, 4, 128), dtype=torch.bfloat16)}
+    want = JPh.pool_like({"q": jnp.zeros((2, 3, 5, 128, 16), jnp.int8),
+                          "s": jnp.zeros((2, 3, 4, 128), jnp.bfloat16)}, 5, 32)
+    got = TPh.pool_like(fused, 5, 32)
+    assert set(got) == set(want) == {"q", "s"}
+    for k in ("q", "s"):
+        assert tuple(got[k].shape) == tuple(want[k].shape) and got[k].dtype == fused[k].dtype
+    assert tuple(got["q"].shape) == (2, 5, 5, 32, 16) and tuple(got["s"].shape) == (2, 5, 4, 32)
+    assert TPh.pool_like({}, 5, 32) == JPh.pool_like({}, 5, 32) == {}
+
+
 def test_block_tokens_from_env(monkeypatch):
     monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", "32")
     assert TP.block_tokens_from_env() == JP.block_tokens_from_env() == 32
