@@ -52,7 +52,24 @@ one run reads every check; the script then exits non-zero):
      equal "s" bit for bit; then the breakdown of 6 at int8 (8 decode rows
      of 16 slots through slot_ids). Before it, the int8 GEMM behind `qdot`
      is timed at the decode step's shapes with the weight row-major and
-     K-contiguous (the layout the engine stores).
+     K-contiguous (the layout the engine stores);
+  8. drop the int8 engine and serve DeepSeek-V2-Lite (MLA latent attention
+     and DeepSeek MoE, full depth and width, int8 weights, 16 slots, the
+     engine's defaults), first with the int8 latent cache, then with bf16
+     latents: for each, the 2-layer model check (the dense layer 0 and one
+     MoE layer, unpaged and paged, against the host CPU; paged bit for bit
+     against identity tables on the card), the chats and
+     the prefix traffic over HTTP with the counters set to 0 just before
+     and read just after (its MLA kernels launched, no GQA-cache kernel,
+     the ledger clean, compacted decode at int8), and at int8 the
+     breakdown of one decode step and one ragged chunk. Before the served
+     phases (with the other kernel checks) the MLA kernels are held
+     against their plain versions at V2-Lite's shapes: the int8 decode
+     kernel with the whole-row group and paged at 64-, 32- and 128-token
+     blocks at S = 4096, and with the 512-key group (contiguous) and the
+     exact group (64-token tables) on rows of 16384 keys, which split into
+     chunks; the ragged kernel with bf16
+     and int8 latents, contiguous and paged.
 
 The last lines are the card (`nvidia-smi` name, power limit), one JSON
 line with the kernels and one with the run's result. Imports nothing of
@@ -74,6 +91,7 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # Element by element, |kernel - plain| <= atol + rtol * |plain|. Both sides
 # accumulate in f32 and round the output to bf16 once, so they may differ
 # by one bf16 step (at most 2^-7 relative); atol covers values near zero.
@@ -86,7 +104,10 @@ TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL,
        "decode_attend_bf16_paged": ATTN_TOL, "flash_prefill_attention": ATTN_TOL,
        "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL,
        "append_kv_q8": BITWISE, "decode_attend_q8": ATTN_TOL, "decode_attend_q8_paged": ATTN_TOL,
-       "ragged_prefill_attend_q8": ATTN_TOL, "ragged_prefill_attend_q8_paged": ATTN_TOL}
+       "ragged_prefill_attend_q8": ATTN_TOL, "ragged_prefill_attend_q8_paged": ATTN_TOL,
+       "decode_attend_q8_mla": ATTN_TOL, "decode_attend_q8_mla_paged": ATTN_TOL,
+       "ragged_prefill_attend_mla": ATTN_TOL, "ragged_prefill_attend_mla_paged": ATTN_TOL,
+       "ragged_prefill_attend_mla_q8": ATTN_TOL, "ragged_prefill_attend_mla_q8_paged": ATTN_TOL}
 SOURCES = {
     "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
                        "llm_mcp_tpu/kernels/attention.py:2508"),
@@ -110,6 +131,14 @@ SOURCES = {
                                  "llm_mcp_tpu/kernels/attention.py:2908"),
     "ragged_prefill_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
                                        "llm_mcp_tpu/kernels/attention.py:2908"),
+    "decode_attend_q8_mla": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend_mla.cu",
+                             "llm_mcp_tpu/kernels/attention.py:1693"),
+    "decode_attend_q8_mla_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend_mla.cu",
+                                   "llm_mcp_tpu/kernels/attention.py:1924"),
+    **{n: ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill_mla.cu",
+           "llm_mcp_tpu/kernels/attention.py:3061")
+       for n in ("ragged_prefill_attend_mla", "ragged_prefill_attend_mla_paged",
+                 "ragged_prefill_attend_mla_q8", "ragged_prefill_attend_mla_q8_paged")},
 }
 # the kernels each served phase must launch (its counters are reset just
 # before it and read just after)
@@ -124,7 +153,18 @@ Q8_SLOTS = 16  # the int8 engine's max_slots: 4 chats decode compacted at Ba = 8
 BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
 SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
 ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"],
-                 "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"]}
+                 "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"],
+                 "decode_attend_q8_mla": ["llm_mcp_tpu/kernels/attention.py:1789"]}
+# DeepSeek-V2-Lite (MLA + DeepSeek MoE), served at int8 weights with the int8
+# latent cache (the JAX package's configuration of record) and with bf16
+# latents; each served phase must launch its MLA kernels and no GQA-cache one
+MLA_MODEL = "deepseek-v2-lite"
+MLA_Q8_KERNELS = ("decode_attend_q8_mla", "decode_attend_q8_mla_paged",
+                  "ragged_prefill_attend_mla_q8", "ragged_prefill_attend_mla_q8_paged")
+MLA_BF16_KERNELS = ("ragged_prefill_attend_mla", "ragged_prefill_attend_mla_paged")
+GQA_CACHE_KERNELS = ("append_kv_bf16", "decode_attend_bf16", "decode_attend_bf16_paged",
+                     "flash_prefill_attention", "ragged_prefill_attend_bf16",
+                     "ragged_prefill_attend_bf16_paged") + Q8_KERNELS
 # The model check runs the first CHECK_LAYERS layers in bf16 on the card and
 # on the host CPU. GEMMs and attention round and sum in other orders on the
 # two, so it compares logits and caches by cosine similarity.
@@ -160,13 +200,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, queue_ahead: bool = True) -> float:
+    """ms per call of `fn` between CUDA events around `iters` calls. A
+    wrapper's host work can take longer than its kernel, so with
+    `queue_ahead` the card first sleeps for about as long as the host needs
+    to queue the calls: the events then time the device, not the host's
+    issue rate. Without it, the wall time of calls as the host issues them."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    if queue_ahead:
+        torch.cuda._sleep(int(min(iters * one, 1.0) * 2e9))  # cycles, about 1 s at most
     start.record()
     for _ in range(iters):
         fn()
@@ -660,6 +711,316 @@ def kernel_phase_q8() -> dict[str, dict]:
     return res
 
 
+def _sdpa_backend(fn) -> str:
+    """The first SDPA backend (flash, cuDNN, memory-efficient, math) that
+    takes `fn`'s call, as the library yardstick's note."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([b]):
+                warnings.simplefilter("ignore")  # each refusal warns why
+                fn()
+            torch.cuda.synchronize()
+            return b.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def kernel_phase_mla() -> dict[str, dict]:
+    """The MLA kernels against their plain versions at DeepSeek-V2-Lite's
+    shapes (16 heads, R = 512, dr = 64, 27 layers, 16 slots of 4096): the
+    int8 decode kernel read by 8 compacted rows (fills 511..4095, one
+    parked) with the whole-row group JAX serves at this shape (timed);
+    paged at 64-token blocks (timed, group 64), 32 (JAX's exact fallback:
+    128 blocks) and 128 (checked); rows of 16384 keys, past the whole-S
+    budget, where JAX serves its blocked arm's 512-key groups and, through
+    64-token tables (256 blocks), its exact fallback: both split a row
+    into 4096-key chunks (checked and timed); the ragged kernel on T = 2048 (4 rows over prefixes
+    0/512/1024/1536 and a pad tail) with bf16 and int8 latents, contiguous
+    and paged (64 timed, 32 and 128 checked). Latents are made by
+    `quantize_kv` from random bf16 rows, as the engine writes them. The
+    library yardstick is SDPA over the keys dequantized to [lat * ls |
+    rop * rs] (width 576) and the values lat * ls (width 512), gathered
+    outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.llama import quantize_kv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5150)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    L, B, H, S, R, dr, Ba = 27, Q8_SLOTS, 16, 4096, 512, 64, 8
+    scale = (128 + 64) ** -0.5
+    res: dict[str, dict] = {}
+    record = functools.partial(_record, res)
+
+    def planes(rows, tokens, quantized, layers=L):
+        """(latents, rope keys) of `rows` rows of `tokens`, layer by layer."""
+        out = []
+        for w in (R, dr):
+            if not quantized:
+                out.append(rn(layers, rows, 1, tokens, w))
+                continue
+            q = torch.empty((layers, rows, 1, tokens, w), dtype=torch.int8, device=dev)
+            sc = torch.empty((layers, rows, 1, tokens), dtype=torch.bfloat16, device=dev)
+            for li in range(layers):
+                e = quantize_kv(rn(rows, 1, tokens, w))
+                q[li], sc[li] = e["q"], e["s"]
+            out.append({"q": q, "s": sc})
+        return out
+
+    def deq(plane, li, rows_idx, tbl=None, pool=None):
+        """Layer li's rows dequantized to bf16 [n, S, w], through tables."""
+        if isinstance(plane, dict):
+            pq = K._mla_plane(plane["q"], li, rows_idx, tbl, None if pool is None else pool["q"])
+            ps = K._mla_plane(plane["s"], li, rows_idx, tbl, None if pool is None else pool["s"])
+            return (pq.float() * ps.float()[..., None]).to(torch.bfloat16)
+        return K._mla_plane(plane, li, rows_idx, tbl, pool)
+
+    def paged_planes(cc, cr, bt, quantized):
+        """Tables whose first SHARED_TOKENS of every row read pool rows
+        copied from row 0, the arena's donor blocks refilled with other
+        values, and block nsh of each row in another slot's arena home."""
+        layers, _, _, seq = (cc["q"] if quantized else cc).shape[:4]
+        nbs, nsh = seq // bt, SHARED_TOKENS // bt
+
+        def split(plane):  # row 0's first nsh blocks as pool rows [layers, nsh, 1, bt, ...]
+            return plane[:, 0, 0, : nsh * bt].reshape(layers, nsh, 1, bt,
+                                                      *plane.shape[4:]).contiguous()
+
+        def refill(plane, new):
+            out = plane.clone()
+            out[:, :, :, : (nsh + 1) * bt] = new
+            return out
+
+        pools = [_tree(split, p) for p in (cc, cr)]
+        fresh = planes(B, nsh * bt + bt, quantized, layers)
+        arenas = [_tree(refill, p, f) for p, f in zip((cc, cr), fresh)]
+        tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
+        tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
+        for b in range(B):
+            tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
+        return arenas[0], arenas[1], pools[0], pools[1], tbl
+
+    # -- decode: int8 latents, 8 compacted rows of 16 slots ---------------
+    cc, cr = planes(B, S, True)
+    qt, qr, nc, nr = rn(Ba, H, R), rn(Ba, H, dr), rn(Ba, R), rn(Ba, dr)
+    lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
+    ids = i32([3, 0, 12, 1, 6, 9, 15, 4])
+    keys = sum(w + 1 if w < S else 1 for w in lens.tolist())
+    dbytes = keys * (R + dr + 2 * 2) + (qt.numel() + qr.numel() + nc.numel() + nr.numel()
+                                       + qt.numel()) * 2
+    # per (key, head): s8 latent dot and PV (4R int8 ops), the rope dot in f32
+    dops_ms = (4.0 * R * H * keys / INT8_OPS + 2.0 * dr * H * keys / F32_FLOPS) * 1e3
+    qs = torch.cat([qt, qr], -1)[:, :, None]  # [Ba, H, 1, 576]
+
+    def sdpa_decode(c_, r_, lens_, tbl=None, pc=None, pr=None):
+        """SDPA over the rows dequantized, each position w taking the
+        exact new vectors, masked past w (a parked row sees key 0)."""
+        live_ = lens_ < c_["q"].shape[3]
+        rows = torch.arange(Ba, device=dev)[live_]
+        pos = torch.arange(c_["q"].shape[3], device=dev)[None, :]
+        amask = torch.where(live_[:, None], pos <= lens_[:, None], pos < 1)[:, None, None, :]
+        lat = deq(c_, 1, ids.long(), tbl, pc)
+        rop = deq(r_, 1, ids.long(), tbl, pr)
+        lat[rows, lens_.long()[live_]] = nc[live_]
+        rop[rows, lens_.long()[live_]] = nr[live_]
+        k = torch.cat([lat, rop], -1)[:, None]
+        v = lat[:, None]
+        fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, k, v, attn_mask=amask, scale=scale, enable_gqa=True)
+        return fn, _sdpa_backend(fn)
+
+    group = K.mla_decode_group(S, R, dr, H)
+    if group != S:
+        check_failed(f"decode_attend_q8_mla: the served group is {group}, the whole row wanted")
+    dargs = (qt, qr, nc, nr, cc, cr, 1, lens)
+    out = K.decode_attend_q8_mla(*dargs, slot_ids=ids, scale=scale)
+    ref = K.decode_attend_q8_mla_plain(*dargs, ids, scale, group)
+    lib, backend = sdpa_decode(cc, cr, lens)
+    dshape = {"qt": [Ba, H, R], "latents": [L, B, 1, S, R], "lengths": lens.tolist(),
+              "slot_ids": ids.tolist(), "group": group,
+              "library": f"SDPA ({backend}), length mask, keys [lat*ls | rop*rs] width 576, "
+                         f"values lat*ls width 512, dequantized to bf16"}
+    record(
+        "decode_attend_q8_mla", out, ref,
+        time_ms(lambda: K.decode_attend_q8_mla(*dargs, slot_ids=ids, scale=scale), 50),
+        time_ms(lambda: K.decode_attend_q8_mla_plain(*dargs, ids, scale, group), 5),
+        dbytes, dops_ms, time_ms(lib, 20), dshape,
+    )
+    del lib
+    # paged
+    others: dict[str, dict] = {}
+    for bt in (32, 128, BLOCK_TOKENS):  # the timed case last
+        ac, ar, pc, pr, tbl = paged_planes(cc, cr, bt, True)
+        pg = dict(block_tables=tbl, pool_c=pc, pool_r=pr)
+        pgroup = K.mla_decode_group(S, R, dr, H, S // bt)
+        pargs = (qt, qr, nc, nr, ac, ar, 1, lens)
+        out = K.decode_attend_q8_mla(*pargs, slot_ids=ids, scale=scale, **pg)
+        ref = K.decode_attend_q8_mla_plain(*pargs, ids, scale, pgroup, tbl, pc, pr)
+        if bt != BLOCK_TOKENS:
+            err, ratio = compare("decode_attend_q8_mla_paged", out, ref)
+            log(f"decode_attend_q8_mla_paged at {bt}-token blocks (group {pgroup}): err {err:.3g} "
+                f"(err/limit {ratio:.3g})")
+            others.setdefault("decode_attend_q8_mla_paged", {})[bt] = {
+                "max_abs_err": err, "worst_err_over_limit": ratio, "group": pgroup}
+            del ac, ar, pc, pr, pg
+            continue
+        lib, backend = sdpa_decode(ac, ar, lens, tbl, pc, pr)
+        blocks = sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist())
+        record(
+            "decode_attend_q8_mla_paged", out, ref,
+            time_ms(lambda: K.decode_attend_q8_mla(*pargs, slot_ids=ids, scale=scale, **pg), 50),
+            time_ms(lambda: K.decode_attend_q8_mla_plain(*pargs, ids, scale, pgroup, tbl, pc, pr),
+                    5),
+            dbytes + blocks * 4, dops_ms, time_ms(lib, 20),
+            dict(dshape, block_tokens=bt, group=pgroup, pool=list(pc["q"].shape),
+                 shared_tokens=SHARED_TOKENS,
+                 library=f"SDPA ({backend}), length mask, on the rows gathered through the "
+                         f"tables and dequantized to bf16"),
+        )
+        del lib, ac, ar, pc, pr, pg
+    del cc, cr
+
+    # -- decode past the whole-S budget: 16384-key rows of 2 layers ----------
+    SL = 16384
+    lgroup = K.mla_decode_group(SL, R, dr, H)
+    if lgroup != 512:
+        check_failed(f"decode_attend_q8_mla: the group at S={SL} is {lgroup}, JAX's 512 wanted")
+    lc, lr = planes(B, SL, True, layers=2)
+    llens = i32([2047, 5119, 8191, SL, 12287, 14335, 15359, 16383])
+    lkeys = sum(w + 1 if w < SL else 1 for w in llens.tolist())
+    lbytes = dbytes + (lkeys - keys) * (R + dr + 2 * 2)
+    lops_ms = dops_ms * lkeys / keys
+    for bt in (None, BLOCK_TOKENS):
+        if bt is None:
+            lg, largs, pg = lgroup, (qt, qr, nc, nr, lc, lr, 1, llens), {}
+        else:
+            ac, ar, pc, pr, tbl = paged_planes(lc, lr, bt, True)
+            lg, largs = K.mla_decode_group(SL, R, dr, H, SL // bt), (qt, qr, nc, nr, ac, ar, 1, llens)
+            pg = dict(block_tables=tbl, pool_c=pc, pool_r=pr)
+        name = "decode_attend_q8_mla" if bt is None else "decode_attend_q8_mla_paged"
+        out = K.decode_attend_q8_mla(*largs, slot_ids=ids, scale=scale, **pg)
+        ref = K.decode_attend_q8_mla_plain(*largs, ids, scale, lg, pg.get("block_tables"),
+                                           pg.get("pool_c"), pg.get("pool_r"))
+        err, ratio = compare(name, out, ref)
+        lblocks = sum(-(-(w + 1) // bt) if w < SL else 0 for w in llens.tolist()) if bt else 0
+        t_bytes = (lbytes + lblocks * 4) / HBM_BYTES_PER_S * 1e3
+        row = {
+            "S": SL, "lengths": llens.tolist(), "block_tokens": bt, "group": lg,
+            "chunk": K._mla_decode_chunk(SL, lg), "max_abs_err": err,
+            "worst_err_over_limit": ratio,
+            "ms": time_ms(lambda: K.decode_attend_q8_mla(*largs, slot_ids=ids, scale=scale, **pg),
+                          20),
+            "plain_ms": time_ms(lambda: K.decode_attend_q8_mla_plain(
+                *largs, ids, scale, lg, pg.get("block_tables"), pg.get("pool_c"),
+                pg.get("pool_r")), 2),
+            "bound_ms": max(t_bytes, lops_ms),
+            "bound_by": "bytes" if t_bytes >= lops_ms else "operations"}
+        lib, backend = sdpa_decode(largs[4], largs[5], llens, *(pg.get(k) for k in (
+            "block_tables", "pool_c", "pool_r")))
+        row.update(library_ms=time_ms(lib, 10), library=f"SDPA ({backend})")
+        log(f"{name} at S={SL} (group {lg}): {json.dumps(row)}")
+        del lib
+        res[name]["long_rows"] = row
+        del out, ref, largs, pg
+    del lc, lr, ac, ar, pc, pr, tbl
+    torch.cuda.empty_cache()
+
+    # -- ragged: T = 2048, bf16 and int8 latents ------------------------------
+    T, Rn = 2048, 4
+    starts, ns = [0, 512, 1024, 1536], [500, 480, 460, 460]
+    n_pad = T - sum(ns)
+    rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [Rn] * n_pad)
+    offsets = i32([sum(ns[:r]) for r in range(Rn + 1)])
+    slots, st = i32([2, 5, 12, 7]), i32(starts)
+    qt, qr, cs, krs = rn(T, H, R), rn(T, H, dr), rn(T, R), rn(T, dr)
+    pairs = sum(s_ * n + n * (n + 1) // 2 for s_, n in zip(starts, ns)) + n_pad * (n_pad + 1) // 2
+    rops_ms = 2176.0 * H * pairs / BF16_FLOPS * 1e3
+    rid = rowids.long()
+    col_row = torch.cat([torch.full((s_,), r, device=dev) for r, s_ in enumerate(starts)])
+    u = torch.arange(T, device=dev)
+    rmask = torch.cat([rid[:, None] == col_row[None, :],
+                       (rid[:, None] == rid[None, :]) & (u[None, :] <= u[:, None])], 1)
+    qh = torch.cat([qt, qr], -1).transpose(0, 1)[None]  # [1, H, T, 576]
+
+    def sdpa_ragged(cc_, cr_, tbl=None, pc=None, pr=None):
+        lat = deq(cc_, 3, slots.long(), tbl, pc)
+        rop = deq(cr_, 3, slots.long(), tbl, pr)
+        k = torch.cat([torch.cat([lat[r, :s_], rop[r, :s_]], -1) for r, s_ in enumerate(starts)]
+                      + [torch.cat([cs, krs], -1)])[None, None]
+        v = torch.cat([lat[r, :s_] for r, s_ in enumerate(starts)] + [cs])[None, None]
+        fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, k, v, attn_mask=rmask, scale=scale, enable_gqa=True)
+        return fn, _sdpa_backend(fn)
+
+    for quantized in (False, True):
+        tag = "_q8" if quantized else ""
+        cc, cr = planes(B, S, quantized)
+        per_key = (R + dr + 4) if quantized else 2 * (R + dr)
+        rbytes = (qt.numel() + qr.numel() + cs.numel() + krs.numel() + qt.numel()) * 2 \
+            + sum(starts) * per_key
+        rargs = (qt, qr, cs, krs, cc, cr, 3, rowids, offsets, slots, st)
+        out = K.ragged_prefill_attend_mla(*rargs, scale=scale)
+        ref = K.ragged_prefill_mla_plain(*rargs, scale)
+        lib, backend = sdpa_ragged(cc, cr)
+        rshape = {"qt": [T, H, R], "rows": Rn, "tokens": ns, "pads": n_pad, "starts": starts,
+                  "latents": "int8" if quantized else "bf16",
+                  "library": f"SDPA ({backend}), one call, block-causal mask over the prefixes "
+                             f"(keys [lat*ls | rop*rs], values lat*ls) and the chunk"}
+        record(
+            f"ragged_prefill_attend_mla{tag}", out, ref,
+            time_ms(lambda: K.ragged_prefill_attend_mla(*rargs, scale=scale), 5),
+            time_ms(lambda: K.ragged_prefill_mla_plain(*rargs, scale), 2),
+            rbytes, rops_ms, time_ms(lib, 5), rshape,
+        )
+        del lib
+        name = f"ragged_prefill_attend_mla{tag}_paged"
+        for bt in (32, 128, BLOCK_TOKENS):
+            ac, ar, pc, pr, tbl = paged_planes(cc, cr, bt, quantized)
+            pg = dict(block_tables=tbl, pool_c=pc, pool_r=pr)
+            pargs = (qt, qr, cs, krs, ac, ar, 3, rowids, offsets, slots, st)
+            out = K.ragged_prefill_attend_mla(*pargs, scale=scale, **pg)
+            ref = K.ragged_prefill_mla_plain(*pargs, scale, tbl, pc, pr)
+            if bt != BLOCK_TOKENS:
+                err, ratio = compare(name, out, ref)
+                log(f"{name} at {bt}-token blocks: err {err:.3g} (err/limit {ratio:.3g})")
+                others.setdefault(name, {})[bt] = {"max_abs_err": err,
+                                                   "worst_err_over_limit": ratio}
+                del ac, ar, pc, pr, pg
+                continue
+            lib, backend = sdpa_ragged(ac, ar, tbl, pc, pr)
+            record(
+                name, out, ref,
+                time_ms(lambda: K.ragged_prefill_attend_mla(*pargs, scale=scale, **pg), 5),
+                time_ms(lambda: K.ragged_prefill_mla_plain(*pargs, scale, tbl, pc, pr), 2),
+                rbytes + sum(-(-s_ // bt) for s_ in starts) * 4, rops_ms, time_ms(lib, 5),
+                dict(rshape, block_tokens=bt, shared_tokens=SHARED_TOKENS,
+                     library=f"SDPA ({backend}), one call, block-causal mask over the prefixes "
+                             f"gathered through the tables and dequantized, and the chunk"),
+            )
+            del lib, ac, ar, pc, pr, pg
+        del cc, cr
+    for name, by_bt in others.items():
+        res[name]["other_block_sizes"] = by_bt
+    torch.cuda.empty_cache()
+    return res
+
+
 def int8_gemm_phase() -> dict:
     """The int8 GEMM behind `qdot` (`torch._int_mm`) at the decode step's
     shapes (32 padded rows; Llama-3.1-8B's wqkv, wo, w13 and w2), with the
@@ -796,7 +1157,8 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
     K.reset_launches()
     got = run(dev)
     torch.cuda.synchronize()
-    per_call = {n: c for n, c in K.LAUNCHES.items() if (n in Q8_KERNELS) == quantized}
+    per_call = {n: K.LAUNCHES[n] for n in (Q8_KERNELS if quantized
+                                           else CHAT_KERNELS + PREFIX_KERNELS)}
     t0 = time.perf_counter()
     want = run(host)
     report = {"layers": CHECK_LAYERS, "quantized": quantized, "launches_in_check": per_call,
@@ -821,6 +1183,216 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
                      f"versions on the host or with the contiguous rows (finite values "
                      f"with cosine >= {MODEL_COSINE} wanted)")
     return report
+
+
+def model_check_mla(cfg, params, dev, quantized: bool) -> dict:
+    """DeepSeek-V2-Lite's first CHECK_LAYERS layers (the dense layer 0 and
+    one MoE layer, published widths, the served weights) on a small input:
+    prefill, one decode step with a parked row and one ragged chunk with
+    pads, unpaged and paged, through the kernels on the card and through
+    the plain versions on the host CPU; paged calls read row 0's first
+    block from a pool row while its arena block holds other values, and on
+    the card must equal the same calls through identity tables over the
+    contiguous rows bit for bit: they read the same bytes in the same
+    order (the int8 decode requantizes per table block, as JAX's paged
+    arm, and per whole row without tables, as its whole-S arm, so it is
+    not held against the call without tables). `quantized`: int8
+    latents (decode through `decode_attend_q8_mla`, chunks through the int8
+    ragged kernel), else bf16 latents (plain decode, the bf16 ragged
+    kernel). Logits and written latents (int8 payloads as numbers, and
+    their scales) by cosine."""
+    import dataclasses
+
+    import torch
+
+    from llm_mcp_tpu_torch.executor.physical import pool_like
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models import llama as TL
+
+    cut = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    k_dense = cfg.first_dense_layers
+    host = torch.device("cpu")
+
+    def first_layers(d):
+        sub = {k: _tree(lambda v: v.to(d), v) for k, v in params.items()
+               if k not in ("layers", "dense_layers")}
+        sub["dense_layers"] = {k: _tree(lambda v: v.to(d), v)
+                               for k, v in params["dense_layers"].items()}
+        sub["layers"] = {k: _tree(lambda v: v[: CHECK_LAYERS - k_dense].to(d), v)
+                         for k, v in params["layers"].items()}
+        return sub
+
+    # the decode and chunk write past block 0, which is read from the pool:
+    # the bf16 arm appends before it attends, and the engine never writes
+    # into a block that a table maps to the pool (shared blocks are whole
+    # prefix blocks; an unaligned boundary block is copied on write)
+    g = torch.Generator().manual_seed(7)
+    P0, S, bt = 72, 256, BLOCK_TOKENS
+    nbs = S // bt
+    toks = torch.randint(3, 259, (1, 128), generator=g, dtype=torch.int32)
+    chunk = torch.randint(3, 259, (32,), generator=g, dtype=torch.int32)
+
+    def junk_like(plane):
+        """Other values for row 0's overwritten arena block, as the cache
+        holds them."""
+        if plane.dtype == torch.int8:
+            return torch.randint(-127, 128, plane[:, :1, :, :bt].shape, generator=g,
+                                 dtype=torch.int8)
+        if plane.dim() == 4:  # int8 scales
+            return (torch.rand(plane[:, :1, :, :bt].shape, generator=g) * 0.02).to(plane.dtype)
+        return torch.randn(plane[:, :1, :, :bt].shape, generator=g).to(plane.dtype)
+
+    shapes = TL.init_kv_cache(cut, 2, S, dtype=torch.bfloat16, quantized=quantized)
+    junk = {n: _tree(junk_like, shapes[n]) for n in ("k", "v")}
+
+    def run(d):
+        p = first_layers(d)
+
+        def i32(x):
+            return torch.as_tensor(x, dtype=torch.int32, device=d)
+
+        logits_p, c_new, r_new = TL.llama_prefill(cut, p, toks.to(d), i32([P0]),
+                                                  quant_kv=quantized)
+        cache = TL.init_kv_cache(cut, 2, S, dtype=torch.bfloat16, device=d, quantized=quantized)
+        for n, new in (("k", c_new), ("v", r_new)):
+            _tree(lambda c, x: c[:, 0, :, :128].copy_(x[:, 0]), cache[n], new)
+        pool, paged_cache = {}, {}
+        for n in ("k", "v"):
+            pool[n] = pool_like(cache[n], 2, bt)
+            _tree(lambda pl, c: pl[:, 1].copy_(c[:, 0, :, :bt]), pool[n], cache[n])
+            paged_cache[n] = _tree(lambda c: c.clone(), cache[n])
+            _tree(lambda c, j: c[:, 0, :, :bt].copy_(j[:, 0]), paged_cache[n],
+                  _tree(lambda j: j.to(d), junk[n]))
+        ident = torch.arange(2 * nbs, dtype=torch.int32).reshape(2, nbs)
+        tbl = ident.clone()
+        tbl[0, 0] = 2 * nbs + 1
+        paged = {"tbl": tbl.to(d), "k": pool["k"], "v": pool["v"]}
+        out = {"prefill": logits_p}
+        for tag, src, pg in (("", cache, None), ("_paged", paged_cache, paged),
+                             ("_ident", cache, dict(paged, tbl=ident.to(d)))):
+            ck, cv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
+            logits_d, ck, cv = TL.llama_decode_step(
+                cut, p, ck, cv, i32([65, 65]), i32([P0, S]), paged=pg)  # row 1 parked
+            rk, rv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
+            logits_r, rk, rv = TL.llama_prefill_chunk_ragged(
+                cut, p, rk, rv, tokens=chunk.to(d),
+                rowids=i32([0] * 20 + [1] * 12),
+                positions=i32(list(range(P0, P0 + 20)) + [S] * 12),
+                slots=i32([0]), starts=i32([P0]), last_idx=i32([19]), paged=pg)
+            out["decode" + tag] = logits_d[:1]
+            out["ragged" + tag] = logits_r
+            for name, plane, sl in (("decode_latent", ck, P0), ("decode_rope", cv, P0),
+                                    ("ragged_latent", rk, slice(P0, P0 + 20)),
+                                    ("ragged_rope", rv, slice(P0, P0 + 20))):
+                if quantized:
+                    out[name + tag] = plane["q"][:, 0, 0, sl]
+                    out[name + "_scales" + tag] = plane["s"][:, 0, 0, sl]
+                else:
+                    out[name + tag] = plane[:, 0, 0, sl]
+        return out
+
+    def cosine(a, b):
+        a, b = a.float().cpu().flatten(), b.float().cpu().flatten()
+        return (torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+                (a - b).abs().max().item(), bool(torch.isfinite(a).all()))
+
+    K.reset_launches()
+    got = run(dev)
+    torch.cuda.synchronize()
+    want_kernels = MLA_Q8_KERNELS if quantized else MLA_BF16_KERNELS
+    per_call = {n: K.LAUNCHES[n] for n in want_kernels}
+    t0 = time.perf_counter()
+    want = run(host)
+    report = {"layers": CHECK_LAYERS, "latents": "int8" if quantized else "bf16",
+              "launches_in_check": per_call, "host_reference_s": time.perf_counter() - t0}
+    bad = []
+    for name in got:
+        cos, err, finite = cosine(got[name], want[name])
+        report[name] = {"cosine": cos, "max_abs_err": err}
+        if not finite or not cos >= MODEL_COSINE:
+            bad.append(name)
+    for name in [n for n in got if n.endswith("_paged")]:
+        same = torch.equal(got[name], got[name[: -len("_paged")] + "_ident"])
+        report[name]["bitwise_vs_identity_tables"] = same
+        if not same:
+            bad.append(f"{name} vs identity tables")
+    log(f"model check {cfg.name} ({report['latents']} latents): {json.dumps(report)}")
+    for name, n in per_call.items():
+        if n <= 0:
+            check_failed(f"model check {cfg.name}: kernel {name} was not launched")
+    if bad:
+        check_failed(f"model check {cfg.name}: {bad} through the kernels disagree with the "
+                     f"plain versions on the host (finite values with cosine >= "
+                     f"{MODEL_COSINE} wanted) or, paged, with the same calls through identity "
+                     f"tables (bit for bit wanted)")
+    return report
+
+
+def mla_served_phase() -> dict:
+    """DeepSeek-V2-Lite at full depth and width (random weights from a
+    seed), int8 weights, 16 slots, max_seq_len 4096, the engine's defaults
+    otherwise (prompt cache 256 MiB, 64-token blocks), twice: with the int8
+    latent cache (slot compaction on) and with bf16 latents. Each engine
+    gets the 2-layer model check, then the four chats and the prefix
+    traffic over HTTP with every counter set to 0 just before and read just
+    after: its MLA kernels must have launched and no GQA-cache kernel, the
+    ledger must audit clean, with hits and a copy on write (and at int8 the
+    decode compacted); then, at int8, the breakdown of one decode step and
+    one ragged chunk. Each engine is freed before the next is built."""
+    import torch
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    out: dict = {}
+    for tag, kv_quant in (("int8", "int8"), ("bf16_latents", "")):
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        engine = GenerationEngine(
+            MLA_MODEL, max_slots=Q8_SLOTS, max_seq_len=4096, prefill_chunk=512, seed=0,
+            quant="int8", kv_quant=kv_quant, device="cuda",
+        )
+        torch.cuda.synchronize()
+        built = {"s": time.time() - t0, "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "compaction": engine.decode_compact, "kv_quant": kv_quant or "bf16"}
+        log(f"{MLA_MODEL} int8 weights + {built['kv_quant']} latents: {json.dumps(built)}")
+        check = model_check_mla(engine.cfg, engine.params, engine.device, bool(kv_quant))
+        engine.start()
+        api = serve({engine.cfg.name: engine}, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{api.port}"
+        try:
+            K.reset_launches()
+            rounds0 = engine.compact_rounds
+            e2e = e2e_phase(engine, base, kernels=(), reset=False)
+            prefix = prefix_phase(engine, base, kernels=(), reset=False)
+            launches = dict(K.LAUNCHES)
+            compacted = engine.compact_rounds - rounds0
+        finally:
+            api.shutdown()
+            engine.shutdown()
+        want = MLA_Q8_KERNELS if kv_quant else MLA_BF16_KERNELS
+        checks = {f"{n} launched": launches[n] > 0 for n in want}
+        for n in GQA_CACHE_KERNELS + (MLA_BF16_KERNELS if kv_quant else MLA_Q8_KERNELS):
+            checks[f"{n} not launched"] = launches[n] == 0
+        if kv_quant:
+            checks["decode ran compacted"] = compacted > 0
+        report = {"engine": built, "model_check": check, "launches": launches,
+                  "compacted_rounds": compacted, "e2e": e2e, "prefix": prefix, "checks": checks}
+        log(f"{MLA_MODEL} {tag} served: "
+            f"{json.dumps({'launches': launches, 'compacted_rounds': compacted, 'checks': checks})}")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            check_failed(f"{MLA_MODEL} {tag} served phase: {bad}")
+        if kv_quant:
+            report["breakdown"] = breakdown_phase(engine.cfg, engine.params, engine.device,
+                                                  quantized=True, model_tag="v2lite_")
+        out[tag] = report
+        del engine, api
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -1032,7 +1604,7 @@ def prefix_phase(engine, base: str, kernels=PREFIX_KERNELS, reset: bool = True) 
     return report
 
 
-def breakdown_phase(cfg, params, dev, quantized: bool = False) -> dict:
+def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = "") -> dict:
     """Where a decode step and a ragged chunk spend their time, at served
     shapes (8 rows at fill 1024, unpaged and with the first 16 blocks of
     every row read from the prefix pool; one 512-token chunk over a
@@ -1067,16 +1639,16 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False) -> dict:
                   slots=i32([0]), starts=i32([P]), last_idx=i32([T - 1]))
     tag = "_q8" if quantized else ""
     calls = {
-        f"decode_step{tag}_b8": lambda: TL.llama_decode_step(
+        f"{model_tag}decode_step{tag}_b8": lambda: TL.llama_decode_step(
             cfg, params, ck, cv, toks, lens, slot_ids=ids),
-        f"decode_step{tag}_b8_paged": lambda: TL.llama_decode_step(
+        f"{model_tag}decode_step{tag}_b8_paged": lambda: TL.llama_decode_step(
             cfg, params, ck, cv, toks, lens, slot_ids=ids, paged=paged),
-        f"ragged_chunk{tag}_512": lambda: TL.llama_prefill_chunk_ragged(
+        f"{model_tag}ragged_chunk{tag}_512": lambda: TL.llama_prefill_chunk_ragged(
             cfg, params, ck, cv, **ragged),
     }
     out = {}
     for name, fn in calls.items():
-        ms = time_ms(fn, 5)
+        ms = time_ms(fn, 5, queue_ahead=False)
         n = 3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -1094,7 +1666,7 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False) -> dict:
             "idle_share": 1.0 - busy / ms if kern else "not measured",
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
         }
-    log(f"breakdown{' int8' if quantized else ''}: {json.dumps(out)}")
+    log(f"breakdown {cfg.name}{' int8' if quantized else ''}: {json.dumps(out)}")
     del ck, cv, cache, paged
     torch.cuda.empty_cache()
     return out
@@ -1126,6 +1698,7 @@ def main() -> None:
 
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
+    kernels.update(kernel_phase_mla())
     gemm = int8_gemm_phase()
 
     from llm_mcp_tpu_torch.api.inference import serve
@@ -1157,6 +1730,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     q8 = q8_served_phase()
     breakdown.update(q8.pop("breakdown"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = mla_served_phase()
+    breakdown.update(mla["int8"].pop("breakdown"))
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
@@ -1167,12 +1744,14 @@ def main() -> None:
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         # launches on the served path that drives the kernel
-        served = q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS else e2e
+        served = (mla["int8"] if name in MLA_Q8_KERNELS
+                  else mla["bf16_latents"] if name in MLA_BF16_KERNELS
+                  else q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS else e2e)
         row["launches"] = served["launches"][name]
         row.update(r)
         rows.append(row)
     print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
-                      "int8_gemm": gemm, "breakdown": breakdown,
+                      MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

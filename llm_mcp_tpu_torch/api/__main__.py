@@ -18,6 +18,16 @@ server reads them; the engine warns about an unknown value and drops it.
 
     python -m llm_mcp_tpu_torch.api --model llama-3.1-8b --max-slots 16 \\
         --quant int8 --kv-quant int8
+
+`--model deepseek-v2-lite` serves DeepSeek-V2-Lite (MLA latent attention,
+DeepSeek MoE: dense layer 0, 26 layers of 64 routed and 2 shared experts)
+at full depth and width; its configuration of record is int8 weights with
+the int8 latent cache (the routed expert banks stay bf16, about 29 GB):
+
+    python -m llm_mcp_tpu_torch.api --model deepseek-v2-lite --quant int8 \\
+        --kv-quant int8 --max-slots 16 --max-seq-len 4096
+
+and `--kv-quant ""` serves it with bf16 latents.
 """
 
 from __future__ import annotations

@@ -50,6 +50,12 @@ scales together. Slot compaction (`decode_compact`, on by default with the
 int8 cache): a decode round runs only a pow2 bucket of the active rows
 (floor 8), each reading its cache row through `slot_ids`.
 
+MLA models (DeepSeek-V2-Lite, `models/mla.py`) keep a latent cache in the
+same (k, v) pair: k = latents [L, B, 1, S, R], v = rope keys
+[L, B, 1, S, dr], and at int8 each its own {"q", "s"} dict, not fused.
+Every path above maps over those leaves unchanged; the int8 latents are
+read by the MLA decode kernel through `slot_ids` when compacted.
+
 Left out until later slices: host offload and preemption (`KVPool`),
 migration, the fleet prefix tier, speculation, constraints, the model zoo,
 tenants and the flight recorder.
@@ -592,8 +598,9 @@ class GenerationEngine:
         """Positions (layer, row, head, token) of the arena and the pool
         where the fused int8 cache's packed pseudo-head and its plain
         scales "s" disagree in any bit. Every write and copy path keeps
-        them equal, so 0 is sound; a bf16 cache or one without the
-        pseudo-head has nothing to audit."""
+        them equal, so 0 is sound; a bf16 cache, one without the
+        pseudo-head and the MLA latent cache (whose planes carry their
+        scales in "s" alone) have nothing to audit."""
         bad = 0
         for c in (self._ck, self._pool_k):
             if not isinstance(c, dict) or c["q"].shape[2] == c["s"].shape[2]:

@@ -1,7 +1,7 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Eleven CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
+Seventeen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
 
   - `append_kv_bf16`             ← `_append_bf16_kernel`
   - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
@@ -15,6 +15,11 @@ Eleven CUDA C++ kernels for `sm_90a`, sources in `csrc/`:
   - `decode_attend_q8_paged`     ← `_attend_q8_paged_kernel`
   - `ragged_prefill_attend_q8`   ← `_ragged_prefill_q8_kernel`, identity tables
   - `ragged_prefill_attend_q8_paged` ← the same body's block-table path
+  - `decode_attend_q8_mla`       ← `_attend_q8_mla_kernel` + `_attend_q8_mla_blocked_kernel`
+  - `decode_attend_q8_mla_paged` ← `_attend_q8_mla_paged_kernel`
+  - `ragged_prefill_attend_mla`  ← `_ragged_prefill_mla_kernel`, bf16 or int8
+                                   latents (`_q8`), identity or block tables
+                                   (`_paged`): four entry points
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -24,7 +29,8 @@ The int8 kernels read and write the fused int8 cache of
 `models/llama.py:init_kv_cache(quantized=True)`: `{"q": int8 [L, B,
 2*Hkv + p, S, hd], "s": [L, B, 2*Hkv, S]}`, K heads then V heads, and with
 p = 1 a pseudo-head carrying the same scales bit-packed
-(`models/quant.py:pack_scales`).
+(`models/quant.py:pack_scales`). The MLA kernels read the latent cache
+of `models/mla.py` (described above their section).
 
 Each wrapper keeps the JAX function's layouts and arguments. It takes its
 plain PyTorch version (`*_plain`, beside it) only for tensors on the CPU;
@@ -42,6 +48,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -62,6 +69,12 @@ LAUNCHES: dict[str, int] = {
     "decode_attend_q8_paged": 0,
     "ragged_prefill_attend_q8": 0,
     "ragged_prefill_attend_q8_paged": 0,
+    "decode_attend_q8_mla": 0,
+    "decode_attend_q8_mla_paged": 0,
+    "ragged_prefill_attend_mla": 0,
+    "ragged_prefill_attend_mla_paged": 0,
+    "ragged_prefill_attend_mla_q8": 0,
+    "ragged_prefill_attend_mla_q8_paged": 0,
 }
 
 
@@ -85,6 +98,12 @@ _SIGNATURES = {
     "decode_attend_q8_paged": ("decode_attend", [_P] * 14 + [_I] * 13 + [_F, _P]),
     "ragged_prefill_q8": ("ragged_prefill", [_P] * 10 + [_I] * 9 + [_F, _P]),
     "ragged_prefill_q8_paged": ("ragged_prefill", [_P] * 13 + [_I] * 12 + [_F, _P]),
+    "decode_attend_q8_mla": ("decode_attend_mla", [_P] * 13 + [_I] * 9 + [_F, _P]),
+    "decode_attend_q8_mla_paged": ("decode_attend_mla", [_P] * 18 + [_I] * 12 + [_F, _P]),
+    "ragged_prefill_mla": ("ragged_prefill_mla", [_P] * 11 + [_I] * 8 + [_F, _P]),
+    "ragged_prefill_mla_paged": ("ragged_prefill_mla", [_P] * 14 + [_I] * 11 + [_F, _P]),
+    "ragged_prefill_mla_q8": ("ragged_prefill_mla", [_P] * 13 + [_I] * 8 + [_F, _P]),
+    "ragged_prefill_mla_q8_paged": ("ragged_prefill_mla", [_P] * 18 + [_I] * 11 + [_F, _P]),
 }
 
 
@@ -880,4 +899,365 @@ def ragged_prefill_attend_q8(
         rowids, offsets, slots, starts, tbl, pool["q"], pool["s"], out,
         int(layer), T, R, B, Hkv, Hf, G, S, hd, nbs, bt, pxb, sc,
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (latent cache): decode_attend_q8_mla, ragged_prefill_attend_mla
+# ---------------------------------------------------------------------------
+#
+# The latent cache of `models/mla.py`: latents [L, B, 1, S, R] and shared
+# rope keys [L, B, 1, S, dr], bf16 arrays or, at int8, one {"q", "s"} dict
+# each (payload and per-token scales [L, B, 1, S]); pools mirror them with
+# [L, PXB, 1, bt, ...]. The kernels are built for DeepSeek's R = 512 and
+# dr = 64.
+
+MLA_R = 512  # kv_lora_rank the MLA kernels are built for
+MLA_DR = 64  # qk_rope_head_dim the MLA kernels are built for
+
+
+def mla_whole_s_fits(S: int, R: int, dr: int, H: int) -> bool:
+    """JAX's whole-S VMEM test for the MLA decode kernel (its static arm
+    choice: whole row if it fits, else blocks)."""
+    return (S * (R + dr) + 4 * S * (3 * H + dr) + 4 * H * (2 * R + dr)) <= 8 * 1024 * 1024
+
+
+def mla_block_size(seq_len: int) -> int:
+    """JAX's blocked-arm block size: the first of 512/256/128 dividing S,
+    0 past 64 blocks (JAX then takes its exact f32 fallback)."""
+    bs = next((c for c in (512, 256, 128) if seq_len % c == 0), 0)
+    return 0 if bs and seq_len // bs > 64 else bs
+
+
+def mla_decode_group(S: int, R: int, dr: int, H: int, nbs: int | None = None) -> int:
+    """Keys per probability requantization group of the MLA decode kernel,
+    as JAX's dispatch picks its arm statically: contiguous, the whole row
+    (S) when the whole-S kernel fits, else the blocked arm's block size;
+    through tables of nbs blocks, bt when the paged kernel takes them
+    (bt >= 32, at most 64 blocks). 0 is JAX's exact f32 fallback, which
+    does not requantize."""
+    if nbs is None:
+        return S if mla_whole_s_fits(S, R, dr, H) else mla_block_size(S)
+    bt = S // nbs
+    return bt if S % nbs == 0 and bt >= 32 and nbs <= 64 else 0
+
+
+def _mla_plane(cache, layer, rows, tbl=None, pool=None):
+    """Layer `layer` of one latent-cache plane at cache rows `rows` (through
+    their tables when given), the fake head axis dropped: [n, S, ...]."""
+    li = int(layer)
+    if tbl is None:
+        return cache[li].index_select(0, rows)[:, 0]
+    return paged_gather(cache[li], pool[li], tbl.index_select(0, rows.to(tbl.device)))[:, 0]
+
+
+def decode_attend_q8_mla_plain(
+    qt, qr, new_c, new_r, cache_c, cache_r, layer, lengths, slot_ids=None, scale=0.0,
+    group=0, block_tables=None, pool_c=None, pool_r=None,
+):
+    """Plain version of the MLA int8 decode kernels. With `group` > 0 the
+    Pallas bodies' arithmetic: q̃ requantized per head (qsc = max|q̃| /
+    127), latent scores s8 x s8 times scale * qsc * ls, rope scores
+    over the dequantized rope keys, position w overridden by the exact
+    score, and p * ls requantized per `group` keys (S: JAX's whole-S arm,
+    the block size: its blocked arm, bt: its paged arm), the PV product
+    s8 x s8 again. `group` = 0 is JAX's exact fallback. Integer dots run in
+    float64, which holds them exactly. A parked row (w outside [0, S))
+    attends its new vectors alone."""
+    from ..models.quant import INV127
+
+    Ba, H, R = qt.shape
+    rows = _rows(slot_ids, Ba, qt.device).long()
+    pc = pool_c or {"q": None, "s": None}
+    pr = pool_r or {"q": None, "s": None}
+    lat = _mla_plane(cache_c["q"], layer, rows, block_tables, pc["q"]).double()  # [Ba, S, R]
+    ls = _mla_plane(cache_c["s"], layer, rows, block_tables, pc["s"]).float()  # [Ba, S]
+    rop = _mla_plane(cache_r["q"], layer, rows, block_tables, pr["q"]).float()
+    rs = _mla_plane(cache_r["s"], layer, rows, block_tables, pr["s"]).float()
+    S = lat.shape[1]
+    w = lengths.long()
+    we = torch.where((w >= 0) & (w < S), w, torch.zeros_like(w))
+    pos = torch.arange(S, device=qt.device)
+    at_w = (pos[None, :] == we[:, None])[:, None, :]  # [Ba, 1, S]
+    seen = (pos[None, :] <= we[:, None])[:, None, :]
+    qtf, qrf = qt.float(), qr.float()
+    nc = new_c.float()
+    s_new = ((qtf * nc[:, None, :]).sum(-1) + (qrf * new_r.float()[:, None, :]).sum(-1)) * scale
+    if group:
+        qsc = torch.clamp(qtf.abs().amax(dim=-1) * INV127, min=1e-30)  # [Ba, H]
+        qt8 = torch.round(qtf / qsc[..., None])
+        si = torch.einsum("bhr,bsr->bhs", qt8.double(), lat).float()
+        s = si * (scale * qsc)[..., None] * ls[:, None, :]
+        s = s + torch.einsum("bhd,bsd->bhs", qrf, rop * rs[..., None]) * scale
+    else:
+        s = (torch.einsum("bhr,bsr->bhs", qtf.double(), lat).float() * ls[:, None, :]
+             + torch.einsum("bhd,bsd->bhs", qrf, rop) * rs[:, None, :]) * scale
+    s = torch.where(at_w, s_new[..., None], s)
+    s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+    p = torch.where(seen, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    p_w = torch.where(at_w, p, torch.zeros_like(p)).sum(dim=-1)  # [Ba, H]
+    pv = torch.where(at_w, torch.zeros_like(p), p * ls[:, None, :])
+    if group:
+        nb = -(-S // group)
+        pad = nb * group - S
+        pg = F.pad(pv, (0, pad)).reshape(Ba, H, nb, group)
+        psc = torch.clamp(pg.amax(dim=-1) * INV127, min=1e-30)  # [Ba, H, nb]
+        p8 = torch.round(pg / psc[..., None])
+        latg = F.pad(lat, (0, 0, 0, pad)).reshape(Ba, nb, group, R)
+        ci = torch.einsum("bhjk,bjkr->bhjr", p8.double(), latg).float()
+        ctx = (ci * psc[..., None]).sum(dim=2)
+    else:
+        ctx = torch.einsum("bhs,bsr->bhr", pv.double(), lat).float()
+    ctx = ctx + p_w[..., None] * nc[:, None, :]
+    return (ctx / l[..., None]).to(qt.dtype)
+
+
+def _check_mla_plane(name, plane, L, B, S, width, dev, quantized) -> None:
+    if quantized:
+        if not isinstance(plane, dict) or set(plane) != {"q", "s"}:
+            raise ValueError(f"{name}: an int8 latent plane is a {{'q', 's'}} dict")
+        _check(name, plane["q"], torch.int8, (L, B, 1, S, width), dev)
+        _check(name, plane["s"], torch.bfloat16, (L, B, 1, S), dev)
+    else:
+        _check(name, plane, torch.bfloat16, (L, B, 1, S, width), dev)
+
+
+def _mla_tables(name, block_tables, S, dev) -> tuple[int, int]:
+    """(nbs, bt) of the engine's [B, nbs] tables."""
+    if block_tables.dim() != 2 or block_tables.shape[1] < 1 or S % block_tables.shape[1]:
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)} must be "
+                         f"[rows, nbs] with nbs dividing S={S}")
+    _check(name, block_tables, torch.int32, tuple(block_tables.shape), dev)
+    nbs = block_tables.shape[1]
+    return nbs, S // nbs
+
+
+# shared memory a CTA may use on the H100, less the decode kernel's static
+# arrays (under 5 KB)
+_MLA_DECODE_SMEM = 232_448 - 8_192
+_MLA_DECODE_CHUNK = 4096  # keys a CTA takes of a row whose group lets it split
+
+
+def _mla_decode_chunk(S: int, group: int) -> int:
+    """Keys per CTA of the MLA decode kernel: the whole row when the group
+    is the whole row or the row fits one chunk, else whole groups of about
+    _MLA_DECODE_CHUNK keys (any count for group 0); raises when a chunk's
+    scores do not fit shared memory."""
+    if S <= _MLA_DECODE_CHUNK or group >= S:
+        chunk = S
+    elif group == 0:
+        chunk = _MLA_DECODE_CHUNK
+    else:
+        chunk = max(group, _MLA_DECODE_CHUNK // group * group)
+    ngroups = -(-chunk // group) if group else 0
+    if chunk * 13 + 16 + 4 * ngroups > _MLA_DECODE_SMEM:
+        raise ValueError(f"decode_attend_q8_mla: a {chunk}-key chunk (S={S}, group {group}) "
+                         f"does not fit shared memory")
+    return chunk
+
+
+def decode_attend_q8_mla(
+    qt: torch.Tensor,  # [Ba, H, R] absorbed queries (latent space)
+    qr: torch.Tensor,  # [Ba, H, dr] rope queries (after rope)
+    new_c: torch.Tensor,  # [Ba, R] this step's exact latent
+    new_r: torch.Tensor,  # [Ba, dr] this step's exact rope key
+    cache_c: dict,  # {"q": int8 [L, B, 1, S, R], "s": [L, B, 1, S]} — PRE-append
+    cache_r: dict,  # {"q": int8 [L, B, 1, S, dr], "s": [L, B, 1, S]}
+    layer: int,
+    lengths: torch.Tensor,  # [Ba] int32 — this step's position per row
+    *,
+    slot_ids: torch.Tensor | None = None,  # [Ba] int32 cache rows (None = 1:1)
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool_c: dict | None = None,  # latent prefix pool {"q": [L, PXB, 1, bt, R], "s"}
+    pool_r: dict | None = None,  # rope prefix pool
+    scale: float,
+) -> torch.Tensor:
+    """Absorbed MLA decode attention for one layer over the int8 latent
+    cache, pre-append (position lengths[b] takes the exact new_c/new_r).
+    Returns the context in latent space [Ba, H, R]; the caller appends.
+    The probabilities are requantized per `mla_decode_group` keys, JAX's
+    static choice of arm; with `block_tables` every key is read through
+    row slot_ids[b]'s table (`decode_attend_q8_mla_paged`). A row whose
+    group is not the whole row splits into chunks of whole groups."""
+    Ba, H, R = qt.shape
+    dr = qr.shape[-1]
+    L, B, _, S, _ = cache_c["q"].shape
+    nbs = None if block_tables is None else block_tables.shape[1]
+    group = mla_decode_group(S, R, dr, H, nbs)
+    if qt.device.type == "cpu":
+        return decode_attend_q8_mla_plain(
+            qt, qr, new_c, new_r, cache_c, cache_r, layer, lengths, slot_ids, scale, group,
+            block_tables, pool_c, pool_r,
+        )
+    name = "decode_attend_q8_mla" if block_tables is None else "decode_attend_q8_mla_paged"
+    dev = qt.device
+    rows = _rows(slot_ids, Ba, dev)
+    _check(name, qt, torch.bfloat16, (Ba, H, R), dev)
+    _check(name, qr, torch.bfloat16, (Ba, H, dr), dev)
+    _check(name, new_c, torch.bfloat16, (Ba, R), dev)
+    _check(name, new_r, torch.bfloat16, (Ba, dr), dev)
+    _check_mla_plane(name, cache_c, L, B, S, R, dev, True)
+    _check_mla_plane(name, cache_r, L, B, S, dr, dev, True)
+    for t in (lengths, rows):
+        _check(name, t, torch.int32, (Ba,), dev)
+    if R != MLA_R or dr != MLA_DR:
+        raise ValueError(f"{name}: built for kv_lora_rank {MLA_R} and rope dim {MLA_DR}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    chunk = _mla_decode_chunk(S, group)
+    nsplit = -(-S // chunk)
+    out = torch.empty_like(qt)
+    part = ml = None  # each chunk's unnormalized context, max and sum
+    if nsplit > 1:
+        part = torch.empty((Ba, H, nsplit, R), dtype=torch.float32, device=dev)
+        ml = torch.empty((Ba, H, nsplit, 2), dtype=torch.float32, device=dev)
+    if block_tables is None:
+        _launch(name, "decode_attend_q8_mla", qt, qr, new_c, new_r, cache_c["q"],
+                cache_c["s"], cache_r["q"], cache_r["s"], lengths, rows, out, part, ml,
+                int(layer), B, Ba, H, S, R, dr, group, chunk, float(scale))
+        return out
+    nbs, bt = _mla_tables(name, block_tables, S, dev)
+    if block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
+    if pool_c is None or pool_r is None:
+        raise ValueError(f"{name}: block_tables need the latent and rope pools")
+    pxb = pool_c["q"].shape[1]
+    _check_mla_plane(name, pool_c, L, pxb, bt, R, dev, True)
+    _check_mla_plane(name, pool_r, L, pxb, bt, dr, dev, True)
+    _launch(name, "decode_attend_q8_mla_paged", qt, qr, new_c, new_r, cache_c["q"],
+            cache_c["s"], cache_r["q"], cache_r["s"], lengths, rows, block_tables,
+            pool_c["q"], pool_c["s"], pool_r["q"], pool_r["s"], out, part, ml,
+            int(layer), B, Ba, H, S, R, dr, group, chunk, nbs, bt, pxb, float(scale))
+    return out
+
+
+def ragged_prefill_mla_plain(
+    qt, qr, c_self, kr_self, cache_c, cache_r, layer, rowids, offsets, slots, starts,
+    scale=0.0, block_tables=None, pool_c=None, pool_r=None,
+):
+    """Plain version of the ragged MLA kernel, in f32, one packed segment
+    at a time: past scores (q̃ . lat) * ls + (qr . rop) * rs over the row's
+    cached prefix (through its slot's table when given; ls = rs = 1 for
+    bf16 latents), self scores q̃ . c + qr . kr over its own causal
+    segment, one softmax over both times `scale`, and the context over
+    lat * ls (past) and c (self). Pads after offsets[R] form one more
+    segment with no prefix."""
+    T, H, Rl = qt.shape
+    quantized = isinstance(cache_c, dict)
+    rows = slots.long()
+    if quantized:
+        pc = pool_c or {"q": None, "s": None}
+        pr = pool_r or {"q": None, "s": None}
+        lat = _mla_plane(cache_c["q"], layer, rows, block_tables, pc["q"])
+        ls = _mla_plane(cache_c["s"], layer, rows, block_tables, pc["s"]).float()
+        rop = _mla_plane(cache_r["q"], layer, rows, block_tables, pr["q"])
+        rs = _mla_plane(cache_r["s"], layer, rows, block_tables, pr["s"]).float()
+    else:
+        lat = _mla_plane(cache_c, layer, rows, block_tables, pool_c)
+        rop = _mla_plane(cache_r, layer, rows, block_tables, pool_r)
+        ls = rs = None
+    R = starts.shape[0]
+    offs = [int(x) for x in offsets.tolist()] + [T]
+    st = [int(x) for x in starts.tolist()]
+    out = torch.zeros((T, H, Rl), dtype=torch.float32, device=qt.device)
+    for r in range(R + 1):
+        lo, hi = offs[r], offs[r + 1]
+        n = hi - lo
+        if n <= 0:
+            continue
+        q1, q2 = qt[lo:hi].float(), qr[lo:hi].float()
+        c, kr = c_self[lo:hi].float(), kr_self[lo:hi].float()
+        s_self = (torch.einsum("thr,ur->htu", q1, c) + torch.einsum("thd,ud->htu", q2, kr)) * scale
+        causal = torch.tril(torch.ones(n, n, dtype=torch.bool, device=qt.device))
+        s_self = torch.where(causal, s_self, torch.full_like(s_self, NEG_INF))
+        start = min(st[r], lat.shape[1]) if r < R else 0
+        if start > 0:
+            lp, rp = lat[r, :start].float(), rop[r, :start].float()
+            s_lat = torch.einsum("thr,sr->hts", q1, lp)
+            s_rop = torch.einsum("thd,sd->hts", q2, rp)
+            if ls is not None:
+                s_lat = s_lat * ls[r, :start]
+                s_rop = s_rop * rs[r, :start]
+            p = torch.softmax(torch.cat([(s_lat + s_rop) * scale, s_self], dim=-1), dim=-1)
+            pp = p[..., :start] if ls is None else p[..., :start] * ls[r, :start]
+            ctx = torch.einsum("hts,sr->thr", pp, lp) + torch.einsum("htu,ur->thr", p[..., start:], c)
+        else:
+            ctx = torch.einsum("htu,ur->thr", torch.softmax(s_self, dim=-1), c)
+        out[lo:hi] = ctx
+    return out.to(qt.dtype)
+
+
+def ragged_prefill_attend_mla(
+    qt: torch.Tensor,  # [T, H, R] absorbed queries (packed)
+    qr: torch.Tensor,  # [T, H, dr] rope queries (after rope)
+    c_self: torch.Tensor,  # [T, R] the chunk's own latents, exact
+    kr_self: torch.Tensor,  # [T, dr] the chunk's own rope keys (after rope)
+    cache_c,  # latents [L, B, 1, S, R] bf16, or the int8 {"q", "s"} dict
+    cache_r,  # rope keys [L, B, 1, S, dr], or the int8 dict
+    layer: int,
+    rowids: torch.Tensor,  # [T] int32 — descriptor row per token (pads = R)
+    offsets: torch.Tensor,  # [R+1] int32 — packed row boundaries
+    slots: torch.Tensor,  # [R] int32
+    starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
+    *,
+    scale: float,
+    block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
+    pool_c=None,  # latent prefix pool, like cache_c with [L, PXB, 1, bt, ...]
+    pool_r=None,  # rope prefix pool
+) -> torch.Tensor:
+    """Ragged chunked-prefill attention over the latent cache (absorbed
+    form), bf16 or int8 latents, no requantization. With `block_tables`
+    each row's cached prefix is read through its slot's table. Returns the
+    attended latent context [T, H, R]; the caller re-expands it through
+    W_uv. Launch counters: `ragged_prefill_attend_mla[_q8][_paged]`."""
+    quantized = isinstance(cache_c, dict)
+    if qt.device.type == "cpu":
+        return ragged_prefill_mla_plain(
+            qt, qr, c_self, kr_self, cache_c, cache_r, layer, rowids, offsets, slots, starts,
+            scale, block_tables, pool_c, pool_r,
+        )
+    name = ("ragged_prefill_attend_mla" + ("_q8" if quantized else "")
+            + ("_paged" if block_tables is not None else ""))
+    T, H, R = qt.shape
+    dr = qr.shape[-1]
+    L, B, _, S, _ = (cache_c["q"] if quantized else cache_c).shape
+    Rn = slots.shape[0]
+    dev = qt.device
+    _check(name, qt, torch.bfloat16, (T, H, R), dev)
+    _check(name, qr, torch.bfloat16, (T, H, dr), dev)
+    _check(name, c_self, torch.bfloat16, (T, R), dev)
+    _check(name, kr_self, torch.bfloat16, (T, dr), dev)
+    _check_mla_plane(name, cache_c, L, B, S, R, dev, quantized)
+    _check_mla_plane(name, cache_r, L, B, S, dr, dev, quantized)
+    _check(name, rowids, torch.int32, (T,), dev)
+    _check(name, offsets, torch.int32, (Rn + 1,), dev)
+    for t in (slots, starts):
+        _check(name, t, torch.int32, (Rn,), dev)
+    if R != MLA_R or dr != MLA_DR or 32 % H:
+        raise ValueError(f"{name}: built for kv_lora_rank {MLA_R}, rope dim {MLA_DR} and "
+                         f"heads dividing 32")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{name}: layer {layer} outside [0, {L})")
+    out = torch.empty_like(qt)
+    planes = ((cache_c["q"], cache_c["s"], cache_r["q"], cache_r["s"]) if quantized
+              else (cache_c, cache_r))
+    symbol = "ragged_prefill_mla" + ("_q8" if quantized else "")
+    if block_tables is None:
+        _launch(name, symbol, qt, qr, c_self, kr_self, *planes, rowids, offsets, slots, starts,
+                out, int(layer), T, Rn, B, H, S, R, dr, float(scale))
+        return out
+    nbs, bt = _mla_tables(name, block_tables, S, dev)
+    if pool_c is None or pool_r is None:
+        raise ValueError(f"{name}: block_tables need the latent and rope pools")
+    pxb = (pool_c["q"] if quantized else pool_c).shape[1]
+    _check_mla_plane(name, pool_c, L, pxb, bt, R, dev, quantized)
+    _check_mla_plane(name, pool_r, L, pxb, bt, dr, dev, quantized)
+    pools = ((pool_c["q"], pool_c["s"], pool_r["q"], pool_r["s"]) if quantized
+             else (pool_c, pool_r))
+    # the descriptor rows' tables, as JAX's `_ragged_tables` gathers them
+    tbl = block_tables.index_select(0, slots.long()).contiguous()
+    _launch(name, symbol + "_paged", qt, qr, c_self, kr_self, *planes, rowids, offsets, slots,
+            starts, tbl, *pools, out, int(layer), T, Rn, B, H, S, R, dr, nbs, bt, pxb,
+            float(scale))
     return out

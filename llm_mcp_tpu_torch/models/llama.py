@@ -29,6 +29,10 @@ and decode steps take `_decode_step_q8`.
 prefix pool [L, PXB, Hkv, bt, hd] of `executor/physical.py`) makes the
 attention reads go through the tables. Writes stay table-free: they land
 at private positions, which are identity-homed in the arena.
+
+MLA configs (kv_lora_rank > 0, the DeepSeek-V2 family) dispatch from each
+entry point to `mla.py`, as in JAX; `_ffn_residual` runs a layer with a
+"router" through `moe.moe_ffn`.
 """
 
 from __future__ import annotations
@@ -60,7 +64,12 @@ LAYER_KEYS = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "w1", "w3", "w2")
 def param_shapes(cfg: ModelConfig, fused: bool = False) -> dict[str, Any]:
     """Expected shape of every parameter, in the parameter tree's layout;
     with `fused`, the single-device layout of `quant.fuse_layer_weights`
-    (`wqkv`, `w13` in place of wq/wk/wv and w1/w3)."""
+    (`wqkv`, `w13` in place of wq/wk/wv and w1/w3). MLA configs
+    (kv_lora_rank > 0) take `mla.mla_param_shapes`."""
+    if cfg.kv_lora_rank:
+        from .mla import mla_param_shapes
+
+        return mla_param_shapes(cfg, fused)
     hd = cfg.resolved_head_dim
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
@@ -99,7 +108,12 @@ def init_llama_params(
 ) -> Params:
     """Random weights with fan-in scaling from `generator` (seeded by the
     caller), made one layer at a time on `device` so the float32 draw never
-    exceeds one layer's slice. Norm weights start at 1."""
+    exceeds one layer's slice. Norm weights start at 1. MLA configs take
+    `mla.init_mla_params`."""
+    if cfg.kv_lora_rank:
+        from .mla import init_mla_params
+
+        return init_mla_params(cfg, generator, dtype, device)
     shapes = param_shapes(cfg)
 
     def w(shape, fan_in):
@@ -149,7 +163,12 @@ def init_kv_cache(
     Payload heads [0, Hkv) are K, [Hkv, 2*Hkv) V, and with p = 1
     (`scale_pack_width`) head 2*Hkv carries each position's scales
     bit-packed, so a decode kernel reads payload and scales of a position
-    from one row block; "s" holds the same scales for every other reader."""
+    from one row block; "s" holds the same scales for every other reader.
+    MLA configs hold latents instead (`mla.init_mla_cache`)."""
+    if cfg.kv_lora_rank:
+        from .mla import init_mla_cache
+
+        return init_mla_cache(cfg, batch, max_seq, dtype, device, quantized)
     L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     if quantized:
         p = scale_pack_width(Hkv, hd, dtype)
@@ -233,8 +252,26 @@ def _attn_residual(cfg: ModelConfig, lp: Params, ctx: torch.Tensor, h: torch.Ten
     return h + qdot(ctx, lp["wo"])
 
 
-def _ffn_residual(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def _ffn_residual(
+    cfg: ModelConfig,
+    lp: Params,
+    h: torch.Tensor,
+    moe_capacity: int = 0,
+    moe_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The FFN half of a layer on [..., D] activations. It dispatches on the
+    layer's own weights: a layer with a "router" is MoE (`moe.moe_ffn` over
+    the flattened tokens; `moe_capacity` > 0 sets the capacity, decode
+    passes the batch: dropless; `moe_valid` marks the tokens that route),
+    DeepSeek's dense prologue layers have a gated MLP."""
     x = _norm(cfg, h, lp["ffn_norm"])
+    if "router" in lp:
+        from .moe import moe_ffn
+
+        flat = x.reshape(-1, x.shape[-1])
+        valid = None if moe_valid is None else moe_valid.reshape(-1)
+        out = moe_ffn(cfg, lp, flat, capacity=moe_capacity or None, valid=valid)
+        return h + out.reshape(h.shape)
     if "w13" in lp:
         g13 = qdot(x, lp["w13"])
         Fh = g13.shape[-1] // 2
@@ -295,7 +332,12 @@ def llama_prefill(
     (last_logits [B, V] f32, k [L, B, Hkv, S, hd], v [...]); with
     `quant_kv` each layer's K/V is quantized as it is made into the fused
     cache entry form, k = {"q": [L, B, 2*Hkv+p, S, hd], "s": [L, B, 2*Hkv, S]}
-    and v = {}, so the bf16 prompt KV of all layers never exists at once."""
+    and v = {}, so the bf16 prompt KV of all layers never exists at once.
+    MLA configs take `mla.mla_prefill`."""
+    if cfg.kv_lora_rank:
+        from .mla import mla_prefill
+
+        return mla_prefill(cfg, params, tokens, lengths, quant_kv=quant_kv)
     B, S = tokens.shape
     h = _embed_in(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
@@ -339,7 +381,13 @@ def llama_prefill_chunk_ragged(
     tokens carry position S and write nothing (JAX drops those scatters;
     here they are masked out). A fused int8 cache is read through
     `ragged_prefill_attend_q8` and written as `fuse_prompt_kv` rows.
-    Returns (logits [R, V] f32, cache_k, cache_v)."""
+    Returns (logits [R, V] f32, cache_k, cache_v). MLA configs take
+    `mla.mla_prefill_chunk_ragged`."""
+    if cfg.kv_lora_rank:
+        from .mla import mla_prefill_chunk_ragged
+
+        return mla_prefill_chunk_ragged(cfg, params, cache_k, cache_v, tokens, rowids,
+                                        positions, slots, starts, last_idx, paged=paged)
     quantized = isinstance(cache_k, dict)
     L, B, _, S, hd = _cache_shape(cache_k)
     Hkv, H = cfg.n_kv_heads, cfg.n_heads
@@ -455,8 +503,12 @@ def llama_decode_step(
     `decode_attend_bf16` takes position lengths[b] from the step's exact
     K/V; the per-layer K/V rows stack up and ONE `append_kv_bf16` writes
     them after the last layer. Rows parked at lengths >= S write nothing.
-    A fused int8 cache takes `_decode_step_q8`. Returns (logits [Ba, V]
-    f32, cache_k, cache_v)."""
+    A fused int8 cache takes `_decode_step_q8`, MLA configs
+    `mla.mla_decode_step`. Returns (logits [Ba, V] f32, cache_k, cache_v)."""
+    if cfg.kv_lora_rank:
+        from .mla import mla_decode_step
+
+        return mla_decode_step(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids, paged)
     if isinstance(cache_k, dict):
         return _decode_step_q8(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids, paged)
     L, B, Hkv, S, hd = cache_k.shape

@@ -17,8 +17,11 @@ every output column unchanged), the direct-int8 random init (the bf16
 tree of an 8B model never materializes), and the bit-packing of the int8
 KV cache's per-position scales into one int8 pseudo-head row.
 
-MLA, MoE and sharding-spec parts of the JAX module wait for the slices
-that bring those models.
+MLA and DeepSeek MoE trees (`models/mla.py`) quantize their attention
+linears and shared experts, in the main stack and in the dense prologue
+`dense_layers`; the routed expert banks stay in the model dtype, as in
+JAX. The sharding-spec part of the JAX module waits for multi-device
+serving.
 """
 
 from __future__ import annotations
@@ -36,8 +39,25 @@ Params = dict[str, Any]
 # `quantize_weight`, which JAX runs eagerly, divides.
 INV127 = 1.0 / 127.0
 
-# linear weights quantized inside the stacked layer tree: [L, in, out]
-LAYER_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wqkv", "w13")
+# linear weights quantized inside each stacked layer tree: [L, in, out];
+# the MLA factorization and DeepSeek's shared experts quantize, the routed
+# expert banks do not
+LAYER_QUANT_KEYS = (
+    "wq", "wk", "wv", "wo", "w1", "w2", "w3",
+    "wq_mla", "w_dkv", "w_ukv", "wo_mla",
+    "w1s", "w3s", "w2s",
+    "wqkv", "w13",
+)
+LAYER_STACKS = ("layers", "dense_layers")  # the MLA dense prologue is a second stack
+
+
+def _over_stacks(params: Params, fn) -> Params:
+    """`fn` over every stacked layer tree of `params` (a shallow copy)."""
+    out: Params = dict(params)
+    for key in LAYER_STACKS:
+        if key in params:
+            out[key] = fn(dict(params[key]))
+    return out
 
 
 def _quantize_slice(w: torch.Tensor, axis: int) -> dict[str, torch.Tensor]:
@@ -124,16 +144,19 @@ def logits_head(embed_or_head, h: torch.Tensor, tied: bool) -> torch.Tensor:
 
 
 def quantize_params(params: Params) -> Params:
-    """Quantize every dense linear of a Llama-family tree, plus the
-    embedding (per-row scales, which are also per-output-channel of its
-    transpose, the tied head) and the LM head. Norm weights stay as they
-    are. Already-quantized leaves are kept."""
-    out: Params = dict(params)
-    layers = dict(params["layers"])
-    for k in LAYER_QUANT_KEYS:
-        if k in layers and not is_quantized(layers[k]):
-            layers[k] = quantize_weight(layers[k])
-    out["layers"] = layers
+    """Quantize every dense linear of a Llama-family or MLA tree (both
+    stacks), plus the embedding (per-row scales, which are also
+    per-output-channel of its transpose, the tied head) and the LM head.
+    Norm weights and routed expert banks stay as they are.
+    Already-quantized leaves are kept."""
+
+    def quant_block(b: Params) -> Params:
+        for k in LAYER_QUANT_KEYS:
+            if k in b and not is_quantized(b[k]):
+                b[k] = quantize_weight(b[k])
+        return b
+
+    out = _over_stacks(params, quant_block)
     if not is_quantized(params["embed"]):
         out["embed"] = quantize_weight(params["embed"], axis=-1)
     if "lm_head" in params and not is_quantized(params["lm_head"]):
@@ -152,20 +175,19 @@ def init_llama_params_quantized(
     int8 payloads in [-127, 127] from `generator` and constant scales
     `fan_in**-0.5 / 73.3` (uniform int8 draws have std 73.3, so the
     weights match a fan-in-scaled normal init in magnitude). The bf16 tree
-    never exists."""
+    never exists. MLA configs get the MLA factorization in int8 and, with
+    experts, routed banks drawn in `scale_dtype` and shared experts drawn
+    and quantized (JAX's `init_llama_params_quantized`), the dense
+    prologue in `dense_layers`."""
     hd = cfg.resolved_head_dim
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
     )
+    if cfg.kv_lora_rank:
+        return _init_mla_params_quantized(cfg, generator, scale_dtype, device)
 
     def qw(shape, fan_in):
-        q = torch.empty(shape, dtype=torch.int8, device=device)
-        for dst in q if len(shape) == 3 else [q]:  # one layer at a time
-            dst.copy_(torch.randint(-127, 128, dst.shape, generator=generator,
-                                    dtype=torch.int8, device=device))
-        scale_shape = shape[:-2] + shape[-1:]
-        s = torch.full(scale_shape, (fan_in**-0.5) / 73.3, dtype=scale_dtype, device=device)
-        return {"q": q, "s": s}
+        return _qw(shape, fan_in, generator, scale_dtype, device)
 
     ones = torch.ones((L, D), dtype=scale_dtype, device=device)
     layers = {
@@ -192,6 +214,57 @@ def init_llama_params_quantized(
     return params
 
 
+def _qw(shape, fan_in, generator, scale_dtype, device) -> dict:
+    """Direct-int8 random weight: uniform payload in [-127, 127] from
+    `generator`, made one [in, out] matrix at a time, and constant
+    per-output-channel scales fan_in^-1/2 / 73.3."""
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    for dst in q.reshape(-1, *shape[-2:]):
+        dst.copy_(torch.randint(-127, 128, dst.shape, generator=generator, dtype=torch.int8,
+                                device=device))
+    s = torch.full(shape[:-2] + shape[-1:], (fan_in**-0.5) / 73.3, dtype=scale_dtype,
+                   device=device)
+    return {"q": q, "s": s}
+
+
+def _init_mla_params_quantized(cfg, generator, scale_dtype, device) -> Params:
+    """The MLA branch of `init_llama_params_quantized`."""
+    from .mla import _check_dense_q, mla_param_shapes
+    from .moe import init_moe_layer_params
+
+    _check_dense_q(cfg)
+    shapes = mla_param_shapes(cfg)
+
+    def block(spec: dict) -> Params:
+        L = spec["attn_norm"][0]
+        out: Params = {}
+        for name, shape in spec.items():
+            if name in ("attn_norm", "ffn_norm", "kv_norm"):
+                out[name] = torch.ones(shape, dtype=scale_dtype, device=device)
+            elif name not in ("router", "w1e", "w3e", "w2e", "w1s", "w3s", "w2s"):
+                out[name] = _qw(shape, shape[-2], generator, scale_dtype, device)
+        if "router" in spec:
+            moe = init_moe_layer_params(cfg, generator, scale_dtype, L, device)
+            for k in ("w1s", "w3s", "w2s"):
+                if k in moe:
+                    moe[k] = quantize_weight(moe[k])
+            out.update(moe)
+        return out
+
+    D, V = cfg.dim, cfg.vocab_size
+    params: Params = {
+        "embed": {"q": _qw((V, D), D, generator, scale_dtype, device)["q"],
+                  "s": torch.full((V,), (D**-0.5) / 73.3, dtype=scale_dtype, device=device)},
+        "layers": block(shapes["layers"]),
+        "final_norm": torch.ones((D,), dtype=scale_dtype, device=device),
+    }
+    if "dense_layers" in shapes:
+        params["dense_layers"] = block(shapes["dense_layers"])
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _qw((D, V), D, generator, scale_dtype, device)
+    return params
+
+
 def _concat_w(parts):
     """Concatenate linears along the output axis, keeping quantization. For
     w8a8 this is exact: `qdot` quantizes the shared activation row once,
@@ -209,15 +282,17 @@ def _concat_w(parts):
 def fuse_layer_weights(params: Params) -> Params:
     """The single-device layer layout: wq|wk|wv become one `wqkv` product
     and w1|w3 one `w13`, two GEMMs instead of five per layer. `llama._qkv`
-    and `llama._ffn_residual` split the fused outputs."""
-    b = dict(params["layers"])
-    if all(k in b for k in ("wq", "wk", "wv")):
-        b["wqkv"] = _concat_w([b.pop("wq"), b.pop("wk"), b.pop("wv")])
-    if "w1" in b and "w3" in b:
-        b["w13"] = _concat_w([b.pop("w1"), b.pop("w3")])
-    out: Params = dict(params)
-    out["layers"] = b
-    return out
+    and `llama._ffn_residual` split the fused outputs. An MLA stack fuses
+    only w13 (its dense prologue; MoE layers have none)."""
+
+    def fuse_block(b: Params) -> Params:
+        if all(k in b for k in ("wq", "wk", "wv")):
+            b["wqkv"] = _concat_w([b.pop("wq"), b.pop("wk"), b.pop("wv")])
+        if "w1" in b and "w3" in b:
+            b["w13"] = _concat_w([b.pop("w1"), b.pop("w3")])
+        return b
+
+    return _over_stacks(params, fuse_block)
 
 
 def gemm_layout(params: Params) -> Params:
@@ -227,18 +302,19 @@ def gemm_layout(params: Params) -> Params:
     (measured on an H100: 5-13x the K-by-N row-major layout, which falls
     back to an sm80 WMMA kernel; see PERF.md). Copied one layer at a time,
     so the transient is one layer."""
-    b = dict(params["layers"])
-    for k, w in b.items():
-        if is_quantized(w) and w["q"].dim() == 3 and w["q"].stride(1) != 1:
-            L, K, N = w["q"].shape
-            q = torch.empty_strided((L, K, N), (K * N, 1, K), dtype=torch.int8,
-                                    device=w["q"].device)
-            for li in range(L):
-                q[li].copy_(w["q"][li])
-            b[k] = {"q": q, "s": w["s"]}
-    out: Params = dict(params)
-    out["layers"] = b
-    return out
+
+    def layout_block(b: Params) -> Params:
+        for k, w in b.items():
+            if is_quantized(w) and w["q"].dim() == 3 and w["q"].stride(1) != 1:
+                L, K, N = w["q"].shape
+                q = torch.empty_strided((L, K, N), (K * N, 1, K), dtype=torch.int8,
+                                        device=w["q"].device)
+                for li in range(L):
+                    q[li].copy_(w["q"][li])
+                b[k] = {"q": q, "s": w["s"]}
+        return b
+
+    return _over_stacks(params, layout_block)
 
 
 def _itemsize(dtype: torch.dtype) -> int:

@@ -8,7 +8,9 @@ are made to compute from the same weights. The tree may be the JAX
 package's int8 form (`quantize_params`, `init_llama_params_quantized`):
 a quantized leaf is `{"q": int8, "s": scales}`, its payload copied exactly
 and its scales converted to `dtype`; and it may carry the single-device
-fused keys `wqkv`/`w13` (`fuse_layer_weights`). Reading safetensors
+fused keys `wqkv`/`w13` (`fuse_layer_weights`). MLA and DeepSeek MoE
+trees (`models/mla.py`) carry their dense prologue in `dense_layers` and
+the routed expert banks as [L, E, D, F] tensors. Reading safetensors
 checkpoints comes with real checkpoints, in a later slice.
 """
 
@@ -31,7 +33,9 @@ def params_from_numpy(
 ) -> dict[str, Any]:
     """Convert a numpy parameter tree, checking every key and shape against
     `cfg`. Raises on a missing key, an unknown key or a wrong shape."""
-    expected = param_shapes(cfg, fused="wqkv" in tree.get("layers", {}))
+    fused = any(k in tree.get(stack, {}) for stack in ("layers", "dense_layers")
+                for k in ("wqkv", "w13"))
+    expected = param_shapes(cfg, fused=fused)
 
     def tensor(arr, want, path) -> torch.Tensor:
         arr = np.asarray(arr)

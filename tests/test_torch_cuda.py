@@ -243,3 +243,120 @@ def test_cuda_qdot_int8_gemm_is_bitwise_the_host():
         for ww in (w, kmajor):
             card = qdot(x.cuda(), {k: v.cuda() for k, v in ww.items()})
             assert torch.equal(card.cpu(), host), rows
+
+
+def _latent_planes(g, dev, L, rows, S, R=512, dr=64):
+    """A random int8 latent cache (or pool) on the card: payloads and bf16
+    per-token scales around 0.02, as `models/mla.py` writes them."""
+    def plane(w):
+        return {"q": torch.randint(-127, 128, (L, rows, 1, S, w), generator=g, device=dev,
+                                   dtype=torch.int8),
+                "s": (torch.rand((L, rows, 1, S), generator=g, device=dev) * 0.04)
+                .to(torch.bfloat16)}
+    return plane(R), plane(dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,S", [(0, 640), (32, 640), (64, 640), (128, 640), (0, 16384),
+                                  (64, 16384), (0, 65536)])
+def test_cuda_mla_decode_matches_plain(monkeypatch, bt, S):
+    """The MLA int8 decode kernel against its plain version on the card, at
+    DeepSeek-V2-Lite's widths (16 heads, R = 512, dr = 64), with the group
+    the wrapper picks as JAX would: at S = 640 contiguous (bt = 0) the
+    whole row, then a 128-key block group (the whole-S arm patched off);
+    paged through tables of pool rows and a foreign arena home, group bt;
+    at S = 16384, past the whole-S budget, the blocked arm's 512-key group
+    and through 64-token tables (256 blocks) the exact group 0, both
+    splitting a row into chunks; at S = 65536, past the blocked arm's 64
+    blocks, the exact group 0 without tables. A parked row and rows permuted through
+    slot_ids; |err| <= 1e-3 + 1e-2*|ref|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11 + bt + S)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    tol = dict(atol=1e-3, rtol=1e-2)
+    L, B, H, R, dr, Ba = 2, 6, 16, 512, 64, 4
+    cc, cr = _latent_planes(g, dev, L, B, S)
+    qt, qr, nc, nr = rn(Ba, H, R), rn(Ba, H, dr), rn(Ba, R), rn(Ba, dr)
+    lens, ids = i32([0, S // 2 - 63, S - 1, S]), i32([5, 1, 0, 2])  # row 3 parked
+    kw = dict(slot_ids=ids, scale=0.07)
+    nbs = S // bt if bt else None
+    if bt:
+        pxb = 6
+        pc, pr = _latent_planes(g, dev, L, pxb, bt)
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+        tbl[1, 3] = 2 * nbs + 3
+        kw.update(block_tables=tbl.to(dev), pool_c=pc, pool_r=pr)
+
+    def check(group):
+        out = P.decode_attend_q8_mla(qt, qr, nc, nr, cc, cr, 1, lens, **kw)
+        ref = P.decode_attend_q8_mla_plain(
+            qt, qr, nc, nr, cc, cr, 1, lens, ids, 0.07, group, kw.get("block_tables"),
+            kw.get("pool_c"), kw.get("pool_r"))
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+    want = {(0, 640): S, (0, 16384): 512, (64, 16384): 0, (0, 65536): 0}.get((bt, S), bt)
+    assert P.mla_decode_group(S, R, dr, H, nbs) == want
+    check(want)
+    if (bt, S) == (0, 640):  # the blocked arm's group: the whole-S arm off
+        monkeypatch.setattr(P, "mla_whole_s_fits", lambda *a, **k: False)
+        assert P.mla_decode_group(S, R, dr, H) == 128
+        check(128)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bt", [0, 32, 64])
+def test_cuda_mla_ragged_matches_plain(quant, bt):
+    """The ragged MLA kernel against its plain version on the card, bf16
+    and int8 latents, contiguous (bt = 0) and paged, at V2-Lite's widths:
+    rows with and without a cached prefix and a pad tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21 + bt)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    tol = dict(atol=1e-3, rtol=1e-2)
+    L, B, H, S, R, dr = 2, 4, 16, 512, 512, 64
+    if quant:
+        cc, cr = _latent_planes(g, dev, L, B, S)
+    else:
+        cc, cr = rn(L, B, 1, S, R), rn(L, B, 1, S, dr)
+    T = 96
+    rowids = i32([0] * 40 + [1] * 30 + [2] * 10 + [3] * 16)
+    offsets, slots, starts = i32([0, 40, 70, 80]), i32([1, 3, 0]), i32([130, 0, 333])
+    qt, qr, cs, krs = rn(T, H, R), rn(T, H, dr), rn(T, R), rn(T, dr)
+    kw = {}
+    if bt:
+        nbs, pxb = S // bt, 6
+        if quant:
+            pc, pr = _latent_planes(g, dev, L, pxb, bt)
+        else:
+            pc, pr = rn(L, pxb, 1, bt, R), rn(L, pxb, 1, bt, dr)
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+        tbl[1, 3] = 2 * nbs + 3
+        kw = dict(block_tables=tbl.to(dev), pool_c=pc, pool_r=pr)
+    args = (qt, qr, cs, krs, cc, cr, 1, rowids, offsets, slots, starts)
+    out = P.ragged_prefill_attend_mla(*args, scale=0.07, **kw)
+    ref = P.ragged_prefill_mla_plain(*args, 0.07, kw.get("block_tables"), kw.get("pool_c"),
+                                     kw.get("pool_r"))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.cuda.synchronize()

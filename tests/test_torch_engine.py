@@ -17,8 +17,12 @@
     compaction runs (Ba = 8) on both; and `quant` alone and `kv_quant`
     alone;
   - `/v1/chat/completions` over SSE ends in `data: [DONE]`;
+  - DeepSeek-V2 structure (`tiny-v2`: MLA and DeepSeek MoE) greedy
+    tokens identical to the JAX engine over prefix traffic and concurrent
+    chats, f32 and at `quant="int8", kv_quant="int8"`, and at int8 a hit
+    that pins a whole pool block, its decode read through the pool;
   - every module of the port imports with `jax` and `llm_mcp_tpu`
-    blocked, and one CPU generate runs;
+    blocked, and CPU generates run (Llama bf16 and int8, `tiny-v2` int8);
   - entry points raise without CUDA unless `device="cpu"` is given.
 """
 
@@ -498,6 +502,16 @@ for q in ("hello", "again", "third"):
 hits, audit = eng.prefix_cache_stats()["hits"], eng.kv_scale_audit()
 eng.shutdown()
 assert hits == 1 and audit == 0, (hits, audit)
+# the MLA path (DeepSeek-V2 structure) with int8 latents, the same traffic
+eng = GenerationEngine("tiny-v2", max_slots=2, max_seq_len=128, prefill_chunk=16,
+                       dtype=torch.float32, device="cpu", prompt_cache_mb=1,
+                       quant="int8", kv_quant="int8").start()
+for q in ("hello", "again", "third"):
+    out = eng.generate(sys_msg + q, max_tokens=4, temperature=0)
+    assert out["usage"]["completion_tokens"] == 4, out
+hits = eng.prefix_cache_stats()["hits"]
+eng.shutdown()
+assert hits == 1, hits
 bad = [k for k, v in sys.modules.items() if v is not None and
        (k.split(".")[0] in ("jax", "jaxlib", "llm_mcp_tpu"))]
 assert not bad, bad
@@ -531,3 +545,159 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     eng = GenerationEngine("tiny-llm", device="cpu", max_seq_len=64)
     assert eng.device.type == "cpu"
     eng.shutdown()
+
+
+def _jax_v2_params(quant: bool):
+    """One JAX `tiny-v2` tree (dense layer 0, MoE layers with shared experts,
+    yarn rope): f32, or direct int8 with f32 scales."""
+    from llm_mcp_tpu.models.configs import get_config as jax_get_config
+    from llm_mcp_tpu.models.llama import init_llama_params
+    from llm_mcp_tpu.models.quant import init_llama_params_quantized
+
+    jcfg = jax_get_config("tiny-v2")
+    if quant:
+        jparams = init_llama_params_quantized(jcfg, jax.random.PRNGKey(0), scale_dtype=jnp.float32)
+    else:
+        jparams = init_llama_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tparams = params_from_numpy(
+        jax.tree.map(np.asarray, jparams), get_config("tiny-v2"), "cpu", torch.float32
+    )
+    return jparams, tparams
+
+
+@pytest.mark.parametrize("quant,block_tokens", [("", "64"), ("int8", "256")])
+def test_engine_mla_greedy_tokens_match_jax(monkeypatch, quant, block_tokens):
+    """DeepSeek-V2 structure (`tiny-v2`): the prefix sequence above (two
+    hits) through physical paging, then three concurrent chats (one through
+    ragged chunks), in f32 and at `quant=int8 kv_quant=int8` (int8 latents,
+    compaction on). The JAX engine runs its Pallas path in interpret mode
+    (`LLM_MCP_TPU_ATTN=pallas`). At int8 its decode takes the kernel arm
+    (pre-append, the exact current token), forced to the paged body
+    (`LLM_MCP_TPU_Q8_DECODE=paged`: in interpret mode with tables it would
+    take its exact fallback, a different computation); one 256-token block
+    per row then gives JAX's paged group and the port's whole-row group the
+    same 256 keys on every step. f32: 64-token blocks, one hit pinned
+    through the pool, one copied on write; int8: both hits copied on
+    write (entries shorter than a block)."""
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", block_tokens)
+    if quant:
+        monkeypatch.setenv("LLM_MCP_TPU_Q8_DECODE", "paged")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+
+    jparams, tparams = _jax_v2_params(bool(quant))
+    kw = dict(PREFIX_KW, quant=quant, kv_quant=quant)
+    jeng = JaxEngine("tiny-v2", params=jparams, dtype=jnp.float32, **kw).start()
+    try:
+        want = _run_seq(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        want += _run_all(
+            jeng, lambda ids: JaxRequest(prompt_ids=ids, max_tokens=8, temperature=0.0)
+        )
+        jstats = jeng.prefix_cache_stats()
+    finally:
+        jeng.shutdown()
+    teng = GenerationEngine("tiny-v2", params=tparams, dtype=torch.float32, device="cpu",
+                            **kw).start()
+    try:
+        assert isinstance(teng._ck, dict) == bool(quant)
+        if quant:  # two planes of their own, not fused; routed banks stay f32
+            assert set(teng._ck) == set(teng._cv) == {"q", "s"}
+            assert teng._ck["q"].shape[-1] == 32 and teng._cv["q"].shape[-1] == 16
+            assert not isinstance(teng.params["layers"]["w1e"], dict)
+            assert teng.decode_compact
+        got = _run_seq(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0),
+            PREFIX_PROMPTS,
+        )
+        got += _run_all(
+            teng, lambda ids: GenRequest(prompt_ids=ids, max_tokens=8, temperature=0.0)
+        )
+        tstats, paging = teng.prefix_cache_stats(), teng.paging_stats()
+        audit = teng.kv_scale_audit()
+    finally:
+        teng.shutdown()
+    assert got == want
+    assert tstats["hits"] == jstats["hits"] == 2
+    assert tstats == jstats
+    assert paging["physical"] == 1.0 and paging["leaks"] == 0 and paging["slot_tables"] == 0
+    assert paging["physical_cow_copies_total"] == (2 if quant else 1)
+    assert paging["physical_missing_pins"] == 0
+    assert audit == 0  # the latent planes carry no packed pseudo-head
+
+
+def test_engine_mla_q8_pool_pinned_hit_matches_jax(monkeypatch):
+    """`tiny-v2` at `quant=int8 kv_quant=int8`, 64-token blocks: A and B
+    share 86 tokens (SYS1) and stop after their first token, so neither
+    decodes; B's activation stores the 64-token prefix, one whole block,
+    and C hits it: its table pins the pool row (no copy on write) and every
+    one of its decode steps reads block 0 from the pool, through the int8
+    MLA decode's paged arm, with the bt-key requantization group of JAX's
+    paged body (forced with `LLM_MCP_TPU_Q8_DECODE=paged`, as above). Greedy
+    tokens identical to the JAX engine."""
+    monkeypatch.setenv("LLM_MCP_TPU_ATTN", "pallas")
+    monkeypatch.setenv("LLM_MCP_TPU_RAGGED_IMPL", "kernel")
+    monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", "64")
+    monkeypatch.setenv("LLM_MCP_TPU_Q8_DECODE", "paged")
+    from llm_mcp_tpu.executor.engine import GenerationEngine as JaxEngine
+    from llm_mcp_tpu.executor.engine import GenRequest as JaxRequest
+    from llm_mcp_tpu_torch.models import mla as TMLA
+
+    prompts = PREFIX_PROMPTS[:3]
+    max_tokens = [1, 1, 12]
+
+    def run(engine, request):
+        seen = _record_tokens(engine)
+        out = []
+        for p, n in zip(prompts, max_tokens):
+            r = request(engine.tokenizer.encode(p), n)
+            engine.submit(r)
+            while True:
+                evt = r.out.get(timeout=300)
+                if not isinstance(evt, dict) or evt.get("type") in ("done", "error"):
+                    assert not isinstance(evt, dict) or evt["type"] == "done", evt
+                    break
+            out.append(seen[r.request_id])
+        return out
+
+    jparams, tparams = _jax_v2_params(True)
+    kw = dict(PREFIX_KW, quant="int8", kv_quant="int8")
+    jeng = JaxEngine("tiny-v2", params=jparams, dtype=jnp.float32, **kw).start()
+    try:
+        want = run(jeng, lambda ids, n: JaxRequest(prompt_ids=ids, max_tokens=n, temperature=0.0))
+        jstats = jeng.prefix_cache_stats()
+    finally:
+        jeng.shutdown()
+
+    decode = TMLA.decode_attend_q8_mla
+    steps = {"decode": 0, "through_pool": 0}
+
+    def spy(*args, **kwargs):
+        steps["decode"] += 1
+        tbl, rows = kwargs.get("block_tables"), kwargs.get("slot_ids")
+        if tbl is not None:
+            rows = torch.arange(args[0].shape[0]) if rows is None else rows.long()
+            pool_base = args[4]["q"].shape[1] * tbl.shape[1]
+            steps["through_pool"] += int((tbl[rows] >= pool_base).any())
+        return decode(*args, **kwargs)
+
+    monkeypatch.setattr(TMLA, "decode_attend_q8_mla", spy)
+    teng = GenerationEngine("tiny-v2", params=tparams, dtype=torch.float32, device="cpu",
+                            **kw).start()
+    try:
+        got = run(teng, lambda ids, n: GenRequest(prompt_ids=ids, max_tokens=n, temperature=0.0))
+        tstats, paging = teng.prefix_cache_stats(), teng.paging_stats()
+        n_layers = teng.cfg.n_layers
+    finally:
+        teng.shutdown()
+    assert [len(t) for t in got] == max_tokens
+    assert got == want
+    assert tstats["hits"] == jstats["hits"] == 1
+    assert paging["physical"] == 1.0 and paging["physical_cow_copies_total"] == 0
+    assert paging["leaks"] == 0 and paging["physical_missing_pins"] == 0
+    # C's decode steps (rounds of decode_chunk), every layer through the pool row
+    assert steps["decode"] >= 11 * n_layers and steps["through_pool"] == steps["decode"], steps
