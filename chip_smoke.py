@@ -13,7 +13,10 @@ one run reads every check; the script then exits non-zero):
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
      call (where one computes the same function) and the bound with CUDA
-     events. The paged kernels run on tables whose shared blocks were
+     events. `decode_attention` (post-append, on no served path) runs
+     at the decode shapes over the cache with this step's K/V written;
+     every served phase checks that it launched no time, and its row
+     prints that count. The paged kernels run on tables whose shared blocks were
      copied to the prefix pool with the arena's donor blocks scrambled and
      one block per row in another slot's arena home, at 64-token blocks
      (timed) and at 32 and 128 (checked). The five int8 entry points run
@@ -100,7 +103,7 @@ ATTN_TOL = {"atol": 1e-3, "rtol": 1e-2}
 # The int8 kernels are held to the same rule against their plain versions
 # with the same requantization group; the int8 append is bitwise.
 BITWISE = {"atol": 0.0, "rtol": 0.0}
-TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL,
+TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attention": ATTN_TOL,
        "decode_attend_bf16_paged": ATTN_TOL, "flash_prefill_attention": ATTN_TOL,
        "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL,
        "append_kv_q8": BITWISE, "decode_attend_q8": ATTN_TOL, "decode_attend_q8_paged": ATTN_TOL,
@@ -113,6 +116,8 @@ SOURCES = {
                        "llm_mcp_tpu/kernels/attention.py:2508"),
     "decode_attend_bf16": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
                            "llm_mcp_tpu/kernels/attention.py:1142"),
+    "decode_attention": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                         "llm_mcp_tpu/kernels/attention.py:298"),
     "flash_prefill_attention": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill.cu",
                                 "llm_mcp_tpu/kernels/attention.py:178"),
     "ragged_prefill_attend_bf16": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
@@ -365,6 +370,27 @@ def kernel_phase() -> dict[str, dict]:
         4.0 * hd * G * Hkv * keys / BF16_FLOPS * 1e3, time_ms(lib, 50),
         {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "lengths": lens.tolist(),
          "slot_ids": ids.tolist()},
+    )
+
+    # decode_attention: the same rows over the post-append cache (kpost:
+    # this step's K/V written at w), inclusive lengths; the row at S
+    # attends all S. No served path calls it.
+    kpost, vpost = kpost.contiguous(), vpost.contiguous()
+    out = K.decode_attention(q, kpost, vpost, lens)
+    ref = K.decode_attention_plain(q, kpost, vpost, lens)
+    keys_post = sum(min(w, S - 1) + 1 for w in lens.tolist())
+    pmask = (pos <= lens[:, None])[:, None, None, :]
+    record(
+        "decode_attention", out, ref,
+        time_ms(lambda: K.decode_attention(q, kpost, vpost, lens), 50),
+        time_ms(lambda: K.decode_attention_plain(q, kpost, vpost, lens), 10),
+        keys_post * Hkv * hd * 2 * 2 + 2 * q.numel() * 2,
+        4.0 * hd * G * Hkv * keys_post / BF16_FLOPS * 1e3,
+        time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kpost, vpost, attn_mask=pmask, enable_gqa=True), 50),
+        {"q": [B, Hkv, G, hd], "cache": [B, Hkv, S, hd], "lengths": lens.tolist(),
+         "library": "SDPA, inclusive length mask, same rows",
+         "served": "none: no model, engine or API of either package calls it"},
     )
 
     # flash prefill: an admission batch of 4 prompts in a 512 bucket
@@ -1374,7 +1400,8 @@ def mla_served_phase() -> dict:
             engine.shutdown()
         want = MLA_Q8_KERNELS if kv_quant else MLA_BF16_KERNELS
         checks = {f"{n} launched": launches[n] > 0 for n in want}
-        for n in GQA_CACHE_KERNELS + (MLA_BF16_KERNELS if kv_quant else MLA_Q8_KERNELS):
+        for n in (GQA_CACHE_KERNELS + ("decode_attention",)
+                  + (MLA_BF16_KERNELS if kv_quant else MLA_Q8_KERNELS)):
             checks[f"{n} not launched"] = launches[n] == 0
         if kv_quant:
             checks["decode ran compacted"] = compacted > 0
@@ -1479,6 +1506,8 @@ def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> di
     for name in kernels:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    if launches["decode_attention"] != 0:
+        fail("decode_attention launched on a served path, which has no call to it")
     prompt_tokens = {n: r["usage"]["prompt_tokens"] for n, r in results.items()}
     if prompt_tokens["long"] <= engine.prefill_chunk:
         fail("the long prompt did not exceed prefill_chunk")
@@ -1581,6 +1610,7 @@ def prefix_phase(engine, base: str, kernels=PREFIX_KERNELS, reset: bool = True) 
     }
     for name in kernels:
         checks[f"{name} launched"] = launches[name] > 0
+    checks["decode_attention not launched"] = launches["decode_attention"] == 0
     ttft = {n: r.get("t_first") for n, r in results.items()}
     report = {
         "prompt_tokens": {n: r["usage"].get("prompt_tokens") for n, r in results.items()},
@@ -1743,10 +1773,13 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces}
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
-        # launches on the served path that drives the kernel
+        # launches on the served path that drives the kernel; no served
+        # path drives decode_attention, so its row reads the chats' count,
+        # which every served phase checks is 0
         served = (mla["int8"] if name in MLA_Q8_KERNELS
                   else mla["bf16_latents"] if name in MLA_BF16_KERNELS
-                  else q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS else e2e)
+                  else q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS
+                  else e2e)
         row["launches"] = served["launches"][name]
         row.update(r)
         rows.append(row)
@@ -1804,7 +1837,8 @@ def q8_served_phase() -> dict:
     checks = {f"{n} launched": launches[n] > 0
               for n in Q8_KERNELS + ("flash_prefill_attention",)}
     for n in ("append_kv_bf16", "decode_attend_bf16", "decode_attend_bf16_paged",
-              "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged"):
+              "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged",
+              "decode_attention"):
         checks[f"{n} not launched"] = launches[n] == 0
     checks["decode ran compacted"] = compacted > 0
     checks["packed scales == s"] = audit == 0

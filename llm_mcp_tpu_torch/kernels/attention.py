@@ -1,11 +1,13 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Seventeen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
+Eighteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
 
   - `append_kv_bf16`             ← `_append_bf16_kernel`
   - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
   - `decode_attend_bf16_paged`   ← `_attend_bf16_paged_kernel`
+  - `decode_attention`           ← `_decode_attn_kernel` (post-append, on no
+                                   served path)
   - `flash_prefill_attention`    ← `_flash_prefill_kernel`
   - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel`, identity tables
   - `ragged_prefill_attend_bf16_paged` ← the same body's block-table path
@@ -20,6 +22,9 @@ Seventeen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
   - `ragged_prefill_attend_mla`  ← `_ragged_prefill_mla_kernel`, bf16 or int8
                                    latents (`_q8`), identity or block tables
                                    (`_paged`): four entry points
+
+The flash and ragged prefill kernels (bf16 and int8) multiply on the
+tensor cores (`wgmma`, `csrc/tile_attention.cuh`).
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -61,6 +66,7 @@ LAUNCHES: dict[str, int] = {
     "append_kv_bf16": 0,
     "decode_attend_bf16": 0,
     "decode_attend_bf16_paged": 0,
+    "decode_attention": 0,
     "flash_prefill_attention": 0,
     "ragged_prefill_attend_bf16": 0,
     "ragged_prefill_attend_bf16_paged": 0,
@@ -90,6 +96,7 @@ _SIGNATURES = {
     "append_kv_bf16": ("append_kv", [_P] * 6 + [_I] * 6 + [_P]),
     "decode_attend_bf16": ("decode_attend", [_P] * 11 + [_I] * 9 + [_F, _P]),
     "decode_attend_bf16_paged": ("decode_attend", [_P] * 14 + [_I] * 12 + [_F, _P]),
+    "decode_attention_bf16": ("decode_attend", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
     "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_bf16_paged": ("ragged_prefill", [_P] * 13 + [_I] * 11 + [_F, _P]),
@@ -370,6 +377,60 @@ def decode_attend_bf16(
         name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
         cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
         out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit, nbs, bt, pxb, sc,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode_attention (post-append)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_plain(q, cache_k, cache_v, lengths):
+    """Plain version, in f32: attend positions pos <= lengths[b] of the
+    post-append cache, scale head_dim**-0.5. As in JAX, masked scores are
+    the finite -1e30: a row with lengths[b] < 0 weighs all S keys alike
+    (the mean of V), lengths[b] >= S attends all S."""
+    hd = q.shape[-1]
+    S = cache_k.shape[2]
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float() * hd**-0.5, cache_k.float())
+    seen = torch.arange(S, device=q.device)[None, :] <= lengths.long()[:, None]
+    s = torch.where(seen[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    ctx = torch.einsum("bhgs,bhsd->bhgd", p, cache_v.float())
+    return (ctx / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, Hkv, G, hd]
+    cache_k: torch.Tensor,  # [B, Hkv, S, hd] — this step's K already written
+    cache_v: torch.Tensor,  # [B, Hkv, S, hd]
+    lengths: torch.Tensor,  # [B] int32 — current write position (inclusive)
+) -> torch.Tensor:
+    """Batched single-step attention over the post-append cache: row b
+    attends positions <= lengths[b] (all S when lengths[b] >= S; the mean
+    of V over S when lengths[b] < 0, as JAX's finite mask gives). Scale
+    head_dim**-0.5. Returns [B, Hkv, G, hd]."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, cache_k, cache_v, lengths)
+    name = "decode_attention"
+    B, Hkv, G, hd = q.shape
+    S = cache_k.shape[2]
+    dev = q.device
+    _check(name, q, torch.bfloat16, (B, Hkv, G, hd), dev)
+    for t in (cache_k, cache_v):
+        _check(name, t, torch.bfloat16, (B, Hkv, S, hd), dev)
+    _check(name, lengths, torch.int32, (B,), dev)
+    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    nsplit = -(-S // DECODE_CHUNK)
+    pm = torch.empty((B, Hkv, nsplit, G), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((B, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    _launch(
+        name, "decode_attention_bf16", q, cache_k, cache_v, lengths, pm, pl, pacc, out,
+        B, Hkv, G, S, hd, DECODE_CHUNK, nsplit, float(hd**-0.5),
     )
     return out
 

@@ -34,6 +34,17 @@
 // arm plus one 4-byte table entry per key (L1-resident), so the bound is
 // unchanged.
 //
+// Post-append arm (`decode_attention_bf16`). Replaces
+// `_decode_attn_kernel` (behind `decode_attention`), the legacy whole-S
+// decode body, which no served path calls: the cache already holds this
+// step's K/V, so every key, position w included, comes from the cache
+// [B, Hkv, S, hd] (no layer axis, rows are the batch). Its mask is
+// inclusive, keys at pos <= lengths[b]: lengths[b] >= S attends all S, and
+// lengths[b] < 0 masks every key with the finite -1e30, so JAX's softmax
+// weighs all S keys alike and the row is the mean of V over S; here such a
+// row attends all S with every score set to 0, the same average. There is
+// no parked row. Bound: bytes, as the pre-append arm.
+//
 // Layouts: q [Ba, Hkv, G, hd]; new_k/new_v [Ba, Hkv, hd];
 // cache [L, B, Hkv, S, hd]; lengths/slot_ids [Ba] int32; out like q;
 // paged: tbl [B, nbs] int32, pool [L, PXB, Hkv, bt, hd]. The int8 arms
@@ -54,7 +65,7 @@ constexpr int THREADS = 128;  // one thread per output dim in the PV phase
 constexpr size_t SMEM_FLOATS = MAXG * HD + DK * KPAD + DK * HD + MAXG * DK;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
-template <bool PAGED>
+template <bool PAGED, bool POST = false>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     const bf16* __restrict__ nv, const bf16* __restrict__ ck,
@@ -76,7 +87,9 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
   const int tid = threadIdx.x;
   const int w = lengths[b];
   const bool parked = (w < 0 || w >= S);
-  const int we = parked ? 0 : w;  // last attended position
+  // last attended position; POST: a row of w < 0 attends all S uniformly
+  const int we = POST ? (w < 0 ? S - 1 : min(w, S - 1)) : parked ? 0 : w;
+  const bool uniform = POST && w < 0;
   const int lo = sp * chunk;
   const int hi = min(lo + chunk, we + 1);  // exclusive
   const size_t pidx = ((size_t)b * Hkv + h) * nsplit + sp;
@@ -87,7 +100,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
     }
     return;
   }
-  const int row = slot_ids[b];
+  const int row = POST ? b : slot_ids[b];
   const bf16* qp = q + ((size_t)b * Hkv + h) * G * HD;
   for (int i = tid; i < G * HD; i += THREADS) qs[i] = __bfloat162float(qp[i]) * scale;
   if (tid < G) {
@@ -116,7 +129,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
       float kf[8], vf[8];
       if (kk < nkeys) {
         const int pos = t0 + kk;
-        if (pos == we) {
+        if (!POST && pos == we) {
           load8(nkp + d0, kf);
           load8(nvp + d0, vf);
         } else if constexpr (PAGED) {
@@ -149,7 +162,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
         const float* kr = ks + kk * KPAD;
 #pragma unroll 8
         for (int d = 0; d < HD; ++d) s = fmaf(qg[d], kr[d], s);
-        ps[g * DK + kk] = (kk < nkeys) ? s : NEG_BIG;
+        ps[g * DK + kk] = (kk < nkeys) ? (uniform ? 0.f : s) : NEG_BIG;
       }
     }
     __syncthreads();
@@ -222,18 +235,19 @@ decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, bool POST = false>
 int launch(const void* q, const void* nk, const void* nv, const void* ck, const void* cv,
            const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
            void* out, int layer, int B, int Ba, int Hkv, int G, int S, int hd, int chunk,
            int nsplit, float scale, PagedKV pg, void* stream) {
   if (hd != HD || G > MAXG || G < 1 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<PAGED, POST>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(nsplit, Hkv, Ba);
-  decode_split_kernel<PAGED><<<grid, THREADS, SMEM_BYTES, st>>>(
+  decode_split_kernel<PAGED, POST><<<grid, THREADS, SMEM_BYTES, st>>>(
       (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck,
       (const bf16*)cv, (const int*)lengths, (const int*)slot_ids, (float*)pm,
       (float*)pl, (float*)pacc, layer, B, Hkv, G, S, chunk, nsplit, scale, pg);
@@ -509,6 +523,14 @@ extern "C" int decode_attend_bf16(const void* q, const void* nk, const void* nv,
                                   float scale, void* stream) {
   return launch<false>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc, out, layer, B,
                        Ba, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, stream);
+}
+
+extern "C" int decode_attention_bf16(const void* q, const void* ck, const void* cv,
+                                     const void* lengths, void* pm, void* pl, void* pacc,
+                                     void* out, int B, int Hkv, int G, int S, int hd, int chunk,
+                                     int nsplit, float scale, void* stream) {
+  return launch<false, true>(q, q, q, ck, cv, lengths, nullptr, pm, pl, pacc, out,
+                             0, B, B, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, stream);
 }
 
 extern "C" int decode_attend_bf16_paged(const void* q, const void* nk, const void* nv,

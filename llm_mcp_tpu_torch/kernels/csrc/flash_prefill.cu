@@ -4,17 +4,19 @@
 // Replaces: llm_mcp_tpu/kernels/attention.py `_flash_prefill_kernel`
 // (behind `flash_prefill_attention`). The Pallas kernel holds a whole
 // [S, hd] K/V row in VMEM per grid cell and walks key blocks with a
-// sequential fori_loop; here each CTA streams 64-key tiles through shared
-// memory and only up to its causal (and length, and window) bound.
+// sequential fori_loop; here each CTA streams 64-key tiles through a
+// two-stage shared-memory ring and only up to its causal (and length, and
+// window) bound.
 //
-// Bound on the H100: operations. The work is 4*hd flops per attended
-// (query, key) pair per head, against 2 bytes per K/V value read once; at
-// prompt lengths of a few hundred tokens that is above the H100's ~295
-// flops/byte balance point. This first version does the two products with
-// f32 FMA register tiles (tile_attention.cuh), not tensor cores, so it
-// runs far below the bf16 tensor-core peak; its time stands beside the
-// bound in PERF.md. One CTA per (batch row, head, 64-query tile); the KV
-// head is h / G. Rows with lengths[b] = 0 attend nothing and emit 0.
+// Bound on the H100: operations at prompt lengths of a few hundred tokens
+// and more (4*hd flops per attended (query, key) pair per head against 2
+// bytes per K/V value read once: above the ~295 flops/byte balance point).
+// So both products run on the bf16 tensor cores (`wgmma`, the tile of
+// tile_attention.cuh), with the next key tile's copy in flight while the
+// current one is multiplied. One CTA (one warpgroup) per (64-query tile,
+// head, batch row); the KV head is h / G, so the G heads of a KV head each
+// read its tiles (from L2 after the first). Rows with lengths[b] = 0
+// attend nothing and emit 0.
 //
 // Layouts: q [B, H, S, hd]; k/v [B, Hkv, S, hd]; lengths [B] int32;
 // out [B, H, S, hd].
@@ -28,8 +30,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ lengths,
                      bf16* __restrict__ out, int H, int Hkv, int S, int window,
                      float softcap, float scale) {
-  extern __shared__ float sm[];
-  const tile::Smem s(sm);
+  extern __shared__ unsigned char smem_raw[];
+  const tile::Smem s(smem_raw, q);
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -40,37 +42,32 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kbase = k + ((size_t)b * Hkv + h / G) * (size_t)S * tile::HD;
   const bf16* vbase = v + ((size_t)b * Hkv + h / G) * (size_t)S * tile::HD;
 
-  for (int c = threadIdx.x; c < tile::BQ * (tile::HD / 8); c += tile::THREADS) {
-    const int r = c / (tile::HD / 8);
-    const int d0 = (c % (tile::HD / 8)) * 8;
-    const int qp = q0 + r;
-    tile::load_q_chunk(s, r, d0, qp < S ? qbase + (size_t)qp * tile::HD : nullptr, scale);
-  }
+  tile::load_q(s, [&](int r) -> const bf16* {
+    return q0 + r < S ? qbase + (size_t)(q0 + r) * tile::HD : nullptr;
+  });
   tile::State st;
   st.init();
-  __syncthreads();
 
   // keys this tile can see: [kmin, kmax]
   const int kmax = min(min(q0 + tile::BQ - 1, len - 1), S - 1);
   const int kmin = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = (kmin / tile::BK) * tile::BK; k0 <= kmax; k0 += tile::BK) {
-    const int nkeys = min(tile::BK, S - k0);
-    tile::step(
-        s, st, nkeys, softcap,
-        [&](int kk, const bf16*& kp, const bf16*& vp) {
-          kp = kbase + (size_t)(k0 + kk) * tile::HD;
-          vp = vbase + (size_t)(k0 + kk) * tile::HD;
-        },
-        [&](int r, int kk) {
-          const int qp = q0 + r;
-          const int kp = k0 + kk;
-          return kp <= qp && kp < len && (window <= 0 || qp - kp < window);
-        });
-  }
+  const int kstart = (kmin / tile::BK) * tile::BK;
+  const int ntiles = kmax >= kstart ? (kmax - kstart) / tile::BK + 1 : 0;
+  tile::run<false>(
+      s, st, ntiles, S - kstart,
+      [&](int i, int kk) {
+        const size_t off = (size_t)(kstart + i * tile::BK + kk) * tile::HD;
+        return tile::Key{kbase + off, vbase + off, 0.f, 0.f, 0};
+      },
+      [&](int i, int r, int kk, int) {
+        const int qp = q0 + r;
+        const int kp = kstart + i * tile::BK + kk;
+        return kp <= qp && kp < len && (window <= 0 || qp - kp < window);
+      },
+      scale, softcap);
   bf16* obase = out + ((size_t)b * H + h) * (size_t)S * tile::HD;
   tile::store(st, [&](int r) -> bf16* {
-    const int qp = q0 + r;
-    return qp < S ? obase + (size_t)qp * tile::HD : nullptr;
+    return q0 + r < S ? obase + (size_t)(q0 + r) * tile::HD : nullptr;
   });
 }
 

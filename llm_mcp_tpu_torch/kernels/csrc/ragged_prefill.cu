@@ -22,11 +22,14 @@
 // drops it.
 //
 // Bound on the H100: operations, as for flash prefill: 4*hd flops per
-// attended (token, key) pair per query head. One CTA per (tile of 64/G
-// packed tokens, KV head): its 64 query rows are the G query heads of each
-// token, so all G heads share every K/V tile read. Like flash prefill this
-// first version computes with f32 FMA register tiles (tile_attention.cuh),
-// not tensor cores.
+// attended (token, key) pair per query head. So both products run on the
+// bf16 tensor cores (`wgmma`, the tile of tile_attention.cuh), key tiles
+// streaming through a two-stage `cp.async` ring. One CTA (one warpgroup)
+// per (tile of 64/G packed tokens, KV head): its 64 query rows are the G
+// query heads of each token, so all G heads share every K/V tile read.
+// Each descriptor row's prefix and the chunk's own keys are segments of
+// tiles; the keys of a tile are resolved once (through the table, for the
+// paged arm) before their copies are issued.
 //
 // Layouts: q [T, Hkv, G, hd]; k_self/v_self [T, Hkv, hd];
 // cache [L, B, Hkv, S, hd]; rowids [T], offsets [R+1], slots/starts [R]
@@ -38,6 +41,61 @@
 
 namespace {
 
+// Per-CTA query rows: packed token (-1: none) and descriptor row (R: pad).
+struct Rows {
+  int tok[tile::BQ];
+  int rid[tile::BQ];
+};
+
+// Query rows, Q load and the chunk's own segment, shared by both kernels:
+// tokens [u_lo, t_last] in 64-key tiles, same descriptor row and packed
+// index <= the query's (the pads attend earlier pads).
+__device__ __forceinline__ int setup_rows(Rows& rows, const tile::Smem& s, const bf16* q,
+                                          const int* rowids, int T, int Hkv, int G, int h,
+                                          int t0) {
+  const int tid = threadIdx.x;
+  if (tid < tile::BQ) {
+    const int t = t0 + tid / G;
+    rows.tok[tid] = t < T ? t : -1;
+    rows.rid[tid] = t < T ? rowids[t] : -1;
+  }
+  tile::load_q(s, [&](int r) -> const bf16* {
+    const int t = t0 + r / G;
+    return t < T ? q + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
+  });
+  __syncthreads();
+  return min(t0 + tile::BQ / G, T) - 1;
+}
+
+__device__ __forceinline__ void self_segment(const tile::Smem& s, tile::State& st,
+                                             const Rows& rows, const bf16* ks, const bf16* vs,
+                                             const int* rowids, const int* offsets, int T,
+                                             int R, int Hkv, int h, int t0, int t_last,
+                                             float scale) {
+  const int rid0 = t0 < T ? rowids[t0] : R;
+  const int u_lo = offsets[min(max(rid0, 0), R)];
+  const int n = t_last + 1 - u_lo;
+  tile::run<false>(
+      s, st, n > 0 ? (n + tile::BK - 1) / tile::BK : 0, n,
+      [&](int i, int kk) {
+        const int u = u_lo + i * tile::BK + kk;
+        const size_t off = ((size_t)u * Hkv + h) * tile::HD;
+        return tile::Key{ks + off, vs + off, 0.f, 0.f, rowids[u]};
+      },
+      [&](int i, int qr, int kk, int rid) {
+        return rows.tok[qr] >= u_lo + i * tile::BK + kk && rid == rows.rid[qr];
+      },
+      scale, 0.f);
+}
+
+__device__ __forceinline__ void store_rows(const tile::State& st, const Rows& rows, bf16* out,
+                                           int Hkv, int G, int h) {
+  tile::store(st, [&](int r) -> bf16* {
+    const int t = rows.tok[r];
+    return t >= 0 ? out + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
+  });
+}
+
 template <bool PAGED>
 __global__ void __launch_bounds__(tile::THREADS)
 ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
@@ -47,78 +105,41 @@ ragged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
                       const int* __restrict__ starts, bf16* __restrict__ out,
                       int layer, int T, int R, int B, int Hkv, int G, int S,
                       float scale, PagedKV pg) {
-  extern __shared__ float sm[];
-  const tile::Smem s(sm);
-  __shared__ int row_tok[tile::BQ];  // packed token of query row (-1: none)
-  __shared__ int row_rid[tile::BQ];  // its descriptor row (R: pad)
-  __shared__ int key_rid[tile::BK];  // descriptor row of each self key
-
-  const int TQ = tile::BQ / G;  // tokens per CTA
-  const int t0 = blockIdx.x * TQ;
+  extern __shared__ unsigned char smem_raw[];
+  const tile::Smem s(smem_raw, q);
+  __shared__ Rows rows;
+  const int t0 = blockIdx.x * (tile::BQ / G);
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  if (tid < tile::BQ) {
-    const int t = t0 + tid / G;
-    row_tok[tid] = t < T ? t : -1;
-    row_rid[tid] = t < T ? rowids[t] : -1;
-  }
-  for (int c = tid; c < tile::BQ * (tile::HD / 8); c += tile::THREADS) {
-    const int r = c / (tile::HD / 8);
-    const int d0 = (c % (tile::HD / 8)) * 8;
-    const int t = t0 + r / G;
-    const int g = r % G;
-    tile::load_q_chunk(
-        s, r, d0, t < T ? q + (((size_t)t * Hkv + h) * G + g) * tile::HD : nullptr, scale);
-  }
+  const int t_last = setup_rows(rows, s, q, rowids, T, Hkv, G, h, t0);
   tile::State st;
   st.init();
-  __syncthreads();
 
-  const int t_last = min(t0 + TQ, T) - 1;
   // (a) cached prefix of every row with tokens in this tile
   for (int r = 0; r < R; ++r) {
     const int lo = offsets[r];
     const int hi = offsets[r + 1];
     const int start = min(starts[r], S);
     if (hi <= lo || lo > t_last || hi <= t0 || start <= 0) continue;
-    const bf16* kbase = ck + (((size_t)layer * B + slots[r]) * Hkv + h) * (size_t)S * tile::HD;
-    const bf16* vbase = cv + (((size_t)layer * B + slots[r]) * Hkv + h) * (size_t)S * tile::HD;
-    for (int k0 = 0; k0 < start; k0 += tile::BK) {
-      const int nkeys = min(tile::BK, start - k0);
-      tile::step(
-          s, st, nkeys, 0.f,
-          [&](int kk, const bf16*& kp, const bf16*& vp) {
-            if constexpr (PAGED) {
-              paged_row(pg, ck, cv, layer, B, Hkv, h, S, tile::HD, r, k0 + kk, kp, vp);
-            } else {
-              kp = kbase + (size_t)(k0 + kk) * tile::HD;
-              vp = vbase + (size_t)(k0 + kk) * tile::HD;
-            }
-          },
-          [&](int qr, int kk) { return row_rid[qr] == r; });
-    }
-  }
-  // (b) the chunk's own keys: from the first row's start up to the tile's
-  // last token, same row and packed index <= the query's
-  const int rid0 = t0 < T ? rowids[t0] : R;
-  const int u_lo = offsets[min(max(rid0, 0), R)];
-  for (int u0 = u_lo; u0 <= t_last; u0 += tile::BK) {
-    const int nkeys = min(tile::BK, t_last + 1 - u0);
-    if (tid < tile::BK) key_rid[tid] = tid < nkeys ? rowids[u0 + tid] : -2;
-    tile::step(
-        s, st, nkeys, 0.f,
-        [&](int kk, const bf16*& kp, const bf16*& vp) {
-          kp = ks + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
-          vp = vs + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
+    const size_t base = (((size_t)layer * B + slots[r]) * Hkv + h) * (size_t)S * tile::HD;
+    tile::run<false>(
+        s, st, (start + tile::BK - 1) / tile::BK, start,
+        [&](int i, int kk) {
+          const int pos = i * tile::BK + kk;
+          const bf16* kp;
+          const bf16* vp;
+          if constexpr (PAGED) {
+            paged_row(pg, ck, cv, layer, B, Hkv, h, S, tile::HD, r, pos, kp, vp);
+          } else {
+            kp = ck + base + (size_t)pos * tile::HD;
+            vp = cv + base + (size_t)pos * tile::HD;
+          }
+          return tile::Key{kp, vp, 0.f, 0.f, 0};
         },
-        [&](int qr, int kk) {
-          return row_tok[qr] >= u0 + kk && key_rid[kk] == row_rid[qr];
-        });
+        [&](int, int qr, int, int) { return rows.rid[qr] == r; }, scale, 0.f);
   }
-  tile::store(st, [&](int r) -> bf16* {
-    const int t = row_tok[r];
-    return t >= 0 ? out + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
-  });
+  // (b) the chunk's own keys
+  self_segment(s, st, rows, ks, vs, rowids, offsets, T, R, Hkv, h, t0, t_last, scale);
+  store_rows(st, rows, out, Hkv, G, h);
 }
 
 template <bool PAGED>
@@ -144,11 +165,12 @@ int launch(const void* q, const void* ks, const void* vs, const void* ck, const 
 // ragged_prefill_attend_q8 / _q8_paged: the same packed layout over the
 // fused int8 cache. Replaces `_ragged_prefill_q8_kernel` (behind
 // `ragged_prefill_attend_q8`), its identity-table and block-table paths.
-// The past keys arrive as int8 (8 bytes a load, converted on load, no
-// requantization); the scores take kss after the dot and the probabilities
-// vss before P.V (`tile::step_q8`), the plain scales read from "s" through
-// the same table entry as the payload, as the Pallas wrapper pre-gathers
-// them (attention.py:3503-3509). The self segment is the exact bf16 step.
+// The past keys are copied as int8 and widened to bf16 in shared memory
+// (exact; no requantization of q or p to int8); the scores take kss after
+// Q.K^T and the probabilities vss before P.V (the tile's `Q8` step), the
+// plain scales read from "s" through the same table entry as the payload,
+// as the Pallas wrapper pre-gathers them (attention.py:3503-3509). The
+// self segment is the exact bf16 step.
 template <bool PAGED>
 __global__ void __launch_bounds__(tile::THREADS)
 ragged_prefill_q8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks,
@@ -157,71 +179,32 @@ ragged_prefill_q8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ks
                          const int* __restrict__ slots, const int* __restrict__ starts,
                          bf16* __restrict__ out, int layer, int T, int R, int Hkv, int G,
                          float scale) {
-  extern __shared__ float sm[];
-  const tile::Smem s(sm);
-  __shared__ int row_tok[tile::BQ];
-  __shared__ int row_rid[tile::BQ];
-  __shared__ int key_rid[tile::BK];
-
-  const int TQ = tile::BQ / G;
-  const int t0 = blockIdx.x * TQ;
+  extern __shared__ unsigned char smem_raw[];
+  const tile::Smem s(smem_raw, q);
+  __shared__ Rows rows;
+  const int t0 = blockIdx.x * (tile::BQ / G);
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  if (tid < tile::BQ) {
-    const int t = t0 + tid / G;
-    row_tok[tid] = t < T ? t : -1;
-    row_rid[tid] = t < T ? rowids[t] : -1;
-  }
-  for (int i = tid; i < tile::BQ * (tile::HD / 8); i += tile::THREADS) {
-    const int r = i / (tile::HD / 8);
-    const int d0 = (i % (tile::HD / 8)) * 8;
-    const int t = t0 + r / G;
-    tile::load_q_chunk(
-        s, r, d0, t < T ? q + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr, scale);
-  }
+  const int t_last = setup_rows(rows, s, q, rowids, T, Hkv, G, h, t0);
   tile::State st;
   st.init();
-  __syncthreads();
 
-  const int t_last = min(t0 + TQ, T) - 1;
   for (int r = 0; r < R; ++r) {
     const int lo = offsets[r];
     const int hi = offsets[r + 1];
     const int start = min(starts[r], c.S);
     if (hi <= lo || lo > t_last || hi <= t0 || start <= 0) continue;
     const int trow = PAGED ? r : slots[r];
-    for (int k0 = 0; k0 < start; k0 += tile::BK) {
-      tile::step_q8(
-          s, st, min(tile::BK, start - k0),
-          [&](int kk, const int8_t*& kp, const int8_t*& vp, float& kscale, float& vscale) {
-            const KeyHome home = q8_home<PAGED>(c, trow, k0 + kk);
-            kp = q8_payload(c, home, layer, h);
-            vp = q8_payload(c, home, layer, Hkv + h);
-            kscale = q8_scale(c, home, layer, h);
-            vscale = q8_scale(c, home, layer, Hkv + h);
-          },
-          [&](int qr, int kk) { return row_rid[qr] == r; });
-    }
-  }
-  const int rid0 = t0 < T ? rowids[t0] : R;
-  const int u_lo = offsets[min(max(rid0, 0), R)];
-  for (int u0 = u_lo; u0 <= t_last; u0 += tile::BK) {
-    const int nkeys = min(tile::BK, t_last + 1 - u0);
-    if (tid < tile::BK) key_rid[tid] = tid < nkeys ? rowids[u0 + tid] : -2;
-    tile::step(
-        s, st, nkeys, 0.f,
-        [&](int kk, const bf16*& kp, const bf16*& vp) {
-          kp = ks + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
-          vp = vs + ((size_t)(u0 + kk) * Hkv + h) * tile::HD;
+    tile::run<true>(
+        s, st, (start + tile::BK - 1) / tile::BK, start,
+        [&](int i, int kk) {
+          const KeyHome home = q8_home<PAGED>(c, trow, i * tile::BK + kk);
+          return tile::Key{q8_payload(c, home, layer, h), q8_payload(c, home, layer, Hkv + h),
+                           q8_scale(c, home, layer, h), q8_scale(c, home, layer, Hkv + h), 0};
         },
-        [&](int qr, int kk) {
-          return row_tok[qr] >= u0 + kk && key_rid[kk] == row_rid[qr];
-        });
+        [&](int, int qr, int, int) { return rows.rid[qr] == r; }, scale, 0.f);
   }
-  tile::store(st, [&](int r) -> bf16* {
-    const int t = row_tok[r];
-    return t >= 0 ? out + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
-  });
+  self_segment(s, st, rows, ks, vs, rowids, offsets, T, R, Hkv, h, t0, t_last, scale);
+  store_rows(st, rows, out, Hkv, G, h);
 }
 
 template <bool PAGED>

@@ -14,17 +14,13 @@ import torch
 from llm_mcp_tpu_torch.kernels import attention as P
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """Each CUDA kernel against its plain version on the same bf16 inputs
-    (small shapes, head_dim 128), element by element within
-    |err| <= 1e-3 + 1e-2*|ref|: both sides accumulate in f32 and round the
-    output to bf16 once, so they may differ by one bf16 step (at most 2^-7
-    relative); append is bitwise."""
+def _card(seed):
+    """(dev, g, rn, i32) on the card, or skip without one: the device, a
+    seeded generator, bf16 normals and int32 tensors there."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -32,6 +28,17 @@ def test_cuda_kernels_match_plain():
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
+    return dev, g, rn, i32
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the same bf16 inputs
+    (small shapes, head_dim 128), element by element within
+    |err| <= 1e-3 + 1e-2*|ref|: both sides accumulate in f32 and round the
+    output to bf16 once, so they may differ by one bf16 step (at most 2^-7
+    relative); append is bitwise."""
+    dev, g, rn, i32 = _card(0)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, Hkv, G, S, hd = 2, 4, 2, 4, 640, 128
     ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
@@ -76,17 +83,7 @@ def test_cuda_paged_kernels_match_plain(bt):
     resolve to pool rows in shuffled order and one block to another slot's
     arena home, random (scrambled) arena rows under every redirected
     block, a parked decode row and a ragged pad tail."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(bt)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
+    dev, g, rn, i32 = _card(bt)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, Hkv, G, S, hd = 2, 4, 2, 4, 512, 128
     nbs, pxb = S // bt, 6
@@ -139,17 +136,7 @@ def test_cuda_q8_kernels_match_plain(packed):
     a probability that the two sides' exp rounds to neighbouring int8
     steps moves the output by far less); with the packed pseudo-head
     (p = 1) and without it (p = 0)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
+    dev, g, rn, i32 = _card(3)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, Hkv, G, S, hd = 2, 4, 2, 4, 640, 128
     cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
@@ -185,17 +172,7 @@ def test_cuda_q8_paged_kernels_match_plain(bt):
     """The paged int8 kernels against their plain versions: pool rows in
     shuffled order and a foreign arena home under scrambled arena blocks,
     requantization per bt keys, a parked decode row and a ragged pad tail."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(bt + 1)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
+    dev, g, rn, i32 = _card(bt + 1)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, Hkv, G, S, hd = 2, 4, 2, 4, 512, 128
     nbs, pxb = S // bt, 6
@@ -270,17 +247,7 @@ def test_cuda_mla_decode_matches_plain(monkeypatch, bt, S):
     splitting a row into chunks; at S = 65536, past the blocked arm's 64
     blocks, the exact group 0 without tables. A parked row and rows permuted through
     slot_ids; |err| <= 1e-3 + 1e-2*|ref|."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(11 + bt + S)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
+    dev, g, rn, i32 = _card(11 + bt + S)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, H, R, dr, Ba = 2, 6, 16, 512, 64, 4
     cc, cr = _latent_planes(g, dev, L, B, S)
@@ -321,17 +288,7 @@ def test_cuda_mla_ragged_matches_plain(quant, bt):
     """The ragged MLA kernel against its plain version on the card, bf16
     and int8 latents, contiguous (bt = 0) and paged, at V2-Lite's widths:
     rows with and without a cached prefix and a pad tail."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(21 + bt)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-
-    def i32(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
+    dev, g, rn, i32 = _card(21 + bt)
     tol = dict(atol=1e-3, rtol=1e-2)
     L, B, H, S, R, dr = 2, 4, 16, 512, 512, 64
     if quant:
@@ -359,4 +316,85 @@ def test_cuda_mla_ragged_matches_plain(quant, bt):
     ref = P.ragged_prefill_mla_plain(*args, 0.07, kw.get("block_tables"), kw.get("pool_c"),
                                      kw.get("pool_r"))
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_cuda_decode_attention_matches_plain(G):
+    """The post-append decode kernel against its plain version: lengths 0,
+    mid-row, S - 1, >= S (all S) and -1 (the mean of V over S), on a row
+    that splits into several 256-key chunks; |err| <= 1e-3 + 1e-2*|ref|."""
+    _, _, rn, i32 = _card(50 + G)
+    B, Hkv, S, hd = 6, 2, 1000, 128
+    q, ck, cv = rn(B, Hkv, G, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    lens = i32([0, 300, S - 1, S, S + 5, -1])
+    out = P.decode_attention(q, ck, cv, lens)
+    ref = P.decode_attention_plain(q, ck, cv, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [67, 200, 640])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_flash_prefill_tile_edges(S, G):
+    """The wgmma prefill tile at its edges: S not a multiple of 64 (a short
+    last query tile and key tile), every G, a row of length 0 (emits 0),
+    lengths inside a tile, a sliding window, softcap with a scale."""
+    _, _, rn, i32 = _card(S + G)
+    B, Hkv, hd = 3, 2, 128
+    H = Hkv * G
+    q, k, v = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    ln = i32([S, 0, S // 2 + 3])
+    for kw in (dict(), dict(window=37), dict(softcap=20.0, scale=0.05)):
+        out = P.flash_prefill_attention(q, k, v, ln, **kw)
+        ref = P.flash_prefill_plain(q, k, v, ln, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+        assert not out[1].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("arm", ["bf16", "q8"])
+@pytest.mark.parametrize("bt", [0, 32, 64, 128])
+def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
+    """The ragged kernels on the wgmma tile: CTAs whose tokens straddle two
+    descriptor rows, a pad tail, prefixes that end inside a 64-key tile,
+    contiguous (bt = 0) and through tables at bt in {32, 64, 128} (pool
+    rows in shuffled order, a foreign arena home); bf16 and int8 caches."""
+    dev, g, rn, i32 = _card(100 * G + bt + (arm == "q8"))
+    L, B, Hkv, S, hd, pxb = 2, 4, 2, 512, 128, 6
+    ns = [7, 21, 50, 13]
+    T, R = sum(ns) + 9, len(ns)
+    rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [R] * (T - sum(ns)))
+    offsets = i32([sum(ns[:r]) for r in range(R + 1)])
+    slots, starts = i32([2, 0, 3, 1]), i32([37, 0, 130, 201])
+    qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+    kw, tbl = {}, None
+    if bt:
+        nbs = S // bt
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+        tbl[1, 3] = 2 * nbs + 3
+        tbl = tbl.to(dev)
+    if arm == "q8":
+        cache = _fused_cache(g, dev, L, B, Hkv, S, hd)
+        args = (qr, kr, vr, cache, 1, rowids, offsets, slots, starts)
+        pool = _fused_cache(g, dev, L, pxb, Hkv, bt, hd) if bt else None
+        out = P.ragged_prefill_attend_q8(*args, scale=0.07, block_tables=tbl, pool=pool)
+        ref = P.ragged_prefill_q8_plain(*args, 0.07, tbl, pool)
+    else:
+        ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
+        args = (qr, kr, vr, ck, cv, 1, rowids, offsets, slots, starts)
+        if bt:
+            pk, pv = rn(L, pxb, Hkv, bt, hd), rn(L, pxb, Hkv, bt, hd)
+            kw = dict(block_tables=tbl, pool_k=pk, pool_v=pv)
+            ref = P.ragged_prefill_paged_plain(*args, tbl, pk, pv, 0.07)
+        else:
+            ref = P.ragged_prefill_plain(*args, 0.07)
+        out = P.ragged_prefill_attend_bf16(*args, scale=0.07, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
     torch.cuda.synchronize()

@@ -105,6 +105,28 @@ def test_decode_attend_matches_pallas(monkeypatch, arm, case):
     assert np.isfinite(out_t).all()
 
 
+# -- decode_attention (post-append) -----------------------------------------
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_attention_matches_pallas(G):
+    """The post-append decode (`_decode_attn_kernel`): the inclusive mask at
+    length 0, mid-row and S - 1; lengths >= S attend all S; lengths -1 mask
+    every key with the finite -1e30, so the row is the mean of V over S."""
+    rng = np.random.default_rng(40 + G)
+    B, Hkv, S, hd = 5, 2, 96, 128
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    ck = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    cv = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
+    lens = np.asarray([0, 41, S - 1, S + 3, -1], np.int32)
+    out_j = np.asarray(A.decode_attention(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(lens), interpret=True))
+    out_t = P.decode_attention(_t(q), _t(ck), _t(cv), _t(lens)).numpy()
+    np.testing.assert_allclose(out_t, out_j, **TOL)
+    np.testing.assert_allclose(out_t[4], np.broadcast_to(cv[4].mean(1)[:, None], (Hkv, G, hd)),
+                               **TOL)
+
+
 # -- paged decode ------------------------------------------------------------
 #
 # The construction of `tests/test_kernel_parity.py` (`_paged_split`,
