@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`llm_mcp_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below, one card
+    python3 chip_smoke.py --kernels   # phases 1-2 without the MLA kernels,
+                                      # with the bf16 decode chunk sweep
+    python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
 
 Phases; any failure exits non-zero and prints no result line (a result
 outside its tolerance is reported and the later phases still run, so that
 one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
-     nvcc per source, in parallel) and print ptxas's register report;
+     nvcc per source, in parallel) and print ptxas's register report; no
+     instantiation of the bf16 decode kernel may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
      call (where one computes the same function) and the bound with CUDA
-     events. `decode_attention` (post-append, on no served path) runs
+     events. With `--kernels` the three bf16 decode arms are also checked
+     and timed at each split size of DECODE_CHUNKS (the sweep behind
+     `DECODE_CHUNK_BF16`), at these rows and at the breakdown's 8 rows
+     of fill 1024. `decode_attention` (post-append, on no served path) runs
      at the decode shapes over the cache with this step's K/V written;
      every served phase checks that it launched no time, and its row
      prints that count. The paged kernels run on tables whose shared blocks were
@@ -85,6 +92,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -157,6 +165,7 @@ Q8_KERNELS = ("append_kv_q8", "decode_attend_q8", "decode_attend_q8_paged",
 Q8_SLOTS = 16  # the int8 engine's max_slots: 4 chats decode compacted at Ba = 8
 BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
 SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
+DECODE_CHUNKS = (64, 128, 256)  # the bf16 decode split sizes the sweep times
 ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"],
                  "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"],
                  "decode_attend_q8_mla": ["llm_mcp_tpu/kernels/attention.py:1789"]}
@@ -231,6 +240,28 @@ def time_ms(fn, iters: int, warmup: int = 2, queue_ahead: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(fn, n: int = 10) -> dict[str, float] | str:
+    """Device time per call of each kernel `fn` launches (torch.profiler
+    over n calls): the split and the combine of a decode wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"\w*kernel\w*", e.key)
+            out[m.group(0) if m else e.key[:60]] = e.self_device_time_total / 1e3 / n
+    log(f"device ms by kernel: {json.dumps(out)}")
+    return out or "not measured"
+
+
 def compare(name, out, ref) -> tuple[float, float]:
     """Max abs error and the largest |out - ref| / limit over elements."""
     o, r = out.float(), ref.float()
@@ -289,6 +320,60 @@ def _ragged_sdpa(qr, kr, vr, rowids, starts, kp, vp):
     vals = torch.cat([vp[r, :, :s_] for r, s_ in enumerate(starts)] + [vr.transpose(0, 1)], 1)
     return lambda: F.scaled_dot_product_attention(
         qh[None], keys[None], vals[None], attn_mask=mask, enable_gqa=True)
+
+
+def decode_chunk_sweep(K, q, nk, nv, ck, cv, ak, av, pg, lens, ids, scale) -> dict:
+    """The bf16 decode split size: each of DECODE_CHUNKS set in turn as
+    `K.DECODE_CHUNK_BF16`, at the kernel phase's rows (fills 511..4095, one
+    parked) and at the breakdown's (8 rows at fill 1024), for the three
+    arms: contiguous, paged (the phase's 64-token tables over ak/av) and
+    post-append (this step's K/V written at w). Each call is held against
+    its plain version and timed; returns {shapes: {arm: {chunk: ms}}}."""
+    import torch
+
+    S = ck.shape[3]
+    B = q.shape[0]
+    dev = q.device
+    out: dict[str, dict] = {}
+    chosen = K.DECODE_CHUNK_BF16
+    for label, ln, rows in (
+        ("kernel_phase_rows", lens, ids),
+        ("fill_1024", torch.full((B,), 1024, dtype=torch.int32, device=dev),
+         torch.arange(B, dtype=torch.int32, device=dev)),
+    ):
+        live = ln < S
+        li = torch.arange(B, device=dev)[live]
+        kpost, vpost = ck[1][rows.long()], cv[1][rows.long()]
+        kpost[li, :, ln.long()[live]] = nk[live]
+        vpost[li, :, ln.long()[live]] = nv[live]
+        arms = {
+            "decode_attend_bf16": (
+                lambda: K.decode_attend_bf16(q, nk, nv, ck, cv, 1, ln, slot_ids=rows,
+                                             scale=scale),
+                K.decode_attend_plain(q, nk, nv, ck, cv, 1, ln, rows, scale)),
+            "decode_attend_bf16_paged": (
+                lambda: K.decode_attend_bf16(q, nk, nv, ak, av, 1, ln, slot_ids=rows,
+                                             scale=scale, **pg),
+                K.decode_attend_paged_plain(q, nk, nv, ak, av, 1, ln, pg["block_tables"],
+                                            pg["pool_k"], pg["pool_v"], rows, scale)),
+            "decode_attention": (
+                lambda: K.decode_attention(q, kpost, vpost, ln),
+                K.decode_attention_plain(q, kpost, vpost, ln)),
+        }
+        table: dict[str, dict] = {}
+        for arm, (call, ref) in arms.items():
+            for chunk in DECODE_CHUNKS:
+                K.DECODE_CHUNK_BF16 = chunk
+                try:
+                    compare(arm, call(), ref)
+                    table.setdefault(arm, {})[chunk] = time_ms(call, 50)
+                finally:
+                    K.DECODE_CHUNK_BF16 = chosen
+        out[label] = table
+        del kpost, vpost
+    out["chosen"] = chosen
+    log(f"bf16 decode chunk sweep (ms): {json.dumps(out)}")
+    return out
 
 
 def kernel_phase() -> dict[str, dict]:
@@ -371,6 +456,8 @@ def kernel_phase() -> dict[str, dict]:
         {"q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd], "lengths": lens.tolist(),
          "slot_ids": ids.tolist()},
     )
+    res["decode_attend_bf16"]["device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: K.decode_attend_bf16(q, nk1, nv1, ck, cv, 1, lens, slot_ids=ids, scale=scale))
 
     # decode_attention: the same rows over the post-append cache (kpost:
     # this step's K/V written at w), inclusive lengths; the row at S
@@ -503,6 +590,9 @@ def kernel_phase() -> dict[str, dict]:
              "library": "SDPA, length mask, on the rows gathered through the tables"},
         )
         del kg, vg
+        if "--kernels" in sys.argv[1:]:
+            res["decode_attend_bf16"]["chunk_sweep"] = decode_chunk_sweep(
+                K, q, nk1, nv1, ck, cv, ak, av, pg, lens, ids, scale)
         # ragged: the same SDPA over the prefixes gathered through the tables
         rlib = ragged_sdpa(K.paged_gather(ak[3], pg["pool_k"][3], tbl[slots.long()]),
                            K.paged_gather(av[3], pg["pool_v"][3], tbl[slots.long()]))
@@ -634,6 +724,8 @@ def kernel_phase_q8() -> dict[str, dict]:
          "slot_ids": ids.tolist(), "group": group,
          "library": "SDPA, length mask, on the rows dequantized to bf16"},
     )
+    res["decode_attend_q8"]["device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=scale))
     del lib
 
     # ragged: 4 rows (1900 tokens) with cached int8 prefixes in T = 2048
@@ -1702,6 +1794,83 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     return out
 
 
+# Planted faults in the bf16 decode kernel, each run in its own copy of the
+# checkout by `python3 chip_smoke.py --planted`: (source, text, replacement).
+PLANTED = {
+    "no_alpha_rescale": ("decode_attend.cu", "const float alpha = __expf(m[g] - mx);",
+                         "const float alpha = 1.f;"),
+    "w_override_skipped": ("decode_attend.cu", "if (!POST && pos == we) {", "if (false) {"),
+    "wrong_ring_stage": ("decode_attend.cu", "mine + (st % NST) * STAGE_BYTES;  // the ring slot read",
+                         "mine + ((st + 1) % NST) * STAGE_BYTES;  // the ring slot read"),
+}
+
+
+def planted_phase() -> dict:
+    """Each fault of PLANTED in a copy of the port and this script under
+    build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
+    the bf16 and int8 kernel checks); returns, per fault, the rows whose
+    check failed and every row's worst err/limit. A fault that no row
+    catches fails the run."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    out: dict[str, dict] = {}
+    for fault, (src, old, new) in PLANTED.items():
+        dst = root / "build" / "planted" / fault
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(root / "llm_mcp_tpu_torch", dst / "llm_mcp_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        shutil.copy2(root / "chip_smoke.py", dst / "chip_smoke.py")
+        path = dst / "llm_mcp_tpu_torch" / "kernels" / "csrc" / src
+        text = path.read_text()
+        if text.count(old) != 1:
+            fail(f"planted fault {fault}: {old!r} is not in {src} exactly once")
+        path.write_text(text.replace(old, new))
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--kernels"], cwd=dst,
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"kernels"')]
+        if not lines:
+            fail(f"planted fault {fault}: no result (exit {proc.returncode}):\n"
+                 f"{proc.stderr[-4000:]}")
+        res = json.loads(lines[-1])
+        failed = sorted({m.split(":")[0] for m in res["failures"]})
+        out[fault] = {
+            "exit": proc.returncode, "seconds": time.time() - t0, "failed_rows": failed,
+            "worst_err_over_limit": {n: r["worst_err_over_limit"]
+                                     for n, r in res["kernels"].items()},
+            "failures": res["failures"],
+        }
+        log(f"planted {fault}: failed rows {failed}")
+        if not failed:
+            check_failed(f"planted fault {fault} was caught by no row")
+        shutil.rmtree(dst, ignore_errors=True)
+    return out
+
+
+def ptxas_report(text: str, kernel: str) -> dict[str, dict]:
+    """Registers and spills of each instantiation of `kernel` in ptxas's
+    -v output: {mangled name: {registers, spill_stores, spill_loads}}."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1717,17 +1886,30 @@ def main() -> None:
     t_start = time.time()
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    if "--planted" in sys.argv[1:]:
+        print(json.dumps({"planted": planted_phase()}), flush=True)
+        print(card, flush=True)
+        sys.exit(1 if FAILURES else 0)
 
     t0 = time.time()
     reports = build.build(verbose=True)
     log(f"built {len(reports)} kernel libraries in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    split = ptxas_report(reports.get("decode_attend", ""), "decode_split_kernel")
+    log(f"ptxas decode_split_kernel (bf16 decode, three arms): {json.dumps(split)}")
+    if not split or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                        for r in split.values()):
+        check_failed(f"decode_split_kernel spills or was not reported: {split}")
 
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
+    if "--kernels" in sys.argv[1:]:
+        # the kernel checks alone (planted-fault runs): rows, then the verdict
+        print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
+        sys.exit(1 if FAILURES else 0)
     kernels.update(kernel_phase_mla())
     gemm = int8_gemm_phase()
 

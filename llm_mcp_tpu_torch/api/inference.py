@@ -14,7 +14,7 @@ import time
 import uuid
 from typing import Any
 
-from ..utils.tokens import messages_to_prompt
+from ..utils.tokens import messages_to_prompt, split_think
 from .http import HTTPApi, Request, Response
 
 
@@ -67,7 +67,6 @@ class InferenceAPI:
             max_tokens = int(raw_max) if raw_max is not None else 512
             temperature = float(body.get("temperature", 0.7))
             top_p = float(body.get("top_p", 1.0))
-            top_k = int(body.get("top_k", 0))
         except (TypeError, ValueError) as e:
             resp.write_error(f"invalid numeric parameter: {e}", 400)
             return
@@ -84,7 +83,7 @@ class InferenceAPI:
         t0 = time.time()
         prompt = messages_to_prompt(messages)
         gen_kwargs = dict(
-            max_tokens=max_tokens, temperature=temperature, top_p=top_p, top_k=top_k, stop=stop
+            max_tokens=max_tokens, temperature=temperature, top_p=top_p, stop=stop
         )
         created = int(t0)
         cmpl_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
@@ -99,16 +98,16 @@ class InferenceAPI:
         except RuntimeError as e:
             resp.write_error(str(e), 500)
             return
+        thinking, answer = split_think(out["text"])
+        message: dict[str, Any] = {"role": "assistant", "content": answer}
+        if thinking:
+            message["reasoning"] = thinking
         resp.write_json({
             "id": cmpl_id,
             "object": "chat.completion",
             "created": created,
             "model": model,
-            "choices": [{
-                "index": 0,
-                "message": {"role": "assistant", "content": out["text"]},
-                "finish_reason": out["finish_reason"],
-            }],
+            "choices": [{"index": 0, "message": message, "finish_reason": out["finish_reason"]}],
             "usage": out["usage"],
         })
 
@@ -133,7 +132,6 @@ class InferenceAPI:
                 finish = evt.get("finish_reason", "stop")
             elif evt["type"] == "error":
                 resp.sse_data(dict(base, error={"message": evt.get("error", "")}))
-                finish = "error"
                 break
         resp.sse_data(dict(base, choices=[{"index": 0, "delta": {}, "finish_reason": finish}], usage=usage))
         resp.sse_data("[DONE]")

@@ -59,7 +59,10 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
-DECODE_CHUNK = 256  # key positions per decode split (flash-decoding)
+DECODE_CHUNK = 256  # key positions per int8 decode split (flash-decoding)
+# key positions per bf16 decode split; depends on S alone, so the wrappers
+# never read lengths on the host (chosen by the sweep in chip_smoke.py)
+DECODE_CHUNK_BF16 = 128
 MAX_G = 8  # most query heads per KV head the decode kernel takes
 
 LAUNCHES: dict[str, int] = {
@@ -357,7 +360,8 @@ def decode_attend_bf16(
         raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
-    nsplit = -(-S // DECODE_CHUNK)
+    chunk = DECODE_CHUNK_BF16
+    nsplit = -(-S // chunk)
     pm = torch.empty((Ba, Hkv, nsplit, G), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
@@ -367,7 +371,7 @@ def decode_attend_bf16(
         _launch(
             name, "decode_attend_bf16", q, new_k, new_v, cache_k,
             cache_v, lengths, rows, pm, pl, pacc,
-            out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit, sc,
+            out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, sc,
         )
         return out
     nbs, bt, pxb = _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev)
@@ -376,7 +380,7 @@ def decode_attend_bf16(
     _launch(
         name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
         cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
-        out, int(layer), B, Ba, Hkv, G, S, hd, DECODE_CHUNK, nsplit, nbs, bt, pxb, sc,
+        out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc,
     )
     return out
 
@@ -423,14 +427,15 @@ def decode_attention(
     _check(name, lengths, torch.int32, (B,), dev)
     if hd != HEAD_DIM or not 1 <= G <= MAX_G:
         raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
-    nsplit = -(-S // DECODE_CHUNK)
+    chunk = DECODE_CHUNK_BF16
+    nsplit = -(-S // chunk)
     pm = torch.empty((B, Hkv, nsplit, G), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((B, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     _launch(
         name, "decode_attention_bf16", q, cache_k, cache_v, lengths, pm, pl, pacc, out,
-        B, Hkv, G, S, hd, DECODE_CHUNK, nsplit, float(hd**-0.5),
+        B, Hkv, G, S, hd, chunk, nsplit, float(hd**-0.5),
     )
     return out
 

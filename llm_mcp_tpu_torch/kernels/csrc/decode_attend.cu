@@ -10,29 +10,53 @@
 //
 // Bound on the H100: bytes. Each row reads (w+1)*Hkv*hd values of K and of
 // V once and does 4*G flops per value read (G = 4 for Llama-3.1-8B), far
-// below the ~295 flops per byte where compute would bind. So the design
-// spreads the read over as many SMs as it can: one CTA per (row, KV head,
-// split of [0, w]), each streaming 64-position tiles of K and V with
-// 16-byte coalesced loads. The G query heads of a KV head share every
-// tile. Each split keeps an online softmax in f32 and writes its partial
-// (m, l, acc); a second small kernel combines the splits. Splits past w
-// exit at once, so a short row costs a few CTAs, not S/chunk of them.
+// below the ~295 flops per byte where compute would bind. So the design has
+// one job: keep enough bytes in flight and touch each of them once.
+//
+//   - One CTA (four warps) per (row, KV head, split of `chunk` keys of
+//     [0, w]); splits past w exit at once. The G query heads of a KV head
+//     share every key.
+//   - K and V stay bf16. They reach shared memory through a ring of NST = 3
+//     stages of SK = 32 keys (16 KB a stage, 48 KB a CTA), as 16-byte
+//     `cp.async.cg` copies, one commit group a stage: two stages are in
+//     flight while the third is consumed, and the copies hold no register.
+//   - Each warp copies and consumes its own 8 keys of a stage, and a lane
+//     reads back exactly the 16 bytes it copied: half-warp `half` takes
+//     keys 2j + half, lane chunk c (16 lanes x 16 bytes cover one 256-byte
+//     row). So the key loop needs `cp.async.wait_group` and `__syncwarp`,
+//     and no block-wide barrier.
+//   - A lane holds its 8 dims of the G scaled queries and of the G
+//     accumulators in f32 registers, arrays of GM heads with G a run-time
+//     argument: GM = 4 serves G <= 4 in about 128 registers, so four CTAs
+//     fit an SM (registers, not the ring, set the occupancy: at GM = 8 it
+//     is two). A score is 8 f32 products reduced over the half-warp with
+//     shuffles. Each half-warp keeps its own online softmax (m, l) and
+//     rescales once a stage. At the end of the split the two half-warps
+//     merge through shuffles and the four warps through shared memory (the
+//     ring, reused), and the CTA writes the split's (m, l, acc) partial.
+//   - A second kernel combines the splits, a CTA per (row, KV head, query
+//     head) with the splits spread over its threads, so its loads are in
+//     flight together (a combine of one thread a dim walking every split of
+//     every head in turn grows with S / chunk). The int8 arm shares it.
+//   - A key past the split's end inside a stage copies nothing: its slot
+//     is zero-filled (src-size 0), its score is NEG_BIG and its
+//     probability exactly 0, so no stale value reaches a sum.
 //
 // Position w takes this step's exact new_k/new_v (the cache does not hold
-// them yet: the append runs after all layers). A row parked at w >= S
-// attends its new vectors alone (w is clamped to 0) and reads no cache.
+// them yet: the append runs after all layers): its copy reads them in
+// place of the cache row. A row parked at w >= S attends its new vectors
+// alone (w is clamped to 0) and reads no cache.
 //
 // Paged arm (`decode_attend_bf16_paged`). Replaces
 // `_attend_bf16_paged_kernel` (same file), whose Pallas body streams each
 // bt-token block with its own DMA, resolved through the row's block table
-// to an arena home or a prefix-pool row. Here the split kernel is the same
-// with one change: every key position p of cache row `row` finds its K/V
-// through tbl[row * nbs + p / bt] (paged.cuh), so a 64-key tile may span
-// two blocks (bt = 32) or sit inside one (bt >= 64), and blocks may live in
-// other slots' arena homes or in the pool. The override at w holds in
-// whichever block w lives. The read is the same bytes as the contiguous
-// arm plus one 4-byte table entry per key (L1-resident), so the bound is
-// unchanged.
+// to an arena home or a prefix-pool row. Here the kernel is the same with
+// one change: a lane resolves each of its keys once a stage through
+// tbl[row * nbs + p / bt] (paged.cuh), so any block size works (a stage
+// may span blocks or sit inside one), and blocks may live in other slots'
+// arena homes or in the pool. The override at w holds in whichever block w
+// lives. The read is the same bytes as the contiguous arm plus one 4-byte
+// table entry per key (L1-resident), so the bound is unchanged.
 //
 // Post-append arm (`decode_attention_bf16`). Replaces
 // `_decode_attn_kernel` (behind `decode_attention`), the legacy whole-S
@@ -56,17 +80,21 @@
 
 namespace {
 
-constexpr int HD = 128;    // head_dim this kernel is built for
-constexpr int DK = 64;     // key positions per tile
-constexpr int MAXG = 8;    // most query heads per KV head
-constexpr int KPAD = HD + 1;  // padded K row: conflict-free column reads
-constexpr int THREADS = 128;  // one thread per output dim in the PV phase
+constexpr int HD = 128;       // head_dim this kernel is built for
+constexpr int MAXG = 8;       // most query heads per KV head
+constexpr int THREADS = 128;  // four warps
+constexpr int WARPS = THREADS / 32;
+constexpr int SK = 32;                   // keys per ring stage
+constexpr int NST = 3;                   // ring stages
+constexpr int WK = SK / WARPS;           // keys a warp takes of a stage
+constexpr int HK = WK / 2;               // keys a half-warp takes of a stage
+constexpr int ROW_BYTES = HD * 2;        // one bf16 K or V row: 16 lanes x 16 bytes
+constexpr int STAGE_BYTES = 2 * SK * ROW_BYTES;  // K then V rows of a stage
+constexpr int SMEM_BYTES = NST * STAGE_BYTES;    // 48 KB
+static_assert(WARPS * MAXG * (HD + 2) * 4 <= SMEM_BYTES, "the merge reuses the ring");
 
-constexpr size_t SMEM_FLOATS = MAXG * HD + DK * KPAD + DK * HD + MAXG * DK;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
-
-template <bool PAGED, bool POST = false>
-__global__ void __launch_bounds__(THREADS)
+template <bool PAGED, bool POST, int GM>
+__global__ void __launch_bounds__(THREADS, GM <= 4 ? 4 : 1)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     const bf16* __restrict__ nv, const bf16* __restrict__ ck,
                     const bf16* __restrict__ cv, const int* __restrict__ lengths,
@@ -74,17 +102,16 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     float* __restrict__ pl, float* __restrict__ pacc, int layer,
                     int B, int Hkv, int G, int S, int chunk, int nsplit,
                     float scale, PagedKV pkv) {
-  extern __shared__ float sm[];
-  float* qs = sm;                 // [MAXG][HD] scaled queries
-  float* ks = qs + MAXG * HD;     // [DK][KPAD]
-  float* vs = ks + DK * KPAD;     // [DK][HD]
-  float* ps = vs + DK * HD;       // [MAXG][DK] scores, then probabilities
-  __shared__ float m_s[MAXG], l_s[MAXG], a_s[MAXG];
+  extern __shared__ __align__(16) unsigned char ring[];
 
   const int sp = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int half = lane >> 4;  // the half-warp: keys 2j + half of the warp's
+  const int c = lane & 15;     // the lane's 16-byte chunk (8 dims) of a row
   const int w = lengths[b];
   const bool parked = (w < 0 || w >= S);
   // last attended position; POST: a row of w < 0 attends all S uniformly
@@ -101,138 +128,252 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
     return;
   }
   const int row = POST ? b : slot_ids[b];
-  const bf16* qp = q + ((size_t)b * Hkv + h) * G * HD;
-  for (int i = tid; i < G * HD; i += THREADS) qs[i] = __bfloat162float(qp[i]) * scale;
-  if (tid < G) {
-    m_s[tid] = NEG_BIG;
-    l_s[tid] = 0.f;
-  }
   const size_t cache_row = (((size_t)layer * B + row) * Hkv + h) * (size_t)S * HD;
-  const bf16* kbase = ck + cache_row;
-  const bf16* vbase = cv + cache_row;
-  const bf16* nkp = nk + ((size_t)b * Hkv + h) * HD;
-  const bf16* nvp = nv + ((size_t)b * Hkv + h) * HD;
+  const bf16* kbase = ck + cache_row + c * 8;
+  const bf16* vbase = cv + cache_row + c * 8;
+  const bf16* nkp = nk + ((size_t)b * Hkv + h) * HD + c * 8;
+  const bf16* nvp = nv + ((size_t)b * Hkv + h) * HD + c * 8;
+  // this lane's slot of a stage: K row (wid * WK + half), chunk c; V rows follow K's
+  unsigned char* const mine = ring + (wid * WK + half) * ROW_BYTES + c * 16;
+  const int nst = (hi - lo + SK - 1) / SK;
 
-  float acc[MAXG];
+  // copy this lane's keys of stage st into ring slot st % NST (zeros past hi)
+  auto copy_stage = [&](int st) {
+    unsigned char* dst = mine + (st % NST) * STAGE_BYTES;
+    const int p0 = lo + st * SK + wid * WK + half;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
-  __syncthreads();
-
-  for (int t0 = lo; t0 < hi; t0 += DK) {
-    const int nkeys = min(DK, hi - t0);
-    // K/V tile into shared memory, 16 bytes per load
-    for (int c = tid; c < DK * (HD / 8); c += THREADS) {
-      const int kk = c / (HD / 8);
-      const int d0 = (c % (HD / 8)) * 8;
-      float kf[8], vf[8];
-      if (kk < nkeys) {
-        const int pos = t0 + kk;
-        if (!POST && pos == we) {
-          load8(nkp + d0, kf);
-          load8(nvp + d0, vf);
+    for (int j = 0; j < HK; ++j) {
+      const int pos = p0 + 2 * j;
+      const bf16* kp = nullptr;
+      const bf16* vp = nullptr;
+      if (pos < hi) {
+        if (!POST && pos == we) {  // this step's K/V, not yet in the cache
+          kp = nkp;
+          vp = nvp;
         } else if constexpr (PAGED) {
-          const bf16* kp;
-          const bf16* vp;
           paged_row(pkv, ck, cv, layer, B, Hkv, h, S, HD, row, pos, kp, vp);
-          load8(kp + d0, kf);
-          load8(vp + d0, vf);
+          kp += c * 8;
+          vp += c * 8;
         } else {
-          load8(kbase + (size_t)pos * HD + d0, kf);
-          load8(vbase + (size_t)pos * HD + d0, vf);
+          kp = kbase + (size_t)pos * HD;
+          vp = vbase + (size_t)pos * HD;
         }
-      } else {
+      }
+      cp16(dst + 2 * j * ROW_BYTES, kp, nkp);
+      cp16(dst + SK * ROW_BYTES + 2 * j * ROW_BYTES, vp, nvp);
+    }
+  };
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        ks[kk * KPAD + d0 + e] = kf[e];
-        vs[kk * HD + d0 + e] = vf[e];
-      }
-    }
-    __syncthreads();
-    // scores: thread -> one key, every (THREADS / DK)-th head
-    {
-      const int kk = tid % DK;
-      for (int g = tid / DK; g < G; g += THREADS / DK) {
-        float s = 0.f;
-        const float* qg = qs + g * HD;
-        const float* kr = ks + kk * KPAD;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) s = fmaf(qg[d], kr[d], s);
-        ps[g * DK + kk] = (kk < nkeys) ? (uniform ? 0.f : s) : NEG_BIG;
-      }
-    }
-    __syncthreads();
-    // online softmax: one warp per head
-    for (int g = wid; g < G; g += THREADS / 32) {
-      const float s0 = ps[g * DK + lane];
-      const float s1 = ps[g * DK + lane + 32];
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = (lane < nkeys) ? __expf(s0 - m_new) : 0.f;
-      const float p1 = (lane + 32 < nkeys) ? __expf(s1 - m_new) : 0.f;
-      const float sum = warp_sum(p0 + p1);
-      ps[g * DK + lane] = p0;
-      ps[g * DK + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // PV: thread -> one output dim, all heads
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float a = acc[g] * a_s[g];
-        const float* pg = ps + g * DK;
-        for (int kk = 0; kk < nkeys; ++kk) a = fmaf(pg[kk], vs[kk * HD + tid], a);
-        acc[g] = a;
-      }
-    }
-    __syncthreads();
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < nst) copy_stage(st);
+    cp_commit();
   }
+
+  // the lane's 8 dims of the G scaled queries
+  float qr[GM][8];
+  const bf16* qp = q + ((size_t)b * Hkv + h) * G * HD + c * 8;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < G) pacc[(pidx * G + g) * HD + tid] = acc[g];
-  if (tid < G) {
-    pm[pidx * G + tid] = m_s[tid];
-    pl[pidx * G + tid] = l_s[tid];
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      load8(qp + g * HD, qr[g]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[g][e] *= scale;
+    }
+  }
+  float m[GM], l[GM], acc[GM][8];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = NEG_BIG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+
+  for (int st = 0; st < nst; ++st) {
+    if (st + NST - 1 < nst) copy_stage(st + NST - 1);
+    cp_commit();
+    cp_wait<NST - 1>();  // this lane's copies of stage st have landed
+    __syncwarp();
+    const unsigned char* kt = mine + (st % NST) * STAGE_BYTES;  // the ring slot read
+    const int p0 = lo + st * SK + wid * WK + half;
+    float s[HK][GM];
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      float kf[8];
+      load8(reinterpret_cast<const bf16*>(kt + 2 * j * ROW_BYTES), kf);
+      const bool live = p0 + 2 * j < hi;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(qr[g][e], kf[e], d);
+          d = half_sum(d);
+          s[j][g] = !live ? NEG_BIG : uniform ? 0.f : d;
+        }
+      }
+    }
+    // online softmax, once a stage: rescale by alpha, then the stage's p
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        float mx = m[g];
+#pragma unroll
+        for (int j = 0; j < HK; ++j) mx = fmaxf(mx, s[j][g]);
+        const float alpha = __expf(m[g] - mx);
+        m[g] = mx;
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int j = 0; j < HK; ++j) {
+          s[j][g] = (p0 + 2 * j < hi) ? __expf(s[j][g] - mx) : 0.f;
+          l[g] += s[j][g];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      float vf[8];
+      load8(reinterpret_cast<const bf16*>(kt + SK * ROW_BYTES + 2 * j * ROW_BYTES), vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(s[j][g], vf[e], acc[g][e]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+  cp_wait<0>();
+
+  // merge the two half-warps (same dims, other keys) through shuffles
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], 16);
+      const float lx = __shfl_xor_sync(0xffffffffu, l[g], 16);
+      const float mm = fmaxf(m[g], mo);
+      const float a = __expf(m[g] - mm), ao = __expf(mo - mm);
+      m[g] = mm;
+      l[g] = l[g] * a + lx * ao;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[g][e] = acc[g][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][e], 16) * ao;
+    }
+  }
+  // then the four warps through shared memory: red_acc [WARPS][MAXG][HD],
+  // red_m and red_l [WARPS][MAXG], over the ring
+  __syncthreads();
+  float* red_acc = reinterpret_cast<float*>(ring);
+  float* red_m = red_acc + WARPS * MAXG * HD;
+  float* red_l = red_m + WARPS * MAXG;
+  if (half == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        float4* dst = reinterpret_cast<float4*>(red_acc + (wid * MAXG + g) * HD + c * 8);
+        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+        if (c == 0) {
+          red_m[wid * MAXG + g] = m[g];
+          red_l[wid * MAXG + g] = l[g];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int g = 0; g < G; ++g) {  // thread tid: output dim tid
+    float mm = NEG_BIG;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) mm = fmaxf(mm, red_m[k * MAXG + g]);
+    float ls = 0.f, o = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      const float e = __expf(red_m[k * MAXG + g] - mm);
+      ls += red_l[k * MAXG + g] * e;
+      o += red_acc[(k * MAXG + g) * HD + tid] * e;
+    }
+    pacc[(pidx * G + g) * HD + tid] = o;
+    if (tid == 0) {
+      pm[pidx * G + g] = mm;
+      pl[pidx * G + g] = ls;
+    }
   }
 }
 
-// Combine the splits of one (row, KV head): out = sum_s e^(m_s - M) acc_s /
-// sum_s e^(m_s - M) l_s over the splits that attended anything.
+// Combine the splits of one (row, KV head, query head): out = sum_s
+// e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the splits that attended
+// anything (l_s > 0), with the splits spread over the CTA: the maximum and
+// the weights are taken a split a thread, then each thread (an output dim)
+// sums its column of acc over the splits of nonzero weight, many loads in
+// flight. The bf16 and the int8 split kernels both write its partials.
 __global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-                      const float* __restrict__ pacc, bf16* __restrict__ out,
-                      int Hkv, int G, int nsplit) {
+decode_combine_wide_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
+                           const float* __restrict__ pacc, bf16* __restrict__ out,
+                           int Hkv, int G, int nsplit) {
+  __shared__ float es[THREADS];
+  __shared__ float red[2][WARPS];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int d = threadIdx.x;
+  const int g = blockIdx.z;
+  const int tid = threadIdx.x;
   const size_t base = ((size_t)b * Hkv + h) * nsplit;
-  for (int g = 0; g < G; ++g) {
-    float M = NEG_BIG;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t i = (base + s) * G + g;
-      if (pl[i] > 0.f) M = fmaxf(M, pm[i]);
-    }
-    float L = 0.f, o = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t i = (base + s) * G + g;
+  float mx = NEG_BIG;
+  for (int s = tid; s < nsplit; s += THREADS) {
+    const size_t i = (base + s) * G + g;
+    if (pl[i] > 0.f) mx = fmaxf(mx, pm[i]);
+  }
+  mx = warp_max(mx);
+  if ((tid & 31) == 0) red[0][tid >> 5] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < WARPS; ++k) mx = fmaxf(mx, red[0][k]);
+  float ls = 0.f, o = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += THREADS) {
+    float e = 0.f;
+    if (s0 + tid < nsplit) {
+      const size_t i = (base + s0 + tid) * G + g;
       if (pl[i] > 0.f) {
-        const float e = __expf(pm[i] - M);
-        L += pl[i] * e;
-        o += pacc[i * HD + d] * e;
+        e = __expf(pm[i] - mx);
+        ls += pl[i] * e;
       }
     }
-    out[(((size_t)b * Hkv + h) * G + g) * HD + d] = __float2bfloat16(L > 0.f ? o / L : 0.f);
+    __syncthreads();  // the previous tile's weights are read
+    es[tid] = e;
+    __syncthreads();
+    const int n = min(THREADS, nsplit - s0);
+#pragma unroll 8
+    for (int k = 0; k < n; ++k) {
+      const float ek = es[k];
+      if (ek != 0.f) o += ek * pacc[((base + s0 + k) * G + g) * HD + tid];
+    }
   }
+  ls = warp_sum(ls);
+  if ((tid & 31) == 0) red[1][tid >> 5] = ls;
+  __syncthreads();
+  ls = 0.f;
+#pragma unroll
+  for (int k = 0; k < WARPS; ++k) ls += red[1][k];
+  out[(((size_t)b * Hkv + h) * G + g) * HD + tid] = __float2bfloat16(ls > 0.f ? o / ls : 0.f);
+}
+
+// The split kernel's registers hold GM heads: four when G <= 4 (about 128
+// registers, four CTAs an SM), else eight.
+template <bool PAGED, bool POST, int GM>
+int launch_split(const void* q, const void* nk, const void* nv, const void* ck,
+                 const void* cv, const void* lengths, const void* slot_ids, void* pm, void* pl,
+                 void* pacc, int layer, int B, int Ba, int Hkv, int G, int S, int chunk,
+                 int nsplit, float scale, const PagedKV& pg, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<PAGED, POST, GM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  decode_split_kernel<PAGED, POST, GM><<<dim3(nsplit, Hkv, Ba), THREADS, SMEM_BYTES, st>>>(
+      (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck, (const bf16*)cv,
+      (const int*)lengths, (const int*)slot_ids, (float*)pm, (float*)pl, (float*)pacc, layer,
+      B, Hkv, G, S, chunk, nsplit, scale, pg);
+  return (int)cudaGetLastError();
 }
 
 template <bool PAGED, bool POST = false>
@@ -241,21 +382,16 @@ int launch(const void* q, const void* nk, const void* nv, const void* ck, const 
            void* out, int layer, int B, int Ba, int Hkv, int G, int S, int hd, int chunk,
            int nsplit, float scale, PagedKV pg, void* stream) {
   if (hd != HD || G > MAXG || G < 1 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<PAGED, POST>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(nsplit, Hkv, Ba);
-  decode_split_kernel<PAGED, POST><<<grid, THREADS, SMEM_BYTES, st>>>(
-      (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck,
-      (const bf16*)cv, (const int*)lengths, (const int*)slot_ids, (float*)pm,
-      (float*)pl, (float*)pacc, layer, B, Hkv, G, S, chunk, nsplit, scale, pg);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_combine_kernel<<<dim3(Hkv, Ba), THREADS, 0, st>>>(
-      (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv,
-      G, nsplit);
+  const int rc =
+      G <= 4 ? launch_split<PAGED, POST, 4>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc,
+                                            layer, B, Ba, Hkv, G, S, chunk, nsplit, scale, pg, st)
+             : launch_split<PAGED, POST, MAXG>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl,
+                                               pacc, layer, B, Ba, Hkv, G, S, chunk, nsplit,
+                                               scale, pg, st);
+  if (rc != 0) return rc;
+  decode_combine_wide_kernel<<<dim3(Hkv, Ba, G), THREADS, 0, st>>>(
+      (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv, G, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -507,7 +643,7 @@ int launch_q8(const void* q, const void* nk, const void* nv, const FusedQ8& c,
           : launch_q8_arm<PAGED, false>(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, layer,
                                         Ba, Hkv, G, chunk, nsplit, group, scale, st);
   if (rc != 0) return rc;
-  decode_combine_kernel<<<dim3(Hkv, Ba), THREADS, 0, st>>>(
+  decode_combine_wide_kernel<<<dim3(Hkv, Ba, G), THREADS, 0, st>>>(
       (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv, G, nsplit);
   return (int)cudaGetLastError();
 }

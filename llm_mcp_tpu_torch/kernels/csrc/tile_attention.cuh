@@ -125,28 +125,9 @@ struct State {
 
 // -- shared memory, copies and fences -----------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte chunk c (0..15) of row r in a swizzled tile.
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 3) * HALF_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when `src` is nullptr
-// (`fallback`, a global address, is then read by no one).
-__device__ __forceinline__ void cp16(void* dst, const void* src, const void* fallback) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src != nullptr ? src : fallback), "r"(src != nullptr ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // make this thread's shared-memory writes visible to wgmma (async proxy)

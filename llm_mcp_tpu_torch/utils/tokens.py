@@ -17,3 +17,19 @@ def messages_to_prompt(messages: list[dict[str, Any]]) -> str:
             )
         parts.append(f"{role}: {content}")
     return "\n".join(parts)
+
+
+def split_think(text: str) -> tuple[str, str]:
+    """Split a leading `<think>...</think>` block from the visible answer.
+
+    Returns (thinking, answer). Text that does not start (after whitespace)
+    with `<think>` is returned whole as the answer; otherwise both parts are
+    stripped, and an unterminated block is all thinking.
+    """
+    stripped = text.lstrip()
+    if not stripped.startswith("<think>"):
+        return "", text
+    end = stripped.find("</think>")
+    if end < 0:
+        return stripped[len("<think>"):].strip(), ""
+    return stripped[len("<think>"):end].strip(), stripped[end + len("</think>"):].strip()

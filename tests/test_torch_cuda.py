@@ -324,7 +324,7 @@ def test_cuda_mla_ragged_matches_plain(quant, bt):
 def test_cuda_decode_attention_matches_plain(G):
     """The post-append decode kernel against its plain version: lengths 0,
     mid-row, S - 1, >= S (all S) and -1 (the mean of V over S), on a row
-    that splits into several 256-key chunks; |err| <= 1e-3 + 1e-2*|ref|."""
+    that splits into several chunks; |err| <= 1e-3 + 1e-2*|ref|."""
     _, _, rn, i32 = _card(50 + G)
     B, Hkv, S, hd = 6, 2, 1000, 128
     q, ck, cv = rn(B, Hkv, G, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
@@ -397,4 +397,111 @@ def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
             ref = P.ragged_prefill_plain(*args, 0.07)
         out = P.ragged_prefill_attend_bf16(*args, scale=0.07, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+def _decode_case(rn, i32, L, B, Hkv, G, S, hd):
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    return q, nk, nv, rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_cuda_decode_bf16_split_edges(monkeypatch, G, chunk):
+    """The bf16 decode kernel (cp.async ring of 32-key stages, per-warp
+    keys and softmax) against its plain version at every edge of its
+    design: w = 0, a stage edge (31, 32), a split edge (chunk - 1, chunk),
+    past two splits, S - 1, and a row parked at S; rows permuted through
+    slot_ids; |err| <= 1e-3 + 1e-2*|ref|."""
+    _, _, rn, i32 = _card(200 + 10 * G + chunk)
+    monkeypatch.setattr(P, "DECODE_CHUNK_BF16", chunk)
+    L, B, Hkv, S, hd = 2, 8, 2, 640, 128
+    q, nk, nv, ck, cv = _decode_case(rn, i32, L, B, Hkv, G, S, hd)
+    lens = i32([0, 31, 32, chunk - 1, chunk, 2 * chunk + 17, S - 1, S])
+    ids = i32([5, 2, 7, 0, 3, 6, 1, 4])
+    out = P.decode_attend_bf16(q, nk, nv, ck, cv, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_plain(q, nk, nv, ck, cv, 1, lens, ids, 0.09)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("bt", [32, 64, 128, 256])
+def test_cuda_decode_bf16_paged_edges(monkeypatch, bt, chunk):
+    """The paged bf16 decode kernel against its plain version at every
+    block size the physical layout takes: each row's first three blocks
+    in pool rows (shuffled order), one block in another slot's arena home,
+    scrambled arena rows under every redirected block, w inside a pool
+    block (at a stage edge and at a block's last key), inside the foreign
+    home, at S - 1 and parked at S."""
+    dev, _, rn, i32 = _card(300 + bt + chunk)
+    monkeypatch.setattr(P, "DECODE_CHUNK_BF16", chunk)
+    L, B, Hkv, G, S, hd, pxb = 2, 6, 2, 4, 1024, 128, 5
+    nbs = S // bt
+    q, nk, nv, ck, cv = _decode_case(rn, i32, L, B, Hkv, G, S, hd)
+    pk, pv = rn(L, pxb, Hkv, bt, hd), rn(L, pxb, Hkv, bt, hd)
+    tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+    for b in range(B):
+        tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+    tbl[1, 3] = 4 * nbs + 3  # slot 1's block 3 lives in slot 4's home
+    tbl = tbl.to(dev)
+    lens = i32([0, 32, 3 * bt - 1, 3 * bt + 7, S - 1, S])
+    ids = i32([2, 0, 4, 1, 5, 3])  # the row at 3 * bt + 7 reads slot 1
+    paged = dict(block_tables=tbl, pool_k=pk, pool_v=pv)
+    out = P.decode_attend_bf16(q, nk, nv, ck, cv, 1, lens, slot_ids=ids, scale=0.09, **paged)
+    ref = P.decode_attend_paged_plain(q, nk, nv, ck, cv, 1, lens, tbl, pk, pv, ids, 0.09)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 8])
+def test_cuda_decode_attention_split_edges(monkeypatch, G, chunk):
+    """The post-append arm of the same kernel at lengths -1 (the mean of V
+    over S), 0, the stage and split edges, mid-row, S - 1 and >= S (all
+    S), inclusive mask; |err| <= 1e-3 + 1e-2*|ref|."""
+    _, _, rn, i32 = _card(400 + G + chunk)
+    monkeypatch.setattr(P, "DECODE_CHUNK_BF16", chunk)
+    B, Hkv, S, hd = 10, 2, 1000, 128
+    q, ck, cv = rn(B, Hkv, G, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    lens = i32([-1, 0, 31, 32, chunk - 1, chunk, 500, S - 1, S, S + 3])
+    out = P.decode_attention(q, ck, cv, lens)
+    ref = P.decode_attention_plain(q, ck, cv, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_split_sizes_passed(monkeypatch):
+    """The bf16 decode wrappers pass DECODE_CHUNK_BF16 and the int8 ones
+    still pass DECODE_CHUNK = 256 (the int8 kernel takes whole
+    requantization groups of at most 256 keys), each with S / chunk
+    splits, and both still match their plain versions."""
+    dev, g, rn, i32 = _card(500)
+    seen = {}
+    launch = P._launch
+
+    def spy(name, symbol, *args):
+        seen[symbol] = args
+        launch(name, symbol, *args)
+
+    monkeypatch.setattr(P, "_launch", spy)
+    L, B, Hkv, G, S, hd = 2, 4, 2, 4, 1024, 128
+    q, nk, nv, ck, cv = _decode_case(rn, i32, L, B, Hkv, G, S, hd)
+    lens, ids = i32([0, 300, S - 1, S]), i32([3, 1, 0, 2])
+    out = P.decode_attend_bf16(q, nk, nv, ck, cv, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_plain(q, nk, nv, ck, cv, 1, lens, ids, 0.09)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    # pointers (11), layer, B, Ba, Hkv, G, S, hd, then chunk and nsplit
+    assert seen["decode_attend_bf16"][18:20] == (P.DECODE_CHUNK_BF16, S // P.DECODE_CHUNK_BF16)
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd)
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, P.q8_group(S))
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    # pointers (11), layer, B, Ba, Hkv, Hf, G, S, hd, then chunk and nsplit
+    assert P.DECODE_CHUNK == 256
+    assert seen["decode_attend_q8"][19:21] == (256, S // 256)
     torch.cuda.synchronize()
