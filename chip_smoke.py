@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (`llm_mcp_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # every phase below, one card
-    python3 chip_smoke.py --kernels   # phases 1-2 without the MLA kernels,
+    python3 chip_smoke.py --kernels   # phases 1-2 and the MLA kernel checks,
                                       # with the bf16 decode chunk sweep
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
 
@@ -12,13 +12,14 @@ one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
      nvcc per source, in parallel) and print ptxas's register report; no
-     instantiation of the bf16 decode kernel may spill;
+     instantiation of the bf16 decode kernel or of the MLA ragged kernel
+     may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
      call (where one computes the same function) and the bound with CUDA
-     events. With `--kernels` the three bf16 decode arms are also checked
-     and timed at each split size of DECODE_CHUNKS (the sweep behind
+     events. With `--kernels` the three bf16 decode arms
+     at each split size of DECODE_CHUNKS (the sweep behind
      `DECODE_CHUNK_BF16`), at these rows and at the breakdown's 8 rows
      of fill 1024. `decode_attention` (post-append, on no served path) runs
      at the decode shapes over the cache with this step's K/V written;
@@ -1794,23 +1795,34 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     return out
 
 
-# Planted faults in the bf16 decode kernel, each run in its own copy of the
-# checkout by `python3 chip_smoke.py --planted`: (source, text, replacement).
+# Planted faults in the bf16 decode kernel and the MLA ragged kernel, each
+# run in its own copy of the checkout by `python3 chip_smoke.py --planted`:
+# (source, text, replacement).
 PLANTED = {
     "no_alpha_rescale": ("decode_attend.cu", "const float alpha = __expf(m[g] - mx);",
                          "const float alpha = 1.f;"),
     "w_override_skipped": ("decode_attend.cu", "if (!POST && pos == we) {", "if (false) {"),
     "wrong_ring_stage": ("decode_attend.cu", "mine + (st % NST) * STAGE_BYTES;  // the ring slot read",
                          "mine + ((st + 1) % NST) * STAGE_BYTES;  // the ring slot read"),
+    "mla_rope_scale_swapped": ("ragged_prefill_mla.cu",
+                               "const float v = Q8 ? (sl[e] * ls + sr[e] * rs) * scale",
+                               "const float v = Q8 ? (sl[e] * ls + sr[e] * ls) * scale"),
+    "mla_wrong_ring_stage": ("ragged_prefill_mla.cu",
+                             "const unsigned char* kt = s.k(kv);  // the ring stage read",
+                             "const unsigned char* kt = s.k((kv + 1) % NST);  // the ring stage read"),
+    "mla_causal_strict": ("ragged_prefill_mla.cu",
+                          "return tok[i] >= u_lo + ti * BK + kk && tg == rid[i];",
+                          "return tok[i] > u_lo + ti * BK + kk && tg == rid[i];"),
 }
 
 
 def planted_phase() -> dict:
     """Each fault of PLANTED in a copy of the port and this script under
     build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
-    the bf16 and int8 kernel checks); returns, per fault, the rows whose
+    the bf16, int8 and MLA kernel checks); returns, per fault, the rows whose
     check failed and every row's worst err/limit. A fault that no row
-    catches fails the run."""
+    catches fails the run, and so does a fault in the MLA ragged kernel
+    that no MLA ragged row catches."""
     import shutil
     from pathlib import Path
 
@@ -1845,6 +1857,9 @@ def planted_phase() -> dict:
         log(f"planted {fault}: failed rows {failed}")
         if not failed:
             check_failed(f"planted fault {fault} was caught by no row")
+        elif src == "ragged_prefill_mla.cu" and not any(
+                n.startswith("ragged_prefill_attend_mla") for n in failed):
+            check_failed(f"planted fault {fault} failed no MLA ragged row: {failed}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
@@ -1898,19 +1913,23 @@ def main() -> None:
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    split = ptxas_report(reports.get("decode_attend", ""), "decode_split_kernel")
-    log(f"ptxas decode_split_kernel (bf16 decode, three arms): {json.dumps(split)}")
-    if not split or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
-                        for r in split.values()):
-        check_failed(f"decode_split_kernel spills or was not reported: {split}")
+    for source, kernel, n, what in (
+            ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
+            ("ragged_prefill_mla", "ragged_prefill_mla_kernel", 4,
+             "MLA ragged prefill, four arms")):
+        regs = ptxas_report(reports.get(source, ""), kernel)
+        log(f"ptxas {kernel} ({what}): {json.dumps(regs)}")
+        if len(regs) < n or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                                for r in regs.values()):
+            check_failed(f"{kernel} spills or was not reported: {regs}")
 
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
+    kernels.update(kernel_phase_mla())
     if "--kernels" in sys.argv[1:]:
         # the kernel checks alone (planted-fault runs): rows, then the verdict
         print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
         sys.exit(1 if FAILURES else 0)
-    kernels.update(kernel_phase_mla())
     gemm = int8_gemm_phase()
 
     from llm_mcp_tpu_torch.api.inference import serve

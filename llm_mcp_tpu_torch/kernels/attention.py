@@ -24,7 +24,8 @@ Eighteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
                                    (`_paged`): four entry points
 
 The flash and ragged prefill kernels (bf16 and int8) multiply on the
-tensor cores (`wgmma`, `csrc/tile_attention.cuh`).
+tensor cores (`wgmma`, `csrc/tile_attention.cuh`), and so does the MLA
+ragged prefill kernel, on a tile of its own (`csrc/ragged_prefill_mla.cu`).
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -1300,9 +1301,9 @@ def ragged_prefill_attend_mla(
     _check(name, offsets, torch.int32, (Rn + 1,), dev)
     for t in (slots, starts):
         _check(name, t, torch.int32, (Rn,), dev)
-    if R != MLA_R or dr != MLA_DR or 32 % H:
+    if R != MLA_R or dr != MLA_DR or 64 % H:
         raise ValueError(f"{name}: built for kv_lora_rank {MLA_R}, rope dim {MLA_DR} and "
-                         f"heads dividing 32")
+                         f"heads dividing 64")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(qt)

@@ -320,6 +320,74 @@ def test_cuda_mla_ragged_matches_plain(quant, bt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bt", [0, 32, 64, 128, 256])
+@pytest.mark.parametrize("H", [4, 16, 32])
+def test_cuda_mla_ragged_tile_edges(H, bt, quant):
+    """The ragged MLA kernel's 64-row tile (64 / H tokens) at its edges,
+    against its plain version within |err| <= 1e-3 + 1e-2*|ref|: H in
+    {4, 16, 32}; T * H not a multiple of 64 (the last tile's missing rows
+    load zeros and store nothing); odd row lengths, so tiles straddle two
+    descriptor rows and the last row and the pads; an empty row (hi = lo)
+    whose start is not 0; prefixes of 0, 31, 32, 33 and 64 keys (inside,
+    at and past a 32-key tile), of S and past S (clipped); contiguous
+    (bt = 0) and through tables at bt in {32, 64, 128, 256}, the first two
+    blocks of every row in pool rows and the third in another slot's arena
+    home. At int8 the rope scales lie in another range than the latent
+    scales, so swapping them changes every past score."""
+    dev, g, rn, i32 = _card(700 + 10 * H + bt + quant)
+    L, B, S, R, dr, pxb = 2, 8, 1024, 512, 64, 8
+    ns = [5, 3, 0, 7, 1, 6, 9, 2]  # row 2 is empty
+    starts = [0, 31, 17, 32, 33, 64, S, S + 100]
+    Rn = len(ns)
+    T = sum(ns) + 6  # six pads: T odd, so T * H % 64 != 0 for every H here
+    assert (T * H) % 64
+    rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [Rn] * (T - sum(ns)))
+    offsets = i32([sum(ns[:r]) for r in range(Rn + 1)])
+    slots = i32([3, 0, 5, 1, 7, 2, 6, 4])
+
+    def latents(rows, tokens):
+        if not quant:
+            return rn(L, rows, 1, tokens, R), rn(L, rows, 1, tokens, dr)
+        c, r = _latent_planes(g, dev, L, rows, tokens)
+        r["s"] = (r["s"].float() + 0.04).to(torch.bfloat16)  # rope scales in [0.04, 0.08)
+        return c, r
+
+    cc, cr = latents(B, S)
+    qt, qr, cs, krs = rn(T, H, R), rn(T, H, dr), rn(T, R), rn(T, dr)
+    kw = {}
+    if bt:
+        nbs = S // bt
+        pc, pr = latents(pxb, bt)
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            tbl[b, :2] = B * nbs + torch.tensor([(b + j) % pxb for j in range(2)])
+            tbl[b, 2] = ((b + 3) % B) * nbs + 2
+        kw = dict(block_tables=tbl.to(dev), pool_c=pc, pool_r=pr)
+    args = (qt, qr, cs, krs, cc, cr, 1, rowids, offsets, slots, i32(starts))
+    out = P.ragged_prefill_attend_mla(*args, scale=0.07, **kw)
+    ref = P.ragged_prefill_mla_plain(*args, 0.07, kw.get("block_tables"), kw.get("pool_c"),
+                                     kw.get("pool_r"))
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_mla_ragged_refuses_heads_not_dividing_64():
+    """The MLA ragged tile holds 64 (token, head) rows, so the wrapper
+    refuses a head count that does not divide 64, before any launch."""
+    dev, g, rn, i32 = _card(790)
+    T, H, S = 6, 48, 64
+    cc, cr = rn(1, 2, 1, S, 512), rn(1, 2, 1, S, 64)
+    args = (rn(T, H, 512), rn(T, H, 64), rn(T, 512), rn(T, 64), cc, cr, 0,
+            i32([0] * T), i32([0, T]), i32([1]), i32([10]))
+    before = P.LAUNCHES["ragged_prefill_attend_mla"]
+    with pytest.raises(ValueError, match="heads dividing 64"):
+        P.ragged_prefill_attend_mla(*args, scale=0.1)
+    assert P.LAUNCHES["ragged_prefill_attend_mla"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 2, 4])
 def test_cuda_decode_attention_matches_plain(G):
     """The post-append decode kernel against its plain version: lengths 0,

@@ -1,0 +1,132 @@
+"""PORT_PARITY: every CUDA entry point of the port, the Pallas bodies it
+stands for, and the tests that hold it to them.
+
+The counterpart of `tests/test_kernel_parity.py:KERNEL_PARITY` for the
+PyTorch/CUDA port. Each `extern "C"` entry point in
+`llm_mcp_tpu_torch/kernels/csrc/` maps to the `_*_kernel` bodies of
+`llm_mcp_tpu/kernels/attention.py` it replaces, its CPU parity test (the
+plain version against the Pallas body in interpret mode) and its card test
+in `tests/test_torch_cuda.py` (the kernel against its plain version). The
+guards read the sources as text, so they need neither a card nor `nvcc`:
+a new Pallas body, a new entry point or a renamed test that is not
+registered here fails them.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import pytest
+
+from llm_mcp_tpu_torch.kernels import attention as P
+
+ROOT = Path(__file__).resolve().parent.parent
+PALLAS = ROOT / "llm_mcp_tpu" / "kernels" / "attention.py"
+CSRC = ROOT / "llm_mcp_tpu_torch" / "kernels" / "csrc"
+CARD = "tests/test_torch_cuda.py"
+KERNELS = "tests/test_torch_kernels.py"
+MLA = "tests/test_torch_mla.py"
+
+# entry point: (Pallas bodies, (CPU parity test file, name), card test name)
+PORT_PARITY = {
+    "append_kv_bf16": (
+        ("_append_bf16_kernel",), (KERNELS, "test_append_kv_bitwise"),
+        "test_cuda_kernels_match_plain"),
+    "decode_attend_bf16": (
+        ("_attend_bf16_kernel", "_attend_bf16_blocked_kernel"),
+        (KERNELS, "test_decode_attend_matches_pallas"), "test_cuda_decode_bf16_split_edges"),
+    "decode_attend_bf16_paged": (
+        ("_attend_bf16_paged_kernel",), (KERNELS, "test_decode_attend_paged_matches_pallas"),
+        "test_cuda_decode_bf16_paged_edges"),
+    "decode_attention_bf16": (
+        ("_decode_attn_kernel",), (KERNELS, "test_decode_attention_matches_pallas"),
+        "test_cuda_decode_attention_split_edges"),
+    "flash_prefill_bf16": (
+        ("_flash_prefill_kernel",), (KERNELS, "test_flash_prefill_matches_pallas"),
+        "test_cuda_flash_prefill_tile_edges"),
+    "ragged_prefill_bf16": (
+        ("_ragged_prefill_bf16_kernel",), (KERNELS, "test_ragged_prefill_matches_pallas"),
+        "test_cuda_ragged_prefill_tile_edges"),
+    "ragged_prefill_bf16_paged": (
+        ("_ragged_prefill_bf16_kernel",), (KERNELS, "test_ragged_prefill_paged_matches_pallas"),
+        "test_cuda_ragged_prefill_tile_edges"),
+    "append_kv_q8": (
+        ("_append_q8_kernel",), (KERNELS, "test_append_kv_q8_bitwise"),
+        "test_cuda_q8_kernels_match_plain"),
+    "decode_attend_q8": (
+        ("_attend_q8_kernel", "_attend_q8_blocked_kernel"),
+        (KERNELS, "test_decode_attend_q8_matches_pallas"), "test_cuda_q8_kernels_match_plain"),
+    "decode_attend_q8_paged": (
+        ("_attend_q8_paged_kernel",), (KERNELS, "test_decode_attend_q8_paged_matches_pallas"),
+        "test_cuda_q8_paged_kernels_match_plain"),
+    "ragged_prefill_q8": (
+        ("_ragged_prefill_q8_kernel",), (KERNELS, "test_ragged_prefill_q8_matches_pallas"),
+        "test_cuda_ragged_prefill_tile_edges"),
+    "ragged_prefill_q8_paged": (
+        ("_ragged_prefill_q8_kernel",), (KERNELS, "test_ragged_prefill_q8_paged_matches_pallas"),
+        "test_cuda_ragged_prefill_tile_edges"),
+    "decode_attend_q8_mla": (
+        ("_attend_q8_mla_kernel", "_attend_q8_mla_blocked_kernel"),
+        (MLA, "test_decode_attend_q8_mla_matches_pallas"), "test_cuda_mla_decode_matches_plain"),
+    "decode_attend_q8_mla_paged": (
+        ("_attend_q8_mla_paged_kernel",), (MLA, "test_decode_attend_q8_mla_paged_matches_pallas"),
+        "test_cuda_mla_decode_matches_plain"),
+    **{name: (("_ragged_prefill_mla_kernel",),
+              (MLA, "test_ragged_prefill_attend_mla_matches_pallas"),
+              "test_cuda_mla_ragged_tile_edges")
+       for name in ("ragged_prefill_mla", "ragged_prefill_mla_paged", "ragged_prefill_mla_q8",
+                    "ragged_prefill_mla_q8_paged")},
+}
+
+
+def _pallas_bodies() -> set[str]:
+    return set(re.findall(r"^def (_\w+_kernel)\(", PALLAS.read_text(), re.M))
+
+
+def _entry_points() -> dict[str, str]:
+    """{entry point: source file name} over every `extern "C"` in csrc/."""
+    out = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        for name in re.findall(r'extern "C" int (\w+)\(', path.read_text()):
+            out[name] = path.name
+    return out
+
+
+def _test_names(rel: str) -> set[str]:
+    return set(re.findall(r"^def (test_\w+)\(", (ROOT / rel).read_text(), re.M))
+
+
+def test_every_pallas_body_is_registered():
+    """Each `def _*_kernel` of the JAX package's attention module stands
+    behind at least one entry point, and each registered body exists."""
+    bodies = _pallas_bodies()
+    registered = {b for entry in PORT_PARITY.values() for b in entry[0]}
+    assert len(bodies) == 16
+    assert bodies - registered == set(), "Pallas bodies with no CUDA entry point"
+    assert registered - bodies == set(), "registered bodies that are not in the JAX package"
+
+
+def test_every_entry_point_is_registered():
+    """Each `extern "C"` of the port's CUDA sources is in PORT_PARITY and
+    nothing else is; the wrappers bind exactly these symbols."""
+    entries = _entry_points()
+    assert len(entries) == 18
+    assert set(entries) == set(PORT_PARITY)
+    assert set(P._SIGNATURES) == set(PORT_PARITY)
+
+
+@pytest.mark.parametrize("entry", sorted(PORT_PARITY))
+def test_port_parity_entry(entry):
+    """The entry point's source, its wrapper binding, its Pallas bodies and
+    both named tests exist; the card test is marked `cuda`."""
+    bodies, (cpu_file, cpu_test), card_test = PORT_PARITY[entry]
+    source = _entry_points()[entry]
+    assert P._SIGNATURES[entry][0] == source[: -len(".cu")]
+    assert set(bodies) <= _pallas_bodies()
+    assert Path(cpu_file).name.startswith("test_torch_") and cpu_file != CARD
+    assert cpu_test in _test_names(cpu_file), f"{cpu_file}::{cpu_test} does not exist"
+    card = (ROOT / CARD).read_text()
+    assert card_test in _test_names(CARD), f"{CARD}::{card_test} does not exist"
+    decorators = card[: card.index(f"def {card_test}(")].rsplit("\n\n\n", 1)[-1]
+    assert "@pytest.mark.cuda" in decorators, f"{card_test} is not marked cuda"
