@@ -12,8 +12,8 @@ one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
      nvcc per source, in parallel) and print ptxas's register report; no
-     instantiation of the bf16 decode kernel or of the MLA ragged kernel
-     may spill;
+     instantiation of the bf16 decode kernel, of the MLA ragged kernel or
+     of the MLA decode kernels may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
@@ -78,8 +78,9 @@ one run reads every check; the script then exits non-zero):
      against their plain versions at V2-Lite's shapes: the int8 decode
      kernel with the whole-row group and paged at 64-, 32- and 128-token
      blocks at S = 4096, and with the 512-key group (contiguous) and the
-     exact group (64-token tables) on rows of 16384 keys, which split into
-     chunks; the ragged kernel with bf16
+     exact group (64-token tables) on rows of 16384 keys, timed cold (the
+     layer turned over every layer of the planes, more bytes than the L2
+     holds) and warm (one layer again); the ragged kernel with bf16
      and int8 latents, contiguous and paged.
 
 The last lines are the card (`nvidia-smi` name, power limit), one JSON
@@ -91,6 +92,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import itertools
 import json
 import math
 import re
@@ -239,6 +241,15 @@ def time_ms(fn, iters: int, warmup: int = 2, queue_ahead: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_warm_ms(call, layers: int, iters: int) -> tuple[float, float]:
+    """(cold, warm) ms per call of `call(layer)`, by `time_ms`: cold turns
+    the layer over `layers` layers, so that the calls read more bytes than
+    the 50 MB L2 holds, as a decode step's 27 layers do; warm repeats layer
+    1, whose bytes the L2 then serves."""
+    it = itertools.cycle(range(layers))
+    return time_ms(lambda: call(next(it)), iters), time_ms(lambda: call(1), iters)
 
 
 def device_ms_by_kernel(fn, n: int = 10) -> dict[str, float] | str:
@@ -859,8 +870,9 @@ def kernel_phase_mla() -> dict[str, dict]:
     paged at 64-token blocks (timed, group 64), 32 (JAX's exact fallback:
     128 blocks) and 128 (checked); rows of 16384 keys, past the whole-S
     budget, where JAX serves its blocked arm's 512-key groups and, through
-    64-token tables (256 blocks), its exact fallback: both split a row
-    into 4096-key chunks (checked and timed); the ragged kernel on T = 2048 (4 rows over prefixes
+    64-token tables (256 blocks), its exact fallback (checked and timed);
+    every decode row is timed cold, the layer turned over the planes'
+    layers, and warm (layer 1 again); the ragged kernel on T = 2048 (4 rows over prefixes
     0/512/1024/1536 and a pad tail) with bf16 and int8 latents, contiguous
     and paged (64 timed, 32 and 128 checked). Latents are made by
     `quantize_kv` from random bf16 rows, as the engine writes them. The
@@ -973,14 +985,28 @@ def kernel_phase_mla() -> dict[str, dict]:
     lib, backend = sdpa_decode(cc, cr, lens)
     dshape = {"qt": [Ba, H, R], "latents": [L, B, 1, S, R], "lengths": lens.tolist(),
               "slot_ids": ids.tolist(), "group": group,
+              "splits": K.mla_decode_plan(S, group, Ba, H)[0],
+              "timing": f"ms cold: the layer turned over {L} layers "
+                        f"({L * dbytes / 1e6:.0f} MB attended, 50 MB L2); warm_ms: layer 1",
               "library": f"SDPA ({backend}), length mask, keys [lat*ls | rop*rs] width 576, "
                          f"values lat*ls width 512, dequantized to bf16"}
+    cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8_mla(
+        qt, qr, nc, nr, cc, cr, li, lens, slot_ids=ids, scale=scale), L, 54)
     record(
-        "decode_attend_q8_mla", out, ref,
-        time_ms(lambda: K.decode_attend_q8_mla(*dargs, slot_ids=ids, scale=scale), 50),
+        "decode_attend_q8_mla", out, ref, cold,
         time_ms(lambda: K.decode_attend_q8_mla_plain(*dargs, ids, scale, group), 5),
         dbytes, dops_ms, time_ms(lib, 20), dshape,
     )
+    # the kernels' fixed cost: every row parked, one split each and no key read
+    parked = torch.full_like(lens, S)
+    res["decode_attend_q8_mla"].update(
+        warm_ms=warm,
+        all_parked_ms=time_ms(lambda: K.decode_attend_q8_mla(
+            qt, qr, nc, nr, cc, cr, 1, parked, slot_ids=ids, scale=scale), 50),
+        device_ms_by_kernel=device_ms_by_kernel(
+            lambda: K.decode_attend_q8_mla(*dargs, slot_ids=ids, scale=scale)))
+    log(f"decode_attend_q8_mla: cold {cold:.5f} ms, warm {warm:.5f} ms, all rows parked "
+        f"{res['decode_attend_q8_mla']['all_parked_ms']:.5f} ms")
     del lib
     # paged
     others: dict[str, dict] = {}
@@ -1001,9 +1027,10 @@ def kernel_phase_mla() -> dict[str, dict]:
             continue
         lib, backend = sdpa_decode(ac, ar, lens, tbl, pc, pr)
         blocks = sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist())
+        cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8_mla(
+            qt, qr, nc, nr, ac, ar, li, lens, slot_ids=ids, scale=scale, **pg), L, 54)
         record(
-            "decode_attend_q8_mla_paged", out, ref,
-            time_ms(lambda: K.decode_attend_q8_mla(*pargs, slot_ids=ids, scale=scale, **pg), 50),
+            "decode_attend_q8_mla_paged", out, ref, cold,
             time_ms(lambda: K.decode_attend_q8_mla_plain(*pargs, ids, scale, pgroup, tbl, pc, pr),
                     5),
             dbytes + blocks * 4, dops_ms, time_ms(lib, 20),
@@ -1012,15 +1039,17 @@ def kernel_phase_mla() -> dict[str, dict]:
                  library=f"SDPA ({backend}), length mask, on the rows gathered through the "
                          f"tables and dequantized to bf16"),
         )
+        res["decode_attend_q8_mla_paged"]["warm_ms"] = warm
+        log(f"decode_attend_q8_mla_paged: cold {cold:.5f} ms, warm {warm:.5f} ms")
         del lib, ac, ar, pc, pr, pg
     del cc, cr
 
-    # -- decode past the whole-S budget: 16384-key rows of 2 layers ----------
-    SL = 16384
+    # -- decode past the whole-S budget: 16384-key rows of 4 layers ----------
+    SL, LL = 16384, 4
     lgroup = K.mla_decode_group(SL, R, dr, H)
     if lgroup != 512:
         check_failed(f"decode_attend_q8_mla: the group at S={SL} is {lgroup}, JAX's 512 wanted")
-    lc, lr = planes(B, SL, True, layers=2)
+    lc, lr = planes(B, SL, True, layers=LL)
     llens = i32([2047, 5119, 8191, SL, 12287, 14335, 15359, 16383])
     lkeys = sum(w + 1 if w < SL else 1 for w in llens.tolist())
     lbytes = dbytes + (lkeys - keys) * (R + dr + 2 * 2)
@@ -1034,6 +1063,8 @@ def kernel_phase_mla() -> dict[str, dict]:
             pg = dict(block_tables=tbl, pool_c=pc, pool_r=pr)
         name = "decode_attend_q8_mla" if bt is None else "decode_attend_q8_mla_paged"
         out = K.decode_attend_q8_mla(*largs, slot_ids=ids, scale=scale, **pg)
+        cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8_mla(
+            *largs[:6], li, llens, slot_ids=ids, scale=scale, **pg), LL, 20)
         ref = K.decode_attend_q8_mla_plain(*largs, ids, scale, lg, pg.get("block_tables"),
                                            pg.get("pool_c"), pg.get("pool_r"))
         err, ratio = compare(name, out, ref)
@@ -1041,10 +1072,10 @@ def kernel_phase_mla() -> dict[str, dict]:
         t_bytes = (lbytes + lblocks * 4) / HBM_BYTES_PER_S * 1e3
         row = {
             "S": SL, "lengths": llens.tolist(), "block_tokens": bt, "group": lg,
-            "chunk": K._mla_decode_chunk(SL, lg), "max_abs_err": err,
-            "worst_err_over_limit": ratio,
-            "ms": time_ms(lambda: K.decode_attend_q8_mla(*largs, slot_ids=ids, scale=scale, **pg),
-                          20),
+            "splits": K.mla_decode_plan(SL, lg, Ba, H)[0], "max_abs_err": err,
+            "worst_err_over_limit": ratio, "ms": cold, "warm_ms": warm,
+            "timing": f"ms cold: the layer turned over {LL} layers "
+                      f"({LL * lbytes / 1e6:.0f} MB attended, 50 MB L2); warm_ms: layer 1",
             "plain_ms": time_ms(lambda: K.decode_attend_q8_mla_plain(
                 *largs, ids, scale, lg, pg.get("block_tables"), pg.get("pool_c"),
                 pg.get("pool_r")), 2),
@@ -1732,8 +1763,10 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     shapes (8 rows at fill 1024, unpaged and with the first 16 blocks of
     every row read from the prefix pool; one 512-token chunk over a
     1024-token prefix): wall per call from CUDA events, device time by
-    kernel from torch.profiler, and the device's idle share
-    (1 - busy / wall). `quantized`: the int8 engine's weights over a fused
+    kernel from torch.profiler (and the port's own kernels by name, their
+    instantiations summed), and the device's idle share (1 - busy /
+    wall; a kernel launched to overlap its predecessor counts from its
+    start, so busy is an upper bound). `quantized`: the int8 engine's weights over a fused
     int8 cache of Q8_SLOTS rows, the 8 decode rows compacted through
     slot_ids as the engine runs them."""
     import torch
@@ -1783,11 +1816,17 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
             reverse=True,
         )
         busy = sum(t for t, _ in kern)
+        port: dict[str, float] = {}  # the port's own kernels, instantiations summed
+        for t, k in kern:
+            m = re.search(r"\(anonymous namespace\)::(\w+)", k)
+            if m:
+                port[m.group(1)] = port.get(m.group(1), 0.0) + t
         out[name] = {
             "ms": ms,
             "device_busy_ms": busy if kern else "not measured",
             "idle_share": 1.0 - busy / ms if kern else "not measured",
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
+            "port_kernels_ms": port,
         }
     log(f"breakdown {cfg.name}{' int8' if quantized else ''}: {json.dumps(out)}")
     del ck, cv, cache, paged
@@ -1795,7 +1834,7 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     return out
 
 
-# Planted faults in the bf16 decode kernel and the MLA ragged kernel, each
+# Planted faults in the bf16 decode kernel and the MLA kernels, each
 # run in its own copy of the checkout by `python3 chip_smoke.py --planted`:
 # (source, text, replacement).
 PLANTED = {
@@ -1813,6 +1852,16 @@ PLANTED = {
     "mla_causal_strict": ("ragged_prefill_mla.cu",
                           "return tok[i] >= u_lo + ti * BK + kk && tg == rid[i];",
                           "return tok[i] > u_lo + ti * BK + kk && tg == rid[i];"),
+    # the MLA decode kernel: a spanning group's scale from its own split
+    # only, the rope scale read as the latent one, position w's exact score
+    # skipped
+    "mla_decode_group_max_per_split": ("decode_attend_mla.cu",
+                                       "if (span && zz >= zlo && zz < zhi) {",
+                                       "if (span && zz == z) {"),
+    "mla_decode_rope_scale_swapped": ("decode_attend_mla.cu", "const float rs = sm.rs[p];",
+                                      "const float rs = sm.ls[p];"),
+    "mla_decode_w_override_skipped": ("decode_attend_mla.cu", "if (p == wl) v = sm.snew[hl];",
+                                      "if (false) v = sm.snew[hl];"),
 }
 
 
@@ -1821,8 +1870,8 @@ def planted_phase() -> dict:
     build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
     the bf16, int8 and MLA kernel checks); returns, per fault, the rows whose
     check failed and every row's worst err/limit. A fault that no row
-    catches fails the run, and so does a fault in the MLA ragged kernel
-    that no MLA ragged row catches."""
+    catches fails the run, and so does a fault in an MLA kernel that no
+    row of that kernel catches."""
     import shutil
     from pathlib import Path
 
@@ -1860,13 +1909,18 @@ def planted_phase() -> dict:
         elif src == "ragged_prefill_mla.cu" and not any(
                 n.startswith("ragged_prefill_attend_mla") for n in failed):
             check_failed(f"planted fault {fault} failed no MLA ragged row: {failed}")
+        elif src == "decode_attend_mla.cu" and not any(
+                n.startswith("decode_attend_q8_mla") for n in failed):
+            check_failed(f"planted fault {fault} failed no MLA decode row: {failed}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
 
 def ptxas_report(text: str, kernel: str) -> dict[str, dict]:
-    """Registers and spills of each instantiation of `kernel` in ptxas's
-    -v output: {mangled name: {registers, spill_stores, spill_loads}}."""
+    """Registers, spills and static shared memory of each instantiation of
+    `kernel` in ptxas's -v output: {mangled name: {registers,
+    spill_stores, spill_loads, static_smem}} (dynamic shared memory is
+    set at launch and not in this report)."""
     out: dict[str, dict] = {}
     name = None
     for line in text.splitlines():
@@ -1883,6 +1937,9 @@ def ptxas_report(text: str, kernel: str) -> dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out.setdefault(name, {})["static_smem"] = int(m.group(1))
     return out
 
 
@@ -1916,7 +1973,9 @@ def main() -> None:
     for source, kernel, n, what in (
             ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
             ("ragged_prefill_mla", "ragged_prefill_mla_kernel", 4,
-             "MLA ragged prefill, four arms")):
+             "MLA ragged prefill, four arms"),
+            ("decode_attend_mla", "mla_", 9,
+             "MLA int8 decode: score and PV kernels in four arms each, and the combine")):
         regs = ptxas_report(reports.get(source, ""), kernel)
         log(f"ptxas {kernel} ({what}): {json.dumps(regs)}")
         if len(regs) < n or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)

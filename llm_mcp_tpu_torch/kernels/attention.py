@@ -26,6 +26,8 @@ Eighteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
 The flash and ragged prefill kernels (bf16 and int8) multiply on the
 tensor cores (`wgmma`, `csrc/tile_attention.cuh`), and so does the MLA
 ragged prefill kernel, on a tile of its own (`csrc/ragged_prefill_mla.cu`).
+The MLA int8 decode kernel takes all heads of a row and 128 of its keys a
+CTA, on the int8 tensor cores (`mma.sync`, `csrc/decode_attend_mla.cu`).
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -109,8 +111,8 @@ _SIGNATURES = {
     "decode_attend_q8_paged": ("decode_attend", [_P] * 14 + [_I] * 13 + [_F, _P]),
     "ragged_prefill_q8": ("ragged_prefill", [_P] * 10 + [_I] * 9 + [_F, _P]),
     "ragged_prefill_q8_paged": ("ragged_prefill", [_P] * 13 + [_I] * 12 + [_F, _P]),
-    "decode_attend_q8_mla": ("decode_attend_mla", [_P] * 13 + [_I] * 9 + [_F, _P]),
-    "decode_attend_q8_mla_paged": ("decode_attend_mla", [_P] * 18 + [_I] * 12 + [_F, _P]),
+    "decode_attend_q8_mla": ("decode_attend_mla", [_P] * 12 + [_I] * 9 + [_F, _P]),
+    "decode_attend_q8_mla_paged": ("decode_attend_mla", [_P] * 17 + [_I] * 12 + [_F, _P]),
     "ragged_prefill_mla": ("ragged_prefill_mla", [_P] * 11 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_mla_paged": ("ragged_prefill_mla", [_P] * 14 + [_I] * 11 + [_F, _P]),
     "ragged_prefill_mla_q8": ("ragged_prefill_mla", [_P] * 13 + [_I] * 8 + [_F, _P]),
@@ -1100,28 +1102,24 @@ def _mla_tables(name, block_tables, S, dev) -> tuple[int, int]:
     return nbs, S // nbs
 
 
-# shared memory a CTA may use on the H100, less the decode kernel's static
-# arrays (under 5 KB)
-_MLA_DECODE_SMEM = 232_448 - 8_192
-_MLA_DECODE_CHUNK = 4096  # keys a CTA takes of a row whose group lets it split
+MLA_DECODE_SPLIT = 128  # keys a CTA of the MLA decode kernel takes (its CH)
 
 
-def _mla_decode_chunk(S: int, group: int) -> int:
-    """Keys per CTA of the MLA decode kernel: the whole row when the group
-    is the whole row or the row fits one chunk, else whole groups of about
-    _MLA_DECODE_CHUNK keys (any count for group 0); raises when a chunk's
-    scores do not fit shared memory."""
-    if S <= _MLA_DECODE_CHUNK or group >= S:
-        chunk = S
-    elif group == 0:
-        chunk = _MLA_DECODE_CHUNK
-    else:
-        chunk = max(group, _MLA_DECODE_CHUNK // group * group)
-    ngroups = -(-chunk // group) if group else 0
-    if chunk * 13 + 16 + 4 * ngroups > _MLA_DECODE_SMEM:
-        raise ValueError(f"decode_attend_q8_mla: a {chunk}-key chunk (S={S}, group {group}) "
-                         f"does not fit shared memory")
-    return chunk
+def mla_decode_plan(S: int, group: int, Ba: int, H: int, R: int = MLA_R) -> tuple[int, int]:
+    """(splits a row, f32 workspace elements) of the MLA decode kernel:
+    every row splits into MLA_DECODE_SPLIT-key CTAs whatever its group; a
+    group must be exact (0), the whole row, whole splits or whole groups of
+    at least 32 keys inside a split, so that each split's p8 can take its
+    group's scale (raises otherwise). The workspace holds each split's
+    f32 partial context [Ba, splits, H, R], the scores [Ba, H, splits *
+    split] and each split's max, sum and max of p * ls per head [Ba,
+    splits, 3, H]."""
+    sp = MLA_DECODE_SPLIT
+    if not (group == 0 or group >= S or group % sp == 0 or (group >= 32 and sp % group == 0)):
+        raise ValueError(f"decode_attend_q8_mla: a {group}-key group (S={S}) neither holds "
+                         f"nor fits whole {sp}-key splits")
+    nsplit = -(-S // sp)
+    return nsplit, Ba * H * nsplit * (sp + 3 + R)
 
 
 def decode_attend_q8_mla(
@@ -1145,8 +1143,10 @@ def decode_attend_q8_mla(
     Returns the context in latent space [Ba, H, R]; the caller appends.
     The probabilities are requantized per `mla_decode_group` keys, JAX's
     static choice of arm; with `block_tables` every key is read through
-    row slot_ids[b]'s table (`decode_attend_q8_mla_paged`). A row whose
-    group is not the whole row splits into chunks of whole groups."""
+    row slot_ids[b]'s table (`decode_attend_q8_mla_paged`). Every row
+    splits into MLA_DECODE_SPLIT-key CTAs (`mla_decode_plan`), all heads
+    in each; a group's scale is taken over the whole group before p is
+    requantized."""
     Ba, H, R = qt.shape
     dr = qr.shape[-1]
     L, B, _, S, _ = cache_c["q"].shape
@@ -1172,30 +1172,28 @@ def decode_attend_q8_mla(
         raise ValueError(f"{name}: built for kv_lora_rank {MLA_R} and rope dim {MLA_DR}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
-    chunk = _mla_decode_chunk(S, group)
-    nsplit = -(-S // chunk)
+    if block_tables is not None:
+        nbs, bt = _mla_tables(name, block_tables, S, dev)
+        if block_tables.shape[0] != B:
+            raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
+        if pool_c is None or pool_r is None:
+            raise ValueError(f"{name}: block_tables need the latent and rope pools")
+        pxb = pool_c["q"].shape[1]
+        _check_mla_plane(name, pool_c, L, pxb, bt, R, dev, True)
+        _check_mla_plane(name, pool_r, L, pxb, bt, dr, dev, True)
+    _, ws_len = mla_decode_plan(S, group, Ba, H, R)
     out = torch.empty_like(qt)
-    part = ml = None  # each chunk's unnormalized context, max and sum
-    if nsplit > 1:
-        part = torch.empty((Ba, H, nsplit, R), dtype=torch.float32, device=dev)
-        ml = torch.empty((Ba, H, nsplit, 2), dtype=torch.float32, device=dev)
+    ws = torch.empty((ws_len,), dtype=torch.float32, device=dev)
     if block_tables is None:
         _launch(name, "decode_attend_q8_mla", qt, qr, new_c, new_r, cache_c["q"],
-                cache_c["s"], cache_r["q"], cache_r["s"], lengths, rows, out, part, ml,
-                int(layer), B, Ba, H, S, R, dr, group, chunk, float(scale))
+                cache_c["s"], cache_r["q"], cache_r["s"], lengths, rows, out, ws,
+                int(layer), B, Ba, H, S, R, dr, group, MLA_DECODE_SPLIT, float(scale))
         return out
-    nbs, bt = _mla_tables(name, block_tables, S, dev)
-    if block_tables.shape[0] != B:
-        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
-    if pool_c is None or pool_r is None:
-        raise ValueError(f"{name}: block_tables need the latent and rope pools")
-    pxb = pool_c["q"].shape[1]
-    _check_mla_plane(name, pool_c, L, pxb, bt, R, dev, True)
-    _check_mla_plane(name, pool_r, L, pxb, bt, dr, dev, True)
     _launch(name, "decode_attend_q8_mla_paged", qt, qr, new_c, new_r, cache_c["q"],
             cache_c["s"], cache_r["q"], cache_r["s"], lengths, rows, block_tables,
-            pool_c["q"], pool_c["s"], pool_r["q"], pool_r["s"], out, part, ml,
-            int(layer), B, Ba, H, S, R, dr, group, chunk, nbs, bt, pxb, float(scale))
+            pool_c["q"], pool_c["s"], pool_r["q"], pool_r["s"], out, ws,
+            int(layer), B, Ba, H, S, R, dr, group, MLA_DECODE_SPLIT, nbs, bt, pxb,
+            float(scale))
     return out
 
 

@@ -235,13 +235,14 @@ def _latent_planes(g, dev, L, rows, S, R=512, dr=64):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bt,S", [(0, 640), (32, 640), (64, 640), (128, 640), (0, 16384),
-                                  (64, 16384), (0, 65536)])
+                                  (64, 16384), (0, 65536), (256, 1024)])
 def test_cuda_mla_decode_matches_plain(monkeypatch, bt, S):
     """The MLA int8 decode kernel against its plain version on the card, at
     DeepSeek-V2-Lite's widths (16 heads, R = 512, dr = 64), with the group
     the wrapper picks as JAX would: at S = 640 contiguous (bt = 0) the
     whole row, then a 128-key block group (the whole-S arm patched off);
-    paged through tables of pool rows and a foreign arena home, group bt;
+    paged through tables of pool rows and a foreign arena home, group bt
+    (256 spans two of the kernel's 128-key splits);
     at S = 16384, past the whole-S budget, the blocked arm's 512-key group
     and through 64-token tables (256 blocks) the exact group 0, both
     splitting a row into chunks; at S = 65536, past the blocked arm's 64
@@ -279,6 +280,57 @@ def test_cuda_mla_decode_matches_plain(monkeypatch, bt, S):
         assert P.mla_decode_group(S, R, dr, H) == 128
         check(128)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole", "blocked", "bt32", "bt64", "bt256", "exact",
+                                  "heads32", "heads4"])
+def test_cuda_mla_decode_split_edges(monkeypatch, case):
+    """The MLA decode kernel's split (128 keys a CTA, all heads of a row in
+    one CTA) against its plain version: w on a split boundary (128), one
+    before it and one after it, a row of one key (w = 0) beside a full row,
+    a parked row; the whole-row group over five splits (S = 640), the
+    128-key block group, tables of 32-, 64- and 256-token blocks (groups
+    inside a split, and one spanning two), the exact group (16-token
+    tables), and 32 and 4 heads (two head groups, and part of one). Two
+    calls agree bit for bit: the partials combine in split order, with no
+    atomics. |err| <= 1e-3 + 1e-2*|ref|."""
+    H = {"heads32": 32, "heads4": 4}.get(case, 16)
+    bt = {"bt32": 32, "bt64": 64, "bt256": 256, "exact": 16}.get(case, 0)
+    S = 1024 if bt == 256 else 640
+    dev, g, rn, i32 = _card(29 + len(case) + bt + H)
+    L, B, R, dr = 2, 7, 512, 64
+    cc, cr = _latent_planes(g, dev, L, B, S)
+    lens = i32([128, 127, 129, 0, S - 1, S, 255])  # row 5 parked
+    ids = i32([6, 1, 0, 2, 4, 3, 5])
+    Ba = lens.shape[0]
+    qt, qr, nc, nr = rn(Ba, H, R), rn(Ba, H, dr), rn(Ba, R), rn(Ba, dr)
+    kw = dict(slot_ids=ids, scale=0.07)
+    nbs = S // bt if bt else None
+    if bt:
+        pxb = 5
+        pc, pr = _latent_planes(g, dev, L, pxb, bt)
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            for j in range(nbs):
+                if (b + j) % 3 == 0:
+                    tbl[b, j] = B * nbs + (b + j) % pxb  # a pool row
+                elif (b + j) % 3 == 1:
+                    tbl[b, j] = ((b + 2) % B) * nbs + j  # another slot's home
+        kw.update(block_tables=tbl.to(dev), pool_c=pc, pool_r=pr)
+    if case == "blocked":
+        monkeypatch.setattr(P, "mla_whole_s_fits", lambda *a, **k: False)
+    group = P.mla_decode_group(S, R, dr, H, nbs)
+    assert group == {"blocked": 128, "exact": 0}.get(case, bt or S)
+    args = (qt, qr, nc, nr, cc, cr, 1, lens)
+    out = P.decode_attend_q8_mla(*args, **kw)
+    again = P.decode_attend_q8_mla(*args, **kw)
+    ref = P.decode_attend_q8_mla_plain(*args, ids, 0.07, group, kw.get("block_tables"),
+                                       kw.get("pool_c"), kw.get("pool_r"))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(out[5].float(), nc[5].float().expand(H, R), atol=0, rtol=0)
 
 
 @pytest.mark.cuda

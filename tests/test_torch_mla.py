@@ -260,6 +260,134 @@ def test_decode_attend_q8_mla_exact_group_matches_fallback():
     assert P.mla_decode_group(4096, 512, 64, 16, nbs=128) == 0  # bt 32: 128 blocks
 
 
+# -- the decode kernel's split ---------------------------------------------------
+
+
+@pytest.mark.parametrize("S,nbs,group", [
+    (4096, None, 4096),  # the whole row, as served at V2-Lite: one group over 32 splits
+    (16384, None, 512),  # the blocked arm's 512-key groups: four splits each
+    (4096, 64, 64),  # 64-token tables: two groups inside each split
+    (16384, 256, 0),  # 64-token tables past 64 blocks: the exact group
+    (65536, None, 0),  # past the blocked arm's 64 blocks: the exact group
+    (1024, 4, 256),  # 256-token tables: a group over two splits
+])
+def test_mla_decode_plan_splits_every_group(S, nbs, group):
+    """The MLA decode wrapper's plan at V2-Lite's widths (16 heads, R =
+    512, dr = 64): every row splits into MLA_DECODE_SPLIT-key CTAs whatever
+    its group (the whole-row group too), and the f32 workspace holds each
+    split's partial context, the scores and each split's (m, l, a)."""
+    H, R, dr, Ba = 16, 512, 64, 8
+    assert P.mla_decode_group(S, R, dr, H, nbs) == group
+    nsplit, ws = P.mla_decode_plan(S, group, Ba, H)
+    assert P.MLA_DECODE_SPLIT == 128
+    assert nsplit == -(-S // 128)
+    assert ws == Ba * nsplit * H * R + Ba * H * nsplit * 128 + Ba * nsplit * 3 * H
+
+
+@pytest.mark.parametrize("S,group", [(640, 16), (640, 48), (4096, 96), (1024, 200)])
+def test_mla_decode_plan_refuses_groups_it_cannot_split(S, group):
+    """A group that neither holds whole splits nor fits whole in one (in
+    steps of at least 32 keys) would need a scale from part of a split:
+    refused, not approximated."""
+    with pytest.raises(ValueError, match="group"):
+        P.mla_decode_plan(S, group, 4, 16)
+    assert P.mla_decode_plan(16, 16, 4, 16)[0] == 1  # the whole of a short row is fine
+
+
+def _emulate_split_schedule(qt, qr, nc, nr, lat, ls, rop, rs, lens, scale, group, split):
+    """The CUDA kernel's schedule in float64 (inputs f32, latents as
+    gathered rows [Ba, S, ...]): per split of `split` keys its scores and
+    (m, l, a) = (max, sum of e^(s - m), max of e^(s - m) * ls off w); the
+    row max M; a group's max of p * ls over every split it covers (from
+    their a) or, for a group of 32..split keys inside a split, from its own
+    keys; p8 per split with that scale; the integer partial p8 . lat of
+    each group times its psc, summed over the splits; p_w * c_new; over l."""
+    inv127 = np.float32(1.0 / 127.0)
+    Ba, H, R = qt.shape
+    S = lat.shape[1]
+    local = 32 <= group <= split and split % group == 0
+    out = np.zeros((Ba, H, R))
+    for b in range(Ba):
+        w = int(lens[b])
+        we = w if 0 <= w < S else 0
+        s_new = (qt[b].astype(np.float64) @ nc[b] + qr[b].astype(np.float64) @ nr[b]) * scale
+        if group:
+            qsc = np.maximum(np.abs(qt[b]).max(-1) * inv127, np.float32(1e-30))
+            q = np.round(qt[b] / qsc[:, None]).astype(np.float64)
+        splits = []
+        for k0 in range(0, we + 1, split):
+            keys = np.arange(k0, min(we + 1, k0 + split))
+            lf, rf = lat[b, keys].astype(np.float64), rop[b, keys].astype(np.float64)
+            if group:
+                sl = (q @ lf.T) * (scale * qsc.astype(np.float64))[:, None] * ls[b, keys]
+                s = sl + (qr[b].astype(np.float64) @ rf.T) * rs[b, keys] * scale
+            else:
+                s = ((qt[b].astype(np.float64) @ lf.T) * ls[b, keys]
+                     + (qr[b].astype(np.float64) @ rf.T) * rs[b, keys]) * scale
+            at_w = keys == we
+            s[:, at_w] = s_new[:, None]
+            m = s.max(-1)
+            e = np.exp(s - m[:, None])
+            a = np.where(at_w, 0.0, e * ls[b, keys]).max(-1)
+            splits.append((keys, s, m, e.sum(-1), a))
+        M = np.max([m for _, _, m, _, _ in splits], axis=0)
+        ctx = np.zeros((H, R))
+        for z, (keys, s, m, _, _) in enumerate(splits):
+            pv = np.where(keys == we, 0.0, np.exp(s - M[:, None]) * ls[b, keys])
+            if not group:
+                ctx += pv @ lat[b, keys].astype(np.float64)
+                continue
+            if local:
+                gids = (keys - keys[0]) // group
+            else:
+                g0 = 0 if group >= S else keys[0] // group * (group // split)
+                zs = range(g0, len(splits)) if group >= S else range(g0, min(
+                    g0 + group // split, len(splits)))
+                span = np.max([np.exp(splits[i][2] - M) * splits[i][4] for i in zs], axis=0)
+                gids = np.zeros(len(keys), int)
+            for gi in np.unique(gids):
+                sel = gids == gi
+                gmax = pv[:, sel].max(-1) if local else span
+                psc = np.maximum(gmax * float(inv127), 1e-30)
+                p8 = np.round(pv[:, sel] / psc[:, None])
+                assert p8.max() <= 127
+                ctx += (p8 @ lat[b, keys[sel]].astype(np.float64)) * psc[:, None]
+        l = sum(np.exp(m - M) * ls_ for _, _, m, ls_, _ in splits)
+        out[b] = (ctx + np.exp(s_new - M)[:, None] * nc[b]) / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("S,group", [
+    (640, 640),  # the whole row over five splits
+    (1024, 512),  # two 512-key groups, four splits each
+    (640, 32), (640, 64),  # table groups inside a split
+    (1024, 256),  # a table group over two splits
+    (640, 0),  # the exact group
+])
+def test_mla_decode_split_schedule_matches_plain(S, group):
+    """The kernel's split rule, emulated in float64 at the wrapper's split
+    size, equals `decode_attend_q8_mla_plain` (which requantizes each
+    group over the whole row at once) within Q8_TOL: a group's scale is
+    known row-wide before any p8 is formed, and the integer partials of
+    the splits add up. Rows whose w sits on a split boundary, one before
+    and one after it, one key, a full row, and a parked row."""
+    rng = np.random.default_rng(44 + S + group)
+    L, B, R, dr, H = 2, 7, 64, 32, 4
+    cc, cr = _mla_cache(rng, L, B, S, R, dr)
+    qt, qr, nc, nr = _decode_inputs(rng, B, H, R, dr)
+    lens = np.asarray([128, 127, 129, 0, S - 1, S, 300], np.int32)
+    ids = rng.permutation(B).astype(np.int32)
+    sc = (R + dr) ** -0.5
+    ref = P.decode_attend_q8_mla_plain(
+        _t(qt), _t(qr), _t(nc), _t(nr), _tree_t(cc), _tree_t(cr), 1, _t(lens), _t(ids), sc,
+        group).numpy()
+    got = _emulate_split_schedule(
+        qt, qr, nc, nr, cc["q"][1, ids, 0], cc["s"][1, ids, 0], cr["q"][1, ids, 0],
+        cr["s"][1, ids, 0], lens, sc, group, P.MLA_DECODE_SPLIT)
+    np.testing.assert_allclose(got, ref, **Q8_TOL)
+    np.testing.assert_allclose(got[5], np.broadcast_to(nc[5], (H, R)), atol=1e-6)
+
+
 # -- the ragged kernel's plain version -----------------------------------------
 
 
