@@ -12,8 +12,8 @@ one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
      nvcc per source, in parallel) and print ptxas's register report; no
-     instantiation of the bf16 decode kernel, of the MLA ragged kernel or
-     of the MLA decode kernels may spill;
+     instantiation of the bf16 or int8 decode kernels, of the MLA ragged
+     kernel or of the MLA decode kernels may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
@@ -30,7 +30,10 @@ one run reads every check; the script then exits non-zero):
      (timed) and at 32 and 128 (checked). The five int8 entry points run
      at the int8 path's shapes (a fused [32, 16, 17, 4096, 128] cache, 8
      compacted rows), each against its plain version with the same
-     requantization group;
+     requantization group; the int8 decode rows are timed cold (the layer
+     turned over all 32 layers, about 1 GB against the 50 MB L2) with warm
+     (layer 1 again) and every-row-parked times beside, and its exact arm
+     is checked at S = 4072 (no int8 group divides it) and reported;
   3. check the first two Llama-3.1-8B layers (full width, the served
      weights) on a small input: prefill, one decode step and one ragged
      chunk, unpaged and paged, through the kernels on the card against the
@@ -169,6 +172,8 @@ Q8_SLOTS = 16  # the int8 engine's max_slots: 4 chats decode compacted at Ba = 8
 BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
 SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
 DECODE_CHUNKS = (64, 128, 256)  # the bf16 decode split sizes the sweep times
+# the int8 decode's exact arm is checked at a length no int8 group divides
+EXACT_S, EXACT_LAYERS = 4072, 4
 ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"],
                  "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"],
                  "decode_attend_q8_mla": ["llm_mcp_tpu/kernels/attention.py:1789"]}
@@ -725,19 +730,29 @@ def kernel_phase_q8() -> dict[str, dict]:
     out = K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=scale)
     ref = K.decode_attend_q8_plain(q, nk1, nv1, cache, 1, lens, ids, scale, group)
     lib = sdpa_rows(cache["q"][1][ids.long()], cache["s"][1][ids.long()])
+    timing = (f"ms cold: the layer turned over {L} layers ({L * dbytes / 1e6:.0f} MB "
+              f"attended, 50 MB L2); warm_ms: layer 1")
+    parked = torch.full_like(lens, S)
+    cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8(
+        q, nk1, nv1, cache, {}, li, lens, slot_ids=ids, scale=scale), L, 64)
     record(
-        "decode_attend_q8", out, ref,
-        time_ms(lambda: K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids,
-                                           scale=scale), 50),
+        "decode_attend_q8", out, ref, cold,
         time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, cache, 1, lens, ids, scale,
                                                  group), 10),
         dbytes, dops_ms, time_ms(lib, 50),
         {"q": [Ba, Hkv, G, hd], "cache": [L, B, Hf, S, hd], "lengths": lens.tolist(),
-         "slot_ids": ids.tolist(), "group": group,
+         "slot_ids": ids.tolist(), "group": group, "timing": timing,
          "library": "SDPA, length mask, on the rows dequantized to bf16"},
     )
-    res["decode_attend_q8"]["device_ms_by_kernel"] = device_ms_by_kernel(
-        lambda: K.decode_attend_q8(q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=scale))
+    # the call's fixed cost: every row parked, no key read
+    res["decode_attend_q8"].update(
+        warm_ms=warm,
+        all_parked_ms=time_ms(lambda: K.decode_attend_q8(
+            q, nk1, nv1, cache, {}, 1, parked, slot_ids=ids, scale=scale), 50),
+        device_ms_by_kernel=device_ms_by_kernel(lambda: K.decode_attend_q8(
+            q, nk1, nv1, cache, {}, 1, lens, slot_ids=ids, scale=scale)))
+    log(f"decode_attend_q8: cold {cold:.5f} ms, warm {warm:.5f} ms, all rows parked "
+        f"{res['decode_attend_q8']['all_parked_ms']:.5f} ms")
     del lib
 
     # ragged: 4 rows (1900 tokens) with cached int8 prefixes in T = 2048
@@ -808,18 +823,27 @@ def kernel_phase_q8() -> dict[str, dict]:
         blocks = sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist())
         lib = sdpa_rows(K.paged_gather(arena["q"][1], pool["q"][1], tbl[ids.long()]),
                         K.paged_gather(arena["s"][1], pool["s"][1], tbl[ids.long()]))
+        cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8(
+            q, nk1, nv1, arena, {}, li, lens, slot_ids=ids, scale=scale, **pg), L, 64)
         record(
-            "decode_attend_q8_paged", out, ref,
-            time_ms(lambda: K.decode_attend_q8(*dargs, slot_ids=ids, scale=scale, **pg), 50),
+            "decode_attend_q8_paged", out, ref, cold,
             time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, arena, 1, lens, ids, scale,
                                                      bt, tbl, pool), 10),
             dbytes + blocks * 4, dops_ms, time_ms(lib, 50),
             {"q": [Ba, Hkv, G, hd], "cache": [L, B, Hf, S, hd], "block_tokens": bt,
              "group": bt, "pool": list(pool["q"].shape), "lengths": lens.tolist(),
-             "slot_ids": ids.tolist(), "shared_tokens": SHARED_TOKENS,
+             "slot_ids": ids.tolist(), "shared_tokens": SHARED_TOKENS, "timing": timing,
              "library": "SDPA, length mask, on the rows gathered through the tables and "
                         "dequantized to bf16"},
         )
+        res["decode_attend_q8_paged"].update(
+            warm_ms=warm,
+            all_parked_ms=time_ms(lambda: K.decode_attend_q8(
+                q, nk1, nv1, arena, {}, 1, parked, slot_ids=ids, scale=scale, **pg), 50),
+            device_ms_by_kernel=device_ms_by_kernel(lambda: K.decode_attend_q8(
+                *dargs, slot_ids=ids, scale=scale, **pg)))
+        log(f"decode_attend_q8_paged: cold {cold:.5f} ms, warm {warm:.5f} ms, all rows parked "
+            f"{res['decode_attend_q8_paged']['all_parked_ms']:.5f} ms")
         del lib
         rlib = sdpa_ragged(K.paged_gather(arena["q"][3], pool["q"][3], tbl[slots.long()]),
                            K.paged_gather(arena["s"][3], pool["s"][3], tbl[slots.long()]))
@@ -837,6 +861,36 @@ def kernel_phase_q8() -> dict[str, dict]:
     for name, by_bt in others.items():
         res[name]["other_block_sizes"] = by_bt
     del cache
+    torch.cuda.empty_cache()
+
+    # the exact arm: S = 4072, which no int8 group divides (q8_group 0, JAX's
+    # exact f32 fallback), held against the plain version with group 0 and
+    # timed cold over its EXACT_LAYERS layers (warm: layer 1); reported
+    # beside the decode row, not a row of its own
+    Sx = EXACT_S
+    xc = {"q": torch.empty((EXACT_LAYERS, B, Hf, Sx, hd), dtype=torch.int8, device=dev),
+          "s": torch.empty((EXACT_LAYERS, B, Hs, Sx), dtype=torch.bfloat16, device=dev)}
+    for li in range(EXACT_LAYERS):
+        e = fuse_prompt_kv(rn(B, Hkv, Sx, hd), rn(B, Hkv, Sx, hd))
+        xc["q"][li], xc["s"][li] = e["q"], e["s"]
+    xlens = i32([511, 1023, 1535, 2047, Sx, 3071, 3583, Sx - 1])
+    if K.q8_decode_plan(Sx)[0] != 0:
+        check_failed(f"decode_attend_q8: the plan at S={Sx} is not the exact arm")
+    out = K.decode_attend_q8(q, nk1, nv1, xc, {}, 1, xlens, slot_ids=ids, scale=scale)
+    ref = K.decode_attend_q8_plain(q, nk1, nv1, xc, 1, xlens, ids, scale, 0)
+    err, ratio = compare("decode_attend_q8", out, ref)
+    cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8(
+        q, nk1, nv1, xc, {}, li, xlens, slot_ids=ids, scale=scale), EXACT_LAYERS, 32)
+    xkeys = sum(w + 1 if w < Sx else 1 for w in xlens.tolist())
+    res["decode_attend_q8"]["exact_group"] = {
+        "S": Sx, "group": 0, "lengths": xlens.tolist(), "max_abs_err": err,
+        "worst_err_over_limit": ratio, "ms": cold, "warm_ms": warm,
+        "bound_ms": (xkeys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2)
+        / HBM_BYTES_PER_S * 1e3,
+        "timing": f"ms cold: the layer turned over {EXACT_LAYERS} layers; warm_ms: layer 1"}
+    log(f"decode_attend_q8 at S={Sx} (exact group): "
+        f"{json.dumps(res['decode_attend_q8']['exact_group'])}")
+    del xc
     torch.cuda.empty_cache()
     return res
 
@@ -1834,9 +1888,9 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     return out
 
 
-# Planted faults in the bf16 decode kernel and the MLA kernels, each
-# run in its own copy of the checkout by `python3 chip_smoke.py --planted`:
-# (source, text, replacement).
+# Planted faults in the bf16 and int8 decode kernels and the MLA kernels,
+# each run in its own copy of the checkout by `python3 chip_smoke.py
+# --planted`: (source, text, replacement).
 PLANTED = {
     "no_alpha_rescale": ("decode_attend.cu", "const float alpha = __expf(m[g] - mx);",
                          "const float alpha = 1.f;"),
@@ -1862,7 +1916,18 @@ PLANTED = {
                                       "const float rs = sm.ls[p];"),
     "mla_decode_w_override_skipped": ("decode_attend_mla.cu", "if (p == wl) v = sm.snew[hl];",
                                       "if (false) v = sm.snew[hl];"),
+    # the int8 decode kernel: a group's scale from one stage's keys, position
+    # w's exact score skipped, the other V stage read
+    "q8_decode_group_scale_per_stage": ("decode_attend.cu",
+                                        "const int gh = group / QSK;  // stages a group covers",
+                                        "const int gh = 1;  // stages a group covers"),
+    "q8_decode_w_override_skipped": ("decode_attend.cu", "if (pos == we) v = sm.snew[hd2];",
+                                     "if (false) v = sm.snew[hd2];"),
+    "q8_decode_wrong_ring_stage": (
+        "decode_attend.cu", "const unsigned char* vst = ring[ks ? 0 : 2];  // the V stage read",
+        "const unsigned char* vst = ring[ks ? 2 : 0];  // the V stage read"),
 }
+Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged")
 
 
 def planted_phase() -> dict:
@@ -1870,8 +1935,8 @@ def planted_phase() -> dict:
     build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
     the bf16, int8 and MLA kernel checks); returns, per fault, the rows whose
     check failed and every row's worst err/limit. A fault that no row
-    catches fails the run, and so does a fault in an MLA kernel that no
-    row of that kernel catches."""
+    catches fails the run, and so does a fault in an MLA kernel or the int8
+    decode kernel that no row of that kernel catches."""
     import shutil
     from pathlib import Path
 
@@ -1912,6 +1977,8 @@ def planted_phase() -> dict:
         elif src == "decode_attend_mla.cu" and not any(
                 n.startswith("decode_attend_q8_mla") for n in failed):
             check_failed(f"planted fault {fault} failed no MLA decode row: {failed}")
+        elif fault.startswith("q8_decode") and not set(failed) & set(Q8_DECODE_ROWS):
+            check_failed(f"planted fault {fault} failed no int8 decode row: {failed}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
@@ -1972,6 +2039,8 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     for source, kernel, n, what in (
             ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
+            ("decode_attend", "decode_q8_split_kernel", 6,
+             "int8 decode: contiguous and paged, packed and plain scales, and the exact arm"),
             ("ragged_prefill_mla", "ragged_prefill_mla_kernel", 4,
              "MLA ragged prefill, four arms"),
             ("decode_attend_mla", "mla_", 9,

@@ -27,7 +27,10 @@ The flash and ragged prefill kernels (bf16 and int8) multiply on the
 tensor cores (`wgmma`, `csrc/tile_attention.cuh`), and so does the MLA
 ragged prefill kernel, on a tile of its own (`csrc/ragged_prefill_mla.cu`).
 The MLA int8 decode kernel takes all heads of a row and 128 of its keys a
-CTA, on the int8 tensor cores (`mma.sync`, `csrc/decode_attend_mla.cu`).
+CTA, on the int8 tensor cores (`mma.sync`, `csrc/decode_attend_mla.cu`);
+the GQA int8 decode kernel a KV head of a row and 256 of its keys a CTA, on
+the same instructions, its splits combined by the row's last CTA
+(`csrc/decode_attend.cu`, `q8_decode_plan`).
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -62,7 +65,7 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
-DECODE_CHUNK = 256  # key positions per int8 decode split (flash-decoding)
+DECODE_CHUNK = 256  # key positions per int8 decode split: whole groups (q8_decode_plan)
 # key positions per bf16 decode split; depends on S alone, so the wrappers
 # never read lengths on the host (chosen by the sweep in chip_smoke.py)
 DECODE_CHUNK_BF16 = 128
@@ -671,6 +674,23 @@ def q8_group(seq_len: int) -> int:
     return next((c for c in (256, 128, 64, 32) if seq_len % c == 0), 0)
 
 
+def q8_decode_plan(S: int, nbs: int | None = None) -> tuple[int, int, int]:
+    """(group, split, splits a row) of the int8 decode kernel. The group is
+    what JAX requantizes p per: `q8_group(S)` keys contiguous (0, the exact
+    arm, where no int8 group divides S), bt = S / nbs through tables. A row
+    splits into DECODE_CHUNK-key CTAs; a split must hold whole groups of
+    whole 32-key copy stages, so a group must be 0 or 32..DECODE_CHUNK keys
+    dividing the split, and the tables' arm takes no exact group (raises
+    otherwise)."""
+    group = q8_group(S) if nbs is None else S // nbs
+    fits = group >= 32 and group % 32 == 0 and DECODE_CHUNK % group == 0
+    if not (fits or (group == 0 and nbs is None)) or (nbs is not None and S % nbs):
+        where = "contiguous" if nbs is None else f"{nbs} blocks"
+        raise ValueError(f"decode_attend_q8: a {group}-key group (S={S}, {where}) does not "
+                         f"tile a {DECODE_CHUNK}-key split in 32-key stages")
+    return group, DECODE_CHUNK, -(-S // DECODE_CHUNK)
+
+
 def _check_fused(name, cache_k, L, B, Hkv, S, hd, dev) -> None:
     """Check a fused int8 cache (or pool) on the card."""
     Hf = cache_k["q"].shape[2]
@@ -826,10 +846,13 @@ def decode_attend_q8(
     (pre-append; position lengths[b] takes the exact new_k/new_v). The
     probabilities are requantized per `q8_group(S)` keys, or per block of
     bt keys through `block_tables` (`decode_attend_q8_paged`), as JAX's
-    blocked and paged arms do. Returns [Ba, Hkv, G, hd]."""
+    blocked and paged arms do; where no int8 group divides S, not at all
+    (the exact arm, JAX's f32 fallback). `q8_decode_plan` gives the group
+    and the split. Returns [Ba, Hkv, G, hd]."""
     S = cache_k["q"].shape[3]
-    group = q8_group(S) if block_tables is None else S // block_tables.shape[1]
+    nbs = None if block_tables is None else block_tables.shape[1]
     if q.device.type == "cpu":
+        group = q8_group(S) if nbs is None else S // nbs
         return decode_attend_q8_plain(
             q, new_k, new_v, cache_k, layer, lengths, slot_ids, scale, group,
             block_tables, pool_k,
@@ -849,9 +872,11 @@ def decode_attend_q8(
         raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
-    if group <= 0 or DECODE_CHUNK % group:
-        raise ValueError(f"{name}: requantization group {group} must divide {DECODE_CHUNK}")
-    nsplit = -(-S // DECODE_CHUNK)
+    if block_tables is not None:
+        nbs, bt, pxb = _check_paged_q8(name, block_tables, pool_k, L, B, Hkv, Hf, S, hd, dev)
+        if block_tables.shape[0] != B:
+            raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
+    group, chunk, nsplit = q8_decode_plan(S, nbs)
     pm = torch.empty((Ba, Hkv, nsplit, G), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
@@ -861,16 +886,13 @@ def decode_attend_q8(
         _launch(
             name, "decode_attend_q8", q, new_k, new_v, cache_k["q"], cache_k["s"],
             lengths, rows, pm, pl, pacc, out,
-            int(layer), B, Ba, Hkv, Hf, G, S, hd, DECODE_CHUNK, nsplit, group, sc,
+            int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, group, sc,
         )
         return out
-    nbs, bt, pxb = _check_paged_q8(name, block_tables, pool_k, L, B, Hkv, Hf, S, hd, dev)
-    if block_tables.shape[0] != B:
-        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
     _launch(
         name, "decode_attend_q8_paged", q, new_k, new_v, cache_k["q"], cache_k["s"],
         lengths, rows, block_tables, pool_k["q"], pool_k["s"], pm, pl, pacc, out,
-        int(layer), B, Ba, Hkv, Hf, G, S, hd, DECODE_CHUNK, nsplit, nbs, bt, pxb, sc,
+        int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc,
     )
     return out
 

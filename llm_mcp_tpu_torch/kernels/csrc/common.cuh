@@ -72,3 +72,62 @@ template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// -- int8 tensor-core helpers (mma.sync m16n8k32 s8, m16n8k16 bf16) -------
+
+__device__ __forceinline__ unsigned ld32(const void* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ __forceinline__ unsigned short ld16(const void* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+// four 8 x 8 b16 tiles of shared memory, lane i giving the address of row
+// i % 8 of tile i / 8: the A fragment of m16n8k32 s8 (a0..a3) in one
+// instruction
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two int8 (low byte first) as a bf16x2 register, exactly
+__device__ __forceinline__ unsigned i8x2_bf16x2(unsigned short v) {
+  const __nv_bfloat162 h =
+      __floats2bfloat162_rn((float)(int8_t)(v & 0xff), (float)(int8_t)(v >> 8));
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the 4 x 4 byte transpose: out[e] byte i = in[i] byte e. s8 mma.sync takes
+// its operands only K-major, so an int8 tile stored with the keys (its K)
+// outermost, as V and the MLA latents are, is transposed in registers:
+// four keys' words of one column quad in, four columns' words of four
+// keys out.
+__device__ __forceinline__ void transpose4(const unsigned (&w)[4], unsigned (&o)[4]) {
+  const unsigned a_lo = __byte_perm(w[0], w[1], 0x5140), a_hi = __byte_perm(w[0], w[1], 0x7362);
+  const unsigned b_lo = __byte_perm(w[2], w[3], 0x5140), b_hi = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(a_lo, b_lo, 0x5410);
+  o[1] = __byte_perm(a_lo, b_lo, 0x7632);
+  o[2] = __byte_perm(a_hi, b_hi, 0x5410);
+  o[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}

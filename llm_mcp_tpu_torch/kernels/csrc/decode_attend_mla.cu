@@ -211,39 +211,6 @@ __device__ __forceinline__ Tok key_tok(const LatentCache& c, const unsigned long
   return {false, ((size_t)layer * c.B + row) * c.S + pos};
 }
 
-__device__ __forceinline__ unsigned ld32(const void* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned short ld16(const void* p) {
-  return *reinterpret_cast<const unsigned short*>(p);
-}
-
-// two int8 (low byte first) as a bf16x2 register, exactly
-__device__ __forceinline__ unsigned i8x2_bf16x2(unsigned short v) {
-  const __nv_bfloat162 h =
-      __floats2bfloat162_rn((float)(int8_t)(v & 0xff), (float)(int8_t)(v >> 8));
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A fragments (16 rows) of one k-step from a row-major tile: rows g and
 // g + 8 at `base` and 16 bytes on (m16n8k32 s8 and m16n8k16 bf16 alike).
 __device__ __forceinline__ void a_frag(unsigned (&af)[4], const unsigned char* base, int stride,
@@ -540,16 +507,6 @@ __device__ __forceinline__ void cp_wait_stage(int ks) {
   else if (ks == 1) cp_wait<STAGES - 2>();
   else if (ks == 2) cp_wait<STAGES - 3>();
   else cp_wait<0>();
-}
-
-// the 4 x 4 byte transpose: out[e] byte i = in[i] byte e
-__device__ __forceinline__ void transpose4(const unsigned (&w)[4], unsigned (&o)[4]) {
-  const unsigned a_lo = __byte_perm(w[0], w[1], 0x5140), a_hi = __byte_perm(w[0], w[1], 0x7362);
-  const unsigned b_lo = __byte_perm(w[2], w[3], 0x5140), b_hi = __byte_perm(w[2], w[3], 0x7362);
-  o[0] = __byte_perm(a_lo, b_lo, 0x5410);
-  o[1] = __byte_perm(a_lo, b_lo, 0x7632);
-  o[2] = __byte_perm(a_hi, b_hi, 0x5410);
-  o[3] = __byte_perm(a_hi, b_hi, 0x7632);
 }
 
 template <bool PAGED, bool REQUANT>

@@ -91,10 +91,16 @@ __device__ __forceinline__ const int8_t* q8_payload(const FusedQ8& c, const KeyH
   return c.q + ((((size_t)layer * c.B + k.row) * c.Hf + head) * c.S + k.t) * c.hd;
 }
 
+// Where the plain scale of head `head` (0 <= head < 2*Hkv) at a key's home
+// lives; the next keys of its block follow.
+__device__ __forceinline__ const bf16* q8_scale_ptr(const FusedQ8& c, const KeyHome& k,
+                                                    int layer, int head) {
+  if (k.pool) return c.ps + (((size_t)layer * c.pxb + k.row) * c.Hs + head) * c.bt + k.t;
+  return c.s + (((size_t)layer * c.B + k.row) * c.Hs + head) * c.S + k.t;
+}
+
 // Plain scale of head `head` (0 <= head < 2*Hkv) at a key's home.
 __device__ __forceinline__ float q8_scale(const FusedQ8& c, const KeyHome& k, int layer,
                                           int head) {
-  if (k.pool)
-    return __bfloat162float(c.ps[(((size_t)layer * c.pxb + k.row) * c.Hs + head) * c.bt + k.t]);
-  return __bfloat162float(c.s[(((size_t)layer * c.B + k.row) * c.Hs + head) * c.S + k.t]);
+  return __bfloat162float(*q8_scale_ptr(c, k, layer, head));
 }

@@ -625,3 +625,157 @@ def test_cuda_decode_split_sizes_passed(monkeypatch):
     assert P.DECODE_CHUNK == 256
     assert seen["decode_attend_q8"][19:21] == (256, S // 256)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("S", [1000, 4072])
+def test_cuda_q8_decode_exact_group(S, packed):
+    """At a cache length that no int8 group divides (not a multiple of 32:
+    `q8_group(S)` is 0) the contiguous int8 decode takes its exact arm, the
+    arithmetic of JAX's `_decode_attend_q8_fallback`, and matches
+    `decode_attend_q8_plain(group=0)`: q and p in f32, no requantization;
+    w at 0, beside a split edge, at S - 1 and parked;
+    |err| <= 1e-3 + 1e-2*|ref|."""
+    dev, g, rn, i32 = _card(600 + S + packed)
+    L, B, Hkv, G, hd = 2, 6, 2, 4, 128
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens, ids = i32([0, 255, 256, S // 2, S - 1, S]), i32([5, 2, 0, 4, 1, 3])
+    assert P.q8_group(S) == 0
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_engine_serves_unaligned_seq_len():
+    """An int8-KV engine at max_seq_len = 1000 (no 64-token block divides
+    it, so the cache is contiguous, and no int8 group either) decodes on
+    the card through the int8 decode kernel's exact arm. tiny-llm's
+    structure at head_dim 128, the width the kernels are built for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from dataclasses import replace
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.models.configs import get_config
+
+    cfg = replace(get_config("tiny-llm"), dim=512, n_heads=4, n_kv_heads=2)
+    eng = GenerationEngine(cfg, max_slots=2, max_seq_len=1000, quant="int8", kv_quant="int8",
+                           seed=0, device="cuda").start()
+    try:
+        P.reset_launches()
+        out = eng.generate("user: hello there", max_tokens=6, temperature=0.0)
+        torch.cuda.synchronize()
+    finally:
+        eng.shutdown()
+    assert eng._phys is None and eng._ck["q"].shape[3] == 1000
+    assert out["usage"]["completion_tokens"] == 6
+    assert P.LAUNCHES["decode_attend_q8"] > 0
+
+
+def _q8_paged_case(g, dev, L, B, Hkv, S, hd, bt, packed):
+    """(arena, pool, tables, contiguous rows): tables whose blocks resolve,
+    row by row, to pool rows (in another order each), to another slot's
+    arena home, or to their own home; the arena under every redirected block
+    scrambled; and the contiguous cache that the tables stand for."""
+    nbs, pxb = S // bt, 5
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    pool = _fused_cache(g, dev, L, pxb, Hkv, bt, hd, packed)
+    tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+    for b in range(B):
+        for j in range(nbs):
+            if (b + j) % 3 == 0:
+                tbl[b, j] = B * nbs + (b + 2 * j) % pxb  # a pool row
+            elif (b + j) % 3 == 1:
+                tbl[b, j] = ((b + 2) % B) * nbs + j  # another slot's home
+    tbl = tbl.to(dev)
+    arena = cache
+    redirected = (tbl.long() != torch.arange(B * nbs, device=dev).reshape(B, nbs)).cpu()
+    for b in range(B):
+        for j in range(nbs):
+            if redirected[b, j]:
+                for k in arena:
+                    arena[k][:, b, :, j * bt:(j + 1) * bt] = torch.flip(
+                        arena[k][:, b, :, j * bt:(j + 1) * bt], dims=[2])
+    flat = {k: torch.stack([P.paged_gather(v[li], pool[k][li], tbl) for li in range(L)])
+            .contiguous() for k, v in arena.items()}
+    return arena, pool, tbl, flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_cuda_q8_decode_split_edges(G, packed):
+    """The int8 decode kernel (a CTA per 256-key split, a warp per 64 keys
+    in two 32-key stages, one exchange of maxima per split) against its
+    plain version at every edge of its design, group 256 (S = 1024): w at
+    0, a stage edge (31, 32), a warp edge (63, 64), a split edge (255, 256,
+    257), S - 1, and a row parked at S; rows permuted through slot_ids; two
+    calls agree bit for bit; the parked row is its new V exactly.
+    |err| <= 1e-3 + 1e-2*|ref|."""
+    dev, g, rn, i32 = _card(700 + 10 * G + packed)
+    L, B, Hkv, S, hd = 2, 11, 2, 1024, 128
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    lens = i32([0, 31, 32, 63, 64, 255, 256, 257, 700, S - 1, S])
+    ids = i32([5, 2, 7, 0, 3, 6, 1, 4, 10, 9, 8])
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    assert P.q8_decode_plan(S) == (256, 256, 4)
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(out[10], nv[10][:, None].expand(Hkv, G, hd), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("S", [608, 576, 640])
+def test_cuda_q8_decode_groups(S, packed):
+    """The contiguous arm at the other groups `q8_group` gives (32 keys at
+    S = 608, 64 at 576, 128 at 640): each group's scale over its own keys,
+    several groups a warp or a split. |err| <= 1e-3 + 1e-2*|ref|."""
+    dev, g, rn, i32 = _card(800 + S + packed)
+    L, B, Hkv, G, hd = 2, 6, 2, 4, 128
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    lens, ids = i32([0, 40, 255, 300, S - 1, S]), i32([3, 5, 0, 1, 4, 2])
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    group = {608: 32, 576: 64, 640: 128}[S]
+    assert P.q8_decode_plan(S)[0] == P.q8_group(S) == group
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, group)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("bt", [32, 64, 128, 256])
+def test_cuda_q8_decode_paged_edges(bt, packed):
+    """The paged int8 decode (group bt) at every block size the physical
+    layout takes, blocks in pool rows, in other slots' homes and in their
+    own, the arena under redirected blocks scrambled: against its plain
+    version, w at 0, at block and split edges, S - 1 and parked; and bit
+    for bit the same call on the contiguous rows the tables stand for
+    through identity tables. |err| <= 1e-3 + 1e-2*|ref|."""
+    dev, g, rn, i32 = _card(900 + bt + packed)
+    L, B, Hkv, G, hd, S = 2, 6, 2, 4, 128, 1024
+    arena, pool, tbl, flat = _q8_paged_case(g, dev, L, B, Hkv, S, hd, bt, packed)
+    lens = i32([0, bt - 1, 256, 257, S - 1, S])
+    ids = i32([2, 0, 4, 1, 5, 3])
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    out = P.decode_attend_q8(q, nk, nv, arena, {}, 1, lens, slot_ids=ids, scale=0.09,
+                             block_tables=tbl, pool_k=pool)
+    ref = P.decode_attend_q8_plain(q, nk, nv, arena, 1, lens, ids, 0.09, bt, tbl, pool)
+    ident = torch.arange(B * (S // bt), dtype=torch.int32, device=dev).reshape(B, S // bt)
+    same = P.decode_attend_q8(q, nk, nv, flat, {}, 1, lens, slot_ids=ids, scale=0.09,
+                              block_tables=ident, pool_k=pool)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    assert torch.equal(out, same)
