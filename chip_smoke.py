@@ -118,6 +118,8 @@ ATTN_TOL = {"atol": 1e-3, "rtol": 1e-2}
 # with the same requantization group; the int8 append is bitwise.
 BITWISE = {"atol": 0.0, "rtol": 0.0}
 TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attention": ATTN_TOL,
+       "append_kv_bf16_fused": BITWISE, "append_kv_q8_fused": BITWISE,
+       "decode_attend_q8_row": ATTN_TOL,
        "decode_attend_bf16_paged": ATTN_TOL, "flash_prefill_attention": ATTN_TOL,
        "ragged_prefill_attend_bf16": ATTN_TOL, "ragged_prefill_attend_bf16_paged": ATTN_TOL,
        "append_kv_q8": BITWISE, "decode_attend_q8": ATTN_TOL, "decode_attend_q8_paged": ATTN_TOL,
@@ -144,6 +146,14 @@ SOURCES = {
                      "llm_mcp_tpu/kernels/attention.py:2349"),
     "decode_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
                          "llm_mcp_tpu/kernels/attention.py:330"),
+    # the whole-row arm: JAX's whole-S body where no int8 block divides S
+    "decode_attend_q8_row": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                             "llm_mcp_tpu/kernels/attention.py:330"),
+    # the appends as the decode kernels write them (append=True)
+    "append_kv_bf16_fused": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                             "llm_mcp_tpu/kernels/attention.py:2508"),
+    "append_kv_q8_fused": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+                           "llm_mcp_tpu/kernels/attention.py:2349"),
     "decode_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
                                "llm_mcp_tpu/kernels/attention.py:581"),
     "ragged_prefill_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
@@ -160,20 +170,25 @@ SOURCES = {
                  "ragged_prefill_attend_mla_q8", "ragged_prefill_attend_mla_q8_paged")},
 }
 # the kernels each served phase must launch (its counters are reset just
-# before it and read just after)
-CHAT_KERNELS = ("append_kv_bf16", "decode_attend_bf16", "flash_prefill_attention",
+# before it and read just after); the decode step appends from inside its
+# decode calls (`*_fused`), so the standalone appends launch no time there
+CHAT_KERNELS = ("append_kv_bf16_fused", "decode_attend_bf16", "flash_prefill_attention",
                 "ragged_prefill_attend_bf16")
 PREFIX_KERNELS = ("decode_attend_bf16_paged", "ragged_prefill_attend_bf16_paged")
 # the int8 served phase (chats and prefix traffic on the int8 engine) must
 # launch all five int8 entry points, and the admission prefill
-Q8_KERNELS = ("append_kv_q8", "decode_attend_q8", "decode_attend_q8_paged",
+Q8_KERNELS = ("append_kv_q8_fused", "decode_attend_q8", "decode_attend_q8_paged",
               "ragged_prefill_attend_q8", "ragged_prefill_attend_q8_paged")
+STANDALONE_APPENDS = ("append_kv_bf16", "append_kv_q8")
 Q8_SLOTS = 16  # the int8 engine's max_slots: 4 chats decode compacted at Ba = 8
 BLOCK_TOKENS = 64  # the engine's default block size (TPU_KV_BLOCK_TOKENS unset)
 SHARED_TOKENS = 1024  # prefix shared through the pool in the paged kernel cases
 DECODE_CHUNKS = (64, 128, 256)  # the bf16 decode split sizes the sweep times
 # the int8 decode's exact arm is checked at a length no int8 group divides
+# past JAX's whole-S budget (2849 keys at Llama-3.1-8B's widths), its
+# whole-row arm at one inside it (timed cold over ROW_LAYERS layers)
 EXACT_S, EXACT_LAYERS = 4072, 4
+ROW_S, ROW_LAYERS = 1000, 16
 ALSO_REPLACES = {"decode_attend_bf16": ["llm_mcp_tpu/kernels/attention.py:1200"],
                  "decode_attend_q8": ["llm_mcp_tpu/kernels/attention.py:423"],
                  "decode_attend_q8_mla": ["llm_mcp_tpu/kernels/attention.py:1789"]}
@@ -184,9 +199,10 @@ MLA_MODEL = "deepseek-v2-lite"
 MLA_Q8_KERNELS = ("decode_attend_q8_mla", "decode_attend_q8_mla_paged",
                   "ragged_prefill_attend_mla_q8", "ragged_prefill_attend_mla_q8_paged")
 MLA_BF16_KERNELS = ("ragged_prefill_attend_mla", "ragged_prefill_attend_mla_paged")
-GQA_CACHE_KERNELS = ("append_kv_bf16", "decode_attend_bf16", "decode_attend_bf16_paged",
-                     "flash_prefill_attention", "ragged_prefill_attend_bf16",
-                     "ragged_prefill_attend_bf16_paged") + Q8_KERNELS
+GQA_CACHE_KERNELS = ("append_kv_bf16", "append_kv_bf16_fused", "decode_attend_bf16",
+                     "decode_attend_bf16_paged", "flash_prefill_attention",
+                     "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged",
+                     "append_kv_q8", "decode_attend_q8_row") + Q8_KERNELS
 # The model check runs the first CHECK_LAYERS layers in bf16 on the card and
 # on the host CPU. GEMMs and attention round and sum in other orders on the
 # two, so it compares logits and caches by cosine similarity.
@@ -315,6 +331,71 @@ def _record(res, name, out, ref, ms, plain_ms, bytes_, ops_ms, library_ms, shape
     }
     log(f"{name}: err {err:.3g} (err/limit {ratio:.3g}) ms {ms:.4f} plain {plain_ms:.4f} "
         f"bound {res[name]['bound_ms']:.4f} ({res[name]['bound_by']}) library {library_ms}")
+
+
+def fused_append_check(name, call, standalone, plain, cache, timed=False, library=None) -> dict:
+    """A decode arm's fused append, bit for bit: `call(c, append)` runs the
+    arm on the cache leaves `c` (a dict; the call reads and writes layer
+    1), `standalone(c)` and `plain(c)` append layer 1's rows with the
+    standalone kernel and with the plain version. The output with append
+    must equal the output without, and the cache after it the cache after
+    the call without and the plain append (its `max_abs_err`), and the
+    cache after the call without and the standalone append; each leaf is
+    compared whole. With `timed`, also the call's ms with the write and
+    without, in turns (without, with, with, without: the write's cost is
+    their difference), the plain append's ms and the library call's
+    (`library()`). Returns the report; a mismatch is a failed check of
+    row `name`."""
+    import torch
+
+    def after(append_):
+        c = {k: v.clone() for k, v in cache.items()}
+        o = call(c, False)
+        append_(c)
+        return o, c
+
+    out, ref = after(plain)
+    _, want = after(standalone)
+    got = {k: v.clone() for k, v in cache.items()}
+    fused = call(got, True)
+    torch.cuda.synchronize()
+    err = max((got[k].float() - ref[k].float()).abs().max().item() for k in cache)
+    report = {"max_abs_err": err, "output_equal": torch.equal(fused, out),
+              "cache_equal_plain": {k: torch.equal(got[k], ref[k]) for k in cache},
+              "cache_equal_standalone": {k: torch.equal(got[k], want[k]) for k in cache}}
+    if not report["output_equal"]:
+        check_failed(f"{name}: the decode output with append differs from the output without")
+    for against in ("plain", "standalone"):
+        if not all(report["cache_equal_" + against].values()):
+            check_failed(f"{name}: the cache after the fused append differs from the {against} "
+                         f"append's: {report['cache_equal_' + against]} (max_abs_err against the "
+                         f"plain append {err})")
+    if timed:
+        with_, without = [], []
+        for append in (False, True, True, False):
+            (with_ if append else without).append(time_ms(lambda: call(got, append), 50))
+        report.update(with_ms=sum(with_) / 2, without_ms=sum(without) / 2,
+                      ms=(sum(with_) - sum(without)) / 2, plain_ms=time_ms(lambda: plain(got), 20),
+                      library_ms=None if library is None else time_ms(library, 50))
+    log(f"{name} fused append: {json.dumps(report)}")
+    return report
+
+
+def _fused_row(res, name, check, bytes_, shape) -> None:
+    """A fused append's row from its timed `fused_append_check`: ms is the
+    decode call's time with the write minus without; the bound is the
+    bytes of the call's write (the step's new rows read once, the cache
+    rows written once) over the HBM rate."""
+    res[name] = {
+        "max_abs_err": check["max_abs_err"], "tol": TOL[name],
+        "worst_err_over_limit": 0.0 if check["max_abs_err"] == 0 else math.inf,
+        "ms": check["ms"], "plain_ms": check["plain_ms"],
+        "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": check["library_ms"], "shape": shape, "fused_check": check,
+    }
+    log(f"{name}: ms {check['ms']:.6f} (with {check['with_ms']:.5f}, without "
+        f"{check['without_ms']:.5f}) plain {check['plain_ms']:.4f} bound "
+        f"{res[name]['bound_ms']:.6f} library {check['library_ms']}")
 
 
 def _ragged_sdpa(qr, kr, vr, rowids, starts, kp, vp):
@@ -475,6 +556,29 @@ def kernel_phase() -> dict[str, dict]:
     )
     res["decode_attend_bf16"]["device_ms_by_kernel"] = device_ms_by_kernel(
         lambda: K.decode_attend_bf16(q, nk1, nv1, ck, cv, 1, lens, slot_ids=ids, scale=scale))
+    # the fused append at these rows, on the first two layers (layer 1
+    # written); the library yardstick writes the same rows by index_put_
+    sub2 = {"k": ck[:2].clone(), "v": cv[:2].clone()}
+    lv = lens < S
+    bi1, wi1 = ids.long()[lv][:, None], lens.long()[lv][:, None]
+    hi1 = torch.arange(Hkv, device=dev)[None, :]
+    nk_l, nv_l = nk1[lv], nv1[lv]  # the live rows, gathered outside the timed call
+    check = fused_append_check(
+        "append_kv_bf16_fused",
+        lambda c, append: K.decode_attend_bf16(q, nk1, nv1, c["k"], c["v"], 1, lens, slot_ids=ids,
+                                               scale=scale, append=append),
+        lambda c: K.append_kv_bf16(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None], lens,
+                                   slot_ids=ids),
+        lambda c: K.append_kv_plain(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None], lens, ids),
+        sub2, timed=True,
+        library=lambda: (sub2["k"][1].index_put_((bi1, hi1, wi1), nk_l),
+                         sub2["v"][1].index_put_((bi1, hi1, wi1), nv_l)))
+    _fused_row(res, "append_kv_bf16_fused", check, 4 * int(lv.sum()) * Hkv * hd * 2,
+               {"decode": "the decode_attend_bf16 row's call", "layers_written": 1,
+                "lengths": lens.tolist(), "slot_ids": ids.tolist(),
+                "ms": "decode call with the write minus without",
+                "library": "index_put_ of the same rows"})
+    del sub2
 
     # decode_attention: the same rows over the post-append cache (kpost:
     # this step's K/V written at w), inclusive lengths; the row at S
@@ -574,6 +678,20 @@ def kernel_phase() -> dict[str, dict]:
         rout = K.ragged_prefill_attend_bf16(*rargs, scale=scale, **pg)
         rref = K.ragged_prefill_paged_plain(*rargs, pg["block_tables"], pg["pool_k"],
                                             pg["pool_v"], scale)
+        pg2 = {"block_tables": pg["block_tables"], "pool_k": pg["pool_k"][:2].contiguous(),
+               "pool_v": pg["pool_v"][:2].contiguous()}
+        paged_fused = fused_append_check(
+            "append_kv_bf16_fused",
+            lambda c, append: K.decode_attend_bf16(q, nk1, nv1, c["k"], c["v"], 1, lens,
+                                                   slot_ids=ids, scale=scale, append=append,
+                                                   **pg2),
+            lambda c: K.append_kv_bf16(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None], lens,
+                                       slot_ids=ids),
+            lambda c: K.append_kv_plain(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None], lens,
+                                        ids),
+            {"k": ak[:2].clone(), "v": av[:2].clone()})
+        res["append_kv_bf16_fused"].setdefault("paged", {})[bt] = paged_fused
+        del pg2
         if bt != BLOCK_TOKENS:
             for name, o, r in (("decode_attend_bf16_paged", out, ref),
                                ("ragged_prefill_attend_bf16_paged", rout, rref)):
@@ -755,6 +873,27 @@ def kernel_phase_q8() -> dict[str, dict]:
         f"{res['decode_attend_q8']['all_parked_ms']:.5f} ms")
     del lib
 
+    def q8_fused(c_, lens_, **kw):
+        """fused_append_check of the int8 decode on the first two layers of
+        c_ (layer 1 written)."""
+        return dict(
+            call=lambda c, append: K.decode_attend_q8(q, nk1, nv1, c, {}, 1, lens_, slot_ids=ids,
+                                                      scale=scale, append=append, **kw),
+            standalone=lambda c: K.append_kv_q8({k: v[1:2] for k, v in c.items()}, {},
+                                                nk1[None], nv1[None], lens_, slot_ids=ids),
+            plain=lambda c: K.append_kv_q8_plain({k: v[1:2] for k, v in c.items()}, nk1[None],
+                                                 nv1[None], lens_, ids),
+            cache={k: v[:2].clone() for k, v in c_.items()})
+
+    check = fused_append_check(
+        "append_kv_q8_fused", **q8_fused(cache, lens), timed=True)
+    _fused_row(res, "append_kv_q8_fused", check,
+               int(live.sum()) * (2 * Hkv * hd * 2 + Hf * hd + Hs * 2),
+               {"decode": "the decode_attend_q8 row's call (group 256)", "layers_written": 1,
+                "lengths": lens.tolist(), "slot_ids": ids.tolist(),
+                "ms": "decode call with the write minus without",
+                "library": "none: no one PyTorch call quantizes, packs and writes"})
+
     # ragged: 4 rows (1900 tokens) with cached int8 prefixes in T = 2048
     T, R = 2048, 4
     starts, ns = [0, 512, 1024, 1536], [500, 480, 460, 460]
@@ -806,6 +945,10 @@ def kernel_phase_q8() -> dict[str, dict]:
             tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
         fill(arena, slice(None), nsh * bt, (nsh + 1) * bt)
         pg = {"block_tables": tbl, "pool_k": pool}
+        res["append_kv_q8_fused"].setdefault("paged", {})[bt] = fused_append_check(
+            "append_kv_q8_fused", **q8_fused(arena, lens, block_tables=tbl,
+                                             pool_k={k: v[:2].contiguous()
+                                                     for k, v in pool.items()}))
         dargs = (q, nk1, nv1, arena, {}, 1, lens)
         out = K.decode_attend_q8(*dargs, slot_ids=ids, scale=scale, **pg)
         ref = K.decode_attend_q8_plain(q, nk1, nv1, arena, 1, lens, ids, scale, bt, tbl, pool)
@@ -874,7 +1017,7 @@ def kernel_phase_q8() -> dict[str, dict]:
         e = fuse_prompt_kv(rn(B, Hkv, Sx, hd), rn(B, Hkv, Sx, hd))
         xc["q"][li], xc["s"][li] = e["q"], e["s"]
     xlens = i32([511, 1023, 1535, 2047, Sx, 3071, 3583, Sx - 1])
-    if K.q8_decode_plan(Sx)[0] != 0:
+    if K.q8_decode_plan(Sx, hd, Hkv, H)[0] != 0:
         check_failed(f"decode_attend_q8: the plan at S={Sx} is not the exact arm")
     out = K.decode_attend_q8(q, nk1, nv1, xc, {}, 1, xlens, slot_ids=ids, scale=scale)
     ref = K.decode_attend_q8_plain(q, nk1, nv1, xc, 1, xlens, ids, scale, 0)
@@ -890,7 +1033,62 @@ def kernel_phase_q8() -> dict[str, dict]:
         "timing": f"ms cold: the layer turned over {EXACT_LAYERS} layers; warm_ms: layer 1"}
     log(f"decode_attend_q8 at S={Sx} (exact group): "
         f"{json.dumps(res['decode_attend_q8']['exact_group'])}")
+    res["append_kv_q8_fused"]["exact"] = fused_append_check(
+        "append_kv_q8_fused", **q8_fused(xc, xlens))
     del xc
+    torch.cuda.empty_cache()
+
+    # the whole-row arm: S = 1000, which no int8 block divides and which fits
+    # JAX's whole-S budget (its whole-S body requantizes p over the whole
+    # row): a score pass, then the split kernel; held against the plain
+    # version with group S, timed cold over ROW_LAYERS layers (warm: layer 1)
+    Sr = ROW_S
+    rc = {"q": torch.empty((ROW_LAYERS, B, Hf, Sr, hd), dtype=torch.int8, device=dev),
+          "s": torch.empty((ROW_LAYERS, B, Hs, Sr), dtype=torch.bfloat16, device=dev)}
+    for li in range(ROW_LAYERS):
+        e = fuse_prompt_kv(rn(B, Hkv, Sr, hd), rn(B, Hkv, Sr, hd))
+        rc["q"][li], rc["s"][li] = e["q"], e["s"]
+    rlens = i32([124, 249, 374, 499, Sr, 749, 874, Sr - 1])
+    if K.q8_decode_plan(Sr, hd, Hkv, H)[0] != Sr:
+        check_failed(f"decode_attend_q8_row: the plan at S={Sr} is not the whole row")
+    K.reset_launches()
+    out = K.decode_attend_q8(q, nk1, nv1, rc, {}, 1, rlens, slot_ids=ids, scale=scale)
+    if K.LAUNCHES["decode_attend_q8_row"] != 1:
+        check_failed("decode_attend_q8_row: the call did not take the whole-row arm")
+    ref = K.decode_attend_q8_plain(q, nk1, nv1, rc, 1, rlens, ids, scale, Sr)
+    rkeys = sum(w + 1 if w < Sr else 1 for w in rlens.tolist())
+    rlive = rlens < Sr
+    rpos = torch.arange(Sr, device=dev)[None, :]
+    rmask = torch.where(rlive[:, None], rpos <= rlens[:, None], rpos < 1)[:, None, None, :]
+    kd, vd = dequant(rc["q"][1][ids.long()], rc["s"][1][ids.long()])
+    rrows = torch.arange(Ba, device=dev)[rlive]
+    kd[rrows, :, rlens.long()[rlive]] = nk1[rlive]
+    vd[rrows, :, rlens.long()[rlive]] = nv1[rlive]
+    cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8(
+        q, nk1, nv1, rc, {}, li, rlens, slot_ids=ids, scale=scale), ROW_LAYERS, 64)
+    record(
+        "decode_attend_q8_row", out, ref, cold,
+        time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, rc, 1, rlens, ids, scale, Sr), 10),
+        rkeys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2,
+        4.0 * hd * G * Hkv * rkeys / INT8_OPS * 1e3,
+        time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=rmask,
+                                                       enable_gqa=True), 50),
+        {"q": [Ba, Hkv, G, hd], "cache": [ROW_LAYERS, B, Hf, Sr, hd], "lengths": rlens.tolist(),
+         "slot_ids": ids.tolist(), "group": Sr,
+         "timing": f"ms cold: the layer turned over {ROW_LAYERS} layers; warm_ms: layer 1",
+         "library": "SDPA, length mask, on the rows dequantized to bf16"},
+    )
+    res["decode_attend_q8_row"].update(
+        warm_ms=warm,
+        all_parked_ms=time_ms(lambda: K.decode_attend_q8(
+            q, nk1, nv1, rc, {}, 1, torch.full_like(rlens, Sr), slot_ids=ids, scale=scale), 50),
+        device_ms_by_kernel=device_ms_by_kernel(lambda: K.decode_attend_q8(
+            q, nk1, nv1, rc, {}, 1, rlens, slot_ids=ids, scale=scale)))
+    log(f"decode_attend_q8_row: cold {cold:.5f} ms, warm {warm:.5f} ms, all rows parked "
+        f"{res['decode_attend_q8_row']['all_parked_ms']:.5f} ms")
+    res["append_kv_q8_fused"]["whole_row"] = fused_append_check(
+        "append_kv_q8_fused", **q8_fused(rc, rlens))
+    del rc, kd, vd
     torch.cuda.empty_cache()
     return res
 
@@ -1268,6 +1466,44 @@ def _tree(fn, *trees):
     return fn(*trees)
 
 
+def post_scan_step(cfg, params, ck, cv, tokens, lengths, slot_ids=None, paged=None,
+                   plain=False):
+    """`llama_decode_step` with JAX's structure: the decode calls append
+    nothing, their K/V rows are kept, and the standalone append (with
+    `plain`, its plain version) writes all layers' rows after the last
+    layer. Returns (logits, ck, cv)."""
+    import torch
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models import llama as TL
+
+    name = "decode_attend_q8" if isinstance(ck, dict) else "decode_attend_bf16"
+    orig = getattr(TL, name)
+    rows: dict[int, tuple] = {}
+
+    def no_append(q, nk, nv, c_k, c_v, layer, lens, **kw):
+        kw.pop("append")
+        rows[int(layer)] = (nk, nv)
+        return orig(q, nk, nv, c_k, c_v, layer, lens, **kw)
+
+    setattr(TL, name, no_append)
+    try:
+        logits, ck, cv = TL.llama_decode_step(cfg, params, ck, cv, tokens, lengths,
+                                              slot_ids=slot_ids, paged=paged)
+    finally:
+        setattr(TL, name, orig)
+    nk = torch.stack([rows[li][0] for li in sorted(rows)])
+    nv = torch.stack([rows[li][1] for li in sorted(rows)])
+    if not plain:
+        (K.append_kv_q8 if isinstance(ck, dict) else K.append_kv_bf16)(
+            ck, cv, nk, nv, lengths, slot_ids=slot_ids)
+    elif isinstance(ck, dict):
+        K.append_kv_q8_plain(ck, nk, nv, lengths, slot_ids)
+    else:
+        K.append_kv_plain(ck, cv, nk, nv, lengths, slot_ids)
+    return logits, ck, cv
+
+
 def model_check(cfg, params, dev, quantized: bool = False) -> dict:
     """The model's first CHECK_LAYERS layers (published widths, the served
     weights) on a small input: prefill, one decode step with a parked row
@@ -1335,6 +1571,18 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
             ck, cv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
             logits_d, ck, cv = TL.llama_decode_step(
                 cut, p, ck, cv, i32([65, 65]), i32([P0, S]), paged=pg)  # row 1 parked
+            # the fused appends against the post-scan append, standalone and
+            # plain, bit for bit
+            for against in ("standalone", "plain") if d.type == "cuda" else ():
+                sk, sv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
+                logits_s, sk, sv = post_scan_step(cut, p, sk, sv, i32([65, 65]), i32([P0, S]),
+                                                  paged=pg, plain=against == "plain")
+                same = {"logits": torch.equal(logits_s, logits_d)}
+                for n, a, b in (("k", ck, sk), ("v", cv, sv)):
+                    la = a if isinstance(a, dict) else {"": a}
+                    lb = b if isinstance(b, dict) else {"": b}
+                    same.update({n + k: torch.equal(la[k], lb[k]) for k in la})
+                fused_same[f"decode{tag}_{against}"] = same
             rk, rv = (_tree(lambda c: c.clone(), src[n]) for n in ("k", "v"))
             logits_r, rk, _ = TL.llama_prefill_chunk_ragged(
                 cut, p, rk, rv, tokens=chunk.to(d),
@@ -1358,6 +1606,7 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
         return (torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
                 (a - b).abs().max().item(), bool(torch.isfinite(a).all()))
 
+    fused_same: dict[str, dict] = {}
     K.reset_launches()
     got = run(dev)
     torch.cuda.synchronize()
@@ -1366,7 +1615,8 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
     t0 = time.perf_counter()
     want = run(host)
     report = {"layers": CHECK_LAYERS, "quantized": quantized, "launches_in_check": per_call,
-              "host_reference_s": time.perf_counter() - t0}
+              "host_reference_s": time.perf_counter() - t0,
+              "fused_append_equals_post_scan": fused_same}
     bad = []
     for name in got:
         cos, err, finite = cosine(got[name], want[name])
@@ -1382,6 +1632,10 @@ def model_check(cfg, params, dev, quantized: bool = False) -> dict:
     for name, n in per_call.items():
         if n <= 0:
             check_failed(f"model check: kernel {name} was not launched")
+    unequal = {k: v for k, v in fused_same.items() if not all(v.values())}
+    if unequal or len(fused_same) != 4:
+        check_failed(f"model check: the decode step with the fused appends is not bit for bit "
+                     f"the step with the post-scan append: {fused_same}")
     if bad:
         check_failed(f"model check: {bad} through the kernels disagree with the plain "
                      f"versions on the host or with the contiguous rows (finite values "
@@ -1643,6 +1897,19 @@ def chat(base: str, model: str, prompt: str, stream: bool, out: dict, **kw) -> N
         out["error"] = f"{type(e).__name__}: {e}"
 
 
+def append_audit(launches: dict) -> dict[str, bool]:
+    """The decode steps appended from inside their decode calls: no
+    standalone append launched, and every bf16 and int8 decode call wrote
+    its layer's rows (append=True)."""
+    return {
+        "no standalone append launched": all(launches[n] == 0 for n in STANDALONE_APPENDS),
+        "every bf16 decode call appended": launches["append_kv_bf16_fused"]
+        == launches["decode_attend_bf16"] + launches["decode_attend_bf16_paged"],
+        "every int8 decode call appended": launches["append_kv_q8_fused"]
+        == launches["decode_attend_q8"] + launches["decode_attend_q8_paged"],
+    }
+
+
 def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> dict:
     """Four concurrent chats; every kernel of `kernels` must launch (the
     counters are set to 0 first unless the caller owns them)."""
@@ -1686,6 +1953,9 @@ def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> di
             fail(f"kernel {name} was not launched on the main path")
     if launches["decode_attention"] != 0:
         fail("decode_attention launched on a served path, which has no call to it")
+    appended = append_audit(launches)
+    if not all(appended.values()):
+        fail(f"the chats' decode steps did not append from their decode calls: {appended}")
     prompt_tokens = {n: r["usage"]["prompt_tokens"] for n, r in results.items()}
     if prompt_tokens["long"] <= engine.prefill_chunk:
         fail("the long prompt did not exceed prefill_chunk")
@@ -1789,6 +2059,7 @@ def prefix_phase(engine, base: str, kernels=PREFIX_KERNELS, reset: bool = True) 
     for name in kernels:
         checks[f"{name} launched"] = launches[name] > 0
     checks["decode_attention not launched"] = launches["decode_attention"] == 0
+    checks.update(append_audit(launches))
     ttft = {n: r.get("t_first") for n, r in results.items()}
     report = {
         "prompt_tokens": {n: r["usage"].get("prompt_tokens") for n, r in results.items()},
@@ -1870,6 +2141,8 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
             reverse=True,
         )
         busy = sum(t for t, _ in kern)
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / n
         port: dict[str, float] = {}  # the port's own kernels, instantiations summed
         for t, k in kern:
             m = re.search(r"\(anonymous namespace\)::(\w+)", k)
@@ -1879,6 +2152,7 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
             "ms": ms,
             "device_busy_ms": busy if kern else "not measured",
             "idle_share": 1.0 - busy / ms if kern else "not measured",
+            "launches_per_call": launched if kern else "not measured",
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
             "port_kernels_ms": port,
         }
@@ -1926,8 +2200,16 @@ PLANTED = {
     "q8_decode_wrong_ring_stage": (
         "decode_attend.cu", "const unsigned char* vst = ring[ks ? 0 : 2];  // the V stage read",
         "const unsigned char* vst = ring[ks ? 2 : 0];  // the V stage read"),
+    # the whole-row arm's scale from the split's own keys alone; the fused
+    # int8 append skipping its V scale
+    "q8_decode_row_scale_one_split": (
+        "decode_attend.cu",
+        "const float2 r = q8_row_max(rs, bh * nsplit * G + 2 * t + i, nlive, G);",
+        "const float2 r = q8_row_max(rs, (bh * nsplit + sp) * G + 2 * t + i, 1, G);"),
+    "q8_append_skips_v_scale": ("decode_attend.cu", "ap.s[(lr * Hs + head) * c.S + w] = sb;",
+                                "if (wid == 0) ap.s[(lr * Hs + head) * c.S + w] = sb;"),
 }
-Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged")
+Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged", "decode_attend_q8_row")
 
 
 def planted_phase() -> dict:
@@ -1935,8 +2217,8 @@ def planted_phase() -> dict:
     build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
     the bf16, int8 and MLA kernel checks); returns, per fault, the rows whose
     check failed and every row's worst err/limit. A fault that no row
-    catches fails the run, and so does a fault in an MLA kernel or the int8
-    decode kernel that no row of that kernel catches."""
+    catches fails the run, and so does a fault in an MLA kernel, the int8
+    decode kernel or its fused append that no row of that kernel catches."""
     import shutil
     from pathlib import Path
 
@@ -1979,6 +2261,8 @@ def planted_phase() -> dict:
             check_failed(f"planted fault {fault} failed no MLA decode row: {failed}")
         elif fault.startswith("q8_decode") and not set(failed) & set(Q8_DECODE_ROWS):
             check_failed(f"planted fault {fault} failed no int8 decode row: {failed}")
+        elif fault.startswith("q8_append") and "append_kv_q8_fused" not in failed:
+            check_failed(f"planted fault {fault} failed not the fused int8 append: {failed}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
@@ -2039,8 +2323,9 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     for source, kernel, n, what in (
             ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
-            ("decode_attend", "decode_q8_split_kernel", 6,
-             "int8 decode: contiguous and paged, packed and plain scales, and the exact arm"),
+            ("decode_attend", "decode_q8_split_kernel", 10,
+             "int8 decode: contiguous and paged, packed and plain scales, the exact arm and "
+             "the whole row's score pass and split kernel"),
             ("ragged_prefill_mla", "ragged_prefill_mla_kernel", 4,
              "MLA ragged prefill, four arms"),
             ("decode_attend_mla", "mla_", 9,
@@ -2108,7 +2393,7 @@ def main() -> None:
         served = (mla["int8"] if name in MLA_Q8_KERNELS
                   else mla["bf16_latents"] if name in MLA_BF16_KERNELS
                   else q8 if name in Q8_KERNELS else prefix if name in PREFIX_KERNELS
-                  else e2e)
+                  else q8["row_steps"] if name == "decode_attend_q8_row" else e2e)
         row["launches"] = served["launches"][name]
         row.update(r)
         rows.append(row)
@@ -2171,6 +2456,7 @@ def q8_served_phase() -> dict:
         checks[f"{n} not launched"] = launches[n] == 0
     checks["decode ran compacted"] = compacted > 0
     checks["packed scales == s"] = audit == 0
+    checks.update(append_audit(launches))
     report = {"engine": built, "model_check": check, "launches": launches,
               "compacted_rounds": compacted, "kv_scale_audit_mismatches": audit,
               "e2e": e2e, "prefix": prefix, "checks": checks}
@@ -2178,8 +2464,68 @@ def q8_served_phase() -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         check_failed(f"int8 served phase: {bad}")
+    report["row_steps"] = row_steps_phase(engine.cfg, engine.params, engine.device)
     report["breakdown"] = breakdown_phase(engine.cfg, engine.params, engine.device,
                                           quantized=True)
+    return report
+
+
+def row_steps_phase(cfg, params, dev, steps: int = 3) -> dict:
+    """The int8 model (full depth, the served weights) for `steps` decode
+    steps of 8 compacted rows over a fused cache of ROW_S keys, which no
+    int8 block divides and JAX's whole-S budget holds: with the counters
+    set to 0 just before and read just after, every decode call must take
+    the whole-row arm and append from inside it, no standalone append may
+    launch, the logits must be finite and the packed scales must equal "s"
+    bit for bit after the writes."""
+    import torch
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models import llama as TL
+    from llm_mcp_tpu_torch.models.quant import unpack_scales
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    cache = TL.init_kv_cache(cfg, Q8_SLOTS, ROW_S, dtype=torch.bfloat16, device=dev,
+                             quantized=True)
+    ck = cache["k"]
+    for li in range(L):
+        kv = [torch.randn((Q8_SLOTS, Hkv, ROW_S, hd), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        e = TL.fuse_prompt_kv(*kv)
+        ck["q"][li], ck["s"][li] = e["q"], e["s"]
+    ids = torch.arange(0, 16, 2, dtype=torch.int32, device=dev)
+    lens = torch.tensor([124, 249, 374, 499, 624, 749, 874, ROW_S - steps], dtype=torch.int32,
+                        device=dev)
+    toks = torch.full((8,), 65, dtype=torch.int32, device=dev)
+    before = ck["q"][:, ids.long(), :, lens.long()].clone()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        logits, ck, _ = TL.llama_decode_step(cfg, params, ck, cache["v"], toks, lens + step,
+                                             slot_ids=ids)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    launches = {n: K.LAUNCHES[n] for n in ("decode_attend_q8", "decode_attend_q8_row",
+                                           "append_kv_q8_fused") + STANDALONE_APPENDS}
+    Hs = 2 * Hkv
+    checks = {
+        "every call took the whole-row arm": launches["decode_attend_q8_row"] == steps * L,
+        "every call appended": launches["append_kv_q8_fused"] == steps * L,
+        "no standalone append launched": all(launches[n] == 0 for n in STANDALONE_APPENDS),
+        "logits finite": bool(torch.isfinite(logits).all()),
+        "packed scales == s": torch.equal(unpack_scales(ck["q"][:, :, Hs], Hs, ck["s"].dtype),
+                                          ck["s"]),
+        "rows written": not torch.equal(before, ck["q"][:, ids.long(), :, lens.long()]),
+    }
+    report = {"S": ROW_S, "steps": steps, "rows": 8, "launches": launches,
+              "wall_ms_per_step": wall * 1e3, "checks": checks}
+    log(f"int8 whole-row model steps: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"decode_attend_q8_row: int8 whole-row model steps: {bad}")
+    del cache, ck
+    torch.cuda.empty_cache()
     return report
 
 

@@ -30,7 +30,15 @@ The MLA int8 decode kernel takes all heads of a row and 128 of its keys a
 CTA, on the int8 tensor cores (`mma.sync`, `csrc/decode_attend_mla.cu`);
 the GQA int8 decode kernel a KV head of a row and 256 of its keys a CTA, on
 the same instructions, its splits combined by the row's last CTA
-(`csrc/decode_attend.cu`, `q8_decode_plan`).
+(`csrc/decode_attend.cu`, `q8_decode_plan`); where the requantization group
+is the whole row, a score pass launched ahead of it gives every split the
+row's scale.
+
+With `append=True` the bf16 and int8 decode wrappers also write the layer's
+new K/V row into the cache, from inside the decode kernel (the CTA whose
+split holds the row's position): the bytes `append_kv_bf16` /
+`append_kv_q8` would write for that layer. The decode step appends so, one
+layer at a time; the standalone appends stay for every other caller.
 
 The paged kernels are what the decode and ragged wrappers launch when
 given `block_tables` (the physical layout of `executor/physical.py`);
@@ -51,7 +59,8 @@ and raises if the launch is refused. `LAUNCHES[name]` counts the launches
 of each kernel, so a run can show that the main path went through it.
 
 The caches are updated in place (the JAX functions return new arrays):
-the appends write their rows into the tensors they are given.
+the appends, standalone or fused, write their rows into the tensors they
+are given.
 """
 
 from __future__ import annotations
@@ -71,8 +80,12 @@ DECODE_CHUNK = 256  # key positions per int8 decode split: whole groups (q8_deco
 DECODE_CHUNK_BF16 = 128
 MAX_G = 8  # most query heads per KV head the decode kernel takes
 
+# `*_fused`: decode launches that also appended (append=True);
+# `decode_attend_q8_row`: int8 decode launches of the whole-row arm (its
+# score pass and split kernel)
 LAUNCHES: dict[str, int] = {
     "append_kv_bf16": 0,
+    "append_kv_bf16_fused": 0,
     "decode_attend_bf16": 0,
     "decode_attend_bf16_paged": 0,
     "decode_attention": 0,
@@ -80,7 +93,9 @@ LAUNCHES: dict[str, int] = {
     "ragged_prefill_attend_bf16": 0,
     "ragged_prefill_attend_bf16_paged": 0,
     "append_kv_q8": 0,
+    "append_kv_q8_fused": 0,
     "decode_attend_q8": 0,
+    "decode_attend_q8_row": 0,
     "decode_attend_q8_paged": 0,
     "ragged_prefill_attend_q8": 0,
     "ragged_prefill_attend_q8_paged": 0,
@@ -103,15 +118,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "append_kv_bf16": ("append_kv", [_P] * 6 + [_I] * 6 + [_P]),
-    "decode_attend_bf16": ("decode_attend", [_P] * 11 + [_I] * 9 + [_F, _P]),
-    "decode_attend_bf16_paged": ("decode_attend", [_P] * 14 + [_I] * 12 + [_F, _P]),
+    "decode_attend_bf16": ("decode_attend", [_P] * 11 + [_I] * 9 + [_F, _I, _P]),
+    "decode_attend_bf16_paged": ("decode_attend", [_P] * 14 + [_I] * 12 + [_F, _I, _P]),
     "decode_attention_bf16": ("decode_attend", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
     "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_bf16_paged": ("ragged_prefill", [_P] * 13 + [_I] * 11 + [_F, _P]),
     "append_kv_q8": ("append_kv_q8", [_P] * 6 + [_I] * 6 + [_P]),
-    "decode_attend_q8": ("decode_attend", [_P] * 11 + [_I] * 11 + [_F, _P]),
-    "decode_attend_q8_paged": ("decode_attend", [_P] * 14 + [_I] * 13 + [_F, _P]),
+    "decode_attend_q8": ("decode_attend", [_P] * 11 + [_I] * 11 + [_F, _P, _I, _P]),
+    "decode_attend_q8_paged": ("decode_attend", [_P] * 14 + [_I] * 13 + [_F, _I, _P]),
     "ragged_prefill_q8": ("ragged_prefill", [_P] * 10 + [_I] * 9 + [_F, _P]),
     "ragged_prefill_q8_paged": ("ragged_prefill", [_P] * 13 + [_I] * 12 + [_F, _P]),
     "decode_attend_q8_mla": ("decode_attend_mla", [_P] * 12 + [_I] * 9 + [_F, _P]),
@@ -336,20 +351,30 @@ def decode_attend_bf16(
     pool_k: torch.Tensor | None = None,  # [L, PXB, Hkv, bt, hd] prefix pool
     pool_v: torch.Tensor | None = None,
     scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
+    append: bool = False,  # also write new_k/new_v at (layer, slot, w)
 ) -> torch.Tensor:
     """One decode step's attention for one layer over the pre-append
     cache; position lengths[b] takes the exact new_k/new_v. With
     `block_tables` every block is read through cache row slot_ids[b]'s
-    table (`decode_attend_bf16_paged`). Returns [Ba, Hkv, G, hd]."""
+    table (`decode_attend_bf16_paged`). With `append` the call then leaves
+    this layer's new K/V rows in the cache, as `append_kv_bf16` of the
+    layer would (the kernel writes them; the CPU path runs the plain
+    append after the plain attention). Returns [Ba, Hkv, G, hd]."""
     if q.device.type == "cpu":
         if block_tables is not None:
-            return decode_attend_paged_plain(
+            out = decode_attend_paged_plain(
                 q, new_k, new_v, cache_k, cache_v, layer, lengths, block_tables,
                 pool_k, pool_v, slot_ids, scale,
             )
-        return decode_attend_plain(
-            q, new_k, new_v, cache_k, cache_v, layer, lengths, slot_ids, scale
-        )
+        else:
+            out = decode_attend_plain(
+                q, new_k, new_v, cache_k, cache_v, layer, lengths, slot_ids, scale
+            )
+        if append:
+            li = int(layer)
+            append_kv_plain(cache_k[li:li + 1], cache_v[li:li + 1], new_k[None], new_v[None],
+                            lengths, slot_ids)
+        return out
     name = "decode_attend_bf16" if block_tables is None else "decode_attend_bf16_paged"
     Ba, Hkv, G, hd = q.shape
     L, B, _, S, _ = cache_k.shape
@@ -377,17 +402,19 @@ def decode_attend_bf16(
         _launch(
             name, "decode_attend_bf16", q, new_k, new_v, cache_k,
             cache_v, lengths, rows, pm, pl, pacc,
-            out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, sc,
+            out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, sc, int(append),
         )
-        return out
-    nbs, bt, pxb = _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev)
-    if block_tables.shape[0] != B:
-        raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
-    _launch(
-        name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
-        cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
-        out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc,
-    )
+    else:
+        nbs, bt, pxb = _check_paged(name, block_tables, pool_k, pool_v, L, B, Hkv, S, hd, dev)
+        if block_tables.shape[0] != B:
+            raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
+        _launch(
+            name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
+            cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
+            out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc, int(append),
+        )
+    if append:
+        LAUNCHES["append_kv_bf16_fused"] += 1
     return out
 
 
@@ -674,17 +701,48 @@ def q8_group(seq_len: int) -> int:
     return next((c for c in (256, 128, 64, 32) if seq_len % c == 0), 0)
 
 
-def q8_decode_plan(S: int, nbs: int | None = None) -> tuple[int, int, int]:
-    """(group, split, splits a row) of the int8 decode kernel. The group is
-    what JAX requantizes p per: `q8_group(S)` keys contiguous (0, the exact
-    arm, where no int8 group divides S), bt = S / nbs through tables. A row
-    splits into DECODE_CHUNK-key CTAs; a split must hold whole groups of
-    whole 32-key copy stages, so a group must be 0 or 32..DECODE_CHUNK keys
-    dividing the split, and the tables' arm takes no exact group (raises
-    otherwise)."""
-    group = q8_group(S) if nbs is None else S // nbs
+def decode_pallas_max_seq(
+    head_dim: int, n_kv_heads: int, n_heads: int, quantized: bool
+) -> int:
+    """Longest cache row JAX's whole-S decode bodies stream through VMEM
+    (a copy of `llm_mcp_tpu/kernels/attention.py:decode_pallas_max_seq`,
+    the same arithmetic): JAX runs its whole-S int8 body up to this length
+    and its exact f32 fallback past it where no int8 block divides S. The
+    port keeps JAX's choice of requantization group with it."""
+    budget = 12 * 1024 * 1024  # of ~16 MB VMEM; headroom for q/out/temps
+    if quantized:
+        per_pos = 2 * (2 * n_kv_heads * head_dim) + 8 * n_kv_heads + 2 * 4 * n_heads
+    else:
+        g = max(1, n_heads // n_kv_heads)
+        per_pos = 2 * (2 * head_dim * 2) + 4 * g
+    return max(128, budget // per_pos)
+
+
+def q8_contig_group(S: int, hd: int, Hkv: int, H: int) -> int:
+    """The requantization group of the contiguous int8 decode, JAX's: the
+    blocked arm's `q8_group(S)` where an int8 block divides S; else the
+    whole row (S, JAX's whole-S body) where the row fits that body's
+    budget; else 0, JAX's exact f32 fallback."""
+    group = q8_group(S)
+    if group == 0 and S <= decode_pallas_max_seq(hd, Hkv, H, quantized=True):
+        group = S
+    return group
+
+
+def q8_decode_plan(S: int, hd: int, Hkv: int, H: int,
+                   nbs: int | None = None) -> tuple[int, int, int]:
+    """(group, split, splits a row) of the int8 decode kernel at head_dim
+    hd, Hkv KV heads and H query heads. The group is what JAX requantizes
+    p per: `q8_contig_group` contiguous (a block of `q8_group(S)` keys,
+    the whole row, or 0 for the exact arm), bt = S / nbs through tables. A
+    row splits into DECODE_CHUNK-key CTAs; a group inside a split must be
+    32..DECODE_CHUNK keys in whole 32-key copy stages dividing the split;
+    the whole row (a score pass gives every split its scale) and the exact
+    group are contiguous only: the tables' arm takes bt in {32, 64, 128,
+    256}, JAX's `paged_ok`, and raises otherwise."""
+    group = q8_contig_group(S, hd, Hkv, H) if nbs is None else S // nbs
     fits = group >= 32 and group % 32 == 0 and DECODE_CHUNK % group == 0
-    if not (fits or (group == 0 and nbs is None)) or (nbs is not None and S % nbs):
+    if not (fits or (group in (0, S) and nbs is None)) or (nbs is not None and S % nbs):
         where = "contiguous" if nbs is None else f"{nbs} blocks"
         raise ValueError(f"decode_attend_q8: a {group}-key group (S={S}, {where}) does not "
                          f"tile a {DECODE_CHUNK}-key split in 32-key stages")
@@ -841,24 +899,34 @@ def decode_attend_q8(
     block_tables: torch.Tensor | None = None,  # [B, nbs] int32 physical tables
     pool_k: dict | None = None,  # {"q": int8 [L, PXB, 2*Hkv+p, bt, hd], "s": [L, PXB, 2*Hkv, bt]}
     scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
+    append: bool = False,  # also quantize and write new_k/new_v at (layer, slot, w)
 ) -> torch.Tensor:
     """One decode step's attention for one layer over the fused int8 cache
     (pre-append; position lengths[b] takes the exact new_k/new_v). The
     probabilities are requantized per `q8_group(S)` keys, or per block of
     bt keys through `block_tables` (`decode_attend_q8_paged`), as JAX's
-    blocked and paged arms do; where no int8 group divides S, not at all
-    (the exact arm, JAX's f32 fallback). `q8_decode_plan` gives the group
-    and the split. Returns [Ba, Hkv, G, hd]."""
+    blocked and paged arms do; where no int8 group divides S, over the
+    whole row where it fits JAX's whole-S budget (its whole-S body), else
+    not at all (the exact arm, JAX's f32 fallback). `q8_decode_plan` gives
+    the group and the split. With `append` the call then leaves this
+    layer's new K/V row in the cache, as `append_kv_q8` of the layer would
+    (bit for bit: the kernel quantizes and writes it; the CPU path runs the
+    plain append after the plain attention). Returns [Ba, Hkv, G, hd]."""
     S = cache_k["q"].shape[3]
+    Ba, Hkv, G, hd = q.shape
     nbs = None if block_tables is None else block_tables.shape[1]
     if q.device.type == "cpu":
-        group = q8_group(S) if nbs is None else S // nbs
-        return decode_attend_q8_plain(
+        group = q8_contig_group(S, hd, Hkv, Hkv * G) if nbs is None else S // nbs
+        out = decode_attend_q8_plain(
             q, new_k, new_v, cache_k, layer, lengths, slot_ids, scale, group,
             block_tables, pool_k,
         )
+        if append:
+            li = int(layer)
+            append_kv_q8_plain({k: v[li:li + 1] for k, v in cache_k.items()}, new_k[None],
+                               new_v[None], lengths, slot_ids)
+        return out
     name = "decode_attend_q8" if block_tables is None else "decode_attend_q8_paged"
-    Ba, Hkv, G, hd = q.shape
     L, B, Hf, _, _ = cache_k["q"].shape
     dev = q.device
     rows = _rows(slot_ids, Ba, dev)
@@ -876,24 +944,33 @@ def decode_attend_q8(
         nbs, bt, pxb = _check_paged_q8(name, block_tables, pool_k, L, B, Hkv, Hf, S, hd, dev)
         if block_tables.shape[0] != B:
             raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
-    group, chunk, nsplit = q8_decode_plan(S, nbs)
+    group, chunk, nsplit = q8_decode_plan(S, hd, Hkv, Hkv * G, nbs)
     pm = torch.empty((Ba, Hkv, nsplit, G), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((Ba, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     sc = float(scale or hd**-0.5)
     if block_tables is None:
+        row = group == S and q8_group(S) != S  # the whole-row arm: a score pass first
+        # the score pass's (max, max of p * vss) of every split; other arms
+        # pass null
+        rs = (torch.empty((Ba, Hkv, nsplit, G, 2), dtype=torch.float32, device=dev)
+              if row else None)
         _launch(
             name, "decode_attend_q8", q, new_k, new_v, cache_k["q"], cache_k["s"],
             lengths, rows, pm, pl, pacc, out,
-            int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, group, sc,
+            int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, group, sc, rs, int(append),
         )
-        return out
-    _launch(
-        name, "decode_attend_q8_paged", q, new_k, new_v, cache_k["q"], cache_k["s"],
-        lengths, rows, block_tables, pool_k["q"], pool_k["s"], pm, pl, pacc, out,
-        int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc,
-    )
+        if row:
+            LAUNCHES["decode_attend_q8_row"] += 1
+    else:
+        _launch(
+            name, "decode_attend_q8_paged", q, new_k, new_v, cache_k["q"], cache_k["s"],
+            lengths, rows, block_tables, pool_k["q"], pool_k["s"], pm, pl, pacc, out,
+            int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc, int(append),
+        )
+    if append:
+        LAUNCHES["append_kv_q8_fused"] += 1
     return out
 
 

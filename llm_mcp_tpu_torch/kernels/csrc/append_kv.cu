@@ -14,6 +14,9 @@
 //
 // Layouts: cache [L, B, Hkv, S, hd]; new_k/new_v [L, Ba, Hkv, hd];
 // lengths/slot_ids [Ba] int32.
+//
+// The decode step does not launch it: each decode call writes its layer's
+// rows itself (decode_attend.cu, `append`), with the same bytes.
 
 #include "common.cuh"
 

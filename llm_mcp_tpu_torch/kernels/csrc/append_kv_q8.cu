@@ -27,6 +27,9 @@
 //
 // Layouts: cache q [L, B, Hf, S, hd] int8 (Hf = 2*Hkv + p), s [L, B, 2*Hkv, S]
 // bf16; new_k/new_v [L, Ba, Hkv, hd] bf16; lengths/slot_ids [Ba] int32.
+//
+// The decode step does not launch it: each decode call writes its layer's
+// rows itself (decode_attend.cu, `append`), with the same bytes.
 
 #include "common.cuh"
 

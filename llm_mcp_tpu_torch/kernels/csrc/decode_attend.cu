@@ -43,9 +43,18 @@
 //     probability exactly 0, so no stale value reaches a sum.
 //
 // Position w takes this step's exact new_k/new_v (the cache does not hold
-// them yet: the append runs after all layers): its copy reads them in
-// place of the cache row. A row parked at w >= S attends its new vectors
-// alone (w is clamped to 0) and reads no cache.
+// them yet): its copy reads them in place of the cache row. A row parked
+// at w >= S attends its new vectors alone (w is clamped to 0) and reads no
+// cache.
+//
+// Fused append (`append`, the pre-append arms): the CTA whose split holds
+// w also writes head h's new K and V rows into the cache at (layer,
+// slot_ids[b], h, w), the bytes `append_kv_bf16` (append_kv.cu, which
+// replaces `_append_bf16_kernel`) would write for this layer after the
+// step, with 16-byte stores once its own copies have landed. No CTA of the
+// call reads position w from the cache (its score and value come from
+// new_k/new_v), so the write races with nothing, and a decode step pays no
+// launch, stack or copy for its append. A parked row writes nothing.
 //
 // Paged arm (`decode_attend_bf16_paged`). Replaces
 // `_attend_bf16_paged_kernel` (same file), whose Pallas body streams each
@@ -101,7 +110,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                     const int* __restrict__ slot_ids, float* __restrict__ pm,
                     float* __restrict__ pl, float* __restrict__ pacc, int layer,
                     int B, int Hkv, int G, int S, int chunk, int nsplit,
-                    float scale, PagedKV pkv) {
+                    float scale, PagedKV pkv, bf16* __restrict__ wk, bf16* __restrict__ wv) {
   extern __shared__ __align__(16) unsigned char ring[];
 
   const int sp = blockIdx.x;
@@ -247,6 +256,13 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
     __syncwarp();
   }
   cp_wait<0>();
+  // the fused append: the split that holds w writes head h's new rows at w,
+  // half-warp 0 K and half-warp 1 V, 16 bytes a lane
+  if (wk != nullptr && !POST && !parked && hi == we + 1 && wid == 0) {
+    const size_t at = cache_row + (size_t)we * HD + c * 8;
+    *reinterpret_cast<uint4*>((half ? wv : wk) + at) =
+        *reinterpret_cast<const uint4*>(half ? nvp : nkp);
+  }
 
   // merge the two half-warps (same dims, other keys) through shuffles
 #pragma unroll
@@ -365,14 +381,15 @@ template <bool PAGED, bool POST, int GM>
 int launch_split(const void* q, const void* nk, const void* nv, const void* ck,
                  const void* cv, const void* lengths, const void* slot_ids, void* pm, void* pl,
                  void* pacc, int layer, int B, int Ba, int Hkv, int G, int S, int chunk,
-                 int nsplit, float scale, const PagedKV& pg, cudaStream_t st) {
+                 int nsplit, float scale, const PagedKV& pg, bool append, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<PAGED, POST, GM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   decode_split_kernel<PAGED, POST, GM><<<dim3(nsplit, Hkv, Ba), THREADS, SMEM_BYTES, st>>>(
       (const bf16*)q, (const bf16*)nk, (const bf16*)nv, (const bf16*)ck, (const bf16*)cv,
       (const int*)lengths, (const int*)slot_ids, (float*)pm, (float*)pl, (float*)pacc, layer,
-      B, Hkv, G, S, chunk, nsplit, scale, pg);
+      B, Hkv, G, S, chunk, nsplit, scale, pg, append ? (bf16*)ck : nullptr,
+      append ? (bf16*)cv : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -380,15 +397,17 @@ template <bool PAGED, bool POST = false>
 int launch(const void* q, const void* nk, const void* nv, const void* ck, const void* cv,
            const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
            void* out, int layer, int B, int Ba, int Hkv, int G, int S, int hd, int chunk,
-           int nsplit, float scale, PagedKV pg, void* stream) {
-  if (hd != HD || G > MAXG || G < 1 || chunk <= 0) return (int)cudaErrorInvalidValue;
+           int nsplit, float scale, PagedKV pg, bool append, void* stream) {
+  if (hd != HD || G > MAXG || G < 1 || chunk <= 0 || (POST && append))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rc =
       G <= 4 ? launch_split<PAGED, POST, 4>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc,
-                                            layer, B, Ba, Hkv, G, S, chunk, nsplit, scale, pg, st)
+                                            layer, B, Ba, Hkv, G, S, chunk, nsplit, scale, pg,
+                                            append, st)
              : launch_split<PAGED, POST, MAXG>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl,
                                                pacc, layer, B, Ba, Hkv, G, S, chunk, nsplit,
-                                               scale, pg, st);
+                                               scale, pg, append, st);
   if (rc != 0) return rc;
   decode_combine_wide_kernel<<<dim3(Hkv, Ba, G), THREADS, 0, st>>>(
       (const float*)pm, (const float*)pl, (const float*)pacc, (bf16*)out, Hkv, G, nsplit);
@@ -411,8 +430,9 @@ int launch(const void* q, const void* nk, const void* nv, const void* ck, const 
 // group's own psc = max(max(p * vss) / 127, 1e-30), and PV is s8 x s8 ->
 // s32 again, acc = sum over groups of s32 * psc, plus p_w * new_v. The
 // group is an argument: q8_group(S) keys contiguous (JAX's blocked BS, or
-// S where S <= 256), bt through tables, or 0: the exact arm, q and p in
-// f32 with no requantization.
+// S where S <= 256), bt through tables, S (the whole row: JAX's whole-S
+// body where no int8 block divides S but the row fits its budget), or 0:
+// the exact arm, q and p in f32 with no requantization.
 //
 // Bound on the H100: bytes, (w+1) keys of Hkv*hd int8 K and V plus four
 // bytes of scales a key, read from HBM once; the products are a few
@@ -464,6 +484,28 @@ int launch(const void* q, const void* nk, const void* nv, const void* ck, const 
 //     bit) from L2. No second kernel: its launch and its wait for the last
 //     split were a fifth of the call.
 //
+// The whole-row arm (group S, S not a multiple of the 32-key stage, so no
+// split-local group): one psc for the whole row, which spans every split,
+// so no split can form p8 from its own keys. Two launches: a score pass
+// (the same kernel up to the exchange, no V read) writes each split's max
+// m_j and its max a_j of e^(s - m_j) * vss off w into a workspace; the
+// split kernel, launched to start under it (programmatic dependent launch),
+// streams its K and V and scores as above, waits for the score pass only
+// after its exchange, and then takes the row max M = max_j m_j as its
+// reference max and psc = max_j a_j e^(m_j - M) / 127: the max of p * vss
+// over the row against the row max, JAX's whole-S psc up to f32 rounding.
+// Its splits all share M, so the last CTA's combine weighs them alike.
+//
+// Fused append (`ap.q`, every arm): the CTA whose split holds w quantizes
+// head h's new K and V rows with `append_kv_q8`'s arithmetic (append_kv_q8.cu,
+// which replaces `_append_q8_kernel`: amax * (1/127), IEEE division, rint,
+// the scale rounded to bf16) and writes them at (layer, slot_ids[b], w):
+// payload heads h and Hkv + h, their two plain scales, their four bytes
+// of the packed pseudo-head row, and (KV head 0) that row's zero tail. The
+// CTAs of a row write disjoint bytes, and no CTA reads position w from the
+// cache (w scores from new_k/new_v; its copies and scales are skipped), so
+// the writes race with nothing. A parked row writes nothing.
+//
 // Four block barriers a split: the requantized queries, the exchange, the
 // final sum and the arrival. A key past the split's end, or at w, copies
 // zeros (its score is NEG_BIG or the exact one, its p * vss 0). A parked
@@ -493,9 +535,42 @@ struct __align__(16) Q8Smem {
   unsigned char q8[MAXG * Q8STR];
   float ks[QCH], vs[QCH];
   float xm[WARPS][MAXG], xa[WARPS][2][MAXG], xl[WARPS][MAXG];
-  float qsc[MAXG], snew[MAXG], pw[MAXG], fm[MAXG], fl[MAXG];
+  float qsc[MAXG], snew[MAXG], pw[MAXG], fm[MAXG], fl[MAXG], rowm[MAXG];
   int last;
 };
+
+// The kernel's arms: the exact one (group 0), a group inside the split,
+// and the whole row's two launches, the score pass and the split kernel.
+enum Q8Arm { Q8_EXACT, Q8_GROUP, Q8_ROW_SCORE, Q8_ROW };
+
+// Where the fused append writes: the arena's payload and plain scales
+// (nullptr: no append).
+struct Q8Append {
+  int8_t* q;
+  bf16* s;
+};
+
+// Programmatic dependent launch: the whole row's split kernel is launched
+// to start while its score pass runs, and waits for the pass's writes only
+// where it needs them. Without the launch attribute both are no-ops.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// The whole row's reference max M and max of p * vss against it, from the
+// score pass's (m_j, a_j) of the row's `nlive` splits, head g: rs holds
+// [Ba, Hkv, nsplit, G, 2] and `base` is (b * Hkv + h) * nsplit * G + g.
+__device__ __forceinline__ float2 q8_row_max(const float* rs, size_t base, int nlive, int G) {
+  float m = NEG_BIG, a = 0.f;
+  for (int j = 0; j < nlive; ++j) m = fmaxf(m, __ldcg(rs + (base + (size_t)j * G) * 2));
+  for (int j = 0; j < nlive; ++j) {
+    const float* r = rs + (base + (size_t)j * G) * 2;
+    a = fmaxf(a, __ldcg(r + 1) * __expf(__ldcg(r) - m));
+  }
+  return make_float2(m, a);
+}
 
 // Arrivals of each (row, KV head)'s splits: the last to arrive combines the
 // row and sets its count back to 0, so it is 0 between calls (calls on one
@@ -538,16 +613,19 @@ __device__ __forceinline__ Q8Stage q8_stage(const FusedQ8& c, int layer, int row
   return s;
 }
 
-template <bool PAGED, bool PACKED, bool REQUANT>
-__global__ void __launch_bounds__(THREADS, REQUANT ? 4 : 3)
+template <bool PAGED, bool PACKED, int ARM>
+__global__ void __launch_bounds__(THREADS, ARM == Q8_EXACT ? 3 : 4)
 decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
                        const bf16* __restrict__ nv, FusedQ8 c,
                        const int* __restrict__ lengths, const int* __restrict__ slot_ids,
                        float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc,
-                       bf16* __restrict__ out, int layer, int Hkv, int G, int nsplit, int group,
-                       float scale) {
+                       bf16* __restrict__ out, float* __restrict__ rs, Q8Append ap, int layer,
+                       int Hkv, int G, int nsplit, int group, float scale) {
+  constexpr bool REQUANT = ARM != Q8_EXACT;
+  constexpr bool SCORE = ARM == Q8_ROW_SCORE;  // the whole row's score pass
   extern __shared__ __align__(16) unsigned char smq[];
   Q8Smem& sm = *reinterpret_cast<Q8Smem*>(smq);
+  if constexpr (SCORE) pdl_launch_dependents();
   // the last splits first: the long rows' late splits start at once, and
   // the splits past short rows' fills exit while the SMs have room
   const int h = blockIdx.x, b = blockIdx.y, sp = nsplit - 1 - blockIdx.z;
@@ -559,6 +637,7 @@ decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
   const int lo = sp * QCH;
   const int hi = min(lo + QCH, we + 1);  // exclusive
   if (lo >= hi) return;  // past the row's fill: no partial
+  const int nlive = we / QCH + 1;  // the row's splits
   const size_t bh = (size_t)b * Hkv + h;
   const int kw = lo + wid * QWK;  // the warp's first key
   unsigned char(*const ring)[QSLOT] = sm.ring[wid];
@@ -695,7 +774,8 @@ decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
       }
     }
     __syncwarp();  // K stage `half` scored by every lane: V stage `half` follows
-    copy_stage(2 + half);
+    if constexpr (SCORE) cp_commit();  // no V read: an empty group keeps the count
+    else copy_stage(2 + half);
   }
   // dequantize, position w's exact score, the mask past hi; the warp's max
   float mw[2] = {NEG_BIG, NEG_BIG};
@@ -746,6 +826,22 @@ decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
     }
   }
   __syncthreads();  // the exchange: every warp's max, sum and stage maxima
+  if constexpr (SCORE) {
+    // the split's (m, a) of each head: its max, and its max of e^(s - m) *
+    // vss off w over every stage
+    if (tid < G) {
+      float mm = NEG_BIG, aa = 0.f;
+#pragma unroll
+      for (int x = 0; x < WARPS; ++x) mm = fmaxf(mm, sm.xm[x][tid]);
+#pragma unroll
+      for (int x = 0; x < WARPS; ++x)
+        aa = fmaxf(aa, fmaxf(sm.xa[x][0][tid], sm.xa[x][1][tid]) * __expf(sm.xm[x][tid] - mm));
+      float* r = rs + ((bh * nsplit + sp) * G + tid) * 2;
+      r[0] = mm;
+      r[1] = aa;
+    }
+    return;
+  }
 
   // the split max M, each warp's factor e^(m - M), and each of this warp's
   // stages' group scale: the max of p * vss over every stage of its group,
@@ -759,7 +855,23 @@ decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
 #pragma unroll
     for (int x = 0; x < WARPS; ++x) fx[i][x] = __expf(sm.xm[x][2 * t + i] - M[i]);
   }
-  if constexpr (REQUANT) {
+  if constexpr (ARM == Q8_ROW) {
+    // the whole row's scale, once the score pass has written every split's
+    // (m, a): the row max is the reference max of every split
+    pdl_wait();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float p = 1.f;  // a head past G scores zeros: any bounded scale
+      if (2 * t + i < G) {
+        const float2 r = q8_row_max(rs, bh * nsplit * G + 2 * t + i, nlive, G);
+        M[i] = r.x;
+        p = fmaxf(r.y * INV127, 1e-30f);
+        if (wid == 0 && g == 0) sm.rowm[2 * t + i] = M[i];
+      }
+      psc[0][i] = psc[1][i] = p;
+      rpsc[0][i] = rpsc[1][i] = 1.f / p;
+    }
+  } else if constexpr (REQUANT) {
     const int gh = group / QSK;  // stages a group covers
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -888,15 +1000,53 @@ decode_q8_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ nk,
   }
   if (tid < G) {
     float mm = NEG_BIG, ls = 0.f;
+    if constexpr (ARM == Q8_ROW) {
+      mm = sm.rowm[tid];
+    } else {
 #pragma unroll
-    for (int x = 0; x < WARPS; ++x) mm = fmaxf(mm, sm.xm[x][tid]);
+      for (int x = 0; x < WARPS; ++x) mm = fmaxf(mm, sm.xm[x][tid]);
+    }
 #pragma unroll
     for (int x = 0; x < WARPS; ++x) ls += sm.xl[x][tid] * __expf(sm.xm[x][tid] - mm);
     sm.fm[tid] = mm;
     sm.fl[tid] = ls;
   }
   __syncthreads();
-  const int nlive = we / QCH + 1;  // the row's splits
+  // the fused append, by the split that holds w of a row that is not
+  // parked: warp 0 K, warp 1 V (a lane four values), warp 2 of KV head 0
+  // the packed row's zero tail
+  if (ap.q != nullptr && w_in && w == we && wid < 3) {
+    const int Hs = c.Hs;
+    const size_t lr = (size_t)layer * c.B + row;
+    int8_t* const prow = ap.q + ((lr * c.Hf + Hs) * c.S + w) * HD;  // packed scales
+    if (wid < 2) {
+      const uint2 raw = wid == 0 ? kraw : *reinterpret_cast<const uint2*>(nv + bh * HD + lane * 4);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 xa = __bfloat1622float2(x2[0]), xb = __bfloat1622float2(x2[1]);
+      const float f[4] = {xa.x, xa.y, xb.x, xb.y};
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(f[e]));
+      amax = warp_max(amax);
+      const float s = amax * INV127;
+      const float d = fmaxf(s, 1e-30f);
+      unsigned packed = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qv = s > 0.f ? (int)rintf(__fdiv_rn(f[e], d)) : 0;
+        packed |= ((unsigned)qv & 0xffu) << (8 * e);
+      }
+      const int head = wid == 0 ? h : Hkv + h;
+      *reinterpret_cast<unsigned*>(ap.q + ((lr * c.Hf + head) * c.S + w) * HD + lane * 4) = packed;
+      if (lane == 0) {
+        const bf16 sb = __float2bfloat16_rn(s);
+        ap.s[(lr * Hs + head) * c.S + w] = sb;
+        if (c.Hf > Hs) reinterpret_cast<bf16*>(prow)[head] = sb;
+      }
+    } else if (h == 0 && c.Hf > Hs && lane >= Hkv) {
+      reinterpret_cast<unsigned*>(prow)[lane] = 0u;  // bytes 2 * Hs .. HD - 1
+    }
+  }
   if (nlive == 1) {  // the row's only split: its output
 #pragma unroll
     for (int gg = 0; gg < MAXG; ++gg)
@@ -972,38 +1122,72 @@ __host__ __device__ constexpr bool q8_group_fits(int group) {
   return group == 0 || (group >= QSK && group <= QCH && group % QSK == 0 && QCH % group == 0);
 }
 
-template <bool PAGED, bool PACKED, bool REQUANT>
+// Launch one arm of the int8 kernel; `after`: programmatic dependent
+// launch, to start while the stream's previous kernel (the score pass)
+// runs.
+template <bool PAGED, bool PACKED, int ARM>
 int launch_q8_arm(const void* q, const void* nk, const void* nv, const FusedQ8& c,
                   const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
-                  void* out, int layer, int Ba, int Hkv, int G, int nsplit, int group,
-                  float scale, cudaStream_t st) {
-  auto kernel = decode_q8_split_kernel<PAGED, PACKED, REQUANT>;
+                  void* out, float* rs, const Q8Append& ap, int layer, int Ba, int Hkv, int G,
+                  int nsplit, int group, float scale, bool after, cudaStream_t st) {
+  auto kernel = decode_q8_split_kernel<PAGED, PACKED, ARM>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)sizeof(Q8Smem));
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(Hkv, Ba, nsplit), THREADS, sizeof(Q8Smem), st>>>(
-      (const bf16*)q, (const bf16*)nk, (const bf16*)nv, c, (const int*)lengths,
-      (const int*)slot_ids, (float*)pm, (float*)pl, (float*)pacc, (bf16*)out, layer, Hkv, G,
-      nsplit, group, scale);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Hkv, Ba, nsplit);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = sizeof(Q8Smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = after ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const bf16*)nk, (const bf16*)nv,
+                                 c, (const int*)lengths, (const int*)slot_ids, (float*)pm,
+                                 (float*)pl, (float*)pacc, (bf16*)out, rs, ap, layer, Hkv, G,
+                                 nsplit, group, scale);
+}
+
+template <bool PACKED>
+int launch_q8_row(const void* q, const void* nk, const void* nv, const FusedQ8& c,
+                  const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
+                  void* out, float* rs, const Q8Append& ap, int layer, int Ba, int Hkv, int G,
+                  int nsplit, int group, float scale, cudaStream_t st) {
+  const int rc = launch_q8_arm<false, PACKED, Q8_ROW_SCORE>(
+      q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, rs, Q8Append{nullptr, nullptr}, layer,
+      Ba, Hkv, G, nsplit, group, scale, false, st);
+  if (rc != 0) return rc;
+  return launch_q8_arm<false, PACKED, Q8_ROW>(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc,
+                                              out, rs, ap, layer, Ba, Hkv, G, nsplit, group,
+                                              scale, true, st);
 }
 
 template <bool PAGED>
 int launch_q8(const void* q, const void* nk, const void* nv, const FusedQ8& c,
               const void* lengths, const void* slot_ids, void* pm, void* pl, void* pacc,
               void* out, int layer, int Ba, int Hkv, int G, int hd, int chunk, int nsplit,
-              int group, float scale, void* stream) {
+              int group, float scale, float* rs, const Q8Append& ap, void* stream) {
+  // the whole row: group S where no group inside a split can stand for it
+  const bool row = !PAGED && group == c.S && !q8_group_fits(group);
   if (hd != HD || G > MAXG || G < 1 || chunk != QCH || nsplit != (c.S + QCH - 1) / QCH ||
-      !q8_group_fits(group) || (PAGED && group == 0) || c.Hs != 2 * Hkv ||
-      (c.Hf != c.Hs && c.Hf != c.Hs + 1) || (c.Hf > c.Hs && 2 * c.Hs > HD) ||
+      !(q8_group_fits(group) || row) || (PAGED && group == 0) || (row && rs == nullptr) ||
+      c.Hs != 2 * Hkv || (c.Hf != c.Hs && c.Hf != c.Hs + 1) || (c.Hf > c.Hs && 2 * c.Hs > HD) ||
       (size_t)Ba * Hkv > Q8_ARRIVALS)
     return (int)cudaErrorInvalidValue;
   const bool packed = c.Hf > c.Hs;
-  auto arm = packed ? (group ? launch_q8_arm<PAGED, true, true> : launch_q8_arm<false, true, false>)
-                    : (group ? launch_q8_arm<PAGED, false, true>
-                             : launch_q8_arm<false, false, false>);
-  return arm(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, layer, Ba, Hkv, G, nsplit, group,
-             scale, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (row)
+    return (packed ? launch_q8_row<true> : launch_q8_row<false>)(
+        q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, rs, ap, layer, Ba, Hkv, G, nsplit,
+        group, scale, st);
+  auto arm = packed ? (group ? launch_q8_arm<PAGED, true, Q8_GROUP>
+                             : launch_q8_arm<false, true, Q8_EXACT>)
+                    : (group ? launch_q8_arm<PAGED, false, Q8_GROUP>
+                             : launch_q8_arm<false, false, Q8_EXACT>);
+  return arm(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, rs, ap, layer, Ba, Hkv, G,
+             nsplit, group, scale, false, st);
 }
 
 }  // namespace
@@ -1014,9 +1198,9 @@ extern "C" int decode_attend_bf16(const void* q, const void* nk, const void* nv,
                                   void* pm, void* pl, void* pacc, void* out,
                                   int layer, int B, int Ba, int Hkv, int G,
                                   int S, int hd, int chunk, int nsplit,
-                                  float scale, void* stream) {
+                                  float scale, int append, void* stream) {
   return launch<false>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc, out, layer, B,
-                       Ba, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, stream);
+                       Ba, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, append != 0, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* ck, const void* cv,
@@ -1024,7 +1208,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* ck, const void* 
                                      void* out, int B, int Hkv, int G, int S, int hd, int chunk,
                                      int nsplit, float scale, void* stream) {
   return launch<false, true>(q, q, q, ck, cv, lengths, nullptr, pm, pl, pacc, out,
-                             0, B, B, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, stream);
+                             0, B, B, Hkv, G, S, hd, chunk, nsplit, scale, PagedKV{}, false,
+                             stream);
 }
 
 extern "C" int decode_attend_bf16_paged(const void* q, const void* nk, const void* nv,
@@ -1035,37 +1220,42 @@ extern "C" int decode_attend_bf16_paged(const void* q, const void* nk, const voi
                                         void* pacc, void* out, int layer, int B, int Ba,
                                         int Hkv, int G, int S, int hd, int chunk,
                                         int nsplit, int nbs, int bt, int pxb,
-                                        float scale, void* stream) {
+                                        float scale, int append, void* stream) {
   if (nbs <= 0 || bt <= 0 || nbs * bt != S || pxb <= 0) return (int)cudaErrorInvalidValue;
   const PagedKV pg{(const int*)tbl, (const bf16*)pool_k, (const bf16*)pool_v, nbs, bt, pxb};
   return launch<true>(q, nk, nv, ck, cv, lengths, slot_ids, pm, pl, pacc, out, layer, B,
-                      Ba, Hkv, G, S, hd, chunk, nsplit, scale, pg, stream);
+                      Ba, Hkv, G, S, hd, chunk, nsplit, scale, pg, append != 0, stream);
 }
 
+// rs: the whole-row arm's workspace, f32 [Ba, Hkv, nsplit, G, 2] (else
+// null); append: write this step's K/V row into cq/cs (the fused append)
 extern "C" int decode_attend_q8(const void* q, const void* nk, const void* nv,
-                                const void* cq, const void* cs, const void* lengths,
+                                void* cq, void* cs, const void* lengths,
                                 const void* slot_ids, void* pm, void* pl, void* pacc,
                                 void* out, int layer, int B, int Ba, int Hkv, int Hf, int G,
                                 int S, int hd, int chunk, int nsplit, int group, float scale,
-                                void* stream) {
+                                void* rs, int append, void* stream) {
   const FusedQ8 c{(const int8_t*)cq, (const bf16*)cs, nullptr, nullptr, nullptr,
                   B, Hf, 2 * Hkv, S, hd, 0, 0, 0};
+  const Q8Append ap{append ? (int8_t*)cq : nullptr, append ? (bf16*)cs : nullptr};
   return launch_q8<false>(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, layer, Ba, Hkv,
-                          G, hd, chunk, nsplit, group, scale, stream);
+                          G, hd, chunk, nsplit, group, scale, (float*)rs, ap, stream);
 }
 
 extern "C" int decode_attend_q8_paged(const void* q, const void* nk, const void* nv,
-                                      const void* cq, const void* cs, const void* lengths,
+                                      void* cq, void* cs, const void* lengths,
                                       const void* slot_ids, const void* tbl,
                                       const void* pool_q, const void* pool_s, void* pm,
                                       void* pl, void* pacc, void* out, int layer, int B,
                                       int Ba, int Hkv, int Hf, int G, int S, int hd,
                                       int chunk, int nsplit, int nbs, int bt, int pxb,
-                                      float scale, void* stream) {
+                                      float scale, int append, void* stream) {
   if (nbs <= 0 || bt <= 0 || nbs * bt != S || pxb <= 0) return (int)cudaErrorInvalidValue;
   const FusedQ8 c{(const int8_t*)cq, (const bf16*)cs, (const int*)tbl, (const int8_t*)pool_q,
                   (const bf16*)pool_s, B, Hf, 2 * Hkv, S, hd, nbs, bt, pxb};
+  // the append writes the arena row (the slot's own home), as append_kv_q8
+  const Q8Append ap{append ? (int8_t*)cq : nullptr, append ? (bf16*)cs : nullptr};
   // the paged arm requantizes per block, as `_attend_q8_paged_kernel`
   return launch_q8<true>(q, nk, nv, c, lengths, slot_ids, pm, pl, pacc, out, layer, Ba, Hkv,
-                         G, hd, chunk, nsplit, bt, scale, stream);
+                         G, hd, chunk, nsplit, bt, scale, nullptr, ap, stream);
 }

@@ -43,8 +43,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import (
-    append_kv_bf16,
-    append_kv_q8,
     decode_attend_bf16,
     decode_attend_q8,
     flash_prefill_attention,
@@ -456,15 +454,16 @@ def _decode_step_q8(
     paged: dict | None = None,
 ) -> tuple[torch.Tensor, dict, dict]:
     """Decode step over the fused int8 cache, JAX's `_decode_step_q8`:
-    `decode_attend_q8` per layer over the unchanged cache (position
-    lengths[b] from the exact K/V), then one `append_kv_q8` that
-    quantizes and writes every layer's row."""
+    `decode_attend_q8` per layer over the cache as the step found it
+    (position lengths[b] from the exact K/V), which also quantizes and
+    writes that layer's new row (`append=True`): the bytes of JAX's one
+    `append_kv_q8` after the last layer, since layer li's rows are read by
+    layer li's call alone, before its write."""
     _, _, _, S, hd = _cache_shape(cache_k)
     Ba = tokens.shape[0]
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     h = _embed_in(cfg, params, tokens)  # [Ba, D]
     cos, sin = rope_tables(cfg, hd, lengths)  # [Ba, hd/2]
-    knew, vnew = [], []
     for li in range(cfg.n_layers):
         lp = _layer(params, li)
         x = _norm(cfg, h, lp["attn_norm"])
@@ -476,14 +475,10 @@ def _decode_step_q8(
             q.reshape(Ba, Hkv, H // Hkv, hd).contiguous(), k.contiguous(), v.contiguous(),
             cache_k, cache_v, li, lengths, slot_ids=slot_ids, scale=cfg.attn_scale,
             block_tables=None if paged is None else paged["tbl"],
-            pool_k=None if paged is None else paged["k"],
+            pool_k=None if paged is None else paged["k"], append=True,
         )
         h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
         h = _ffn_residual(cfg, lp, h)
-        knew.append(k)
-        vnew.append(v)
-    append_kv_q8(cache_k, cache_v, torch.stack(knew), torch.stack(vnew), lengths,
-                 slot_ids=slot_ids)
     return _logits(cfg, params, h), cache_k, cache_v
 
 
@@ -499,10 +494,12 @@ def llama_decode_step(
     paged: dict | None = None,  # {"tbl","k","v"} physical paging operand
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One batched autoregressive step, with the structure of JAX's
-    `_decode_step_bf16`: every layer reads the cache unchanged and
-    `decode_attend_bf16` takes position lengths[b] from the step's exact
-    K/V; the per-layer K/V rows stack up and ONE `append_kv_bf16` writes
-    them after the last layer. Rows parked at lengths >= S write nothing.
+    `_decode_step_bf16`: every layer reads the cache as the step found it
+    and `decode_attend_bf16` takes position lengths[b] from the step's
+    exact K/V, and also writes that layer's K/V rows (`append=True`): the
+    bytes of JAX's one `append_kv_bf16` after the last layer, since layer
+    li's rows are read by layer li's call alone, before its write. Rows
+    parked at lengths >= S write nothing.
     A fused int8 cache takes `_decode_step_q8`, MLA configs
     `mla.mla_decode_step`. Returns (logits [Ba, V] f32, cache_k, cache_v)."""
     if cfg.kv_lora_rank:
@@ -516,7 +513,6 @@ def llama_decode_step(
     H = cfg.n_heads
     h = _embed_in(cfg, params, tokens)  # [Ba, D]
     cos, sin = rope_tables(cfg, hd, lengths)  # [Ba, hd/2]
-    knew, vnew = [], []
     for li in range(L):
         lp = _layer(params, li)
         x = _norm(cfg, h, lp["attn_norm"])
@@ -527,13 +523,8 @@ def llama_decode_step(
         ctx = decode_attend_bf16(
             q.reshape(Ba, Hkv, H // Hkv, hd).contiguous(), k.contiguous(), v.contiguous(),
             cache_k, cache_v, li, lengths, slot_ids=slot_ids, scale=cfg.attn_scale,
-            **_paged_kw(paged),
+            **_paged_kw(paged), append=True,
         )
         h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
         h = _ffn_residual(cfg, lp, h)
-        knew.append(k)
-        vnew.append(v)
-    append_kv_bf16(
-        cache_k, cache_v, torch.stack(knew), torch.stack(vnew), lengths, slot_ids=slot_ids
-    )
     return _logits(cfg, params, h), cache_k, cache_v

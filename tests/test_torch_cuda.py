@@ -632,17 +632,19 @@ def test_cuda_decode_split_sizes_passed(monkeypatch):
 @pytest.mark.parametrize("S", [1000, 4072])
 def test_cuda_q8_decode_exact_group(S, packed):
     """At a cache length that no int8 group divides (not a multiple of 32:
-    `q8_group(S)` is 0) the contiguous int8 decode takes its exact arm, the
-    arithmetic of JAX's `_decode_attend_q8_fallback`, and matches
+    `q8_group(S)` is 0) and past JAX's whole-S budget (744 keys at
+    Llama-2-7B's 32 KV heads of 128, G = 1) the contiguous int8 decode
+    takes its exact arm, the arithmetic of JAX's
+    `_decode_attend_q8_fallback`, and matches
     `decode_attend_q8_plain(group=0)`: q and p in f32, no requantization;
     w at 0, beside a split edge, at S - 1 and parked;
     |err| <= 1e-3 + 1e-2*|ref|."""
     dev, g, rn, i32 = _card(600 + S + packed)
-    L, B, Hkv, G, hd = 2, 6, 2, 4, 128
+    L, B, Hkv, G, hd = 2, 6, 32, 1, 128
     cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
     q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
     lens, ids = i32([0, 255, 256, S // 2, S - 1, S]), i32([5, 2, 0, 4, 1, 3])
-    assert P.q8_group(S) == 0
+    assert P.q8_group(S) == 0 and P.q8_decode_plan(S, hd, Hkv, Hkv * G)[0] == 0
     out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
     again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
     ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, 0)
@@ -652,11 +654,146 @@ def test_cuda_q8_decode_exact_group(S, packed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("Hkv,S", [(2, 1000), (2, 4072), (8, 1000)])
+def test_cuda_q8_decode_whole_row(Hkv, S, packed):
+    """At a cache length that no int8 group divides but that fits JAX's
+    whole-S budget (11397 keys at Hkv 2, G 4; 2849 at Llama-3.1-8B's Hkv
+    8) the contiguous int8 decode takes its whole-row arm (a score pass,
+    then the split kernel under programmatic dependent launch) and matches
+    `decode_attend_q8_plain(group=S)`, p requantized once over the whole
+    row: w at 0, at a split edge (255, 256, 257), mid-row, S - 1 and
+    parked; two calls agree bit for bit; |err| <= 1e-3 + 1e-2*|ref|."""
+    dev, g, rn, i32 = _card(650 + S + Hkv + packed)
+    L, B, G, hd = 2, 7, 4, 128
+    cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens, ids = i32([0, 255, 256, 257, S // 2, S - 1, S]), i32([5, 2, 0, 6, 4, 1, 3])
+    assert P.q8_group(S) == 0 and P.q8_decode_plan(S, hd, Hkv, Hkv * G)[0] == S
+    P.reset_launches()
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, S)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES["decode_attend_q8_row"] == 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+
+
+# the fused append's arms: (arm, packed scales)
+FUSED_APPEND_ARMS = [("bf16", True), ("bf16_paged", True), ("q8", True), ("q8", False),
+                     ("q8_paged", True), ("q8_paged", False), ("q8_exact", True),
+                     ("q8_exact", False), ("q8_row", True), ("q8_row", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,packed", FUSED_APPEND_ARMS)
+def test_cuda_decode_fused_append(arm, packed):
+    """Every decode arm with `append=True`: its output equals the same call
+    with `append=False` bit for bit, and the cache after it equals, bit for
+    bit (payload, plain scales, packed pseudo-head), the cache after the
+    `append=False` call followed by the plain append (`append_kv_plain` /
+    `append_kv_q8_plain`) of that layer, and followed by the standalone
+    append (`append_kv_bf16` / `append_kv_q8`): the same bytes at the same
+    addresses, the slot's arena row at w through tables too, and nothing
+    else. Rows at
+    w = 0, at a split edge, at S - 1 and parked, compacted through
+    slot_ids; the bf16 arms at split 128 (S = 640), the int8 group arm at
+    S = 1024, the exact arm at 32 KV heads (S = 1000 past the whole-S
+    budget), the whole-row arm at S = 1000, the paged arms at 64-token
+    blocks with pool rows and foreign homes."""
+    dev, g, rn, i32 = _card(1300 + FUSED_APPEND_ARMS.index((arm, packed)))
+    L, B, hd, layer = 3, 7, 128, 1
+    Hkv, G, S = {"q8_exact": (32, 1, 1000), "q8_row": (2, 4, 1000)}.get(arm, (2, 4, 1024))
+    if arm.startswith("bf16"):
+        S = 640
+    split = P.DECODE_CHUNK_BF16 if arm.startswith("bf16") else P.DECODE_CHUNK
+    lens = i32([0, split - 1, split, S - 1, S])
+    ids = i32([5, 2, 6, 0, 3])
+    Ba = len(ids)
+    q, nk, nv = rn(Ba, Hkv, G, hd), rn(Ba, Hkv, hd), rn(Ba, Hkv, hd)
+    kw = dict(slot_ids=ids, scale=0.09)
+    if arm.startswith("bf16"):
+        cache = (rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd))
+        if arm == "bf16_paged":
+            bt, pxb = 64, 4
+            nbs = S // bt
+            tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+            tbl[5, :2] = B * nbs + torch.tensor([2, 0], dtype=torch.int32)
+            tbl[2, 1] = 4 * nbs + 1
+            kw.update(block_tables=tbl.to(dev), pool_k=rn(L, pxb, Hkv, bt, hd),
+                      pool_v=rn(L, pxb, Hkv, bt, hd))
+
+        def call(c, append):
+            return P.decode_attend_bf16(q, nk, nv, c[0], c[1], layer, lens, append=append, **kw)
+
+        def standalone(c):
+            P.append_kv_bf16(c[0][layer:layer + 1], c[1][layer:layer + 1], nk[None], nv[None],
+                             lens, slot_ids=ids)
+
+        def plain(c):
+            P.append_kv_plain(c[0][layer:layer + 1], c[1][layer:layer + 1], nk[None], nv[None],
+                              lens, ids)
+
+        def clone(c):
+            return tuple(x.clone() for x in c)
+
+        def same(a, b):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        counter = "append_kv_bf16_fused"
+    else:
+        if arm == "q8_paged":
+            cache, pool, tbl, _ = _q8_paged_case(g, dev, L, B, Hkv, S, hd, 64, packed)
+            kw.update(block_tables=tbl, pool_k=pool)
+        else:
+            cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+        group = P.q8_decode_plan(S, hd, Hkv, Hkv * G, None if arm != "q8_paged" else S // 64)[0]
+        assert group == {"q8": 256, "q8_paged": 64, "q8_exact": 0, "q8_row": S}[arm]
+
+        def call(c, append):
+            return P.decode_attend_q8(q, nk, nv, c, {}, layer, lens, append=append, **kw)
+
+        def standalone(c):
+            P.append_kv_q8({k: v[layer:layer + 1] for k, v in c.items()}, {}, nk[None], nv[None],
+                           lens, slot_ids=ids)
+
+        def plain(c):
+            P.append_kv_q8_plain({k: v[layer:layer + 1] for k, v in c.items()}, nk[None],
+                                 nv[None], lens, ids)
+
+        def clone(c):
+            return {k: v.clone() for k, v in c.items()}
+
+        def same(a, b):
+            return all(torch.equal(a[k], b[k]) for k in a)
+        counter = "append_kv_q8_fused"
+    want = clone(cache)
+    out = call(want, False)
+    torch.cuda.synchronize()
+    assert same(want, cache)  # append=False writes nothing
+    standalone(want)
+    ref = clone(cache)
+    call(ref, False)
+    plain(ref)
+    got = clone(cache)
+    P.reset_launches()
+    fused = call(got, True)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES[counter] == 1
+    assert torch.equal(fused, out)
+    assert same(got, ref)
+    assert same(got, want)
+    assert not same(got, cache)
+
+
+@pytest.mark.cuda
 def test_cuda_int8_engine_serves_unaligned_seq_len():
     """An int8-KV engine at max_seq_len = 1000 (no 64-token block divides
     it, so the cache is contiguous, and no int8 group either) decodes on
-    the card through the int8 decode kernel's exact arm. tiny-llm's
-    structure at head_dim 128, the width the kernels are built for."""
+    the card through the int8 decode kernel's whole-row arm (the row fits
+    JAX's whole-S budget at these widths), appending from inside it.
+    tiny-llm's structure at head_dim 128, the width the kernels are built
+    for."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from dataclasses import replace
@@ -676,6 +813,9 @@ def test_cuda_int8_engine_serves_unaligned_seq_len():
     assert eng._phys is None and eng._ck["q"].shape[3] == 1000
     assert out["usage"]["completion_tokens"] == 6
     assert P.LAUNCHES["decode_attend_q8"] > 0
+    assert P.LAUNCHES["decode_attend_q8_row"] == P.LAUNCHES["decode_attend_q8"]
+    assert P.LAUNCHES["append_kv_q8_fused"] == P.LAUNCHES["decode_attend_q8"]
+    assert P.LAUNCHES["append_kv_q8"] == 0
 
 
 def _q8_paged_case(g, dev, L, B, Hkv, S, hd, bt, packed):
@@ -724,7 +864,7 @@ def test_cuda_q8_decode_split_edges(G, packed):
     lens = i32([0, 31, 32, 63, 64, 255, 256, 257, 700, S - 1, S])
     ids = i32([5, 2, 7, 0, 3, 6, 1, 4, 10, 9, 8])
     q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
-    assert P.q8_decode_plan(S) == (256, 256, 4)
+    assert P.q8_decode_plan(S, hd, Hkv, Hkv * G) == (256, 256, 4)
     out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
     again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
     ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, 256)
@@ -747,7 +887,7 @@ def test_cuda_q8_decode_groups(S, packed):
     lens, ids = i32([0, 40, 255, 300, S - 1, S]), i32([3, 5, 0, 1, 4, 2])
     q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
     group = {608: 32, 576: 64, 640: 128}[S]
-    assert P.q8_decode_plan(S)[0] == P.q8_group(S) == group
+    assert P.q8_decode_plan(S, hd, Hkv, Hkv * G)[0] == P.q8_group(S) == group
     out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09)
     ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, group)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)

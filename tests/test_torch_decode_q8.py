@@ -4,20 +4,25 @@
 splits a row into 256-key CTAs, gives each of four warps 64 keys in two
 32-key copy stages, and exchanges each warp's max and each stage's max of
 p * vss once a split, so that a requantization group's scale sees the whole
-group however many warps or stages it spans. The kernel runs only on the
-card (`tests/test_torch_cuda.py`); here, on the CPU:
+group however many warps or stages it spans; a whole-row group (JAX's
+whole-S body, where no int8 block divides S) takes its scale from a score
+pass over every split. The kernel runs only on the card
+(`tests/test_torch_cuda.py`); here, on the CPU:
 
   - `q8_decode_plan` (group, split, splits) at every length and block size
     the engine serves, and its refusals;
   - the exact arm's plain version (`group = 0`, taken where no int8 group
-    divides S) against JAX's `_decode_attend_q8_fallback`, at 2e-5;
+    divides S and the row is past JAX's whole-S budget) against JAX's
+    `_decode_attend_q8_fallback`, at 2e-5;
   - a float64 emulation of the kernel's schedule (splits, warps, stages,
     the exchange, the split max as reference, the merge in warp order,
-    then the combine over splits) against `decode_attend_q8_plain` and the
-    Pallas bodies in interpret mode with the same group, at 2e-3 (Q8_TOL:
-    a probability on a rounding edge can land on the neighbouring int8
-    step); and the same emulation with a scale taken over one warp's or one
-    stage's keys, which must miss the plain version.
+    then the combine over splits; for the whole row the score pass's
+    per-split maxima and the row max as every split's reference) against
+    `decode_attend_q8_plain` and the Pallas bodies in interpret mode with
+    the same group, at 2e-3 (Q8_TOL: a probability on a rounding edge can
+    land on the neighbouring int8 step); and the same emulation with a
+    scale taken over one warp's, one stage's or (whole row) one split's
+    keys, which must miss the plain version.
 
 Inputs are made with numpy from a seed and fed to both sides.
 """
@@ -37,6 +42,9 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 Q8_TOL = dict(atol=2e-3, rtol=0)
 SPLIT, WARP_KEYS, STAGE = 256, 64, 32  # the kernel's split, keys a warp, keys a stage
 INV127 = np.float32(1.0 / 127.0)
+# (head_dim, Hkv, H) of published models: JAX's whole-S budget is 2849 keys
+# at Llama-3.1-8B's, 744 at Llama-2-7B's (32 KV heads); 41391 at tiny-llm's
+LLAMA31_8B, LLAMA2_7B, TINY = (128, 8, 32), (128, 32, 32), (32, 2, 4)
 
 
 def _t(x) -> torch.Tensor:
@@ -76,22 +84,30 @@ def test_q8_decode_plan_serves_every_engine_length(monkeypatch, S, bt):
     """An int8 engine at max_seq_len S and TPU_KV_BLOCK_TOKENS = bt decodes
     through tables of bt-token blocks where bt divides S, else through the
     contiguous cache; the plan takes either (the card never refuses what
-    the engine serves): group bt through tables, `q8_group(S)` contiguous,
-    which is 0, the exact arm, at 1000 and 4072 (not multiples of 32)."""
+    the engine serves): group bt through tables; contiguous, JAX's group:
+    `q8_group(S)` where an int8 block divides S, else the whole row where S
+    fits JAX's whole-S budget at the model's widths (tiny-llm's at 1000 and
+    4072; Llama-3.1-8B's at 1000), else 0, the exact arm (Llama-3.1-8B at
+    4072)."""
     from llm_mcp_tpu_torch.executor import GenerationEngine
 
     monkeypatch.setenv("TPU_KV_BLOCK_TOKENS", str(bt))
     eng = GenerationEngine("tiny-llm", dtype=torch.float32, device="cpu", max_slots=2,
                            max_seq_len=S, prompt_cache_mb=1, quant="int8", kv_quant="int8")
     try:
+        cfg = eng.cfg
+        widths = (cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads)
+        assert widths == TINY
         nbs = None if eng._phys is None else S // bt
         assert (nbs is not None) == (S % bt == 0)
-        group, split, nsplit = P.q8_decode_plan(S, nbs)
-        assert group == (bt if nbs else P.q8_group(S))
+        group, split, nsplit = P.q8_decode_plan(S, *widths, nbs)
+        assert group == (bt if nbs else P.q8_contig_group(S, *widths))
         assert (split, nsplit) == (SPLIT, -(-S // SPLIT))
-        assert group == 0 or split % group == 0
+        assert group in (0, S) or split % group == 0
         if S != 4096:
-            assert P.q8_decode_plan(S) == (0, SPLIT, -(-S // SPLIT))
+            assert P.q8_decode_plan(S, *widths) == (S, SPLIT, -(-S // SPLIT))
+            assert P.q8_decode_plan(S, *LLAMA31_8B) == (
+                (S if S == 1000 else 0), SPLIT, -(-S // SPLIT))
     finally:
         eng.shutdown()
 
@@ -100,9 +116,10 @@ def test_q8_decode_plan_serves_every_engine_length(monkeypatch, S, bt):
 def test_q8_decode_plan_refuses_groups_it_cannot_split(S, nbs):
     """Tables of 16- or 48-token blocks, or of blocks past a split, would
     need a scale from part of a copy stage or a group wider than a split:
-    refused, not approximated."""
+    refused, not approximated (JAX's `paged_ok` takes bt in {32, 64, 128,
+    256} alone)."""
     with pytest.raises(ValueError, match="group"):
-        P.q8_decode_plan(S, nbs)
+        P.q8_decode_plan(S, *LLAMA31_8B, nbs)
 
 
 # -- the exact arm -------------------------------------------------------------
@@ -110,21 +127,25 @@ def test_q8_decode_plan_refuses_groups_it_cannot_split(S, nbs):
 
 @pytest.mark.parametrize("packed", [True, False])
 def test_decode_attend_q8_exact_group_matches_fallback(packed):
-    """At S = 1000 (no int8 group divides it) the wrapper's CPU path is the
-    plain version with group 0, and that is JAX's exact f32 fallback: q and
-    p in f32, no requantization; a parked row is left out (its output is
-    discarded)."""
-    S = 1000
-    cache, q, nk, nv, lens, ids = _case(61 + packed, 5, 2, 4, S, 32, packed,
-                                        [0, 255, 256, S - 1, 613])
-    assert P.q8_group(S) == 0 and P.q8_decode_plan(S)[0] == 0
+    """At S = 4072 at Llama-3.1-8B's widths (no int8 group divides S, and
+    the row is past JAX's whole-S budget of 2849 keys) the wrapper's CPU
+    path is the plain version with group 0, and that is JAX's exact f32
+    fallback: q and p in f32, no requantization; a parked row is left out
+    (its output is discarded)."""
+    S = 4072
+    hd, Hkv, H = LLAMA31_8B
+    cache, q, nk, nv, lens, ids = _case(61 + packed, 5, Hkv, H // Hkv, S, hd, packed,
+                                        [0, 255, 256, S - 1, S])
+    assert P.q8_group(S) == 0 and S > A.decode_pallas_max_seq(hd, Hkv, H, quantized=True)
+    assert P.q8_decode_plan(S, *LLAMA31_8B)[0] == 0
     jout = np.asarray(A._decode_attend_q8_fallback(
         jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), {k: jnp.asarray(v) for k, v in
                                                            cache.items()}, {}, jnp.int32(1),
-        jnp.asarray(lens), 32 ** -0.5, jnp.asarray(ids)))
+        jnp.asarray(lens), hd ** -0.5, jnp.asarray(ids)))
     tout = P.decode_attend_q8(_t(q), _t(nk), _t(nv), {k: _t(v) for k, v in cache.items()}, {},
                               1, _t(lens), slot_ids=_t(ids)).numpy()
-    np.testing.assert_allclose(tout, jout, **TOL)
+    live = lens < S
+    np.testing.assert_allclose(tout[live], jout[live], **TOL)
     np.testing.assert_allclose(tout, _port(cache, q, nk, nv, lens, ids, 0), atol=0, rtol=0)
 
 
@@ -139,7 +160,11 @@ def emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from="group"):
     "warp": only those of its own warp; "stage": its own); p8 per stage
     with that scale, the integer products flushed per stage times psc and
     the warps' partials summed in order; p_w * new_v; then the splits
-    combined as the combine kernel does."""
+    combined as the combine kernel does. The whole row (group = S, not a
+    multiple of the stage): the score pass's (m_j, a_j) of every split j
+    first, then each split with the row max M = max m_j as its reference
+    and psc from max a_j e^(m_j - M) over the row ("split": over its own
+    split's stages only)."""
     Hkv = cache["s"].shape[2] // 2
     B, _, G, hd = q.shape
     pay = cache["q"][1][ids]
@@ -147,6 +172,7 @@ def emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from="group"):
     S = pay.shape[2]
     k8, v8 = pay[:, :Hkv].astype(np.float64), pay[:, Hkv:2 * Hkv].astype(np.float64)
     scale = hd**-0.5
+    row = group == S and S % STAGE != 0  # the whole-row arm
     out = np.zeros((B, Hkv, G, hd))
     for b in range(B):
         w = int(lens[b])
@@ -158,7 +184,8 @@ def emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from="group"):
             if group:
                 qsc = np.maximum(np.abs(q[b, h]).max(-1) * INV127, np.float32(1e-30))
                 qm = np.round(q[b, h] / qsc[:, None]).astype(np.float64)
-            parts = []
+            nw, nst = SPLIT // WARP_KEYS, SPLIT // STAGE
+            scored = []  # each split's keys, scores, stage maxima and max (the score pass)
             for lo in range(0, we + 1, SPLIT):
                 hi = min(lo + SPLIT, we + 1)
                 keys = np.arange(lo, lo + SPLIT)
@@ -172,19 +199,32 @@ def emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from="group"):
                 s[:, keys == we] = s_new[:, None]
                 s = np.where(valid, s, -1e30)
                 off_w = valid & (keys != we)
-                nw, nst = SPLIT // WARP_KEYS, SPLIT // STAGE
                 mw = s.reshape(G, nw, WARP_KEYS).max(-1)  # [G, warps]
                 m_of_stage = np.repeat(mw, WARP_KEYS // STAGE, axis=1)  # [G, stages]
                 e = np.exp(s - np.repeat(m_of_stage, STAGE, axis=1))
                 a = np.where(off_w, e * vss[kk], 0.0).reshape(G, nst, STAGE).max(-1)
-                M = mw.max(-1)
+                scored.append((lo, hi, keys, valid, kk, s, off_w, m_of_stage, a, mw.max(-1)))
+            if row:  # the row max and the row's max of p * vss against it
+                M_row = np.max([sc[-1] for sc in scored], axis=0)
+                a_row = np.max([(sc[8] * np.exp(sc[7] - M_row[:, None])).max(-1)
+                                for sc in scored], axis=0)
+            parts = []
+            for lo, hi, keys, valid, kk, s, off_w, m_of_stage, a, M in scored:
+                if row:
+                    own = (a * np.exp(m_of_stage - M_row[:, None])).max(-1)
+                    M = M_row
                 p = np.where(valid, np.exp(s - M[:, None]), 0.0)
                 pv = np.where(off_w, p * vss[kk], 0.0)
                 acc = np.zeros((G, hd))
                 for x in range(nw):  # the warps, in order
                     for z in range(x * WARP_KEYS // STAGE, (x + 1) * WARP_KEYS // STAGE):
                         sel = slice(z * STAGE, (z + 1) * STAGE)
-                        if group:
+                        if row:
+                            gmax = own if scale_from == "split" else a_row
+                            psc = np.maximum(gmax * float(INV127), 1e-30)
+                            p8 = np.minimum(np.round(pv[:, sel] / psc[:, None]), 127)
+                            acc += (p8 @ v8[b, h, kk[sel]]) * psc[:, None]
+                        elif group:
                             gz = group // STAGE
                             zs = range(z // gz * gz, z // gz * gz + gz)
                             if scale_from == "warp":
@@ -208,9 +248,12 @@ def emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from="group"):
     return out
 
 
-# (S, group): groups of one stage, one warp, two warps, the whole split,
-# and the exact arm; w on every stage, warp and split edge, and parked
-SCHEDULE_CASES = [(608, 32), (576, 64), (640, 128), (1024, 256), (1000, 0)]
+# (S, group, widths the plan is asked at): groups of one stage, one warp,
+# two warps, the whole split, the whole row (S not a multiple of the stage
+# and inside JAX's whole-S budget), and the exact arm (past the budget);
+# w on every stage, warp and split edge, and parked
+SCHEDULE_CASES = [(608, 32, TINY), (576, 64, TINY), (640, 128, TINY), (1024, 256, TINY),
+                  (1000, 0, LLAMA2_7B), (1000, 1000, LLAMA31_8B), (4072, 0, LLAMA31_8B)]
 
 
 def _edge_lens(S):
@@ -218,14 +261,16 @@ def _edge_lens(S):
 
 
 @pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("S,group", SCHEDULE_CASES)
-def test_q8_decode_schedule_matches_plain(S, group, packed):
+@pytest.mark.parametrize("S,group,widths", SCHEDULE_CASES)
+def test_q8_decode_schedule_matches_plain(S, group, widths, packed):
     """The kernel's schedule, emulated in float64, equals the plain version
     with the same group (which requantizes each group over the whole row
     at once, against the row max): a group's scale is known across warps
-    and stages before any p8 is formed, and the split partials, all
-    relative to their split max, combine to the row."""
-    assert P.q8_decode_plan(S)[0] == group
+    and stages before any p8 is formed, the whole row's across splits
+    (from the score pass), and the split partials, each relative to its
+    own reference max, combine to the row. The plan gives the group at
+    the named model's widths (the emulation's data is narrower)."""
+    assert P.q8_decode_plan(S, *widths)[0] == group
     cache, q, nk, nv, lens, ids = _case(70 + S + packed, 10, 2, 4, S, 32, packed, _edge_lens(S))
     got = emulate_q8_schedule(cache, q, nk, nv, lens, ids, group)
     want = _port(cache, q, nk, nv, lens, ids, group)
@@ -263,12 +308,13 @@ def test_q8_decode_schedule_matches_pallas(monkeypatch, arm, S):
 
 @pytest.mark.parametrize("S,group,scale_from", [
     (1024, 256, "warp"), (1024, 256, "stage"), (640, 128, "warp"), (640, 128, "stage"),
-    (576, 64, "stage")])
+    (576, 64, "stage"), (1000, 1000, "split")])
 def test_q8_decode_schedule_with_a_partial_scale_misses_plain(S, group, scale_from):
     """The faults the schedule guards against: a group's scale taken over
-    one warp's keys or one stage's keys (where the group spans more) gives
-    other p8 and misses the plain version by more than Q8_TOL, so the
-    matching emulation above pins the whole-group rule."""
+    one warp's keys or one stage's keys (where the group spans more), or
+    the whole row's over one split's keys, gives other p8 and misses the
+    plain version by more than Q8_TOL, so the matching emulation above
+    pins the whole-group and whole-row rules."""
     cache, q, nk, nv, lens, ids = _case(90 + S, 10, 2, 4, S, 32, True, _edge_lens(S))
     got = emulate_q8_schedule(cache, q, nk, nv, lens, ids, group, scale_from)
     want = _port(cache, q, nk, nv, lens, ids, group)

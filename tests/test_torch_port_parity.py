@@ -6,10 +6,13 @@ PyTorch/CUDA port. Each `extern "C"` entry point in
 `llm_mcp_tpu_torch/kernels/csrc/` maps to the `_*_kernel` bodies of
 `llm_mcp_tpu/kernels/attention.py` it replaces, its CPU parity test (the
 plain version against the Pallas body in interpret mode) and its card test
-in `tests/test_torch_cuda.py` (the kernel against its plain version). The
-guards read the sources as text, so they need neither a card nor `nvcc`:
-a new Pallas body, a new entry point or a renamed test that is not
-registered here fails them.
+in `tests/test_torch_cuda.py` (the kernel against its plain version). A
+body may stand behind several entry points: the appends' bodies are both
+the standalone append entry points and the fused append of the decode
+entry points (`append=True`), whose tests are listed beside the decode
+ones. The guards read the sources as text, so they need neither a card
+nor `nvcc`: a new Pallas body, a new entry point or a renamed test that is
+not registered here fails them.
 """
 
 from __future__ import annotations
@@ -27,18 +30,25 @@ CSRC = ROOT / "llm_mcp_tpu_torch" / "kernels" / "csrc"
 CARD = "tests/test_torch_cuda.py"
 KERNELS = "tests/test_torch_kernels.py"
 MLA = "tests/test_torch_mla.py"
+FUSED = "tests/test_torch_fused_append.py"
+WHOLE_ROW = "tests/test_torch_q8_whole_row.py"
+FUSED_CPU = (FUSED, "test_decode_step_fused_append_matches_post_scan_and_jax")
+FUSED_CARD = "test_cuda_decode_fused_append"
 
-# entry point: (Pallas bodies, (CPU parity test file, name), card test name)
+# entry point: (Pallas bodies, (CPU parity test file, name) or a tuple of
+# them, card test name or a tuple of them)
 PORT_PARITY = {
     "append_kv_bf16": (
         ("_append_bf16_kernel",), (KERNELS, "test_append_kv_bitwise"),
         "test_cuda_kernels_match_plain"),
     "decode_attend_bf16": (
-        ("_attend_bf16_kernel", "_attend_bf16_blocked_kernel"),
-        (KERNELS, "test_decode_attend_matches_pallas"), "test_cuda_decode_bf16_split_edges"),
+        ("_attend_bf16_kernel", "_attend_bf16_blocked_kernel", "_append_bf16_kernel"),
+        ((KERNELS, "test_decode_attend_matches_pallas"), FUSED_CPU),
+        ("test_cuda_decode_bf16_split_edges", FUSED_CARD)),
     "decode_attend_bf16_paged": (
-        ("_attend_bf16_paged_kernel",), (KERNELS, "test_decode_attend_paged_matches_pallas"),
-        "test_cuda_decode_bf16_paged_edges"),
+        ("_attend_bf16_paged_kernel", "_append_bf16_kernel"),
+        ((KERNELS, "test_decode_attend_paged_matches_pallas"), FUSED_CPU),
+        ("test_cuda_decode_bf16_paged_edges", FUSED_CARD)),
     "decode_attention_bf16": (
         ("_decode_attn_kernel",), (KERNELS, "test_decode_attention_matches_pallas"),
         "test_cuda_decode_attention_split_edges"),
@@ -55,11 +65,14 @@ PORT_PARITY = {
         ("_append_q8_kernel",), (KERNELS, "test_append_kv_q8_bitwise"),
         "test_cuda_q8_kernels_match_plain"),
     "decode_attend_q8": (
-        ("_attend_q8_kernel", "_attend_q8_blocked_kernel"),
-        (KERNELS, "test_decode_attend_q8_matches_pallas"), "test_cuda_q8_kernels_match_plain"),
+        ("_attend_q8_kernel", "_attend_q8_blocked_kernel", "_append_q8_kernel"),
+        ((KERNELS, "test_decode_attend_q8_matches_pallas"),
+         (WHOLE_ROW, "test_decode_attend_q8_whole_row_matches_jax"), FUSED_CPU),
+        ("test_cuda_q8_kernels_match_plain", "test_cuda_q8_decode_whole_row", FUSED_CARD)),
     "decode_attend_q8_paged": (
-        ("_attend_q8_paged_kernel",), (KERNELS, "test_decode_attend_q8_paged_matches_pallas"),
-        "test_cuda_q8_paged_kernels_match_plain"),
+        ("_attend_q8_paged_kernel", "_append_q8_kernel"),
+        ((KERNELS, "test_decode_attend_q8_paged_matches_pallas"), FUSED_CPU),
+        ("test_cuda_q8_paged_kernels_match_plain", FUSED_CARD)),
     "ragged_prefill_q8": (
         ("_ragged_prefill_q8_kernel",), (KERNELS, "test_ragged_prefill_q8_matches_pallas"),
         "test_cuda_ragged_prefill_tile_edges"),
@@ -119,14 +132,18 @@ def test_every_entry_point_is_registered():
 @pytest.mark.parametrize("entry", sorted(PORT_PARITY))
 def test_port_parity_entry(entry):
     """The entry point's source, its wrapper binding, its Pallas bodies and
-    both named tests exist; the card test is marked `cuda`."""
-    bodies, (cpu_file, cpu_test), card_test = PORT_PARITY[entry]
+    every named test exist; each card test is marked `cuda`."""
+    bodies, cpu_tests, card_tests = PORT_PARITY[entry]
+    cpu_tests = (cpu_tests,) if isinstance(cpu_tests[0], str) else cpu_tests
+    card_tests = (card_tests,) if isinstance(card_tests, str) else card_tests
     source = _entry_points()[entry]
     assert P._SIGNATURES[entry][0] == source[: -len(".cu")]
     assert set(bodies) <= _pallas_bodies()
-    assert Path(cpu_file).name.startswith("test_torch_") and cpu_file != CARD
-    assert cpu_test in _test_names(cpu_file), f"{cpu_file}::{cpu_test} does not exist"
+    for cpu_file, cpu_test in cpu_tests:
+        assert Path(cpu_file).name.startswith("test_torch_") and cpu_file != CARD
+        assert cpu_test in _test_names(cpu_file), f"{cpu_file}::{cpu_test} does not exist"
     card = (ROOT / CARD).read_text()
-    assert card_test in _test_names(CARD), f"{CARD}::{card_test} does not exist"
-    decorators = card[: card.index(f"def {card_test}(")].rsplit("\n\n\n", 1)[-1]
-    assert "@pytest.mark.cuda" in decorators, f"{card_test} is not marked cuda"
+    for card_test in card_tests:
+        assert card_test in _test_names(CARD), f"{CARD}::{card_test} does not exist"
+        decorators = card[: card.index(f"def {card_test}(")].rsplit("\n\n\n", 1)[-1]
+        assert "@pytest.mark.cuda" in decorators, f"{card_test} is not marked cuda"
