@@ -41,7 +41,9 @@ one run reads every check; the script then exits non-zero):
      plain versions; and each paged call against the same call on
      contiguous rows holding the same bytes;
   4. serve Llama-3.1-8B (full depth and width, random bf16 weights from a
-     seed, the engine's defaults: prompt cache 256 MiB, 64-token blocks)
+     seed, the engine's defaults: prompt cache 256 MiB, 64-token blocks,
+     each decode round one CUDA graph, rounds pipelined two deep; every
+     launch count below adds the graphs' replays)
      over HTTP and answer four concurrent chat completions (three short
      prompts, one of about 1500 tokens that goes through ragged chunks;
      three streaming), with every kernel launch counter set to 0 just
@@ -55,16 +57,22 @@ one run reads every check; the script then exits non-zero):
      launched, with the ledger sound (no leak, no table left, no missing
      pin) once all are done;
   6. time one decode step (8 rows, unpaged and with the first 16 blocks
-     from the pool) and one 512-token ragged chunk of the same model, with
-     device time by kernel from torch.profiler;
+     from the pool), the engine's decode round over the same rows (four
+     steps with sampling) eager and captured as one CUDA graph, and one
+     512-token ragged chunk of the same model, with device time by kernel
+     from torch.profiler; then the capture A/B: the four chats on fresh
+     engines with the round eager and captured (queued before the loop
+     starts, the prefill budget fixed), each mode plain and under the
+     profiler: greedy tokens identical, wall per round, TTFT, decode tok/s,
+     idle share and launches a step both ways;
   7. drop the bf16 engine and serve the int8 configuration (int8 weights,
      int8 KV cache, 16 slots): the 2-layer model check at int8, then the
      chats and prefix traffic of 4 and 5 over HTTP with the counters set
      to 0 just before and read just after: all five int8 entry points must
      have launched and no bf16-cache kernel, decode must have run
      compacted, the ledger must audit clean and the packed scales must
-     equal "s" bit for bit; then the breakdown of 6 at int8 (8 decode rows
-     of 16 slots through slot_ids). Before it, the int8 GEMM behind `qdot`
+     equal "s" bit for bit; then the breakdown and the capture A/B of 6 at
+     int8 (8 decode rows of 16 slots through slot_ids). Before it, the int8 GEMM behind `qdot`
      is timed at the decode step's shapes with the weight row-major and
      K-contiguous (the layout the engine stores);
   8. drop the int8 engine and serve DeepSeek-V2-Lite (MLA latent attention
@@ -76,7 +84,7 @@ one run reads every check; the script then exits non-zero):
      the prefix traffic over HTTP with the counters set to 0 just before
      and read just after (its MLA kernels launched, no GQA-cache kernel,
      the ledger clean, compacted decode at int8), and at int8 the
-     breakdown of one decode step and one ragged chunk. Before the served
+     breakdown and the capture A/B of 6. Before the served
      phases (with the other kernel checks) the MLA kernels are held
      against their plain versions at V2-Lite's shapes: the int8 decode
      kernel with the whole-row group and paged at 64-, 32- and 128-token
@@ -224,8 +232,12 @@ def check_failed(msg: str) -> None:
     FAILURES.append(msg)
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"chip_smoke: {msg}", flush=True)
+    """One line of the run's log, with the seconds since the script started."""
+    print(f"chip_smoke: [{time.time() - _T0:.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1847,10 +1859,17 @@ def mla_served_phase() -> dict:
         if kv_quant:
             report["breakdown"] = breakdown_phase(engine.cfg, engine.params, engine.device,
                                                   quantized=True, model_tag="v2lite_")
-        out[tag] = report
+        cfg, params = engine.cfg, engine.params
         del engine, api
         gc.collect()
         torch.cuda.empty_cache()
+        if kv_quant:
+            report["graph_ab"] = graph_ab_phase(cfg, params, f"{MLA_MODEL} int8",
+                                                max_slots=Q8_SLOTS, max_seq_len=4096,
+                                                prefill_chunk=512, quant="int8",
+                                                kv_quant="int8")
+        out[tag] = report
+        del params
     return out
 
 
@@ -1910,6 +1929,18 @@ def append_audit(launches: dict) -> dict[str, bool]:
     }
 
 
+# The four chats: (name, prompt, streamed, sampling); the long one (about
+# 1500 tokens) goes through ragged chunks, short-2 is sampled.
+CHATS = (
+    ("short-1", "What is the capital of France?", True, {"temperature": 0}),
+    ("short-2", "Write a haiku about GPUs.", True, {"temperature": 0.7, "top_p": 0.9}),
+    ("short-3", "List three prime numbers.", False, {"temperature": 0}),
+    ("long", "Summarize this list: "
+     + " ".join(f"item {i} is the {i % 7}th of its kind." for i in range(46)), True,
+     {"temperature": 0}),
+)
+
+
 def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> dict:
     """Four concurrent chats; every kernel of `kernels` must launch (the
     counters are set to 0 first unless the caller owns them)."""
@@ -1920,13 +1951,7 @@ def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> di
     chat(base, model, "warm up", True, warm, max_tokens=4, temperature=0)
     if "error" in warm:
         fail(f"warm-up request failed: {warm['error']}")
-    long_prompt = " ".join(f"item {i} is the {i % 7}th of its kind." for i in range(46))
-    reqs = [
-        ("short-1", "What is the capital of France?", True, {"temperature": 0}),
-        ("short-2", "Write a haiku about GPUs.", True, {"temperature": 0.7, "top_p": 0.9}),
-        ("short-3", "List three prime numbers.", False, {"temperature": 0}),
-        ("long", "Summarize this list: " + long_prompt, True, {"temperature": 0}),
-    ]
+    reqs = CHATS
     results = {name: {} for name, *_ in reqs}
     if reset:
         K.reset_launches()
@@ -1975,6 +2000,9 @@ def e2e_phase(engine, base: str, kernels=CHAT_KERNELS, reset: bool = True) -> di
         "output_tok_per_s": total_out / wall,
         "wall_s": wall,
         "launches": launches,
+        # each round shape's first call so far: eager, then its capture
+        "round_graphs_first_call_s": {str(k): v for k, v in engine._graphs.first_call_s.items()}
+        if engine._graphs else {},
     }
     log(f"e2e: {json.dumps(e2e)}")
     return e2e
@@ -2083,6 +2111,175 @@ def prefix_phase(engine, base: str, kernels=PREFIX_KERNELS, reset: bool = True) 
     return report
 
 
+AB_BUDGET = 512  # prefill tokens a round in the capture A/B, fixed: both runs chunk alike
+ROUND_STEPS = 4  # decode_chunk: the steps of a decode round
+# the profiled rounds of the capture A/B: from the 6th fetch (the long
+# prompt's three chunks and each shape's first call are behind), four
+AB_WINDOW = (6, 4)
+
+
+def _window_profiler(eng, first: int, n: int):
+    """torch.profiler (device activity only) over `n` of the engine's
+    rounds, from its `first`-th fetch. The profiler is stepped at each
+    fetch from the engine's own thread, so it starts and stops between that
+    thread's launches. The window runs from the fetch after which tracing
+    is on to the fetch that stops it (the trace's flush left out). Returns
+    (profiler, report): the report fills in when the window closes with the
+    device busy inside the window (each kernel clipped to it), the idle
+    share, and the kernels that started in it per decode step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerAction, ProfilerActivity, profile, schedule
+
+    report: dict = {"window_rounds": n, "device_busy_ms": "not measured",
+                    "idle_share": "not measured", "device_kernels_per_step": "not measured"}
+    marks: list[float] = []
+    traced: list = []
+
+    def ready(prof):
+        traced.extend(e for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+    prof = profile(activities=[ProfilerActivity.CUDA], on_trace_ready=ready,
+                   schedule=schedule(wait=first - 1, warmup=1, active=n, repeat=1))
+    complete = eng._complete_round
+
+    def stepped(disp):
+        out = complete(disp)
+        was, t = prof.current_action, time.perf_counter()
+        prof.step()
+        if prof.current_action == ProfilerAction.RECORD and not marks:
+            marks.append(time.perf_counter())  # tracing is on
+        elif was == ProfilerAction.RECORD_AND_SAVE and marks and traced:
+            window_us = (t - marks[0]) * 1e6
+            busy = sum(max(0.0, min(e.time_range.end, window_us) - max(e.time_range.start, 0.0))
+                       for e in traced)
+            inside = sum(1 for e in traced if 0.0 <= e.time_range.start < window_us)
+            report.update({"window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
+                           "idle_share": 1.0 - busy / window_us,
+                           "device_kernels_per_step": inside / (n * eng.decode_chunk)})
+        return out
+
+    eng._complete_round = stepped
+    return prof, report
+
+
+def graph_ab_phase(cfg, params, tag: str, **engine_kw) -> dict:
+    """The decode round eager (`cuda_graphs=False`) and captured (the
+    engine's default), each on a fresh engine over the served weights
+    (`engine_kw`: the served configuration): the four chats, queued before
+    the engine loop starts and with the prefill budget held at AB_BUDGET
+    tokens a round, so that both runs admit, chunk and dispatch alike, at
+    the engine's pipeline depth. Each mode runs twice: plain (wall per
+    round between fetches, TTFT and decode tok/s per stream, read from the
+    request queues, and the first call of each round shape: its eager round
+    and capture) and with torch.profiler over AB_WINDOW's rounds of decode
+    (device busy, idle share and device kernels per decode step). Every
+    run's greedy tokens must be identical, and with identical tokens the
+    port kernels' launch counts too (a replay adds its graph's tally)."""
+    import torch
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    runs: dict[str, dict] = {}
+    tokens: dict[str, list] = {}
+    for graphs in (False, True):
+        for profiled in (False, True):
+            name = ("on" if graphs else "off") + ("_profiled" if profiled else "")
+            eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, seed=0, **engine_kw)
+            eng._sched.decide = lambda backlog, n_active, wait: min(backlog, AB_BUDGET)
+            fetched: list[float] = []
+            seen: dict = {}
+            complete, process = eng._complete_round, eng._process_token
+
+            def timed_fetch(disp, complete=complete, fetched=fetched):
+                out = complete(disp)
+                fetched.append(time.perf_counter())
+                return out
+
+            def rec(s, tok, pos, seen=seen, process=process):
+                seen.setdefault(s.req.request_id, []).append(int(tok))
+                return process(s, tok, pos)
+
+            eng._complete_round, eng._process_token = timed_fetch, rec
+            reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=64,
+                               temperature=kw["temperature"], top_p=kw.get("top_p", 1.0))
+                    for _, p, _, kw in CHATS]
+            times: list[dict] = [{} for _ in reqs]
+
+            def consume(r, t):
+                while True:
+                    evt = r.out.get(timeout=600)
+                    now = time.perf_counter()
+                    if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
+                        t.update(end=now, evt=evt)
+                        return
+                    if evt["type"] == "token":
+                        t.setdefault("first", now)
+                        t["last"] = now
+
+            for r in reqs:
+                eng.submit(r)
+            threads = [threading.Thread(target=consume, args=(r, t)) for r, t in zip(reqs, times)]
+            prof, window = _window_profiler(eng, *AB_WINDOW) if profiled else (None, {})
+            K.reset_launches()
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            eng.start()
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eng.shutdown()
+            if prof is not None:
+                prof.stop()
+            for (n, *_), t in zip(CHATS, times):
+                evt = t.get("evt")
+                if not isinstance(evt, dict) or evt["type"] != "done":
+                    fail(f"capture A/B {tag} {name}: request {n} did not finish: {evt}")
+            steps = eng._rid_dispatched * eng.decode_chunk
+            gaps = sorted(b - a for a, b in zip(fetched, fetched[1:]))
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            runs[name] = {
+                "wall_s": wall, "rounds": eng._rid_dispatched, "decode_steps": steps,
+                "wall_ms_per_round_median": gaps[len(gaps) // 2] * 1e3 if gaps else None,
+                "ttft_s": {n: t["first"] - t0 for (n, *_), t in zip(CHATS, times)
+                           if "first" in t},
+                "decode_tok_per_s_per_stream": {
+                    n: (t["evt"]["usage"]["completion_tokens"] - 1) / (t["last"] - t["first"])
+                    for (n, *_), t in zip(CHATS, times) if t.get("last", 0) > t.get("first", 0)},
+                "port_launches": launches,
+                "port_launches_per_step": sum(launches.values()) / max(1, steps),
+                "graph_replays": eng._graphs.replays if eng._graphs else 0,
+                # the first round of each shape: eager, then its capture
+                "first_call_s": {str(k): v for k, v in eng._graphs.first_call_s.items()}
+                if eng._graphs else {},
+                **window,
+            }
+            tokens[name] = [seen.get(r.request_id, []) for r in reqs]
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    greedy = [i for i, (*_, kw) in enumerate(CHATS) if kw["temperature"] == 0]
+    base = tokens["off"]
+    checks = {f"greedy tokens identical ({n})":
+              [tokens[n][i] for i in greedy] == [base[i] for i in greedy] for n in runs}
+    same_all = all(tokens[n] == base for n in runs)
+    checks["captured rounds replayed"] = runs["on"]["graph_replays"] > 0
+    if same_all:
+        checks["port launch counts identical"] = all(
+            runs[n]["port_launches"] == runs["off"]["port_launches"] for n in runs)
+    report = {"runs": runs, "sampled_tokens_identical": same_all, "checks": checks}
+    log(f"capture A/B {tag}: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"capture A/B {tag}: {bad}")
+    return report
+
+
 def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = "") -> dict:
     """Where a decode step and a ragged chunk spend their time, at served
     shapes (8 rows at fill 1024, unpaged and with the first 16 blocks of
@@ -2091,13 +2288,19 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     kernel from torch.profiler (and the port's own kernels by name, their
     instantiations summed), and the device's idle share (1 - busy /
     wall; a kernel launched to overlap its predecessor counts from its
-    start, so busy is an upper bound). `quantized`: the int8 engine's weights over a fused
+    start, so busy is an upper bound). Beside the step, the engine's
+    decode round over the same rows (ROUND_STEPS steps with sampling and
+    the token ring's write-back, `decode_round`), eager and captured as
+    the engine captures it (`RoundGraphs`: a replay a call), with its
+    launches a step. `quantized`: the int8 engine's weights over a fused
     int8 cache of Q8_SLOTS rows, the 8 decode rows compacted through
     slot_ids as the engine runs them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from llm_mcp_tpu_torch.executor.engine import decode_round
+    from llm_mcp_tpu_torch.executor.graphs import RoundGraphs
     from llm_mcp_tpu_torch.executor.physical import pool_like
     from llm_mcp_tpu_torch.models import llama as TL
 
@@ -2118,19 +2321,30 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
     paged = {"tbl": tbl, "k": pool_like(ck, nsh, bt), "v": pool_like(cv, nsh, bt)}
     ragged = dict(tokens=i32([66] * T), rowids=i32([0] * T), positions=i32(range(P, P + T)),
                   slots=i32([0]), starts=i32([P]), last_idx=i32([T - 1]))
+    # the engine's decode round (ROUND_STEPS steps, sampling, the token
+    # ring's write-back) over the same rows, eager and as its CUDA graph
+    state = (i32([65] * B), torch.zeros(B, device=dev), i32([0] * B), torch.ones(B, device=dev))
+    packed = i32([P] * Ba + (list(range(0, 2 * Ba, 2)) if quantized else []) + [1])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = functools.partial(decode_round, cfg, params, ck, cv, state, steps=ROUND_STEPS,
+                            compact=quantized, generator=gen)
+    graphs = RoundGraphs(dev, gen)
     tag = "_q8" if quantized else ""
     calls = {
         f"{model_tag}decode_step{tag}_b8": lambda: TL.llama_decode_step(
             cfg, params, ck, cv, toks, lens, slot_ids=ids),
         f"{model_tag}decode_step{tag}_b8_paged": lambda: TL.llama_decode_step(
             cfg, params, ck, cv, toks, lens, slot_ids=ids, paged=paged),
+        f"{model_tag}decode_round{tag}_b8": lambda: rnd(packed),
+        f"{model_tag}decode_round{tag}_b8_graph": lambda: graphs.run(
+            (Ba, quantized), lambda p, _: rnd(p), (packed, None)),
         f"{model_tag}ragged_chunk{tag}_512": lambda: TL.llama_prefill_chunk_ragged(
             cfg, params, ck, cv, **ragged),
     }
     out = {}
     for name, fn in calls.items():
         ms = time_ms(fn, 5, queue_ahead=False)
-        n = 3
+        n = 1 if "round" in name else 3  # a round is four steps; its trace is costly to read
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -2153,11 +2367,14 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
             "device_busy_ms": busy if kern else "not measured",
             "idle_share": 1.0 - busy / ms if kern else "not measured",
             "launches_per_call": launched if kern else "not measured",
+            "launches_per_step": (launched / (ROUND_STEPS if "round" in name else 1)
+                                  if kern else "not measured"),
             "top_kernels_ms": [[k[:80], t] for t, k in kern[:10]],
             "port_kernels_ms": port,
         }
     log(f"breakdown {cfg.name}{' int8' if quantized else ''}: {json.dumps(out)}")
-    del ck, cv, cache, paged
+    del ck, cv, cache, paged, graphs, rnd, calls
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -2367,17 +2584,26 @@ def main() -> None:
         api.shutdown()
         engine.shutdown()
     breakdown = breakdown_phase(engine.cfg, engine.params, engine.device)
-    # the bf16 engine goes before the int8 one is built, so the peak reads
-    # one engine at a time
+    cfg, params = engine.cfg, engine.params
+    # the bf16 engine goes before the A/B's and the int8 one are built, so
+    # the peak reads one engine at a time
     del engine, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_ab = {"llama-3.1-8b bf16": graph_ab_phase(cfg, params, "llama-3.1-8b bf16",
+                                                    max_slots=8, max_seq_len=4096,
+                                                    prefill_chunk=512)}
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     q8 = q8_served_phase()
     breakdown.update(q8.pop("breakdown"))
+    graph_ab["llama-3.1-8b int8"] = q8.pop("graph_ab")
     gc.collect()
     torch.cuda.empty_cache()
     mla = mla_served_phase()
     breakdown.update(mla["int8"].pop("breakdown"))
+    graph_ab[f"{MLA_MODEL} int8"] = mla["int8"].pop("graph_ab")
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
@@ -2399,7 +2625,7 @@ def main() -> None:
         rows.append(row)
     print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
                       MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
-                      "seconds": time.time() - t_start}), flush=True)
+                      "graph_ab": graph_ab, "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2467,6 +2693,13 @@ def q8_served_phase() -> dict:
     report["row_steps"] = row_steps_phase(engine.cfg, engine.params, engine.device)
     report["breakdown"] = breakdown_phase(engine.cfg, engine.params, engine.device,
                                           quantized=True)
+    cfg, params = engine.cfg, engine.params
+    del engine, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["graph_ab"] = graph_ab_phase(cfg, params, "llama-3.1-8b int8", max_slots=Q8_SLOTS,
+                                        max_seq_len=4096, prefill_chunk=512, quant="int8",
+                                        kv_quant="int8")
     return report
 
 

@@ -1,28 +1,43 @@
 """Continuous-batching generation engine (counterpart of
 `llm_mcp_tpu/executor/engine.py:GenerationEngine`, local backend).
 
-One engine thread owns the model, the KV cache and every slot. Each loop
-iteration:
+One engine thread owns the model, the KV cache and every slot. Its loop
+is the JAX engine's pipelined one (`_run` there). Each iteration:
 
   1. stages a ragged prefill group under the token-budget scheduler
      (`scheduler.py`): up to `admit_batch` mid-prefill prompts' next
      chunks packed back to back into one [T] token buffer;
-  2. runs one decode round (`decode_chunk` steps) for the active slots;
-  3. runs the staged group (`llama_prefill_chunk_ragged`) and activates
-     the prompts whose last chunk landed, sampling their first token;
-  4. emits the round's tokens and finishes slots (EOS, `max_tokens`, end
-     of the sequence);
-  5. admits queued requests: prompts of at most `prefill_chunk` tokens
+  2. dispatches decode round N (`decode_chunk` steps) for the active slots
+     and, fused behind it on the same stream, the staged group
+     (`llama_prefill_chunk_ragged`), then activates the prompts whose last
+     chunk landed, sampling their first token; with no active slot the
+     group runs alone;
+  3. emits round N-1's tokens and finishes slots (EOS, `max_tokens`, end
+     of the sequence, stop strings);
+  4. admits queued requests: prompts of at most `prefill_chunk` tokens
      prefill together (`llama_prefill`, batches of up to `admit_batch`),
-     longer ones reserve a slot and join the chunk queue.
+     longer ones reserve a slot and join the chunk queue;
+  5. fetches the oldest round once `pipeline_depth` rounds are in flight
+     (or nothing is active): the round's one host sync. A quick scan of
+     its tokens frees the slots that finished, so the next dispatch leaves
+     them out; their events go out at the next emission.
+
+A round never waits for its predecessor on the host. Its input tokens come
+from the device-resident token ring (`_d_last`, written back by every
+round and by every activation), its sampling parameters from `_d_temp`,
+`_d_topk` and `_d_topp`, and its lengths and slot ids from one packed i32
+upload. Host lengths advance at dispatch. A slot freed while rounds are in
+flight cools (`_cooling`) until every round dispatched before the free has
+been fetched. On the card the round is one CUDA graph a static shape
+(`graphs.py`, `cuda_graphs=True`) and uploads are pinned and non-blocking,
+so the host runs up to `pipeline_depth` rounds ahead of the card.
 
 Decode rows and prefill rows are disjoint: a slot is decodable only once
 its whole prompt is in the cache. Free and mid-prefill slots are parked at
 `lengths = max_seq_len`, so the decode step's append writes nothing into
 them. The packing rules are the JAX engine's (rowids sorted, pads carry
 rowid R and position S, T on the pow2 ladder), so the two engines dispatch
-the same work. Unlike the JAX loop, a round's tokens are fetched before the
-next round starts (no pipelining yet).
+the same work.
 
 Prompt-prefix cache and paged KV, as in the JAX engine
 (`prompt_cache_mb`, default 256): every slot owns a block table in the
@@ -58,11 +73,12 @@ read by the MLA decode kernel through `slot_ids` when compacted.
 
 Left out until later slices: host offload and preemption (`KVPool`),
 migration, the fleet prefix tier, speculation, constraints, the model zoo,
-tenants and the flight recorder.
+tenants, the flight recorder, and capture of the ragged group.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import queue
@@ -93,6 +109,7 @@ from ..models.quant import (
 from ..ops.sampling import sample_tokens
 from ..utils.device import resolve_device
 from .common import fine_bucket, pow2_bucket
+from .graphs import RoundGraphs
 from .paging import PagedKVManager
 from .physical import PhysicalPool, pool_like
 from .scheduler import TokenBudgetScheduler
@@ -120,6 +137,61 @@ def _leaves(*trees) -> list[torch.Tensor]:
 
 def _nbytes(*trees) -> int:
     return sum(x.numel() * x.element_size() for x in _leaves(*trees))
+
+
+def decode_round(
+    cfg: ModelConfig,
+    params: dict,
+    cache_k: Any,  # updated in place
+    cache_v: Any,
+    state: tuple,  # device-resident (last [B] i32, temp [B] f32, topk [B] i32, topp [B] f32)
+    packed: torch.Tensor,  # i32: [lengths | slot_ids | counter] (compact), [lengths | counter]
+    *,
+    steps: int,
+    compact: bool,
+    paged: dict | None = None,
+    banned: torch.Tensor | None = None,  # [V] bool: ids never sampled
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """One decode round, the JAX engine's `decode_body`: `steps` decode
+    steps and their samples, then the round's last tokens written back
+    into the token ring `state[0]`. Compacted, row i serves cache row
+    slot_ids[i] and gathers its token and sampling parameters by that id;
+    else every slot is a row. Reads nothing on the host, so it runs as one
+    CUDA graph. The counter (the round id; JAX derives the round's random
+    key from it) is not read: the generator carries the stream. Returns
+    the sampled tokens [steps, Ba]."""
+    last, temp, topk, topp = state
+    S = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
+    if compact:
+        Ba = (packed.shape[0] - 1) // 2
+        slot_ids = packed[Ba: 2 * Ba]
+        idx = slot_ids.long()
+        toks, temp, topk, topp = last[idx], temp[idx], topk[idx], topp[idx]
+    else:
+        Ba = packed.shape[0] - 1
+        slot_ids = None
+        toks = last
+    lens = packed[:Ba]
+    outs = []
+    for _ in range(steps):
+        logits, cache_k, cache_v = llama_decode_step(
+            cfg, params, cache_k, cache_v, toks, lens, slot_ids=slot_ids, paged=paged
+        )
+        if banned is not None:
+            logits = logits.masked_fill(banned, float("-inf"))
+        # parked rows (lens >= S) carry stale parameters: they take no part
+        # in the choice of the sampling regime
+        toks = sample_tokens(logits, generator, temp, topk, topp, active=lens < S)
+        outs.append(toks)
+        lens = torch.where(lens < S, lens + 1, lens)
+    if compact:
+        # pad rows all aim at one inactive row: the last write wins, on a
+        # row that admission overwrites before it is read
+        last[idx] = toks
+    else:
+        last.copy_(toks)
+    return torch.stack(outs)
 
 
 @dataclass
@@ -168,6 +240,37 @@ class _PrefillGroup:
     starts: np.ndarray  # [R]
     last_idx: np.ndarray  # [R]
     n_tokens: int
+    # the cache writes, as the host packed them: packed index, slot and
+    # position of every real token
+    keep: np.ndarray  # [n_tokens]
+    wslot: np.ndarray
+    wpos: np.ndarray
+    logits: torch.Tensor | None = None  # [R, V], once dispatched
+
+
+@dataclass
+class _DispatchedRound:
+    """A decode round in flight: its tokens arrive in `out` (pinned on the
+    card) through a copy queued behind it, and `done` is recorded after
+    that copy (None on the CPU, where the round ran in the call)."""
+
+    out: torch.Tensor  # [K, Ba] int32, host
+    done: Any  # torch.cuda.Event | None
+    entries: list  # [(slot, _Slot, column of out)]
+    base: np.ndarray  # host lengths before the round
+    t0: float
+    rid: int
+    prefill_tokens: int = 0  # the fused group's tokens (0: none rode along)
+    prefill_padded: int = 0
+
+
+@dataclass
+class _PendingRound:
+    """A fetched round whose tokens are still to be emitted."""
+
+    out: np.ndarray  # [K, Ba]
+    entries: list
+    base: np.ndarray
 
 
 class GenerationEngine:
@@ -189,6 +292,7 @@ class GenerationEngine:
         quant: str = "",
         kv_quant: str = "",
         decode_compact: str = "auto",
+        cuda_graphs: bool = True,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -238,19 +342,43 @@ class GenerationEngine:
         self._ck, self._cv = cache["k"], cache["v"]
         self._init_prefix_cache(prompt_cache_mb)
 
-        # Host mirrors of per-slot state. Only active (decoding) slots hold
-        # an in-range length; free and mid-prefill slots park at
-        # max_seq_len so the decode step's append writes nothing there.
+        # Host mirror of the slots' lengths, advanced at dispatch. Only active
+        # (decoding) slots hold an in-range length; free and mid-prefill
+        # slots park at max_seq_len so the decode step's append writes
+        # nothing there.
         self._lengths = np.full(max_slots, max_seq_len, dtype=np.int32)
-        self._last_tok = np.zeros(max_slots, dtype=np.int32)
-        self._temp = np.zeros(max_slots, dtype=np.float32)
-        self._topk = np.zeros(max_slots, dtype=np.int32)
-        self._topp = np.ones(max_slots, dtype=np.float32)
+        # Device-resident round state (JAX's `_d_last_tok`, `_d_temp`,
+        # `_d_topk`, `_d_topp`): a round gathers its input tokens and
+        # sampling parameters here and writes its last tokens back;
+        # activations write a slot's first token and parameters. Nothing
+        # reads them on the host: after a failed step every request is
+        # errored, so no host copy is kept for recovery.
+        self._d_last = torch.zeros(max_slots, dtype=torch.int32, device=self.device)
+        self._d_temp = torch.zeros(max_slots, dtype=torch.float32, device=self.device)
+        self._d_topk = torch.zeros(max_slots, dtype=torch.int32, device=self.device)
+        self._d_topp = torch.ones(max_slots, dtype=torch.float32, device=self.device)
         self._slots: list[_Slot | None] = [None] * max_slots
         self._prefills: dict[int, _PrefillState] = {}
         self._prefill_q: deque[int] = deque()
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.compact_rounds = 0  # decode rounds that ran compacted
+
+        # Rounds in flight before the oldest is fetched: TPU_PIPELINE_DEPTH,
+        # else 2 on the card and 1 on the CPU, as the JAX engine. A finished
+        # slot rides up to depth - 1 more rounds before the host sees it.
+        depth = os.environ.get("TPU_PIPELINE_DEPTH", "")
+        self.pipeline_depth = max(1, int(depth)) if depth else (
+            2 if self.device.type == "cuda" else 1)
+        # round ids: the fence that keeps a freed slot unused while a round
+        # dispatched before the free may still write its rows and ring entry
+        self._rid_dispatched = 0
+        self._rid_fetched = 0
+        self._cooling: dict[int, int] = {}
+        self._inflight: deque[_DispatchedRound] = deque()
+        self._pending: _PendingRound | None = None
+        # the decode round as one CUDA graph a static shape; the CPU has none
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self._graphs = RoundGraphs(self.device, self._gen) if self.cuda_graphs else None
 
         # Only real text ids and eos may be sampled: the model vocab may be
         # larger than the tokenizer's, and pad/bos are control ids.
@@ -259,7 +387,7 @@ class GenerationEngine:
         for bad in (self.tokenizer.pad_id, self.tokenizer.bos_id):
             if bad != self.tokenizer.eos_id and 0 <= bad < self.cfg.vocab_size:
                 allowed[bad] = False
-        self._allowed = None if allowed.all() else torch.from_numpy(allowed).to(self.device)
+        self._banned = None if allowed.all() else torch.from_numpy(~allowed).to(self.device)
 
         self._admit: "queue.Queue[GenRequest]" = queue.Queue()
         self._wake = threading.Event()
@@ -637,54 +765,123 @@ class GenerationEngine:
                     busy = self._step()
                 except Exception as e:  # a failed dispatch must not hang waiters
                     log.exception("engine step failed")
-                    self._reset_kv()
-                    self._abort_all(f"engine step failed: {e}")
+                    self._recover(f"engine step failed: {e}")
                     busy = False
                 if not busy:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
+            try:
+                self._drain()  # in-flight rounds' consumers get their tokens
+            except Exception as e:  # pragma: no cover - the device failed at shutdown
+                log.exception("in-flight rounds lost at shutdown")
+                self._recover(f"engine step failed: {e}")
 
     def _step(self) -> bool:
+        """One iteration of the pipelined loop (module docstring)."""
         K, S = self.decode_chunk, self.max_seq_len
+        # dispatchable: active rows whose next K writes fit; a row at the
+        # cap waits for its in-flight round's fetch, which finishes it
         active = [
             i for i, s in enumerate(self._slots) if s is not None and self._lengths[i] + K <= S
         ]
         group = self._stage_ragged_group(len(active))
-        round_out = None
         if active:
-            round_out = self._decode_round(active)
-        if group is not None:
-            self._run_prefill_group(group)
-        if round_out is not None:
-            self._emit_round(*round_out)
+            self._inflight.append(self._dispatch_decode(active, group))
+            if group is not None:
+                self._finish_prefill_group(group)
+        elif group is not None:
+            self._run_prefill_group(group)  # nothing to fuse with
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._emit_round(pending)
         admitted = self._admit_pending()
-        return bool(active or group is not None or admitted)
+        if self._inflight and (len(self._inflight) >= self.pipeline_depth or not active):
+            self._pending = self._complete_round(self._inflight.popleft())
+            return True
+        return bool(active or group is not None or admitted or self._inflight)
 
-    def _t(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    def _drain(self) -> None:
+        """Emit the fetched round, then fetch and emit every round in flight."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._emit_round(pending)
+        while self._inflight:
+            self._emit_round(self._complete_round(self._inflight.popleft()))
+
+    def _recover(self, msg: str) -> None:
+        """After a failed step: deliver the tokens already fetched, drop the
+        rounds in flight (they ran on the same caches), then reset the KV
+        state and error every request."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            try:
+                self._emit_round(pending)
+            except Exception:  # pragma: no cover - the requests are errored below
+                log.exception("emission failed during recovery")
+        self._inflight.clear()
+        self._rid_fetched = self._rid_dispatched
+        self._cooling.clear()
+        self._reset_kv()
+        self._abort_all(msg)
+
+    def _up(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, without a host sync: on the
+        card a pinned copy sent non-blocking (the host allocator keeps the
+        pinned block until its copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _sample(self, logits, temps, topks, topps, active=None) -> torch.Tensor:
-        if self._allowed is not None:
-            logits = logits.masked_fill(~self._allowed, float("-inf"))
-        return sample_tokens(
-            logits, self._gen, self._t(temps), self._t(topks), self._t(topps), active=active
+    def _sample_first(self, logits: torch.Tensor, slots: list[int], reqs: list) -> np.ndarray:
+        """Activation: sample each prompt's first token from its logits and
+        write it and the request's sampling parameters into the device
+        round state at its slot (JAX's `op_bsample`). Returns the tokens on
+        the host, for emission: a host sync."""
+        n = len(slots)
+        ints = self._up(np.asarray(slots + [r.top_k for r in reqs], dtype=np.int32))
+        flts = self._up(np.asarray([r.temperature for r in reqs] + [r.top_p for r in reqs],
+                                   dtype=np.float32))
+        idx, topk, temp, topp = ints[:n].long(), ints[n:], flts[:n], flts[n:]
+        if self._banned is not None:
+            logits = logits.masked_fill(self._banned, float("-inf"))
+        toks = sample_tokens(logits, self._gen, temp, topk, topp)
+        self._d_last[idx] = toks
+        self._d_temp[idx] = temp
+        self._d_topk[idx] = topk
+        self._d_topp[idx] = topp
+        return toks.cpu().numpy()
+
+    def _round_fn(self, packed: torch.Tensor, tbl: torch.Tensor | None, *,
+                  compact: bool) -> torch.Tensor:
+        paged = None if tbl is None else {"tbl": tbl, "k": self._pool_k, "v": self._pool_v}
+        return decode_round(
+            self.cfg, self.params, self._ck, self._cv,
+            (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
+            steps=self.decode_chunk, compact=compact, paged=paged, banned=self._banned,
+            generator=self._gen,
         )
 
-    def _decode_round(self, active: list[int]):
-        """`decode_chunk` decode steps. Uncompacted, the whole batch runs
-        (parked rows ride along and write nothing); compacted, a pow2
-        bucket Ba of the active rows (floor min(8, B)), each reading its
-        cache row through `slot_ids`, and at Ba == B the uncompacted step.
-        Returns the fetched tokens [K, B]."""
+    def _dispatch_decode(self, active: list[int], group: _PrefillGroup | None):
+        """Dispatch one decode round for `active` (no fetch), and the staged
+        group fused behind it. Uncompacted, the whole batch runs (parked
+        rows ride along and write nothing); compacted, a pow2 bucket Ba of
+        the active rows (floor min(8, B)), each reading its cache row
+        through `slot_ids`, and at Ba == B the uncompacted round. On the
+        card the round is the graph of its (Ba, compact, paged) shape.
+        Host lengths advance here, by K a row: the next dispatch stages
+        the right positions before this round is fetched."""
         t0 = time.perf_counter()
         B, S, K = self.max_slots, self.max_seq_len, self.decode_chunk
         nact = len(active)
         Ba = pow2_bucket(nact, B, floor=min(8, B)) if self.decode_compact else B
-        if Ba < B:
+        compact = Ba < B
+        rid = self._rid_dispatched + 1
+        if compact:
             # pad rows are parked (w = S: the append writes nothing) and aim
             # at a row that is neither active nor mid-prefill, as in JAX
             in_round = set(active)
@@ -693,49 +890,87 @@ class GenerationEngine:
                 next((i for i in range(B) if self._slots[i] is None),
                      next(i for i in range(B) if i not in in_round)),
             )
-            rows = np.full(Ba, free, dtype=np.int32)
-            rows[:nact] = active
+            ids = np.full(Ba, free, dtype=np.int32)
+            ids[:nact] = active
             lens_in = np.full(Ba, S, dtype=np.int32)
             lens_in[:nact] = self._lengths[active]
-            slot_ids = self._t(rows)
+            packed = np.concatenate([lens_in, ids, [rid]]).astype(np.int32)
         else:
-            rows, lens_in, slot_ids = np.arange(B), self._lengths, None
-        lens = self._t(lens_in)
-        toks = self._t(self._last_tok[rows])
-        temps, topks, topps = self._temp[rows], self._topk[rows], self._topp[rows]
-        paged = self._paged_operand(active)  # the tables do not change in a round
-        outs = []
-        for _ in range(K):
-            logits, self._ck, self._cv = llama_decode_step(
-                self.cfg, self.params, self._ck, self._cv, toks, lens, slot_ids=slot_ids,
-                paged=paged,
-            )
-            toks = self._sample(logits, temps, topks, topps, active=lens < S)
-            outs.append(toks)
-            lens = torch.where(lens < S, lens + 1, lens)
-        got = torch.stack(outs).cpu().numpy()  # the round's one host sync
-        self._sched.observe_decode(time.perf_counter() - t0)
-        self.compact_rounds += int(Ba < B)
-        n = nact if Ba < B else B  # the rows of `got` that are slots' own
-        out = np.zeros((K, B), dtype=got.dtype)
-        out[:, rows[:n]] = got[:, :n]
-        base = self._lengths.copy()
+            packed = np.concatenate([self._lengths, [rid]]).astype(np.int32)
+        paged = self._phys is not None and self._phys.paged(active)
+        # the tables do not change in a round
+        tbl = self._phys.device_table(self.device) if paged else None
+        fn = functools.partial(self._round_fn, compact=compact)
+        if self._graphs is None:
+            out = fn(self._up(packed), tbl)
+        else:
+            out = self._graphs.run((Ba, compact, paged), fn, (self._up(packed), tbl))
+        disp = _DispatchedRound(out=out, done=None, entries=[
+            (b, self._slots[b], i if compact else b) for i, b in enumerate(active)
+        ], base=self._lengths.copy(), t0=t0, rid=rid)
+        # the group's slots are mid-prefill, disjoint from the round's rows:
+        # running it behind the round is the two dispatches' result
+        if group is not None and self._launch_group(group):
+            disp.prefill_tokens, disp.prefill_padded = group.n_tokens, len(group.tokens)
+        if out.device.type == "cuda":
+            # the graph's output is rewritten by its next replay: copy it out
+            # behind the round, into pinned memory the fetch reads
+            disp.out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            disp.out.copy_(out, non_blocking=True)
+            disp.done = torch.cuda.Event()
+            disp.done.record()
         for b in active:
-            self._lengths[b] = min(int(base[b]) + K, S)
-            self._last_tok[b] = out[-1, b]
+            self._lengths[b] = min(int(disp.base[b]) + K, S)
         # ledger: grow the tables to cover the advanced lengths
         self._paging.extend_many({b: int(self._lengths[b]) for b in active})
-        return out, active, base
+        self._rid_dispatched = rid
+        self.compact_rounds += int(compact)
+        return disp
 
-    def _emit_round(self, out: np.ndarray, active: list[int], base: np.ndarray) -> None:
-        for b in active:
-            s = self._slots[b]
-            if s is None or s.done:
+    def _complete_round(self, disp: _DispatchedRound) -> _PendingRound:
+        """Fetch a round (its one host sync) and feed the scheduler: a round
+        that carried a group teaches its prefill cost over the decode
+        round's (`observe_fused`), a plain one the decode round's. A quick
+        scan applies emission's counter rules (EOS, `max_tokens`, the
+        sequence cap; stop strings wait for emission) and frees the slots
+        that finished, so the next dispatch leaves them out; emission,
+        deferred, stays the authority on events and text."""
+        if disp.done is not None:
+            disp.done.synchronize()
+        out = disp.out.numpy()
+        dt = time.perf_counter() - disp.t0
+        if disp.prefill_tokens:
+            self._sched.observe_fused(dt, disp.prefill_tokens, padded_tokens=disp.prefill_padded)
+        else:
+            self._sched.observe_decode(dt)
+        K, S = out.shape[0], self.max_seq_len
+        eos = self.tokenizer.eos_id
+        for b, s, col in disp.entries:
+            if self._slots[b] is not s:
+                continue  # freed (and perhaps admitted again) since dispatch
+            g, fin = s.generated, False
+            base_b = int(disp.base[b])
+            for k in range(K):
+                if int(out[k, col]) == eos:
+                    fin = True
+                    break
+                g += 1
+                if g >= s.req.max_tokens or base_b + k + 1 + K > S:
+                    fin = True
+                    break
+            if fin:
+                self._free_now(b)
+        self._rid_fetched = max(self._rid_fetched, disp.rid)
+        return _PendingRound(out=out, entries=disp.entries, base=disp.base)
+
+    def _emit_round(self, p: _PendingRound) -> None:
+        for b, s, col in p.entries:
+            if s.done:
                 continue
             parts: list[str] = []
             finish = None
-            for k in range(out.shape[0]):
-                emit, finish = self._process_token(s, int(out[k, b]), int(base[b]) + k)
+            for k in range(p.out.shape[0]):
+                emit, finish = self._process_token(s, int(p.out[k, col]), int(p.base[b]) + k)
                 if emit:
                     parts.append(emit)
                 if finish is not None:
@@ -750,6 +985,11 @@ class GenerationEngine:
     def _free_slot(self, reserved: set[int]) -> int | None:
         for i, s in enumerate(self._slots):
             if s is None and i not in self._prefills and i not in reserved:
+                fence = self._cooling.get(i)
+                if fence is not None:
+                    if fence > self._rid_fetched:
+                        continue  # a round in flight may still write it
+                    del self._cooling[i]
                 return i
         return None
 
@@ -841,18 +1081,13 @@ class GenerationEngine:
         for i, (_, _, ids) in enumerate(batch):
             tokens[i, : len(ids)] = ids
             lengths[i] = len(ids)
-        logits, ks, vs = llama_prefill(self.cfg, self.params, self._t(tokens), self._t(lengths),
+        logits, ks, vs = llama_prefill(self.cfg, self.params, self._up(tokens), self._up(lengths),
                                        quant_kv=self.kv_quant == "int8")
         for i, (slot, _, _) in enumerate(batch):
             _map(lambda c, k: c[:, slot, :, :bucket].copy_(k[:, i]), self._ck, ks)
             _map(lambda c, v: c[:, slot, :, :bucket].copy_(v[:, i]), self._cv, vs)
-        reqs = [req for _, req, _ in batch]
-        toks0 = self._sample(
-            logits[:A],
-            np.asarray([r.temperature for r in reqs], np.float32),
-            np.asarray([r.top_k for r in reqs], np.int32),
-            np.asarray([r.top_p for r in reqs], np.float32),
-        ).cpu().numpy()
+        toks0 = self._sample_first(logits[:A], [slot for slot, _, _ in batch],
+                                   [req for _, req, _ in batch])
         for i, (slot, req, ids) in enumerate(batch):
             self._activate_state(slot, req, ids, int(toks0[i]))
 
@@ -872,11 +1107,7 @@ class GenerationEngine:
         mgr.note_admit_cost(mgr.blocks_for(want) - shared_len // mgr.block_tokens)
         s = _Slot(req=req, prompt_len=P, first_token_at=time.time())
         self._slots[slot] = s
-        self._lengths[slot] = P
-        self._last_tok[slot] = tok0
-        self._temp[slot] = req.temperature
-        self._topk[slot] = req.top_k
-        self._topp[slot] = req.top_p
+        self._lengths[slot] = P  # tok0 is in the token ring already (`_sample_first`)
         # tok0's K/V is written at position P by the first decode round
         emit, finish = self._process_token(s, tok0, P - 1)
         if emit:
@@ -921,64 +1152,94 @@ class GenerationEngine:
         slots = np.zeros((R,), dtype=np.int32)
         starts = np.zeros((R,), dtype=np.int32)
         last_idx = np.zeros((R,), dtype=np.int32)
+        wslot = np.zeros((used,), dtype=np.int32)
         metas = []
         off = 0
         for i, (slot, st, start, n) in enumerate(picked):
             tokens[off: off + n] = st.ids[start: start + n]
             rowids[off: off + n] = i
             positions[off: off + n] = np.arange(start, start + n)
+            wslot[off: off + n] = slot
             slots[i] = slot
             starts[i] = start
             last_idx[i] = off + n - 1
             metas.append((slot, st, n))
             off += n
+        # every real token writes (prompts end before S); pads write nothing
         return _PrefillGroup(
             metas=metas, tokens=tokens, rowids=rowids, positions=positions,
             slots=slots, starts=starts, last_idx=last_idx, n_tokens=used,
+            keep=np.arange(used, dtype=np.int32), wslot=wslot, wpos=positions[:used].copy(),
         )
 
-    def _run_prefill_group(self, group: _PrefillGroup) -> None:
-        """Run one staged group, advance chunk progress and activate the
-        prompts whose last chunk landed."""
-        t0 = time.perf_counter()
+    def _launch_group(self, group: _PrefillGroup) -> bool:
+        """Enqueue a staged group's ragged chunk (no host sync): its
+        descriptors and write targets go up as one packed i32 upload, and
+        its last-token logits stay on the device in `group.logits`. False
+        when it failed (its requests are errored)."""
         try:
-            logits, self._ck, self._cv = llama_prefill_chunk_ragged(
-                self.cfg, self.params, self._ck, self._cv,
-                self._t(group.tokens), self._t(group.rowids), self._t(group.positions),
-                self._t(group.slots), self._t(group.starts), self._t(group.last_idx),
-                paged=self._paged_operand([slot for slot, _, _ in group.metas]),
+            parts = (group.tokens, group.rowids, group.positions, group.slots, group.starts,
+                     group.last_idx, group.keep, group.wslot, group.wpos)
+            packed = self._up(np.concatenate(parts))
+            views, off = [], 0
+            for a in parts:
+                views.append(packed[off: off + len(a)])
+                off += len(a)
+            tokens, rowids, positions, slots, starts, last_idx, keep, wslot, wpos = views
+            group.logits, self._ck, self._cv = llama_prefill_chunk_ragged(
+                self.cfg, self.params, self._ck, self._cv, tokens, rowids, positions, slots,
+                starts, last_idx, paged=self._paged_operand([slot for slot, _, _ in group.metas]),
+                writes=(keep, wslot, wpos),
             )
+            return True
+        except Exception as e:
+            self._fail_group(group, e)
+            return False
+
+    def _run_prefill_group(self, group: _PrefillGroup) -> None:
+        """A group with no decode round to ride: run it alone and time it
+        (the scheduler's per-token prefill cost), then activate."""
+        t0 = time.perf_counter()
+        if not self._launch_group(group):
+            return
+        self._sync()
+        self._sched.observe_prefill(
+            group.n_tokens, time.perf_counter() - t0, padded_tokens=len(group.tokens)
+        )
+        self._finish_prefill_group(group)
+
+    def _finish_prefill_group(self, group: _PrefillGroup) -> None:
+        """Advance chunk progress of a dispatched group and activate the
+        prompts whose last chunk landed, sampling their first tokens from
+        the group's logits."""
+        if group.logits is None:
+            return  # the launch failed
+        try:
             fin = []
             for i, (slot, st, n) in enumerate(group.metas):
                 st.done += n
                 if st.done >= len(st.ids):
                     fin.append((i, slot, st))
-            toks0 = None
             if fin:
-                reqs = [st.req for _, _, st in fin]
-                toks0 = self._sample(
-                    logits[[i for i, _, _ in fin]],
-                    np.asarray([r.temperature for r in reqs], np.float32),
-                    np.asarray([r.top_k for r in reqs], np.int32),
-                    np.asarray([r.top_p for r in reqs], np.float32),
-                ).cpu().numpy()
-            else:
-                self._sync()
-            self._sched.observe_prefill(
-                group.n_tokens, time.perf_counter() - t0, padded_tokens=len(group.tokens)
-            )
+                toks0 = self._sample_first(group.logits[[i for i, _, _ in fin]],
+                                           [slot for _, slot, _ in fin],
+                                           [st.req for _, _, st in fin])
             for k, (_, slot, st) in enumerate(fin):
                 self._prefill_q.remove(slot)
                 del self._prefills[slot]
                 self._activate_state(slot, st.req, st.ids, int(toks0[k]), st.shared_len)
         except Exception as e:
-            log.exception("chunked prefill failed")
-            for slot, st, _ in group.metas:
-                if self._prefills.pop(slot, None) is not None:
-                    self._prefill_q.remove(slot)
-                    self._paging.free_slot(slot)  # reserved, not activated
-                    self._phys_reset(slot)
-                    self._error(st.req, str(e))
+            self._fail_group(group, e)
+        group.logits = None
+
+    def _fail_group(self, group: _PrefillGroup, e: Exception) -> None:
+        log.exception("chunked prefill failed")
+        for slot, st, _ in group.metas:
+            if self._prefills.pop(slot, None) is not None:
+                self._prefill_q.remove(slot)
+                self._paging.free_slot(slot)  # reserved, not activated
+                self._phys_reset(slot)
+                self._error(st.req, str(e))
 
     # -- emission ----------------------------------------------------------
 
@@ -1039,11 +1300,15 @@ class GenerationEngine:
             self._free_now(slot)
 
     def _free_now(self, b: int) -> None:
+        """Park a slot; while rounds are in flight it cools until each has
+        been fetched (`_free_slot`)."""
         self._slots[b] = None
         self._lengths[b] = self.max_seq_len  # park
         # ledger: drop the table (idempotent); its device row back to identity
         self._paging.free_slot(b)
         self._phys_reset(b)
+        if self._rid_dispatched > self._rid_fetched:
+            self._cooling[b] = self._rid_dispatched
 
     def _error(self, req: GenRequest, msg: str) -> None:
         req.out.put({"type": "error", "error": msg})

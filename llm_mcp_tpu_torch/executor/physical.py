@@ -160,10 +160,14 @@ class PhysicalPool:
 
     def device_table(self, device: torch.device | str) -> torch.Tensor:
         """Device copy of the int32 ``[n_slots, nbs]`` table, uploaded again
-        only after a mutation."""
+        only after a mutation. On the card the upload is a pinned copy sent
+        non-blocking: it waits for no earlier work on the stream."""
         with self._lock:
             if self._dirty or self._dev is None or self._dev.device != torch.device(device):
-                self._dev = torch.from_numpy(self.table.copy()).to(device)
+                host = torch.from_numpy(self.table.copy())
+                if torch.device(device).type == "cuda":
+                    host = host.pin_memory()
+                self._dev = host.to(device, non_blocking=True)
                 self._dirty = False
                 self.uploads_total += 1
             return self._dev

@@ -11,7 +11,10 @@ prefill backlog. Per round with active decode slots:
   budget   = clamp(need, min_budget, fair_cap)
 
 With no active decode slot the budget is the whole backlog. Both cost
-terms are EMAs of measured dispatches. Tenant quotas and the flight
+terms are EMAs of measured dispatches: plain rounds feed the decode term,
+standalone groups the prefill term, and a round that carried a group
+feeds the prefill term with its time over the decode term
+(`observe_fused`). Tenant quotas and the flight
 recorder hooks of the JAX scheduler come with tenancy and telemetry, in
 later slices.
 """
@@ -39,7 +42,7 @@ class TokenBudgetScheduler:
         self.pad_waste = 0.0  # EMA of per-dispatch waste fraction
 
     def observe_decode(self, round_s: float) -> None:
-        """A prefill-free decode round's wall time."""
+        """A prefill-free decode round's wall time (dispatch to fetch)."""
         if round_s > 0:
             self.decode_round_s = _EMA * self.decode_round_s + (1 - _EMA) * round_s
 
@@ -52,6 +55,14 @@ class TokenBudgetScheduler:
         per = min(1.0, max(1e-8, seconds / comp))
         self.prefill_tok_s = _EMA * self.prefill_tok_s + (1 - _EMA) * per
         self.pad_waste = _EMA * self.pad_waste + (1 - _EMA) * (1.0 - tokens / comp)
+
+    def observe_fused(self, round_s: float, prefill_tokens: int, padded_tokens: int = 0) -> None:
+        """A fused round: attribute the time over the decode EMA to its
+        prefill tokens. Rounds faster than the EMA teach nothing (the
+        residual would be negative)."""
+        extra = round_s - self.decode_round_s
+        if prefill_tokens > 0 and extra > 0:
+            self.observe_prefill(prefill_tokens, extra, padded_tokens=padded_tokens)
 
     def fair_cap(self) -> int:
         cap = self.decode_round_s / self.prefill_tok_s

@@ -359,6 +359,16 @@ def llama_prefill(
     return _logits(cfg, params, last), torch.stack(ks), torch.stack(vs)
 
 
+def ragged_write_targets(rowids, positions, slots, S: int) -> tuple:
+    """(keep, wslot, wpos) of a packed ragged group: the packed indices of
+    the tokens that write the cache (real rows, positions inside it) and
+    the slot and position each writes. On the card, one host sync."""
+    R = slots.shape[0]
+    rid = rowids.long()
+    keep = torch.nonzero((rid < R) & (positions < S)).squeeze(1)
+    return keep, slots.long()[rid.clamp(max=R - 1)][keep], positions.long()[keep]
+
+
 @torch.no_grad()
 def llama_prefill_chunk_ragged(
     cfg: ModelConfig,
@@ -372,6 +382,7 @@ def llama_prefill_chunk_ragged(
     starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
     last_idx: torch.Tensor,  # [R] int32 — packed index of each row's last token
     paged: dict | None = None,  # {"tbl","k","v"} physical paging operand
+    writes: tuple | None = None,  # (keep, wslot, wpos): see ragged_write_targets
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ragged chunked prefill: each layer attends every row's
     cached prefix plus its own causal segment, then writes the chunk's K/V
@@ -379,13 +390,16 @@ def llama_prefill_chunk_ragged(
     tokens carry position S and write nothing (JAX drops those scatters;
     here they are masked out). A fused int8 cache is read through
     `ragged_prefill_attend_q8` and written as `fuse_prompt_kv` rows.
-    Returns (logits [R, V] f32, cache_k, cache_v). MLA configs take
-    `mla.mla_prefill_chunk_ragged`."""
+    `writes` are the cache writes' targets when the caller has them (the
+    engine builds them on the host); else they are found on the device,
+    at one host sync. Returns (logits [R, V] f32, cache_k, cache_v). MLA
+    configs take `mla.mla_prefill_chunk_ragged`."""
     if cfg.kv_lora_rank:
         from .mla import mla_prefill_chunk_ragged
 
         return mla_prefill_chunk_ragged(cfg, params, cache_k, cache_v, tokens, rowids,
-                                        positions, slots, starts, last_idx, paged=paged)
+                                        positions, slots, starts, last_idx, paged=paged,
+                                        writes=writes)
     quantized = isinstance(cache_k, dict)
     L, B, _, S, hd = _cache_shape(cache_k)
     Hkv, H = cfg.n_kv_heads, cfg.n_heads
@@ -401,10 +415,8 @@ def llama_prefill_chunk_ragged(
         [torch.zeros(1, dtype=torch.int32, device=dev),
          (rid[None, :] < bounds[:, None]).sum(dim=1).to(torch.int32)]
     )
-    # write targets: real tokens inside the cache (one host sync per call)
-    keep = torch.nonzero((rid < R) & (positions < S)).squeeze(1)
-    wslot = slots.long()[rid.clamp(max=R - 1)][keep]
-    wpos = positions.long()[keep]
+    keep, wslot, wpos = (ragged_write_targets(rowids, positions, slots, S) if writes is None
+                         else (w.long() for w in writes))
 
     h = _embed_in(cfg, params, tokens)  # [T, D]
     cos, sin = rope_tables(cfg, hd, positions)  # [T, hd/2]

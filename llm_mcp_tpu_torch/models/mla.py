@@ -34,7 +34,7 @@ import torch
 from ..kernels.attention import decode_attend_q8_mla, paged_gather, ragged_prefill_attend_mla
 from ..ops.rope import apply_rope, rope_tables
 from .configs import ModelConfig
-from .llama import _embed_in, _ffn_residual, _logits, _norm, quantize_kv
+from .llama import _embed_in, _ffn_residual, _logits, _norm, quantize_kv, ragged_write_targets
 from .moe import init_moe_layer_params, moe_shapes
 from .quant import qdot
 
@@ -290,6 +290,7 @@ def mla_prefill_chunk_ragged(
     starts: torch.Tensor,  # [R] int32 — cached-prefix length per row
     last_idx: torch.Tensor,  # [R] int32 — packed index of each row's last token
     paged: dict | None = None,  # {"tbl","k","v"}: tables, latent pool, rope pool
+    writes: tuple | None = None,  # (keep, wslot, wpos): llama.ragged_write_targets
 ) -> tuple[torch.Tensor, Any, Any]:
     """Ragged chunked prefill, absorbed: each layer attends every row's
     cached prefix (latents and rope keys, through the tables when paged)
@@ -311,9 +312,8 @@ def mla_prefill_chunk_ragged(
         [torch.zeros(1, dtype=torch.int32, device=dev),
          (rid[None, :] < bounds[:, None]).sum(dim=1).to(torch.int32)]
     )
-    keep = torch.nonzero((rid < R) & (positions < S)).squeeze(1)  # one host sync
-    wslot = slots.long()[rid.clamp(max=R - 1)][keep]
-    wpos = positions.long()[keep]
+    keep, wslot, wpos = (ragged_write_targets(rowids, positions, slots, S) if writes is None
+                         else (w.long() for w in writes))
     moe_valid = rid < R
     pk = None if paged is None else paged["k"]
     pr = None if paged is None else paged["v"]
@@ -349,6 +349,16 @@ def mla_prefill_chunk_ragged(
             cache_r[li, wslot, 0, wpos] = kr[keep].to(cache_r.dtype)
     last = h[torch.clamp(last_idx.long(), 0, T - 1)]
     return _logits(cfg, params, last), cache_c, cache_r
+
+
+def _write_live(plane: torch.Tensor, rows, w, live, new: torch.Tensor) -> None:
+    """plane[:, rows[b], 0, w[b]] = new[:, b] for the live rows; a parked
+    row (w >= S) writes back what its row holds at S - 1, so nothing
+    changes and no shape depends on the data (no host sync: the step runs
+    inside a CUDA graph). plane [L, B, 1, S, *rest], new [L, Ba, *rest]."""
+    wc = w.clamp(max=plane.shape[3] - 1)
+    keep = live.reshape(1, -1, *([1] * (new.dim() - 2)))
+    plane[:, rows, 0, wc] = torch.where(keep, new, plane[:, rows, 0, wc])
 
 
 def _step_inputs(cfg, lp, h, cos, sin):
@@ -411,21 +421,19 @@ def mla_decode_step(
             cs.append(c)
             krs.append(kr)
         # one batched append per cache for all layers; parked rows drop
-        b_w, w_w = rows[live], w[live]
         for cache, new in ((cache_c, torch.stack(cs)), (cache_r, torch.stack(krs))):
-            q = quantize_kv(new[:, live])  # [L, n, w] and [L, n]
-            cache["q"][:, b_w, 0, w_w] = q["q"]
-            cache["s"][:, b_w, 0, w_w] = q["s"].to(cache["s"].dtype)
+            q = quantize_kv(new)  # [L, Ba, w] and [L, Ba]
+            _write_live(cache["q"], rows, w, live, q["q"])
+            _write_live(cache["s"], rows, w, live, q["s"].to(cache["s"].dtype))
         return _logits(cfg, params, h), cache_c, cache_r
 
     key_pos = torch.arange(S, device=dev)
     attn_mask = (key_pos[None, :] <= w[:, None])[:, None, :]  # [Ba, 1, S]
     ptbl = None if tbl is None else tbl.index_select(0, rows)
-    b_w, w_w = rows[live], w[live]
     for li, lp in enumerate(layer_params(params)):
         qt, qr, c, kr, w_uv = _step_inputs(cfg, lp, h, cos, sin)
-        cache_c[li, b_w, 0, w_w] = c[live].to(cache_c.dtype)
-        cache_r[li, b_w, 0, w_w] = kr[live].to(cache_r.dtype)
+        _write_live(cache_c[li:li + 1], rows, w, live, c[None].to(cache_c.dtype))
+        _write_live(cache_r[li:li + 1], rows, w, live, kr[None].to(cache_r.dtype))
         if ptbl is None:
             lat = cache_c[li].index_select(0, rows)[:, 0]  # [Ba, S, R]
             rop = cache_r[li].index_select(0, rows)[:, 0]

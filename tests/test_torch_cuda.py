@@ -8,6 +8,8 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 
 from __future__ import annotations
 
+import functools
+
 import pytest
 import torch
 
@@ -919,3 +921,201 @@ def test_cuda_q8_decode_paged_edges(bt, packed):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
     assert torch.equal(out, same)
+
+
+# -- the decode round as a CUDA graph -------------------------------------
+
+def _graph_cfg(kind: str):
+    """tiny-llm's structure at head_dim 128, or tiny-v2's (MLA and MoE) at
+    the latent widths the MLA kernels are built for (R 512, rope 64)."""
+    from dataclasses import replace
+
+    from llm_mcp_tpu_torch.models.configs import get_config
+
+    if kind == "mla":
+        return replace(get_config("tiny-v2"), dim=512, kv_lora_rank=512, qk_rope_head_dim=64,
+                       qk_nope_head_dim=128, v_head_dim=128)
+    return replace(get_config("tiny-llm"), dim=512, n_heads=4, n_kv_heads=2)
+
+
+def _fill_random(tree, g) -> None:
+    """Random cache (or pool) contents in place: bf16 normals, or int8
+    payloads with positive scales; a fused cache's packed pseudo-head
+    carries its scales, as every write path keeps it."""
+    from llm_mcp_tpu_torch.models.quant import pack_scales
+
+    if not isinstance(tree, dict):
+        tree.copy_(torch.randn(tree.shape, generator=g, device=tree.device).to(tree.dtype))
+        return
+    if not tree:
+        return
+    q, s = tree["q"], tree["s"]
+    q.copy_(torch.randint(-127, 128, q.shape, generator=g, device=q.device, dtype=torch.int8))
+    s.copy_((torch.rand(s.shape, generator=g, device=s.device) * 0.02 + 1e-3).to(s.dtype))
+    Hs = s.shape[2]
+    if q.shape[2] > Hs:  # the packed pseudo-head
+        q[:, :, Hs:Hs + 1] = pack_scales(s, q.shape[-1])
+
+
+# name: (config, max_slots, int8, active rows, rows read through the pool)
+ROUND_CASES = {
+    "bf16": ("llm", 4, False, [0, 1, 3], []),
+    "bf16_paged": ("llm", 4, False, [0, 2, 3], [2]),
+    "int8_ba8": ("llm", 16, True, [1, 4, 6, 9, 13], []),
+    "int8_ba16": ("llm", 32, True, list(range(0, 24, 2)), []),
+    "int8_paged": ("llm", 16, True, [2, 5, 11], [5]),
+    "mla": ("mla", 16, True, [0, 3, 9], []),
+    "mla_paged": ("mla", 16, True, [0, 3, 9], [3]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_cuda_round_graph_matches_eager(case):
+    """Three decode rounds of an engine's shape, eager and as one CUDA graph
+    (`RoundGraphs`: the first call eager on a side stream, then capture,
+    then two replays), from the same cache, pool, round state and
+    generator seed: every round's tokens (a sampled row among greedy
+    ones), the cache, the pool and the token ring bit for bit. After N
+    replays the launch counters hold N times the graph's tally, which
+    counts the decode kernel of every step and layer."""
+    dev, g, _, _ = _card(900 + sorted(ROUND_CASES).index(case))
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.executor.common import pow2_bucket
+    from llm_mcp_tpu_torch.executor.graphs import RoundGraphs
+
+    kind, B, q8, active, via_pool = ROUND_CASES[case]
+    S, K = 512, 4
+    eng = GenerationEngine(_graph_cfg(kind), max_slots=B, max_seq_len=S, seed=0,
+                           quant="int8" if q8 else "", kv_quant="int8" if q8 else "",
+                           decode_compact="on" if q8 else "off", prompt_cache_mb=64,
+                           cuda_graphs=False, device="cuda")
+    leaves = [eng._ck, eng._cv, eng._pool_k, eng._pool_v]
+    for t in leaves:
+        _fill_random(t, g)
+    if via_pool:  # two blocks of each such row from pool rows 0 and 1
+        base = eng._phys.pool_base
+        for r in via_pool:
+            eng._phys.table[r, :2] = [base, base + 1]
+        eng._phys._dirty = True
+    tbl = eng._phys.device_table(dev) if via_pool else None
+    eng._d_last.copy_(torch.randint(3, 250, (B,), generator=g, device=dev, dtype=torch.int32))
+    eng._d_temp[active[1]] = 0.8  # one sampled row
+    eng._d_topp[active[1]] = 0.9
+    nact = len(active)
+    Ba = pow2_bucket(nact, B, floor=min(8, B)) if q8 else B
+    compact = Ba < B
+    lens0 = torch.randint(60, S - 4 * K, (nact,), generator=g, device=dev).cpu().to(torch.int32)
+
+    def packed(r):
+        lens = torch.full((B,), S, dtype=torch.int32)
+        if compact:
+            ids = torch.full((Ba,), next(i for i in range(B) if i not in active),
+                             dtype=torch.int32)
+            ids[:nact] = torch.tensor(active)
+            lens = torch.full((Ba,), S, dtype=torch.int32)
+            lens[:nact] = lens0 + r * K
+            return torch.cat([lens, ids, torch.tensor([r + 1])]).to(torch.int32).to(dev)
+        lens[active] = lens0 + r * K
+        return torch.cat([lens, torch.tensor([r + 1])]).to(torch.int32).to(dev)
+
+    def tree_clone():
+        out = []
+        for t in leaves + [eng._d_last]:
+            out.append({k: v.clone() for k, v in t.items()} if isinstance(t, dict) else t.clone())
+        return out
+
+    def restore(snap):
+        for t, s in zip(leaves + [eng._d_last], snap):
+            if isinstance(t, dict):
+                for k in t:
+                    t[k].copy_(s[k])
+            else:
+                t.copy_(s)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return all(torch.equal(a[k], b[k]) for k in a)
+        return torch.equal(a, b)
+
+    fn = functools.partial(eng._round_fn, compact=compact)
+    start = tree_clone()
+    eng._gen.manual_seed(11)
+    eager = [fn(packed(r), tbl).clone() for r in range(3)]
+    after_eager = tree_clone()
+    restore(start)
+    eng._gen.manual_seed(11)
+    graphs = RoundGraphs(dev, eng._gen)
+    key = (Ba, compact, bool(via_pool))
+    got = [graphs.run(key, fn, (packed(0), tbl)).clone()]
+    P.reset_launches()
+    got += [graphs.run(key, fn, (packed(r), tbl)).clone() for r in (1, 2)]
+    torch.cuda.synchronize()
+    launches = dict(P.LAUNCHES)
+    tally = graphs.tally(key)
+    for r in range(3):
+        assert torch.equal(got[r], eager[r]), (case, r)
+    assert all(same(a, b) for a, b in zip(tree_clone(), after_eager)), case
+    assert graphs.replays == 2
+    decode = "decode_attend_q8_mla" if kind == "mla" else (
+        "decode_attend_q8" if q8 else "decode_attend_bf16")
+    decode += "_paged" if via_pool else ""
+    assert tally[decode] == K * eng.cfg.n_layers, tally
+    assert launches == {n: 2 * tally.get(n, 0) for n in launches}, (launches, tally)
+    eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "mla"])
+def test_cuda_engine_capture_on_matches_off(kind):
+    """Two engines on one parameter tree, rounds captured and eager, serve
+    the same four requests (three greedy, one sampled at one seed), all
+    queued before the loop starts so both admit and dispatch alike at
+    pipeline depth 2: every request's tokens, and the cache afterwards,
+    bit for bit; the captured engine replayed its rounds."""
+    _card(950)  # skips without a card
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    cfg = _graph_cfg("mla" if kind == "mla" else "llm")
+    q8 = kind != "bf16"
+    kw = dict(max_slots=16 if q8 else 4, max_seq_len=512, seed=3,
+              quant="int8" if q8 else "", kv_quant="int8" if q8 else "", device="cuda")
+    prompts = [("user: hello there", 0.0), ("user: name three colours", 0.0),
+               ("system: terse\nuser: 2+2?", 0.8), ("user: count to five", 0.0)]
+    runs, params = [], None
+    for graphs in (True, False):
+        eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, **kw)
+        params = eng.params
+        assert eng.pipeline_depth == 2 and eng.cuda_graphs == graphs
+        seen: dict = {}
+        orig = eng._process_token
+
+        def rec(s, tok, pos, seen=seen, orig=orig):
+            seen.setdefault(s.req.request_id, []).append(int(tok))
+            return orig(s, tok, pos)
+
+        eng._process_token = rec
+        reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=16, temperature=t,
+                           top_p=0.9 if t else 1.0) for p, t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.start()
+        for r in reqs:
+            while True:
+                evt = r.out.get(timeout=300)
+                if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
+                    assert isinstance(evt, dict) and evt["type"] == "done", evt
+                    break
+        eng.shutdown()
+        torch.cuda.synchronize()
+        cache = [{k: v.clone() for k, v in t.items()} if isinstance(t, dict) else t.clone()
+                 for t in (eng._ck, eng._cv)]
+        runs.append(([seen[r.request_id] for r in reqs], cache,
+                     eng._graphs.replays if graphs else 0))
+        del eng
+    (t_on, c_on, replays), (t_off, c_off, _) = runs
+    assert replays > 0
+    assert t_on == t_off
+    for a, b in zip(c_on, c_off):
+        assert all(torch.equal(a[k], b[k]) for k in a) if isinstance(a, dict) \
+            else torch.equal(a, b)
