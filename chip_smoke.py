@@ -92,7 +92,26 @@ one run reads every check; the script then exits non-zero):
      exact group (64-token tables) on rows of 16384 keys, timed cold (the
      layer turned over every layer of the planes, more bytes than the L2
      holds) and warm (one layer again); the ragged kernel with bf16
-     and int8 latents, contiguous and paged.
+     and int8 latents, contiguous and paged;
+  9. the KV pool (`TPU_KV_HOST_OFFLOAD=1` in this phase only): fresh
+     Llama-3.1-8B int8 engines (8 slots, captured rounds, pipeline depth 2)
+     each serve a preempt -> host offload -> restore cycle: seven ~1000-token
+     prompts and a victim admitted off a prefix hit (block-aligned: its
+     snapshot holds only its private rows; unaligned: whole), then an
+     urgent request of higher priority that finds no free slot and
+     preempts the victim. The victim's text must equal its uncontended
+     text, the ledger and packed scales audit clean, and the int8 decode
+     kernels launch after the restore; offload and restore GB/s and the
+     urgent request's TTFT (contended and idle) are reported, with the
+     host copies of one such snapshot timed step by step. Then a chat
+     over HTTP at `TPU_ADMIT_WATERMARK=1.0` with both slots of a 2-slot
+     engine held must get 429 with a Retry-After of 1-600 s; then the
+     aligned cycle on
+     DeepSeek-V2-Lite int8 (4 slots, ~400-token prompts).
+
+After each model's engines are shut down and dropped, the device memory
+allocated must be back within RELEASE_SLACK of its value before they were
+built; otherwise the objects that still refer to the weights are logged.
 
 The last lines are the card (`nvidia-smi` name, power limit), one JSON
 line with the kernels and one with the run's result. Imports nothing of
@@ -111,7 +130,9 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
+import weakref
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -1819,10 +1840,14 @@ def mla_served_phase() -> dict:
     for tag, kv_quant in (("int8", "int8"), ("bf16_latents", "")):
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
         engine = GenerationEngine(
             MLA_MODEL, max_slots=Q8_SLOTS, max_seq_len=4096, prefill_chunk=512, seed=0,
             quant="int8", kv_quant=kv_quant, device="cuda",
         )
+        leaf = weakref.ref(_first_leaf(engine.params["layers"]))
         torch.cuda.synchronize()
         built = {"s": time.time() - t0, "allocated_gib": torch.cuda.memory_allocated() / 2**30,
                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1868,8 +1893,9 @@ def mla_served_phase() -> dict:
                                                 max_slots=Q8_SLOTS, max_seq_len=4096,
                                                 prefill_chunk=512, quant="int8",
                                                 kv_quant="int8")
-        out[tag] = report
         del params
+        report["released"] = _released(f"{MLA_MODEL} {tag}", mem0, leaf)
+        out[tag] = report
     return out
 
 
@@ -2511,6 +2537,404 @@ def ptxas_report(text: str, kernel: str) -> dict[str, dict]:
     return out
 
 
+# The preempt phase's traffic (raw prompts, byte tokenizer). The low
+# streams' prompts are about 1000 tokens (Llama) or 400 (V2-Lite), so they
+# prefill through ragged chunks; the victim is admitted off a prefix hit,
+# 1024 tokens stored from SYSTEM_LONG (block-aligned: its snapshot holds
+# only its private rows) or 32 from UNALIGNED_PREFIX (a boundary block
+# copied on write: its snapshot is whole), and as many tokens of its own.
+UNALIGNED_PREFIX = "Reply in French only, and keep it short. "
+PREEMPT_OUT, HI_OUT = 128, 32  # tokens out of a low stream and of the urgent request
+PCIE_BYTES_PER_S = 64e9  # H100 SXM host link: PCIe Gen5 x16, nominal, one direction
+# device memory a released engine may leave: cuBLAS keeps a workspace for
+# each stream it ran on (32 MiB on the H100), one a capture stream
+RELEASE_SLACK = 256 << 20
+
+
+def _long_prompt(i: int, chars: int) -> str:
+    words = " ".join(f"Line {j} of file {i} lists item {j * 7 % 13} twice." for j in range(60))
+    return words[:chars]
+
+
+def _released(tag: str, mem0: int, leaf) -> dict:
+    """After an engine is shut down and dropped: the device memory it held
+    must be back, give or take the workspaces cuBLAS keeps per stream (an
+    engine's capture stream has one). On failure, what still refers to one
+    of its weight tensors (`leaf`, a weak reference)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out = {"allocated_gib_before_build": mem0 / 2**30, "allocated_gib_after_release": after / 2**30,
+           "weights_alive": leaf() is not None}
+    log(f"{tag}: released: {json.dumps(out)}")
+    if after - mem0 > RELEASE_SLACK or leaf() is not None:
+        check_failed(f"{tag}: the engine's device memory was not released: {out}; "
+                     f"what refers to its weights: {_holders(leaf())}")
+    return out
+
+
+def _holders(obj, depth: int = 6, width: int = 4) -> list[str]:
+    """The chains of objects that keep `obj` alive, level by level (type
+    names; a dict's first keys, a function's name), for the log."""
+    import types
+
+    if obj is None:
+        return []
+    level, seen, out = [obj], {id(obj)}, []
+    for d in range(depth):
+        nxt = []
+        for o in level:
+            for r in gc.get_referrers(o):
+                if id(r) in seen or r is level or r is nxt or isinstance(r, types.FrameType):
+                    continue
+                seen.add(id(r))
+                name = type(r).__qualname__
+                if isinstance(r, dict):
+                    name += f" keys={list(r)[:6]}"
+                elif isinstance(r, (types.FunctionType, types.MethodType)):
+                    name += f" {r.__qualname__}"
+                out.append("  " * d + name)
+                nxt.append(r)
+                if len(nxt) >= width:
+                    break
+        level = nxt
+    return out
+
+
+def _first_leaf(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        t = _first_leaf(v)
+        if t is not None:
+            return t
+    return None
+
+
+def _step_until(eng, done, limit: int = 20000) -> None:
+    """Run the engine loop by hand (`_step`, as its thread does) until
+    `done()`; the engine is not started yet."""
+    import torch
+
+    with torch.inference_mode():
+        for _ in range(limit):
+            if done():
+                return
+            eng._step()
+    fail("the engine loop, stepped by hand, did not get there")
+
+
+def _preempt_cycle(eng, tag: str, prefix: str, longs: list[str], victim_chars: int) -> dict:
+    """One preempt -> offload -> restore cycle on an engine with the pool on,
+    not started yet. Two prompts under `prefix` store it in the prefix
+    cache, and the victim (priority 0, `victim_chars` of its own after the
+    prefix) is admitted off that hit and decodes (the loop stepped by hand
+    so far). Then the long prompts
+    (priority 1) and the urgent request (priority 5) are queued and the
+    loop starts: the longs take every other slot, the urgent request finds
+    none free and preempts the victim, which is restored once a slot frees.
+    Then, on the same engine, the victim alone and the urgent request alone
+    (its TTFT on the idle engine). Checks the victim's text against its
+    uncontended text, the snapshot, the counters, the ledger and that the
+    decode kernels launched after the restore."""
+    from llm_mcp_tpu_torch.executor import GenRequest
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    B = eng.max_slots
+    snaps, restores = [], []
+    offload, restore = eng._pool.offload, eng._restore_snapshot
+
+    def rec_offload(snap, seconds=0.0):
+        snaps.append(snap)
+        offload(snap, seconds)
+
+    def rec_restore(b, snap):
+        restore(b, snap)
+        restores.append({"slot": b, "nbytes": snap.nbytes, "launches": dict(K.LAUNCHES)})
+
+    eng._pool.offload, eng._restore_snapshot = rec_offload, rec_restore
+    pool0 = eng.memory_stats()
+
+    def req(text, n, pri):
+        return GenRequest(prompt_ids=eng.tokenizer.encode(text), max_tokens=n, temperature=0.0,
+                          priority=pri)
+
+    def run(reqs):
+        """Consumers of `reqs`: first-token time and text of each."""
+        times = [{} for _ in reqs]
+
+        def consume(r, t):
+            parts = []
+            while True:
+                evt = r.out.get(timeout=600)
+                now = time.perf_counter()
+                if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
+                    t.update(end=now, evt=evt, text="".join(parts))
+                    return
+                if evt["type"] == "token":
+                    t.setdefault("first", now)
+                    parts.append(evt["text"])
+
+        threads = [threading.Thread(target=consume, args=(r, t)) for r, t in zip(reqs, times)]
+        for t in threads:
+            t.start()
+        return threads, times
+
+    def finish(threads, times):
+        for t in threads:
+            t.join(timeout=900)
+        ends = [t.get("evt") for t in times]
+        if not all(isinstance(e, dict) and e["type"] == "done" for e in ends):
+            fail(f"preempt {tag}: a request did not finish: {ends}")
+
+    for q in ("prime one?", "prime two?"):  # the second stores the prefix
+        r = req(prefix + q, 4, 0)
+        threads, times = run([r])
+        eng.submit(r)
+        _step_until(eng, lambda times=times: "evt" in times[0])
+        finish(threads, times)
+    victim_text = prefix + "Victim: " + _long_prompt(B, victim_chars)
+    victim = req(victim_text, PREEMPT_OUT, 0)
+    lows = [req(p, PREEMPT_OUT, 1) for p in longs]
+    hi = req("Urgent: reply with one short sentence about the weather.", HI_OUT, 5)
+    assert len(lows) + 1 == B
+    threads, times = run([victim] + lows + [hi])
+    eng.submit(victim)
+    _step_until(eng, lambda: any(s is not None and s.req is victim for s in eng._slots))
+    for r in lows + [hi]:
+        eng.submit(r)
+    t_start = time.perf_counter()
+    eng.start()
+    finish(threads, times)
+    # the victim alone, then the urgent request alone, on the same engine
+    alone_req = req(victim_text, PREEMPT_OUT, 0)
+    threads2, alone = run([alone_req])
+    eng.submit(alone_req)
+    finish(threads2, alone)
+    hi_idle = req("Urgent: reply with one short sentence about the weather.", HI_OUT, 5)
+    threads3, idle = run([hi_idle])
+    t_idle = time.perf_counter()
+    eng.submit(hi_idle)
+    finish(threads3, idle)
+    for _ in range(200):  # a slot is freed just after its last event goes out
+        pg = eng.paging_stats()
+        if pg["slot_tables"] == 0:
+            break
+        time.sleep(0.05)
+    st = eng.memory_stats()
+    eng._pool.offload, eng._restore_snapshot = offload, restore
+    decode = [n for n in K.LAUNCHES if n.startswith("decode_attend_q8")]
+    after_restore = {n: K.LAUNCHES[n] - restores[0]["launches"][n] for n in decode} \
+        if restores else {}
+    off_b = st["offload_bytes_total"] - pool0["offload_bytes_total"]
+    off_s = st["offload_seconds_total"] - pool0["offload_seconds_total"]
+    res_b = sum(r["nbytes"] for r in restores)
+    res_s = st["restore_seconds_total"] - pool0["restore_seconds_total"]
+    report = {
+        "snapshots": [{"shared_len": sn.shared_len, "length": sn.length, "nbytes": sn.nbytes,
+                       "rows": _first_leaf(sn.k_rows).shape[3],
+                       "link_bound_ms": sn.nbytes / PCIE_BYTES_PER_S * 1e3} for sn in snaps],
+        "preempted": st["preempted_total"] - pool0["preempted_total"],
+        "restored": st["restored_total"] - pool0["restored_total"],
+        "offload_bytes": off_b, "offload_s": off_s,
+        "offload_gb_per_s": off_b / off_s / 1e9 if off_s > 0 else None,
+        "restore_bytes": res_b, "restore_s": res_s,
+        "restore_gb_per_s": res_b / res_s / 1e9 if res_s > 0 else None,
+        # from the loop's start: the urgent request waited for the victim's
+        # drain and snapshot, then prefilled
+        "hi_ttft_contended_s": times[-1].get("first", t_start) - t_start,
+        "hi_ttft_idle_s": idle[0].get("first", t_idle) - t_idle,
+        "victim_preempted_s": snaps[0].slot_obj.preempted_s if snaps else None,
+        "victim_tokens": len(times[0].get("text", "")),
+        "decode_launches_after_restore": after_restore,
+        "memory_stats": st,
+    }
+    checks = {
+        "one snapshot, of the victim": len(snaps) == 1 and snaps[0].req_id == victim.request_id,
+        "preempted == 1": report["preempted"] == 1,
+        "restored == 1": report["restored"] == 1,
+        "preempted_held == 0": st["preempted_held"] == 0.0,
+        "victim text == uncontended": times[0].get("text") == alone[0].get("text"),
+        "ledger clean": pg["leaks"] == 0 and pg["slot_tables"] == 0 and pg["snap_parked"] == 0,
+        "no missing pin": pg.get("physical_missing_pins", 0.0) == 0,
+        "packed scales == s": eng.kv_scale_audit() == 0,
+        "decode kernels launched after the restore": sum(after_restore.values()) > 0,
+    }
+    report["checks"] = checks
+    log(f"preempt {tag}: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"preempt {tag}: {bad}")
+    return report
+
+
+def preempt_phase() -> dict:
+    """KV memory on the card (`TPU_KV_HOST_OFFLOAD=1`, set here only):
+    fresh engines at full width and depth, rounds captured, pipeline depth
+    2, one parameter tree a model. Llama-3.1-8B int8 (int8 weights and KV,
+    8 slots): `_preempt_cycle` with the victim admitted off a block-aligned
+    prefix hit (its snapshot private-only) and, on a second engine, off an
+    unaligned one (whole); then shedding over HTTP on a third
+    (`_shed_check`). DeepSeek-V2-Lite int8 (int8 latents, 4 slots,
+    shorter prompts): the aligned cycle. The device memory of each model's
+    engines is released afterwards."""
+    import os
+
+    import torch
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+
+    env0 = os.environ.get("TPU_KV_HOST_OFFLOAD")
+    os.environ["TPU_KV_HOST_OFFLOAD"] = "1"
+    out: dict = {}
+    try:
+        for model, slots, chars, cases in (
+                ("llama-3.1-8b", 8, 1000, (("aligned", SYSTEM_LONG + "\n"),
+                                           ("unaligned", UNALIGNED_PREFIX))),
+                (MLA_MODEL, 4, 400, (("aligned", SYSTEM_LONG + "\n"),))):
+            tag = f"{model} int8"
+            gc.collect()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_allocated()
+            params, leaf, report = None, None, {}
+            longs = [_long_prompt(i, chars) for i in range(slots - 1)]
+            for name, prefix in cases:
+                t0 = time.time()
+                eng = GenerationEngine(model, params=params, max_slots=slots, max_seq_len=4096,
+                                       prefill_chunk=512, seed=0, quant="int8", kv_quant="int8",
+                                       device="cuda")
+                params = eng.params
+                leaf = leaf or weakref.ref(_first_leaf(params["layers"]))
+                built = {"s": time.time() - t0, "pipeline_depth": eng.pipeline_depth,
+                         "cuda_graphs": eng.cuda_graphs,
+                         "bytes_per_slot": eng.memory_stats()["bytes_per_slot"]}
+                try:
+                    report[name] = _preempt_cycle(eng, f"{tag} {name}", prefix, longs, chars)
+                finally:
+                    eng.shutdown()
+                report[name]["engine"] = built
+                sn = report[name]["snapshots"]
+                whole = name == "unaligned"
+                if not sn or any((s["shared_len"] == 0) != whole
+                                 or s["rows"] != s["length"] - s["shared_len"] for s in sn):
+                    check_failed(f"preempt {tag} {name}: snapshot rows {sn}")
+                del eng
+            if model != MLA_MODEL:
+                report["shed"] = _shed_check(params)
+                report["host_copies"] = host_copy_timing()
+            del params
+            report["released"] = _released(f"preempt {tag}", mem0, leaf)
+            out[tag] = report
+    finally:
+        if env0 is None:
+            os.environ.pop("TPU_KV_HOST_OFFLOAD", None)
+        else:
+            os.environ["TPU_KV_HOST_OFFLOAD"] = env0
+    return out
+
+
+def host_copy_timing(rows: int = 1127, reps: int = 3) -> dict:
+    """Where an offload's time goes, at the Llama int8 snapshot's shape (a
+    slot's `rows` rows of a fused [32, B, 17, S, 128] int8 cache, strided
+    over layers): the pinned allocation, the strided copy into it, the
+    device gather, a contiguous copy into pinned and into pageable memory,
+    and the copy back from pinned memory; host clock around synchronised
+    work, `reps` times (the first meets a pinned size for the first time)."""
+    import torch
+
+    cache = torch.zeros((32, 2, 17, 2048, 128), dtype=torch.int8, device="cuda")
+    src = cache[:, 1:2, :, :rows]
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        t.append(time.perf_counter())
+        pinned.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        dense = src.contiguous()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        pinned.copy_(dense, non_blocking=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        torch.empty(src.shape, dtype=src.dtype).copy_(dense)
+        t.append(time.perf_counter())
+        dense.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        out.append(dict(zip(("pin_alloc_ms", "d2h_strided_pinned_ms", "gather_ms",
+                             "d2h_pinned_ms", "d2h_pageable_ms", "h2d_pinned_ms"), ms)))
+        del pinned, dense
+    report = {"bytes": src.numel(), "runs": out}
+    log(f"host copies: {json.dumps(report)}")
+    return report
+
+
+def _shed_check(params) -> dict:
+    """429 over HTTP at `TPU_ADMIT_WATERMARK=1.0`: a Llama int8 engine of 2
+    slots (sharing `params`) admits two requests that may grow to the whole
+    context (the loop stepped by hand, then left stopped, so that neither
+    can end), so its offered load is at the watermark; a chat is shed."""
+    import os
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    prev = os.environ.get("TPU_ADMIT_WATERMARK")
+    os.environ["TPU_ADMIT_WATERMARK"] = "1.0"  # read at construction
+    try:
+        eng = GenerationEngine("llama-3.1-8b", params=params, max_slots=2, max_seq_len=4096,
+                               prefill_chunk=512, seed=0, quant="int8", kv_quant="int8",
+                               device="cuda")
+    finally:
+        if prev is None:
+            del os.environ["TPU_ADMIT_WATERMARK"]
+        else:
+            os.environ["TPU_ADMIT_WATERMARK"] = prev
+    # each may grow to the whole context: one slot-equivalent apiece
+    for i in range(2):
+        eng.submit(GenRequest(prompt_ids=eng.tokenizer.encode(f"Hold slot {i}."),
+                              max_tokens=4096, temperature=0.0))
+    _step_until(eng, lambda: all(s is not None for s in eng._slots))
+    api = serve({eng.cfg.name: eng}, "127.0.0.1", 0)
+    try:
+        shed0 = eng.memory_stats()["shed_total"]
+        gate = eng.admission_state()
+        body = {"model": eng.cfg.name, "max_tokens": 8,
+                "messages": [{"role": "user", "content": "Am I shed?"}]}
+        status, retry = None, None
+        try:
+            with _post(f"http://127.0.0.1:{api.port}/v1/chat/completions", body, timeout=60) as r:
+                status = r.status
+        except urllib.error.HTTPError as e:
+            status, retry = e.code, e.headers.get("Retry-After")
+        st = eng.memory_stats()
+    finally:
+        api.shutdown()
+        eng.shutdown()  # errors the two held requests
+    report = {"admission_state": gate, "status": status, "retry_after": retry,
+              "shed_total_delta": st["shed_total"] - shed0, "offered": st["offered"],
+              "watermark": st["watermark"]}
+    checks = {"429": status == 429,
+              "Retry-After in [1, 600]": retry is not None and 1 <= int(retry) <= 600,
+              "shed_total moved by 1": report["shed_total_delta"] == 1}
+    report["checks"] = checks
+    log(f"preempt shed: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"shedding over HTTP: {bad}")
+    del eng, api
+    return report
+
+
 def main() -> None:
     try:
         import torch
@@ -2566,10 +2990,12 @@ def main() -> None:
     from llm_mcp_tpu_torch.executor import GenerationEngine
 
     t0 = time.time()
+    mem0 = torch.cuda.memory_allocated()
     engine = GenerationEngine(
         "llama-3.1-8b", max_slots=8, max_seq_len=4096, prefill_chunk=512, seed=0,
         device="cuda",
     )
+    leaf = weakref.ref(_first_leaf(engine.params["layers"]))
     torch.cuda.synchronize()
     log(f"llama-3.1-8b random bf16 weights + cache in {time.time() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -2594,9 +3020,9 @@ def main() -> None:
                                                     max_slots=8, max_seq_len=4096,
                                                     prefill_chunk=512)}
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    released = {"llama-3.1-8b bf16": _released("llama-3.1-8b bf16", mem0, leaf)}
     q8 = q8_served_phase()
+    released["llama-3.1-8b int8"] = q8.pop("released")
     breakdown.update(q8.pop("breakdown"))
     graph_ab["llama-3.1-8b int8"] = q8.pop("graph_ab")
     gc.collect()
@@ -2604,6 +3030,9 @@ def main() -> None:
     mla = mla_served_phase()
     breakdown.update(mla["int8"].pop("breakdown"))
     graph_ab[f"{MLA_MODEL} int8"] = mla["int8"].pop("graph_ab")
+    for tag in ("int8", "bf16_latents"):
+        released[f"{MLA_MODEL} {tag}"] = mla[tag].pop("released")
+    preempt = preempt_phase()
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
@@ -2625,7 +3054,8 @@ def main() -> None:
         rows.append(row)
     print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
                       MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
-                      "graph_ab": graph_ab, "seconds": time.time() - t_start}), flush=True)
+                      "graph_ab": graph_ab, "preempt": preempt, "released": released,
+                      "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2650,10 +3080,12 @@ def q8_served_phase() -> dict:
 
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     engine = GenerationEngine(
         "llama-3.1-8b", max_slots=Q8_SLOTS, max_seq_len=4096, prefill_chunk=512, seed=0,
         quant="int8", kv_quant="int8", device="cuda",
     )
+    leaf = weakref.ref(_first_leaf(engine.params["layers"]))
     torch.cuda.synchronize()
     built = {"s": time.time() - t0, "allocated_gib": torch.cuda.memory_allocated() / 2**30,
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2700,6 +3132,8 @@ def q8_served_phase() -> dict:
     report["graph_ab"] = graph_ab_phase(cfg, params, "llama-3.1-8b int8", max_slots=Q8_SLOTS,
                                         max_seq_len=4096, prefill_chunk=512, quant="int8",
                                         kv_quant="int8")
+    del params
+    report["released"] = _released("llama-3.1-8b int8", mem0, leaf)
     return report
 
 

@@ -44,6 +44,12 @@ class Response:
     def __init__(self, handler: "_Handler"):
         self._h = handler
         self.started = False
+        # headers every write_* below adds (a 429's Retry-After)
+        self.extra_headers: dict[str, str] = {}
+
+    def _send_extra(self) -> None:
+        for k, v in self.extra_headers.items():
+            self._h.send_header(k, v)
 
     def write_json(self, obj: Any, status: int = 200) -> None:
         data = json.dumps(obj).encode("utf-8")
@@ -51,6 +57,7 @@ class Response:
         h.send_response(status)
         h.send_header("Content-Type", "application/json")
         h.send_header("Content-Length", str(len(data)))
+        self._send_extra()
         h.end_headers()
         h.wfile.write(data)
         self.started = True
@@ -66,6 +73,7 @@ class Response:
         h.send_header("Content-Type", "text/event-stream")
         h.send_header("Cache-Control", "no-cache")
         h.send_header("X-Accel-Buffering", "no")
+        self._send_extra()
         h.end_headers()
         self.started = True
 

@@ -4,8 +4,15 @@ local chat path of `llm_mcp_tpu/api/inference.py`).
 `POST /v1/chat/completions` answers from a local `GenerationEngine`,
 streaming (SSE chunks ending in `data: [DONE]`) or in one JSON body.
 `GET /v1/models` lists the served models and `GET /health` reports the
-engines. Smart model selection, proxying to other devices, the cloud
-fallback, constraints, tenants and load shedding come in later slices.
+engines (each one's `prefix_cache`, `paging` and `memory` blocks).
+
+Load shedding, as the reference: before dispatch the engine's
+`admission_state()` is asked; above its watermark the request is shed
+with 429 and a `Retry-After` from the engine's drain estimate, and the
+engine records the shed (`note_shed`). A body's `priority` (an integer, 0
+when absent or malformed) reaches the engine, whose KV pool may preempt a
+lower priority stream for it. Smart model selection, proxying to other
+devices, the cloud fallback, constraints and tenants come in later slices.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ class InferenceAPI:
                     "queue_depth": eng.queue_depth(),
                     "prefix_cache": eng.prefix_cache_stats(),
                     "paging": eng.paging_stats(),
+                    "memory": eng.memory_stats(),
                 }
                 for name, eng in self.engines.items()
             },
@@ -80,10 +88,29 @@ class InferenceAPI:
         if engine is None:
             resp.write_error(f"model {model!r} not available", 404)
             return
+        # above the admission watermark more queued work only slows every
+        # stream: shed now, with the engine's drain estimate (an engine
+        # without the gate, such as a test's stand-in, admits)
+        adm = getattr(engine, "admission_state", None)
+        shed, retry_after = adm() if adm is not None else (False, 0.0)
+        if shed:
+            engine.note_shed()
+            resp.extra_headers["Retry-After"] = str(max(1, int(retry_after + 0.5)))
+            resp.write_error(
+                "server overloaded: admission watermark or tenant quota "
+                "exceeded; retry after the indicated delay",
+                429,
+            )
+            return
+        try:
+            priority = int(body.get("priority") or 0)
+        except (TypeError, ValueError):
+            priority = 0
         t0 = time.time()
         prompt = messages_to_prompt(messages)
         gen_kwargs = dict(
-            max_tokens=max_tokens, temperature=temperature, top_p=top_p, stop=stop
+            max_tokens=max_tokens, temperature=temperature, top_p=top_p, stop=stop,
+            priority=priority,
         )
         created = int(t0)
         cmpl_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"

@@ -71,9 +71,24 @@ same (k, v) pair: k = latents [L, B, 1, S, R], v = rope keys
 Every path above maps over those leaves unchanged; the int8 latents are
 read by the MLA decode kernel through `slot_ids` when compacted.
 
-Left out until later slices: host offload and preemption (`KVPool`),
-migration, the fleet prefix tier, speculation, constraints, the model zoo,
-tenants, the flight recorder, and capture of the ragged group.
+KV memory, as the JAX engine (`memory.py`): with `TPU_KV_HOST_OFFLOAD`
+on, a `KVPool` is built at construction (off: none, a true no-op).
+`admission_state()` compares the offered load (the ledger's unique blocks,
+in slot-equivalents) with `TPU_ADMIT_WATERMARK × max_slots` and gives the
+API its 429 and Retry-After. When the queue's head outranks the lowest
+priority live stream (or has waited past twice the TTFT target) and no
+slot is free, the loop drains the pipeline (every round fetched and
+emitted, so the host lengths are exact), copies a victim's committed rows
+and its round state to pinned host memory (`TPU_PREEMPT_POLICY` picks the
+victim), parks its shared prefix pins in the ledger and frees the slot.
+Snapshots are restored ahead of admission, into the same cache storage
+(`copy_` into views: the captured round graphs hold the buffers'
+addresses). A victim admitted off a prefix hit snapshots only its private
+rows when its shared length is block-aligned.
+
+Left out until later slices: migration, the fleet prefix tier,
+speculation, constraints, the model zoo, tenants, the flight recorder and
+its preempt/restore spans, and capture of the ragged group.
 """
 
 from __future__ import annotations
@@ -108,8 +123,10 @@ from ..models.quant import (
 )
 from ..ops.sampling import sample_tokens
 from ..utils.device import resolve_device
+from ..utils.locks import OrderedLock
 from .common import fine_bucket, pow2_bucket
 from .graphs import RoundGraphs
+from .memory import RESTORE_AGING_TTFT_MULT, KVPool, KVSnapshot, pytree_nbytes
 from .paging import PagedKVManager
 from .physical import PhysicalPool, pool_like
 from .scheduler import TokenBudgetScheduler
@@ -205,6 +222,7 @@ class GenRequest:
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex)
     out: "queue.Queue[Any]" = field(default_factory=queue.Queue)
     created_at: float = field(default_factory=time.time)
+    priority: int = 0  # preemption: a higher one may take a lower one's slot
 
 
 @dataclass
@@ -216,6 +234,14 @@ class _Slot:
     prompt_len: int = 0
     first_token_at: float = 0.0
     done: bool = False
+    # KV pool: the last emission's wall time (the "idle" policy's signal;
+    # stamped only with the pool on)
+    last_emit: float = 0.0
+    # admitted off a prefix hit: the entry and its length; a preemption
+    # snapshots only the rows past shared_len when it is block-aligned
+    shared_entry: Any = None
+    shared_len: int = 0
+    preempted_s: float = 0.0  # wall spent parked off-slot
 
 
 @dataclass
@@ -226,6 +252,7 @@ class _PrefillState:
     ids: list[int]
     done: int = 0  # tokens already written into the cache
     shared_len: int = 0  # prefix-cache hit: tokens of the entry it starts with
+    shared_entry: Any = None  # and the entry, carried onto the live slot
 
 
 @dataclass
@@ -320,6 +347,7 @@ class GenerationEngine:
         self.prefill_chunk = max(0, prefill_chunk)
         self.admit_batch = max(1, admit_batch)
         self.tokenizer = tokenizer or ByteTokenizer()
+        self.target_ttft_ms = float(target_ttft_ms)
         self._sched = TokenBudgetScheduler(
             target_ttft_ms=target_ttft_ms,
             min_budget=min(64, self.prefill_chunk) if self.prefill_chunk else 1,
@@ -341,6 +369,29 @@ class GenerationEngine:
                               quantized=self.kv_quant == "int8")
         self._ck, self._cv = cache["k"], cache["v"]
         self._init_prefix_cache(prompt_cache_mb)
+
+        # The KV pool (memory.py), as the JAX engine builds it: only with
+        # TPU_KV_HOST_OFFLOAD on; every use is guarded by `is not None`, so
+        # off is a true no-op.
+        self._pool: KVPool | None = None
+        if os.environ.get("TPU_KV_HOST_OFFLOAD", "0") not in ("", "0", "false", "no", "off"):
+            self._pool = KVPool(
+                max_slots=max_slots,
+                max_seq_len=max_seq_len,
+                bytes_per_slot=pytree_nbytes({"k": self._ck, "v": self._cv}) // max(1, max_slots),
+                watermark=float(os.environ.get("TPU_ADMIT_WATERMARK", "") or 1.5),
+                policy=os.environ.get("TPU_PREEMPT_POLICY", "") or "priority",
+            )
+            log.info("KV pool enabled: %.1f MB/slot, watermark %.2f, policy %s",
+                     self._pool.bytes_per_slot / (1 << 20), self._pool.watermark,
+                     self._pool.policy)
+        self._snap_ctr = 0  # snapshot ids: the ledger's key for parked pins
+        # finished requests and their tokens price the 429's Retry-After;
+        # API threads read them
+        self.stats_lock = OrderedLock("engine.stats", rank=10)
+        self.finished_requests = 0
+        self.finished_tokens = 0
+        self.total_errors = 0
 
         # Host mirror of the slots' lengths, advanced at dispatch. Only active
         # (decoding) slots hold an in-range length; free and mid-prefill
@@ -403,12 +454,17 @@ class GenerationEngine:
         return self
 
     def shutdown(self) -> None:
+        """Stop the loop, error every request still held (queued, live or
+        offloaded), and free the round graphs and their memory pool; the
+        caches and weights go with the engine object."""
         self._stop_evt.set()
         self._wake.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
-            self._thread = None
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=30)
         self._abort_all("engine shutdown")
+        if self._graphs is not None and (thread is None or not thread.is_alive()):
+            self._graphs.release()  # no replay can be running any more
 
     def submit(self, req: GenRequest) -> GenRequest:
         if self._stop_evt.is_set():
@@ -428,6 +484,7 @@ class GenerationEngine:
         top_k: int = 0,
         top_p: float = 1.0,
         stop: list[str] | None = None,
+        priority: int = 0,
     ) -> Iterator[dict[str, Any]]:
         """Yield {"type":"token","text":...} events then a final
         {"type":"done", "usage":..., "finish_reason":..., "ttft_ms":...}."""
@@ -438,6 +495,7 @@ class GenerationEngine:
             top_k=top_k,
             top_p=top_p,
             stop=stop or [],
+            priority=int(priority),
         )
         self.submit(req)
         while True:
@@ -490,8 +548,75 @@ class GenerationEngine:
         out["leaks"] = float(self._paging.leak_count())
         if self._phys is not None:
             out.update(self._phys.stats())
-        out["physical"] = 1.0 if self._phys is not None else 0.0
+            out["physical"] = 1.0
+            contig, phys = self._phys_hbm_peak
+            out["hbm_bytes_contiguous_equiv_peak"] = contig
+            out["hbm_bytes_physical_peak"] = phys
+            out["hbm_bytes_ratio_peak"] = self._phys_hbm_peak_ratio
+        else:
+            out["physical"] = 0.0
         return out
+
+    # -- KV pool: admission ----------------------------------------------------
+
+    def _offered_load(self) -> float:
+        """The load the admission watermark compares, in slot-equivalents:
+        the ledger's unique blocks (a shared prefix counts once), each live
+        or mid-prefill request's committed growth (length + tokens left +
+        one decode chunk), parked snapshots' restore needs and the queue at
+        the recent admissions' block cost (`offered_blocks`). With nothing
+        shared it is the count active + queued + preempted."""
+        queued = self._admit.qsize()
+        if self._pool is None:
+            return float(self.slots_in_use() + queued)
+        S, K = self.max_seq_len, self.decode_chunk
+        wants: dict[int, int] = {}
+        for b, s in enumerate(list(self._slots)):
+            if s is None or s.done:
+                continue
+            rem = max(0, s.req.max_tokens - s.generated)
+            wants[b] = min(int(self._lengths[b]) + rem + K, S)
+        for slot, st in list(self._prefills.items()):
+            wants[slot] = min(len(st.ids) + max(0, st.req.max_tokens) + K, S)
+        mgr = self._paging
+        return mgr.offered_blocks(wants, queued) / max(1, mgr.blocks_per_slot)
+
+    def memory_stats(self) -> dict[str, float]:
+        """The pool's counters, the offered load and the headroom;
+        {"enabled": 0.0} without a pool."""
+        pool = self._pool
+        if pool is None:
+            return {"enabled": 0.0}
+        out = pool.stats()
+        out["enabled"] = 1.0
+        offered = self._offered_load()
+        out["offered"] = float(offered)
+        out["headroom"] = pool.headroom(offered)
+        return out
+
+    def admission_state(self) -> tuple[bool, float]:
+        """(shed, retry_after_s) for the API's load-shedding gate: shed
+        while the offered load is at the watermark, with the scheduler's
+        drain estimate for the queue and the held snapshots, clamped to
+        [1, 600] s. Side-effect free; (False, 0.0) without a pool."""
+        pool = self._pool
+        if pool is None:
+            return False, 0.0
+        if pool.admit_ok(self._offered_load()):
+            return False, 0.0
+        with self.stats_lock:
+            fr, ft = self.finished_requests, self.finished_tokens
+        mean_tokens = (ft / fr) if fr else 64.0
+        n_waiting = self._admit.qsize() + pool.preempted_count()
+        retry = self._sched.drain_estimate_s(
+            max(1, n_waiting), mean_tokens, self.decode_chunk, self.max_slots
+        )
+        return True, min(600.0, max(1.0, retry))
+
+    def note_shed(self, n: int = 1) -> None:
+        """The API shed `n` requests on this engine's behalf (a 429)."""
+        if self._pool is not None:
+            self._pool.note_shed(n)
 
     # -- prompt-prefix cache and paged KV ----------------------------------
 
@@ -536,6 +661,10 @@ class GenerationEngine:
             )
             self._pool_k = pool_like(self._ck, rows, bt)
             self._pool_v = pool_like(self._cv, rows, bt)
+            # the HBM ledger's peak (`_phys_note_hbm`): contiguous-equivalent
+            # bytes over the bytes physically resident
+            self._phys_hbm_peak_ratio = 1.0
+            self._phys_hbm_peak = (0.0, 0.0)
         log.info(
             "paged KV: %d-token blocks, %d arena + %d prefix blocks, physical %s",
             bt, self._paging.slot_partition, self._paging.prefix_partition,
@@ -590,7 +719,8 @@ class GenerationEngine:
                 _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._ck, ent["k"])
                 _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._cv, ent["v"])
         for slot, req, ids in group:
-            self._prefills[slot] = _PrefillState(req=req, ids=list(ids), done=P, shared_len=P)
+            self._prefills[slot] = _PrefillState(req=req, ids=list(ids), done=P, shared_len=P,
+                                                 shared_entry=ent)
             self._prefill_q.append(slot)
             ops = self._paging.admit_shared(slot, ent["key"], len(ids))
             if "k" not in ent:
@@ -688,11 +818,35 @@ class GenerationEngine:
             self._cow_block(slot, ent["P"] // self._paging.block_tokens, phys - self._phys.pool_base)
             self._phys.cow_copies_total += 1
         self._phys_rebuild(slot)
+        self._phys_note_hbm()
+
+    def _phys_note_hbm(self) -> None:
+        """At a shared admission, the HBM ledger's sample: what the live
+        working set occupies physically (unique blocks, each resident once)
+        against what a contiguous engine holds for it (every sharer's rows,
+        plus the prefix entries' own); the peak ratio is kept."""
+        st = self._paging.stats()
+        bb = float(self._paging.bytes_per_block)
+        used = st["blocks_used"]
+        if bb <= 0 or used <= 0:
+            return
+        phys = used * bb
+        contig = st["logical_blocks"] * bb + float(self._prefix_cache_bytes)
+        ratio = contig / phys
+        if ratio > self._phys_hbm_peak_ratio:
+            self._phys_hbm_peak_ratio = ratio
+            self._phys_hbm_peak = (contig, phys)
 
     def _phys_rebuild(self, slot: int) -> None:
         if self._phys is not None:
             ids, shared_n = self._paging.table_view(slot)
             self._phys.rebuild(slot, ids, shared_n)
+
+    def _phys_sweep(self) -> None:
+        """Reclaim pool rows after pins were dropped without a table change
+        (a snapshot's parked pins)."""
+        if self._phys is not None:
+            self._phys.sweep(self._paging.alive)
 
     def _phys_reset(self, slot: int) -> None:
         """Slot released: its table row back to identity, then reclaim the
@@ -779,6 +933,13 @@ class GenerationEngine:
     def _step(self) -> bool:
         """One iteration of the pipelined loop (module docstring)."""
         K, S = self.decode_chunk, self.max_seq_len
+        if self._pool is not None and self._preempt_wanted():
+            # a snapshot needs exact host lengths, and lengths advance at
+            # dispatch: fetch and emit every round first. The drain may free
+            # a slot, so ask again.
+            self._drain()
+            if self._preempt_wanted():
+                self._preempt_one()
         # dispatchable: active rows whose next K writes fit; a row at the
         # cap waits for its in-flight round's fetch, which finishes it
         active = [
@@ -977,12 +1138,14 @@ class GenerationEngine:
                     break
             if parts:
                 s.req.out.put({"type": "token", "text": "".join(parts)})
+                if self._pool is not None:
+                    s.last_emit = time.time()
             if finish is not None:
                 self._finish_slot(b, s, finish)
 
     # -- admission ---------------------------------------------------------
 
-    def _free_slot(self, reserved: set[int]) -> int | None:
+    def _free_slot(self, reserved: set[int] = frozenset()) -> int | None:
         for i, s in enumerate(self._slots):
             if s is None and i not in self._prefills and i not in reserved:
                 fence = self._cooling.get(i)
@@ -993,8 +1156,206 @@ class GenerationEngine:
                 return i
         return None
 
+    # -- KV pool: preemption with host offload ----------------------------------
+
+    def _aging_s(self) -> float:
+        """Seconds after which a waiter (the queue's head or a snapshot)
+        overrides priority fairness: starvation is bounded both ways."""
+        return RESTORE_AGING_TTFT_MULT * self.target_ttft_ms / 1000.0
+
+    def _preempt_wanted(self) -> bool:
+        """Preempt a slot for the queue's head? Only when no slot is free, a
+        victim exists, the pool's guards pass, and the head outranks the
+        lowest priority live stream or has waited past `_aging_s` (equal
+        priorities shed at the API's watermark instead of thrashing)."""
+        pool = self._pool
+        if pool is None or self._admit.empty() or not pool.may_preempt():
+            return False
+        live = [s for s in self._slots if s is not None and not s.done]
+        if not live or self._free_slot() is not None:
+            return False
+        try:
+            head = self._admit.queue[0]  # the engine thread is the only consumer
+        except IndexError:
+            return False
+        return head.priority > min(s.req.priority for s in live) or (
+            time.time() - head.created_at > self._aging_s()
+        )
+
+    def _to_host(self, x: torch.Tensor) -> torch.Tensor:
+        """A copy of `x` on the host: pinned and queued non-blocking on the
+        card (the caller synchronises once for all of them)."""
+        if x.device.type == "cpu":
+            return x.clone()
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        return out
+
+    def _snapshot_rows(self, b: int, end: int, start: int = 0) -> tuple[Any, Any]:
+        """Host copies of slot b's committed rows [start, end) of every
+        cache leaf: the seq axis is axis 3 in every layout, so one slice
+        serves them all (`{}`, the fused int8 cache's V side, stays `{}`).
+        start > 0 is the private-only snapshot of a prefix hit. When the
+        range overlaps the slot's shared blocks, their arena rows are stale
+        (the bytes live in the prefix pool): the range is read block by
+        block through the table."""
+        srcs = None
+        bt = self._paging.block_tokens
+        if self._phys is not None:
+            _, sn = self._paging.table_view(b)
+            if sn > 0 and start < sn * bt:
+                srcs = self._phys.row_sources(b, -(-end // bt))
+
+        def cut(arr, pool):
+            if isinstance(arr, dict):
+                return {k: cut(arr[k], None if pool is None else pool[k]) for k in arr}
+            if srcs is None:
+                return self._to_host(arr[:, b: b + 1, :, start:end])
+            parts = [arr[:, row: row + 1, :, off: off + bt] if in_arena else pool[:, row: row + 1]
+                     for in_arena, row, off in srcs]
+            return self._to_host(torch.cat(parts, dim=3)[:, :, :, start:end])
+
+        return cut(self._ck, self._pool_k), cut(self._cv, self._pool_v)
+
+    def _preempt_one(self) -> bool:
+        """Offload one victim slot to host memory and free it. The caller
+        has drained the pipeline, so the host lengths are exact and the
+        ring holds each slot's last token: the snapshot resumes token for
+        token. The port copies exactly the committed rows (`memory.py`)."""
+        pool = self._pool
+        cands = [
+            {"slot": b, "priority": s.req.priority,
+             "last_activity": s.last_emit or s.first_token_at,
+             "tokens_remaining": max(0, s.req.max_tokens - s.generated)}
+            for b, s in enumerate(self._slots) if s is not None and not s.done
+        ]
+        victim = pool.pick_victim(cands)
+        if victim is None:
+            return False
+        b = victim["slot"]
+        s = self._slots[b]
+        L = int(self._lengths[b])
+        t0 = time.perf_counter()
+        # a prefix hit snapshots only its private rows; an unaligned shared
+        # length's boundary block was copied on write into this slot's arena
+        # and nothing can rebuild it, so that snapshot is whole
+        p0 = s.shared_len if (0 < s.shared_len < L and s.shared_entry is not None) else 0
+        if self._phys is not None and p0 % self._paging.block_tokens:
+            p0 = 0
+        k_rows, v_rows = self._snapshot_rows(b, L, start=p0)
+        # the round state lives only on the device: one read (and the sync
+        # that completes the row copies above)
+        state = torch.stack([t[b].double() for t in (self._d_last, self._d_temp, self._d_topk,
+                                                      self._d_topp)]).cpu().tolist()
+        dt = time.perf_counter() - t0
+        snap_id = self._snap_ctr
+        self._snap_ctr += 1
+        snap = KVSnapshot(
+            req_id=s.req.request_id, priority=s.req.priority, length=L, bucket=L,
+            last_tok=int(state[0]), temperature=state[1], top_k=int(state[2]), top_p=state[3],
+            k_rows=k_rows, v_rows=v_rows, nbytes=pytree_nbytes(k_rows) + pytree_nbytes(v_rows),
+            preempted_at=time.time(), slot_obj=s, snap_id=snap_id, shared_len=p0,
+            shared_entry=s.shared_entry if p0 else None,
+        )
+        pool.offload(snap, dt)
+        # ledger: park the shared pins under snap_id and free the private
+        # tail, before `_free_now` drops the table; no round is in flight,
+        # so the free sets no fence. No terminal event: the request waits.
+        self._paging.preempt_slot(b, snap_id)
+        self._free_now(b)
+        log.info("preempted slot %d (req %s, %d tokens, %.1f MB) in %.1f ms",
+                 b, s.req.request_id[:8], L, snap.nbytes / (1 << 20), dt * 1e3)
+        return True
+
+    def _restore_pending(self) -> bool:
+        """Restore snapshots into free slots, highest priority and longest
+        preempted first. A queued request of at least the snapshot's
+        priority keeps its claim on the next free slot unless the snapshot
+        has aged past `_aging_s` (the mirror of `_preempt_wanted`)."""
+        pool = self._pool
+        restored = False
+        while pool.has_preempted():
+            snap = pool.pop_restore()
+            if snap is None:
+                break
+            s = snap.slot_obj
+            if s is None or s.done:
+                # its request ended: drop the rows and the parked pins
+                self._paging.drop_snap(snap.snap_id)
+                self._phys_sweep()
+                continue
+            aged = time.time() - snap.preempted_at > self._aging_s()
+            try:
+                head = self._admit.queue[0]
+            except IndexError:
+                head = None
+            if head is not None and head.priority >= snap.priority and not aged:
+                pool.requeue(snap)
+                break
+            slot = self._free_slot()
+            if slot is None:
+                pool.requeue(snap)
+                break
+            try:
+                self._restore_snapshot(slot, snap)
+            except Exception as e:
+                log.exception("restore of a preempted slot failed")
+                # the physical path may have re-tabled the pins already
+                self._free_now(slot)
+                self._paging.drop_snap(snap.snap_id)
+                self._phys_sweep()
+                s.done = True
+                self._error(s.req, str(e))
+                break
+            restored = True
+        return restored
+
+    def _restore_snapshot(self, b: int, snap: KVSnapshot) -> None:
+        """Write a snapshot back into slot b and activate it again. Every
+        write goes into the existing storage (`copy_` into views, `fill_`
+        of single elements): the captured round graphs read these buffers
+        by address. In JAX's order: a physical prefix hit re-pins its
+        shared blocks first, then the private rows are written, then the
+        table row is rebuilt."""
+        s = snap.slot_obj
+        s.preempted_s += max(0.0, time.time() - snap.preempted_at)
+        self._sync()  # rounds in flight end first: the time below is the restore's
+        t0 = time.perf_counter()
+        start = snap.shared_len
+        ledgered = False
+        if start and snap.shared_entry is not None:
+            ent = snap.shared_entry
+            if "k" in ent:  # a contiguous entry: its device rows back into [0, P)
+                _map(lambda c, e: c[:, b, :, :start].copy_(e[:, 0]), self._ck, ent["k"])
+                _map(lambda c, e: c[:, b, :, :start].copy_(e[:, 0]), self._cv, ent["v"])
+            else:  # a physical one: re-pin, no rows move
+                ops = self._paging.restore_slot(b, snap.snap_id, snap.length)
+                self._phys_admit(b, ent, ops)
+                ledgered = True
+        end = snap.length
+        for c, rows in ((self._ck, snap.k_rows), (self._cv, snap.v_rows)):
+            _map(lambda x, r: x[:, b: b + 1, :, start:end].copy_(r, non_blocking=True), c, rows)
+        # the round state (JAX's `samprow`), then the host side
+        self._d_last[b] = snap.last_tok
+        self._d_temp[b] = snap.temperature
+        self._d_topk[b] = snap.top_k
+        self._d_topp[b] = snap.top_p
+        self._lengths[b] = snap.length
+        self._slots[b] = s
+        if not ledgered:
+            # the parked shared pins back into a table with a fresh private
+            # tail; a whole physical snapshot re-keys its table row too
+            self._paging.restore_slot(b, snap.snap_id, snap.length)
+            self._phys_rebuild(b)
+        self._sync()  # the copies have run: their time is the restore's
+        self._pool.note_restored(snap, time.perf_counter() - t0)
+
     def _admit_pending(self) -> bool:
         admitted = False
+        if self._pool is not None and self._pool.has_preempted():
+            # snapshots re-enter ahead of the queue (under the fairness rule
+            # in `_restore_pending`): their prefill is spent
+            admitted = self._restore_pending()
         while True:
             batch: list[tuple[int, GenRequest, list[int]]] = []
             # prefix-cache hits grouped by entry
@@ -1092,7 +1453,8 @@ class GenerationEngine:
             self._activate_state(slot, req, ids, int(toks0[i]))
 
     def _activate_state(
-        self, slot: int, req: GenRequest, ids: list[int], tok0: int, shared_len: int = 0
+        self, slot: int, req: GenRequest, ids: list[int], tok0: int, shared_len: int = 0,
+        shared_entry: dict | None = None,
     ) -> None:
         P = len(ids)
         # the slot's rows [0, P) now hold exactly this prompt's KV: the
@@ -1105,7 +1467,8 @@ class GenerationEngine:
         mgr.ensure_slot(slot, P)
         want = min(P + max(0, req.max_tokens) + self.decode_chunk, self.max_seq_len)
         mgr.note_admit_cost(mgr.blocks_for(want) - shared_len // mgr.block_tokens)
-        s = _Slot(req=req, prompt_len=P, first_token_at=time.time())
+        s = _Slot(req=req, prompt_len=P, first_token_at=time.time(),
+                  shared_entry=shared_entry if shared_len else None, shared_len=shared_len)
         self._slots[slot] = s
         self._lengths[slot] = P  # tok0 is in the token ring already (`_sample_first`)
         # tok0's K/V is written at position P by the first decode round
@@ -1227,7 +1590,8 @@ class GenerationEngine:
             for k, (_, slot, st) in enumerate(fin):
                 self._prefill_q.remove(slot)
                 del self._prefills[slot]
-                self._activate_state(slot, st.req, st.ids, int(toks0[k]), st.shared_len)
+                self._activate_state(slot, st.req, st.ids, int(toks0[k]), st.shared_len,
+                                     st.shared_entry)
         except Exception as e:
             self._fail_group(group, e)
         group.logits = None
@@ -1285,6 +1649,10 @@ class GenerationEngine:
     def _finish_slot(self, slot: int, s: _Slot, finish: str) -> None:
         req = s.req
         s.done = True
+        # counters first: a caller the events unblock sees them moved
+        with self.stats_lock:
+            self.finished_requests += 1
+            self.finished_tokens += s.generated
         req.out.put({
             "type": "done",
             "finish_reason": finish,
@@ -1311,6 +1679,8 @@ class GenerationEngine:
             self._cooling[b] = self._rid_dispatched
 
     def _error(self, req: GenRequest, msg: str) -> None:
+        with self.stats_lock:
+            self.total_errors += 1
         req.out.put({"type": "error", "error": msg})
         req.out.put(_DONE)
 
@@ -1329,6 +1699,15 @@ class GenerationEngine:
             self._phys_reset(slot)
             failed.append(self._prefills.pop(slot).req)
         self._prefill_q.clear()
+        if self._pool is not None:
+            # offloaded snapshots wait on a restore that will not come
+            for snap in self._pool.drain():
+                self._paging.drop_snap(snap.snap_id)
+                s = snap.slot_obj
+                if s is not None and not s.done:
+                    s.done = True
+                    failed.append(s.req)
+            self._phys_sweep()
         while True:
             try:
                 failed.append(self._admit.get_nowait())

@@ -24,6 +24,8 @@ so the caller copies it out on the stream before then.
   taken back out and kept as the graph's tally, which every replay adds.
 - **No fallback.** A capture that fails raises; nothing goes eager
   quietly.
+- **Release.** `release()` (the engine's shutdown) drops the graphs and
+  their buffers, so nothing of them stays on the card.
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ class RoundGraphs:
 
     def keys(self) -> list[tuple]:
         return list(self._graphs)
+
+    def release(self) -> None:
+        """Drop every graph with its static buffers (the engine's shutdown):
+        the private pool's blocks return to the allocator once no graph
+        that used them is alive. The counters stay readable."""
+        self._graphs.clear()
 
     def tally(self, key: tuple) -> dict[str, int]:
         """Kernel launches one replay of `key` makes."""

@@ -14,9 +14,10 @@ With no active decode slot the budget is the whole backlog. Both cost
 terms are EMAs of measured dispatches: plain rounds feed the decode term,
 standalone groups the prefill term, and a round that carried a group
 feeds the prefill term with its time over the decode term
-(`observe_fused`). Tenant quotas and the flight
-recorder hooks of the JAX scheduler come with tenancy and telemetry, in
-later slices.
+(`observe_fused`). The same decode term prices the API's shed path
+(`drain_estimate_s`, the Retry-After of a 429). Tenant quotas and the
+flight recorder hooks of the JAX scheduler come with tenancy and
+telemetry, in later slices.
 """
 
 from __future__ import annotations
@@ -79,3 +80,18 @@ class TokenBudgetScheduler:
         rounds_left = max(1.0, headroom_s / max(self.decode_round_s, 1e-6))
         need = int(math.ceil(backlog_tokens / rounds_left))
         return max(self.min_budget, min(need, self.fair_cap()))
+
+    def drain_estimate_s(
+        self,
+        n_waiting: int,
+        mean_tokens: float,
+        decode_chunk: int,
+        max_slots: int,
+    ) -> float:
+        """Seconds until `n_waiting` queued requests could start, from the
+        decode round EMA: waves of `max_slots` requests, each running
+        `mean_tokens / decode_chunk` rounds. The Retry-After of a 429."""
+        waves = math.ceil(max(1, int(n_waiting)) / max(1, int(max_slots)))
+        rounds = max(1.0, float(mean_tokens) / max(1, int(decode_chunk)))
+        round_s = self.decode_round_s if self.decode_round_s > 0 else 0.05
+        return waves * rounds * round_s

@@ -1119,3 +1119,181 @@ def test_cuda_engine_capture_on_matches_off(kind):
     for a, b in zip(c_on, c_off):
         assert all(torch.equal(a[k], b[k]) for k in a) if isinstance(a, dict) \
             else torch.equal(a, b)
+
+
+def _drive_by_hand(eng, lows, hi=None, fill=0, limit=4000):
+    """The engine loop stepped by hand (`_step`, as its thread would): the
+    `lows` queued, then, once `fill` slots decode, `hi`; until every request
+    has ended. Returns each request's token ids, in submission order."""
+    seen: dict = {}
+    process = eng._process_token
+
+    def rec(s, tok, pos):
+        seen.setdefault(s.req.request_id, []).append(int(tok))
+        return process(s, tok, pos)
+
+    eng._process_token = rec
+    reqs, ended = list(lows), set()
+
+    def collect():
+        for r in reqs:
+            while not r.out.empty():
+                evt = r.out.get_nowait()
+                if isinstance(evt, dict) and evt["type"] in ("done", "error"):
+                    assert evt["type"] == "done", evt
+                    ended.add(r.request_id)
+
+    with torch.inference_mode():
+        for r in lows:
+            eng.submit(r)
+        if hi is not None:
+            for _ in range(limit):
+                eng._step()
+                if sum(s is not None for s in eng._slots) >= fill:
+                    break
+            assert sum(s is not None for s in eng._slots) >= fill
+            eng._step()
+            eng.submit(hi)
+            reqs.append(hi)
+        for _ in range(limit):
+            collect()
+            if len(ended) == len(reqs):
+                break
+            eng._step()
+        eng._drain()
+        collect()
+    eng._process_token = process
+    assert len(ended) == len(reqs)
+    return [seen.get(r.request_id, []) for r in reqs]
+
+
+def _round_buffers(eng) -> dict:
+    """Storage address of every buffer a captured round reads."""
+    out = {}
+    for name in ("_ck", "_cv", "_pool_k", "_pool_v", "_d_last", "_d_temp", "_d_topk", "_d_topp"):
+        t = getattr(eng, name)
+        if t is not None:
+            for k, x in (t.items() if isinstance(t, dict) else [("", t)]):
+                out[name + k] = x.data_ptr()
+    return out
+
+
+# name: (config, max_slots, int8 weights and cache, prefix cache and a hit)
+PREEMPT_CASES = {
+    "bf16": ("llm", 2, False, False),
+    "int8": ("llm", 16, True, False),
+    "paged_hit": ("llm", 2, False, True),
+    "mla_int8": ("mla", 2, True, False),
+}
+SHARED_PROMPT = "system: You are a careful assistant. Answer in one short line, please.\n"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREEMPT_CASES))
+def test_cuda_preempt_restore_captured_matches_eager(monkeypatch, case):
+    """A preempt -> host offload -> restore cycle at head_dim 128 (bf16,
+    int8 with compacted rounds, a victim admitted off a physical prefix
+    hit whose snapshot is private-only, MLA int8 latents), the loop stepped
+    by hand at pipeline depth 2: with rounds captured and eager, every
+    request's tokens, the caches, the prefix pool and the token ring bit
+    for bit; every buffer a captured round reads keeps its storage across
+    the cycle; the captured engine's contended tokens equal its
+    uncontended ones; the ledger is clean and the packed scales sound."""
+    _card(960)  # skips without a card
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    monkeypatch.setenv("TPU_KV_HOST_OFFLOAD", "1")
+    kind, B, q8, hit = PREEMPT_CASES[case]
+    cfg = _graph_cfg(kind)
+    kw = dict(max_slots=B, max_seq_len=512, seed=3, quant="int8" if q8 else "",
+              kv_quant="int8" if q8 else "", prompt_cache_mb=64 if hit else 0, device="cuda")
+    head = SHARED_PROMPT if hit else ""
+    lows = [(head + f"user: stream {i} says hello", 48 if i == 0 else 16 + 4 * (i % 5),
+             0 if i == 0 else 1) for i in range(B)]
+    runs, params = [], None
+    for graphs in (True, False):
+        eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, **kw)
+        params = eng.params
+        assert eng.pipeline_depth == 2 and eng._pool is not None
+
+        def mk(cases, eng=eng):
+            return [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=n,
+                               temperature=0.0, priority=pri) for p, n, pri in cases]
+
+        if hit:  # the second prompt stores the shared prefix, which the lows hit
+            _drive_by_hand(eng, mk([(head + "user: prime one", 4, 0),
+                                    (head + "user: prime two", 4, 0)]))
+        ptrs = _round_buffers(eng)
+        snaps = []
+        offload = eng._pool.offload
+
+        def rec(snap, seconds=0.0, offload=offload, snaps=snaps):
+            snaps.append((snap.shared_len, snap.length, snap.k_rows["q"].shape[3]
+                          if isinstance(snap.k_rows, dict) else snap.k_rows.shape[3]))
+            offload(snap, seconds)
+
+        eng._pool.offload = rec
+        (hi,) = mk([("user: urgent request", 6, 5)])
+        toks = _drive_by_hand(eng, mk(lows), hi, B)
+        torch.cuda.synchronize()
+        st, pg = eng.memory_stats(), eng.paging_stats()
+        assert st["preempted_total"] >= 1 and st["restored_total"] >= 1, st
+        assert st["preempted_held"] == 0.0
+        assert pg["leaks"] == 0 and pg["slot_tables"] == 0 and pg["snap_parked"] == 0
+        assert eng.kv_scale_audit() == 0
+        if hit:
+            assert all(s > 0 and rows == n - s for s, n, rows in snaps), snaps
+        assert _round_buffers(eng) == ptrs
+        state = [{k: v.clone() for k, v in t.items()} if isinstance(t, dict) else t.clone()
+                 for t in (eng._ck, eng._cv, eng._pool_k, eng._pool_v, eng._d_last)
+                 if t is not None]
+        if graphs:
+            assert eng._graphs.replays > 0
+            ref = _drive_by_hand(eng, mk(lows))  # uncontended
+            assert toks[:-1] == ref
+        runs.append((toks, state))
+        eng.shutdown()
+        del eng
+    (t_on, s_on), (t_off, s_off) = runs
+    assert t_on == t_off
+    for a, b in zip(s_on, s_off):
+        assert all(torch.equal(a[k], b[k]) for k in a) if isinstance(a, dict) \
+            else torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_memory_released_after_shutdown(monkeypatch):
+    """An engine that served a preempt -> restore cycle on captured rounds
+    (prefix pool on, int8 cache) leaves nothing on the card once shut down
+    and dropped: `memory_allocated()` returns to within 64 MiB of its value
+    before the engine was built (cuBLAS keeps a workspace for the engine's
+    capture stream)."""
+    import gc
+
+    dev, _, _, _ = _card(961)
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    monkeypatch.setenv("TPU_KV_HOST_OFFLOAD", "1")
+    a = torch.randn(64, 64, device=dev)
+    (a @ a).sum().item()  # the current stream's cuBLAS workspace exists already
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    eng = GenerationEngine(_graph_cfg("llm"), max_slots=2, max_seq_len=512, seed=3,
+                           quant="int8", kv_quant="int8", prompt_cache_mb=64, device="cuda")
+    built = torch.cuda.memory_allocated()
+    lows = [GenRequest(prompt_ids=eng.tokenizer.encode(f"user: stream {i}"), max_tokens=24,
+                       temperature=0.0, priority=0) for i in range(2)]
+    hi = GenRequest(prompt_ids=eng.tokenizer.encode("user: urgent"), max_tokens=4,
+                    temperature=0.0, priority=5)
+    _drive_by_hand(eng, lows, hi, 2)
+    assert eng.memory_stats()["restored_total"] >= 1 and eng._graphs.replays > 0
+    eng.shutdown()
+    del eng, lows, hi
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    assert built - base > 64 << 20
+    assert after - base <= 64 << 20, (base, built, after)
