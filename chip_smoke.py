@@ -107,7 +107,20 @@ one run reads every check; the script then exits non-zero):
      over HTTP at `TPU_ADMIT_WATERMARK=1.0` with both slots of a 2-slot
      engine held must get 429 with a Retry-After of 1-600 s; then the
      aligned cycle on
-     DeepSeek-V2-Lite int8 (4 slots, ~400-token prompts).
+     DeepSeek-V2-Lite int8 (4 slots, ~400-token prompts);
+ 10. speculation and constraints. On the bf16 server of 4, constrained
+     chats over HTTP (a json_schema, a regex, a choice and a forced tool
+     call, concurrent, greedy): every output must parse or match, an
+     out-of-range logit_bias must answer 400, the constrained slots'
+     masked single steps must launch the decode kernel and a masked verify
+     round must run; the masked step is timed against the unmasked eager
+     step on the same inputs, with the host's mask time per token. Then
+     `spec_phase` for Llama-3.1-8B bf16, Llama-3.1-8B int8 and
+     DeepSeek-V2-Lite int8 (fresh engines on the served weights): two
+     greedy requests with a repetitive prompt, driven by hand with
+     `TPU_SPEC` on and off; the tokens must be identical and a verify
+     round must have run; the accept rate, tokens per verify call, the
+     verify round's wall and device ms and tok/s both ways are reported.
 
 After each model's engines are shut down and dropped, the device memory
 allocated must be back within RELEASE_SLACK of its value before they were
@@ -125,6 +138,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -237,6 +251,16 @@ GQA_CACHE_KERNELS = ("append_kv_bf16", "append_kv_bf16_fused", "decode_attend_bf
 # two, so it compares logits and caches by cosine similarity.
 CHECK_LAYERS = 2
 MODEL_COSINE = 0.9995
+# speculation and constraints (phase 10)
+SPEC_PROMPT = ("Repeat this list exactly, again and again: "
+               + "alpha beta gamma delta epsilon zeta eta theta; " * 8)
+SPEC_TOKENS = 96
+CN_SCHEMA = {"type": "object",
+             "properties": {"tool": {"enum": ["search", "fetch", "read"]},
+                            "urgent": {"type": "boolean"}, "level": {"enum": ["low", "high"]}},
+             "required": ["tool", "urgent", "level"]}
+CN_REGEX = "(alpha beta gamma delta ){4}done"
+CN_CHOICES = ["yes", "no", "maybe"]
 
 FAILURES: list[str] = []  # checks that failed; reported together at the end
 
@@ -1893,6 +1917,8 @@ def mla_served_phase() -> dict:
                                                 max_slots=Q8_SLOTS, max_seq_len=4096,
                                                 prefill_chunk=512, quant="int8",
                                                 kv_quant="int8")
+            report["spec"] = spec_phase(cfg, params, f"{MLA_MODEL} int8", quant="int8",
+                                        kv_quant="int8")
         del params
         report["released"] = _released(f"{MLA_MODEL} {tag}", mem0, leaf)
         out[tag] = report
@@ -2212,7 +2238,8 @@ def graph_ab_phase(cfg, params, tag: str, **engine_kw) -> dict:
         for profiled in (False, True):
             name = ("on" if graphs else "off") + ("_profiled" if profiled else "")
             eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, seed=0, **engine_kw)
-            eng._sched.decide = lambda backlog, n_active, wait: min(backlog, AB_BUDGET)
+            eng._sched.decide = lambda backlog, n_active, wait, reserved_tokens=0: min(
+                backlog, AB_BUDGET)
             fetched: list[float] = []
             seen: dict = {}
             complete, process = eng._complete_round, eng._process_token
@@ -2774,9 +2801,12 @@ def _preempt_cycle(eng, tag: str, prefix: str, longs: list[str], victim_chars: i
 
 
 def preempt_phase() -> dict:
-    """KV memory on the card (`TPU_KV_HOST_OFFLOAD=1`, set here only):
-    fresh engines at full width and depth, rounds captured, pipeline depth
-    2, one parameter tree a model. Llama-3.1-8B int8 (int8 weights and KV,
+    """KV memory on the card (`TPU_KV_HOST_OFFLOAD=1`, set here only, and
+    `TPU_SPEC=0`: a victim's text is held to its uncontended text, and
+    with speculation on the greedy tokens depend on where the verify
+    rounds fall, which contention moves; see `spec_phase`): fresh engines
+    at full width and depth, rounds captured, pipeline depth 2, one
+    parameter tree a model. Llama-3.1-8B int8 (int8 weights and KV,
     8 slots): `_preempt_cycle` with the victim admitted off a block-aligned
     prefix hit (its snapshot private-only) and, on a second engine, off an
     unaligned one (whole); then shedding over HTTP on a third
@@ -2789,8 +2819,8 @@ def preempt_phase() -> dict:
 
     from llm_mcp_tpu_torch.executor import GenerationEngine
 
-    env0 = os.environ.get("TPU_KV_HOST_OFFLOAD")
-    os.environ["TPU_KV_HOST_OFFLOAD"] = "1"
+    env0 = {k: os.environ.get(k) for k in ("TPU_KV_HOST_OFFLOAD", "TPU_SPEC")}
+    os.environ.update(TPU_KV_HOST_OFFLOAD="1", TPU_SPEC="0")
     out: dict = {}
     try:
         for model, slots, chars, cases in (
@@ -2831,10 +2861,11 @@ def preempt_phase() -> dict:
             report["released"] = _released(f"preempt {tag}", mem0, leaf)
             out[tag] = report
     finally:
-        if env0 is None:
-            os.environ.pop("TPU_KV_HOST_OFFLOAD", None)
-        else:
-            os.environ["TPU_KV_HOST_OFFLOAD"] = env0
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return out
 
 
@@ -3006,9 +3037,12 @@ def main() -> None:
     try:
         e2e = e2e_phase(engine, base)
         prefix = prefix_phase(engine, base)
+        constrained = constrain_phase(engine, base)
     finally:
         api.shutdown()
         engine.shutdown()
+    constrained["step"] = masked_step_timing(engine.cfg, engine.params)
+    spec = {"llama-3.1-8b bf16": spec_phase(engine.cfg, engine.params, "llama-3.1-8b bf16")}
     breakdown = breakdown_phase(engine.cfg, engine.params, engine.device)
     cfg, params = engine.cfg, engine.params
     # the bf16 engine goes before the A/B's and the int8 one are built, so
@@ -3023,6 +3057,7 @@ def main() -> None:
     released = {"llama-3.1-8b bf16": _released("llama-3.1-8b bf16", mem0, leaf)}
     q8 = q8_served_phase()
     released["llama-3.1-8b int8"] = q8.pop("released")
+    spec["llama-3.1-8b int8"] = q8.pop("spec")
     breakdown.update(q8.pop("breakdown"))
     graph_ab["llama-3.1-8b int8"] = q8.pop("graph_ab")
     gc.collect()
@@ -3030,6 +3065,7 @@ def main() -> None:
     mla = mla_served_phase()
     breakdown.update(mla["int8"].pop("breakdown"))
     graph_ab[f"{MLA_MODEL} int8"] = mla["int8"].pop("graph_ab")
+    spec[f"{MLA_MODEL} int8"] = mla["int8"].pop("spec")
     for tag in ("int8", "bf16_latents"):
         released[f"{MLA_MODEL} {tag}"] = mla[tag].pop("released")
     preempt = preempt_phase()
@@ -3055,12 +3091,441 @@ def main() -> None:
     print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
                       MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
                       "graph_ab": graph_ab, "preempt": preempt, "released": released,
+                      "constrain": constrained, "spec": spec,
                       "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _first_diff(a: list, b: list) -> int | None:
+    """The first index where two token lists part (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def step_logits_both_paths(cfg, params, seq: list[int], quantized: bool) -> tuple:
+    """The logits after `seq` computed the two ways a served token can
+    come: a decode step (the decode kernels) and a one-token chunk pass
+    (`llama_prefill_chunk_batch`, the verify round's arithmetic), both on
+    one fresh cache holding seq[:-1] (`llama_prefill`). Returns (z_dec,
+    z_chunk), each [V] f32 on the card."""
+    import torch
+
+    from llm_mcp_tpu_torch.models import llama as TL
+
+    dev = _first_leaf(params["layers"]).device
+    n = len(seq)
+    S = 1 << max(6, n.bit_length())
+    cache = TL.init_kv_cache(cfg, 1, S, dtype=torch.bfloat16, device=dev, quantized=quantized)
+    ck, cv = cache["k"], cache["v"]
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        _, ks, vs = TL.llama_prefill(cfg, params, i32([seq[:-1]]), i32([n - 1]),
+                                     quant_kv=quantized)
+        for c, k in ((ck, ks), (cv, vs)):
+            _tree(lambda a, b: a[:, :, :, : n - 1].copy_(b), c, k)
+        chunk_ck, chunk_cv = _tree(torch.clone, ck), _tree(torch.clone, cv)
+        z_chunk, _, _ = TL.llama_prefill_chunk_batch(
+            cfg, params, chunk_ck, chunk_cv, i32([[seq[-1]]]), i32([0]), i32([n - 1]),
+            i32([1]), all_logits=True)
+        z_dec, _, _ = TL.llama_decode_step(cfg, params, ck, cv, i32([seq[-1]]), i32([n - 1]))
+    return z_dec[0].float(), z_chunk[0, 0].float()
+
+
+def near_tie(cfg, params, seq: list[int], a: int, b: int, quantized: bool,
+             banned=None) -> dict:
+    """Where greedy tokens with speculation on and off part after `seq`
+    (`a` with it off, `b` on): on one fresh cache, the decode step and the
+    chunk pass must both rank {a, b} as their two best tokens among those
+    the engine may sample (`banned`: the ids it never samples), so the
+    runs parted between the same two candidates, a near tie that rounding
+    decides. Reported beside it: the two logits, their gap, the paths'
+    largest disagreement on that step, the row's bf16 step and the paths'
+    cosine. The gap is not bounded: a one-step recomputation does not
+    reproduce the cache rows each run wrote before it (it can rank the
+    two tokens in the other order than the run whose arithmetic it
+    repeats)."""
+    import torch
+
+    z_dec, z_chunk = step_logits_both_paths(cfg, params, seq, quantized)
+    cos = float(torch.nn.functional.cosine_similarity(z_dec, z_chunk, dim=0))
+    if banned is not None:  # ids never sampled take no part in the choice
+        z_dec, z_chunk = (z.masked_fill(banned, -1e9) for z in (z_dec, z_chunk))
+    delta = float((z_dec - z_chunk).abs().max())
+    top2 = [set(z.topk(2).indices.tolist()) for z in (z_dec, z_chunk)]
+    scale = float(z_dec.masked_fill(banned, 0.0).abs().max()) if banned is not None else float(
+        z_dec.abs().max())
+    return {"at": len(seq), "tokens": [a, b], "logits": [float(z_dec[a]), float(z_dec[b])],
+            "gap": float(z_dec[a] - z_dec[b]), "delta": delta, "cosine": cos,
+            "bf16_step": 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7),
+            "top2": [sorted(t) for t in top2], "near_tie": top2[0] == top2[1] == {a, b}}
+
+
+def verify_busy_ms(eng, start: int = 500, n: int = 3) -> float | str:
+    """Device busy time of one verify call (torch.profiler, the kernels'
+    time summed, per call over `n` calls) on a spec-on engine whose
+    requests have ended: two rows of K + 1 positions at `start` past keys,
+    every position drafted, packed as `_spec_round` packs a round. The
+    calls write rows no request reads any more."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    A, K = 2, eng.spec_k
+    C = K + 1
+    slots = np.arange(A, dtype=np.int32)
+    starts = np.full(A, start, dtype=np.int32)
+    drafts = np.full((A, K), 70, dtype=np.int32)
+    tokens = np.concatenate([np.zeros((A, 1), np.int32), drafts], axis=1)
+    keep = np.arange(A * C, dtype=np.int32)
+    wpos = (starts[:, None] + np.arange(C, dtype=np.int32)[None, :]).reshape(-1)
+    packed = eng._up(np.concatenate([
+        tokens.reshape(-1), slots, starts, np.full(A, C, np.int32), drafts.reshape(-1),
+        np.full(A, K, np.int32), keep, np.repeat(slots, C), wpos]).astype(np.int32))
+    kw = dict(rows=A, n=A, width=C, n_writes=A * C,
+              skey=min(1 << (start - 1).bit_length(), eng.max_seq_len))
+
+    def call():
+        return eng._verify_fn(packed, paged=None, cn=None, **kw)
+
+    with torch.inference_mode():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    return busy if busy > 0 else "not measured"
+
+
+def spec_phase(cfg, params, tag: str, **engine_kw) -> dict:
+    """Self-speculative decoding on the served weights (`engine_kw`: the
+    served configuration; 2 slots and 1024 positions here): two greedy
+    requests with a repetitive prompt, queued and driven by hand (`_step`,
+    as the engine's thread does) on fresh engines with `TPU_SPEC` on and
+    off. Fails unless a verify round ran (none with it off) and each
+    request's tokens are identical both ways or part only at a near tie
+    (`near_tie`: a verify round's chunk pass and the decode kernels round
+    differently, so a greedy choice between two tokens whose logits lie
+    within that difference may go either way; JAX's verify is the same
+    chunk arithmetic). Reports the accept rate, tokens
+    per verify call, each verify round's wall (host clock around the
+    synchronous round, its upload and fetch included) and device time
+    (CUDA events around the verify call: the chunk pass over every
+    position, the masks, accept/reject; for eager work this span holds
+    the card's idle gaps too) and its device busy time (`verify_busy_ms`),
+    tok/s both ways (the requests'
+    tokens over the wall from submission to the last token, prefill and
+    each round shape's first call and capture included), and the port
+    kernels launched during each run."""
+    import torch
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    runs: dict[str, dict] = {}
+    tokens: dict[str, list] = {}
+    dev = _first_leaf(params["layers"]).device  # where the served weights are
+    prev = os.environ.get("TPU_SPEC")
+    for name, flag in (("on", "1"), ("off", "0")):
+        os.environ["TPU_SPEC"] = flag
+        try:
+            eng = GenerationEngine(cfg, params=params, seed=0, max_slots=2, max_seq_len=1024,
+                                   prefill_chunk=512, device=dev, **engine_kw)
+        finally:
+            if prev is None:
+                os.environ.pop("TPU_SPEC", None)
+            else:
+                os.environ["TPU_SPEC"] = prev
+        seen: dict = {}
+        process = eng._process_token
+
+        def rec(s, tok, pos, seen=seen, process=process):
+            seen.setdefault(s.req.request_id, []).append(int(tok))
+            return process(s, tok, pos)
+
+        eng._process_token = rec
+        banned = eng._banned
+        walls: list[float] = []
+        events: list = []
+        if eng._verify_fn is not None:
+            verify, spec_round = eng._verify_fn, eng._spec_round
+
+            def timed_verify(packed, verify=verify, **kw):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = verify(packed, **kw)
+                e1.record()
+                events.append((e0, e1))
+                return out
+
+            def timed_round(entries, spec_round=spec_round):
+                t = time.perf_counter()
+                spec_round(entries)
+                walls.append(time.perf_counter() - t)
+
+            eng._verify_fn, eng._spec_round = timed_verify, timed_round
+        reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(SPEC_PROMPT + tail),
+                           max_tokens=SPEC_TOKENS, temperature=0.0)
+                for tail in ("", " And once more:")]
+        prompts = [r.prompt_ids for r in reqs]
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        _step_until(eng, lambda: eng.finished_requests + eng.total_errors >= len(reqs))
+        with torch.inference_mode():
+            eng._drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(seen.get(r.request_id, [])) for r in reqs)
+        run = {"wall_s": wall, "tokens": n_tok, "tok_per_s": n_tok / wall,
+               "errors": eng.total_errors, "stats": eng.speculation_stats(),
+               "verify_built": eng._verify_fn is not None,
+               "launches": {k: v for k, v in K.LAUNCHES.items() if v}}
+        if walls:
+            device = [a.elapsed_time(b) for a, b in events]
+            run.update(verify_rounds=len(walls),
+                       verify_wall_ms_mean=sum(walls) / len(walls) * 1e3,
+                       verify_wall_ms_median=sorted(walls)[len(walls) // 2] * 1e3,
+                       verify_device_ms_mean=sum(device) / len(device),
+                       verify_device_ms_median=sorted(device)[len(device) // 2])
+        if walls:
+            eng._verify_fn = verify
+            run["verify_device_busy_ms"] = verify_busy_ms(eng)
+        runs[name] = run
+        tokens[name] = [seen.get(r.request_id, []) for r in reqs]
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    parts = []
+    for ids, t_on, t_off in zip(prompts, tokens["on"], tokens["off"]):
+        i = _first_diff(t_on, t_off)
+        if i is not None and 0 < i < min(len(t_on), len(t_off)):
+            parts.append(near_tie(cfg, params, ids + t_off[:i], t_off[i], t_on[i],
+                                  engine_kw.get("kv_quant") == "int8", banned))
+        elif i is not None:
+            parts.append({"at": i, "near_tie": False})  # a length or a first token differs
+    checks = {
+        "greedy tokens identical with spec on and off, or parting at a near tie":
+        all(p["near_tie"] for p in parts),
+        "a verify round ran": on["stats"]["verify_calls"] > 0,
+        "drafts accepted": on["stats"]["accepted_tokens"] > 0,
+        "spec off builds no verify function": not off["verify_built"]
+        and off["stats"]["verify_calls"] == 0,
+        "no request errored": on["errors"] == 0 and off["errors"] == 0,
+    }
+    report = {"card": card_line(), "runs": runs, "checks": checks, "partings": parts,
+              "identical": tokens["on"] == tokens["off"],
+              "accept_rate": on["stats"]["accept_rate"],
+              "tok_per_verify_call": on["stats"]["tok_per_call"],
+              "first_difference": [_first_diff(a, b) for a, b in zip(tokens["on"], tokens["off"])]}
+    log(f"spec {tag}: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"spec {tag}: {bad}")
+    return report
+
+
+def constrain_phase(engine, base: str) -> dict:
+    """Constrained chats on the bf16 server (greedy, concurrent): a
+    json_schema (a closed one: every field an enum or a boolean), a regex
+    that forces a repetitive phrase (its drafts compose: masked verify
+    rounds), a choice and a forced tool call. Every output must parse or
+    match, no token may be illegal, every finished request must end in an
+    accepting state; an out-of-range logit_bias must answer 400; the
+    constrained slots' masked single steps must have launched the bf16
+    decode kernel (counted around each step), and a masked verify must
+    have run. Reports each masked step's wall and the host's mask time per
+    constrained token."""
+    import torch
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    steps: list[tuple[float, int, int]] = []  # (wall s, rows, decode launches)
+    cn_step = engine._cn_step_round
+
+    def counted(cn_active, cn_step=cn_step):
+        before = K.LAUNCHES["decode_attend_bf16"] + K.LAUNCHES["decode_attend_bf16_paged"]
+        t = time.perf_counter()
+        cn_step(cn_active)
+        steps.append((time.perf_counter() - t, len(cn_active),
+                      K.LAUNCHES["decode_attend_bf16"] + K.LAUNCHES["decode_attend_bf16_paged"]
+                      - before))
+
+    engine._cn_step_round = counted
+    drafted0 = engine.cn_spec_drafted
+    cn0 = dict(engine.constrain_stats())
+    tools = [{"type": "function", "function": {"name": "lookup", "parameters": CN_SCHEMA}}]
+    bodies = {
+        "json_schema": {"response_format": {"type": "json_schema",
+                                            "json_schema": {"name": "t", "schema": CN_SCHEMA}}},
+        "regex": {"response_format": {"type": "regex", "pattern": CN_REGEX}},
+        "choice": {"response_format": {"type": "choice", "choices": CN_CHOICES}},
+        "tool": {"tools": tools,
+                 "tool_choice": {"type": "function", "function": {"name": "lookup"}}},
+    }
+    outs: dict[str, dict] = {k: {} for k in bodies}
+
+    def ask(kind):
+        body = {"model": engine.cfg.name, "max_tokens": 128, "temperature": 0,
+                "messages": [{"role": "user", "content": f"Answer as {kind}, please."}],
+                **bodies[kind]}
+        t = time.perf_counter()
+        try:
+            with _post(base + "/v1/chat/completions", body) as r:
+                doc = json.loads(r.read())
+            outs[kind].update(text=doc["choices"][0]["message"]["content"],
+                              finish=doc["choices"][0]["finish_reason"], usage=doc["usage"],
+                              s=time.perf_counter() - t)
+        except Exception as e:  # reported as a failed check below
+            outs[kind]["error"] = f"{type(e).__name__}: {e}"
+
+    try:
+        threads = [threading.Thread(target=ask, args=(k,)) for k in bodies]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        engine._cn_step_round = cn_step
+
+    def parses(kind, text):
+        try:
+            if kind == "json_schema":
+                doc = json.loads(text)
+                return (set(doc) == set(CN_SCHEMA["properties"]) and isinstance(doc["urgent"], bool)
+                        and doc["tool"] in CN_SCHEMA["properties"]["tool"]["enum"])
+            if kind == "tool":
+                doc = json.loads(text)
+                return doc["name"] == "lookup" and parses("json_schema", json.dumps(doc["arguments"]))
+        except (ValueError, KeyError, TypeError):
+            return False
+        if kind == "regex":
+            return re.fullmatch(CN_REGEX, text) is not None
+        return text in CN_CHOICES
+
+    bad_bias = {}
+    try:
+        with _post(base + "/v1/chat/completions", {
+                "model": engine.cfg.name, "max_tokens": 4,
+                "messages": [{"role": "user", "content": "hi"}],
+                "logit_bias": {str(engine.cfg.vocab_size + 7): 2}}) as r:
+            bad_bias = {"status": r.status}
+    except urllib.error.HTTPError as e:
+        bad_bias = {"status": e.code, "body": e.read().decode()}
+    st = engine.constrain_stats()
+    launched = sum(n for *_, n in steps)
+    checks = {f"{k} output parses or matches": parses(k, o.get("text", "")) for k, o in outs.items()}
+    checks.update({
+        "no illegal token": st["illegal_tokens"] == 0,
+        "every finished constrained request accepting": st["finished_accepting"] - cn0[
+            "finished_accepting"] == st["finished"] - cn0["finished"] == len(bodies),
+        "out-of-range logit_bias answers 400": bad_bias.get("status") == 400
+        and "out of range" in bad_bias.get("body", ""),
+        "masked steps ran": bool(steps),
+        "masked steps launched the decode kernel": launched >= len(steps) * engine.cfg.n_layers
+        and launched > 0,
+        "a masked verify ran": engine.cn_spec_drafted > drafted0,
+    })
+    walls = sorted(w for w, *_ in steps)
+    report = {"card": card_line(), "outputs": outs, "bad_bias": bad_bias, "checks": checks,
+              "masked_steps": len(steps), "masked_step_rows_mean":
+              sum(r for _, r, _ in steps) / max(1, len(steps)),
+              "masked_step_wall_ms_median": walls[len(walls) // 2] * 1e3 if walls else None,
+              "masked_step_decode_launches": launched,
+              "mask_us_per_token": st["mask_us_per_tok"],
+              "spec_drafted": engine.cn_spec_drafted - drafted0,
+              "spec_accept_rate": st["spec_accept_rate"], "stats": st}
+    log(f"constrain: {json.dumps(report)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"constrain phase: {bad}")
+    return report
+
+
+def masked_step_timing(cfg, params, rows: int = 8, S: int = 1024, ctx: int = 600,
+                       iters: int = 20) -> dict:
+    """One eager decode step of `rows` compacted rows at `ctx` keys (a
+    fresh bf16 cache of random rows, the served weights), unmasked and
+    masked (each row a closed schema's cursor's mask and a 2-entry
+    logit_bias, as the constrained step runs): median wall (host clock,
+    synchronised) and device time (CUDA events) of `iters` calls each, in
+    turns, and the host's time to build the mask rows. Both calls write
+    the same rows."""
+    import numpy as np
+    import torch
+
+    from llm_mcp_tpu_torch import constrain
+    from llm_mcp_tpu_torch.executor.engine import decode_round
+    from llm_mcp_tpu_torch.executor.tokenizer import ByteTokenizer
+    from llm_mcp_tpu_torch.models import llama as TL
+
+    dev = _first_leaf(params["layers"]).device  # where the served weights are
+    g = torch.Generator(device=dev).manual_seed(11)
+    cache = TL.init_kv_cache(cfg, rows, S, dtype=torch.bfloat16, device=dev)
+    for t in (cache["k"], cache["v"]):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+    state = (torch.full((rows,), 70, dtype=torch.int32, device=dev),
+             torch.zeros(rows, device=dev), torch.zeros(rows, dtype=torch.int32, device=dev),
+             torch.ones(rows, device=dev))
+    packed = torch.tensor([ctx + i for i in range(rows)] + list(range(rows)) + [0],
+                          dtype=torch.int32, device=dev)
+    comp = constrain.ConstraintCompiler(ByteTokenizer(), cfg.vocab_size)
+    t_m = time.perf_counter()
+    cursors = [comp.make({"type": "json_schema", "schema": CN_SCHEMA},
+                         logit_bias=[[70, 2.0], [71, -1.0]]) for _ in range(rows)]
+    W = constrain.mask_words(cfg.vocab_size)
+    masks = np.stack([c.mask_row() for c in cursors])
+    bids = np.full((rows, 64), -1, dtype=np.int32)
+    bvals = np.zeros((rows, 64), dtype=np.float32)
+    for i, c in enumerate(cursors):
+        bids[i, :2], bvals[i, :2] = c.bias_ids, c.bias_vals
+    host_ms = (time.perf_counter() - t_m) * 1e3
+    cn = (torch.from_numpy(masks.view(np.int32)).to(dev), torch.from_numpy(bids).to(dev),
+          torch.from_numpy(bvals).to(dev))
+    assert masks.shape == (rows, W)
+
+    def step(mask):
+        return decode_round(cfg, params, cache["k"], cache["v"], state, packed, steps=1,
+                            compact=True, generator=g, cn=mask)
+
+    walls: dict[str, list] = {"unmasked": [], "masked": []}
+    device: dict[str, list] = {"unmasked": [], "masked": []}
+    with torch.inference_mode():
+        for _ in range(3):
+            step(None), step(cn)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            for name, mask in (("unmasked", None), ("masked", cn)):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t = time.perf_counter()
+                e0.record()
+                step(mask)
+                e1.record()
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t)
+                device[name].append(e0.elapsed_time(e1))
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    dmed = {k: sorted(v)[len(v) // 2] for k, v in device.items()}
+    report = {"card": card_line(), "rows": rows, "ctx": ctx,
+              "wall_ms": {k: v * 1e3 for k, v in med.items()}, "device_ms": dmed,
+              "host_mask_build_ms_first": host_ms}
+    log(f"masked step timing: {json.dumps(report)}")
+    del cache
+    torch.cuda.empty_cache()
+    return report
 
 
 def q8_served_phase() -> dict:
@@ -3132,6 +3597,8 @@ def q8_served_phase() -> dict:
     report["graph_ab"] = graph_ab_phase(cfg, params, "llama-3.1-8b int8", max_slots=Q8_SLOTS,
                                         max_seq_len=4096, prefill_chunk=512, quant="int8",
                                         kv_quant="int8")
+    report["spec"] = spec_phase(cfg, params, "llama-3.1-8b int8", quant="int8",
+                                kv_quant="int8")
     del params
     report["released"] = _released("llama-3.1-8b int8", mem0, leaf)
     return report

@@ -11,8 +11,19 @@ Load shedding, as the reference: before dispatch the engine's
 with 429 and a `Retry-After` from the engine's drain estimate, and the
 engine records the shed (`note_shed`). A body's `priority` (an integer, 0
 when absent or malformed) reaches the engine, whose KV pool may preempt a
-lower priority stream for it. Smart model selection, proxying to other
-devices, the cloud fallback, constraints and tenants come in later slices.
+lower priority stream for it.
+
+Structured output, as the reference: `response_format` (json_object,
+json_schema, and the regex and choice extensions), a forced tool call
+(`tools` with `tool_choice` "required" or a named function: a json_schema
+over the call object `{"name", "arguments"}`) and `logit_bias` are parsed
+after the engine is resolved (`parse_constraints`, the reference's
+function), so the bias ids are checked against the serving engine's
+vocabulary; a malformed or unsupported one answers 400 with the
+reference's message. They reach `generate` only when present, so an
+unconstrained request builds the same `GenRequest` as before. Smart model
+selection, proxying to other devices, the cloud fallback and tenants are
+not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +34,118 @@ from typing import Any
 
 from ..utils.tokens import messages_to_prompt, split_think
 from .http import HTTPApi, Request, Response
+
+
+def parse_constraints(
+    body: dict, n_vocab: int, bias_max: int
+) -> tuple[dict | None, list | None, str | None]:
+    """Distill the OpenAI-style structured-output surface into the engine's
+    constraint spec: ``(constraint, logit_bias, error)``.
+
+    - ``response_format``: ``json_object`` / ``json_schema`` (OpenAI), plus
+      the ``regex`` and ``choice`` extensions (constrain/schema.py).
+    - ``tools`` + ``tool_choice``: a FORCED tool call ("required" or a
+      named function) becomes a json_schema constraint over the call
+      object ``{"name": ..., "arguments": <parameters schema>}``;
+      "auto"/"none"/absent leaves the model unconstrained.
+    - ``logit_bias``: OpenAI token-id→bias map, values clamped to ±100;
+      out-of-range ids and oversize maps are request errors (400), never
+      silent truncation — a dropped bias entry would be an invisible
+      behavior change.
+
+    ``error`` is a 400-worthy message; both other slots are None then."""
+    constraint: dict | None = None
+    rf = body.get("response_format")
+    if rf is not None:
+        if not isinstance(rf, dict):
+            return None, None, "response_format must be an object"
+        typ = rf.get("type")
+        if typ in (None, "text"):
+            pass
+        elif typ == "json_object":
+            constraint = {"type": "json_object"}
+        elif typ == "json_schema":
+            js = rf.get("json_schema")
+            schema = (
+                js.get("schema") if isinstance(js, dict) else rf.get("schema")
+            )
+            if not isinstance(schema, (dict, bool)):
+                return None, None, (
+                    "response_format.json_schema requires a schema object"
+                )
+            constraint = {"type": "json_schema", "schema": schema}
+        elif typ == "regex":
+            pat = rf.get("pattern")
+            if not isinstance(pat, str) or not pat:
+                return None, None, "response_format.regex requires a pattern"
+            constraint = {"type": "regex", "pattern": pat}
+        elif typ == "choice":
+            ch = rf.get("choices")
+            if (
+                not isinstance(ch, list)
+                or not ch
+                or not all(isinstance(c, str) and c for c in ch)
+            ):
+                return None, None, (
+                    "response_format.choice requires non-empty string choices"
+                )
+            constraint = {"type": "choice", "choices": ch}
+        else:
+            return None, None, f"unsupported response_format type {typ!r}"
+    tools = body.get("tools")
+    tc = body.get("tool_choice")
+    if tools is not None and tc not in (None, "none", "auto"):
+        if not isinstance(tools, list) or not tools:
+            return None, None, "tools must be a non-empty list"
+        fns: dict[str, Any] = {}
+        for t in tools:
+            fn = t.get("function") if isinstance(t, dict) else None
+            if not isinstance(fn, dict) or not fn.get("name"):
+                return None, None, "each tool requires function.name"
+            fns[str(fn["name"])] = fn.get("parameters")
+        if isinstance(tc, dict):
+            name = (tc.get("function") or {}).get("name")
+            if name not in fns:
+                return None, None, f"tool_choice names unknown tool {name!r}"
+            fns = {name: fns[name]}
+        elif tc != "required":
+            return None, None, f"unsupported tool_choice {tc!r}"
+        calls = [
+            {
+                "type": "object",
+                "properties": {
+                    "name": {"const": nm},
+                    "arguments": params if params is not None else True,
+                },
+            }
+            for nm, params in fns.items()
+        ]
+        constraint = {
+            "type": "json_schema",
+            "schema": calls[0] if len(calls) == 1 else {"anyOf": calls},
+        }
+    bias: list | None = None
+    lb = body.get("logit_bias")
+    if lb is not None:
+        if not isinstance(lb, dict):
+            return None, None, "logit_bias must map token ids to biases"
+        if len(lb) > bias_max:
+            return None, None, (
+                f"logit_bias supports at most {bias_max} entries "
+                "(LLM_MCP_TPU_CN_BIAS_MAX)"
+            )
+        bias = []
+        for k, v in lb.items():
+            try:
+                tid, val = int(k), float(v)
+            except (TypeError, ValueError):
+                return None, None, f"invalid logit_bias entry {k!r}"
+            if n_vocab and not (0 <= tid < n_vocab):
+                return None, None, (
+                    f"logit_bias token id {tid} out of range [0, {n_vocab})"
+                )
+            bias.append([tid, max(-100.0, min(100.0, val))])
+    return constraint, bias, None
 
 
 class InferenceAPI:
@@ -106,12 +229,26 @@ class InferenceAPI:
             priority = int(body.get("priority") or 0)
         except (TypeError, ValueError):
             priority = 0
+        # structured output: parsed after engine resolution, so the bias ids
+        # are checked against the serving engine's vocabulary
+        cfg = getattr(engine, "cfg", None)
+        constraint, logit_bias, cn_err = parse_constraints(
+            body, int(getattr(cfg, "vocab_size", 0) or 0), int(getattr(engine, "cn_bias_max", 64)),
+        )
+        if cn_err is not None:
+            resp.write_error(cn_err, 400)
+            return
         t0 = time.time()
         prompt = messages_to_prompt(messages)
         gen_kwargs = dict(
             max_tokens=max_tokens, temperature=temperature, top_p=top_p, stop=stop,
             priority=priority,
         )
+        # only constrained requests carry the keywords
+        if constraint is not None:
+            gen_kwargs["constraint"] = constraint
+        if logit_bias:
+            gen_kwargs["logit_bias"] = logit_bias
         created = int(t0)
         cmpl_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         if stream:

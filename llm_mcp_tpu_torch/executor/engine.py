@@ -86,9 +86,35 @@ Snapshots are restored ahead of admission, into the same cache storage
 addresses). A victim admitted off a prefix hit snapshots only its private
 rows when its shared length is block-aligned.
 
-Left out until later slices: migration, the fleet prefix tier,
-speculation, constraints, the model zoo, tenants, the flight recorder and
-its preempt/restore spans, and capture of the ragged group.
+Self-speculative decoding, as the JAX engine (`TPU_SPEC`, default on):
+each slot keeps an n-gram drafter over its own history (`drafter.py`).
+When a majority of the dispatchable slots have a draft and every row has
+room for `TPU_SPEC_K` + 1 positions, the loop fetches and emits every
+round in flight, then runs one verify round (`verify_round`): one chunk
+pass over [last token, drafts] per slot (`llama_prefill_chunk_batch` with
+every position's logits), accept/reject on the device (`spec_verify`), and
+the round's final tokens written into the token ring. Rejected positions
+roll back by arithmetic: their rows are overwritten before anything reads
+them. A round that accepts under a quarter of its drafts pauses
+speculation for 50 iterations. The verify round runs eagerly, outside the
+round graphs; `TPU_SPEC=0` builds no verify function and leaves every
+round as it was.
+
+Grammar-constrained decoding, as the JAX engine (`constrain/`,
+`TPU_CONSTRAIN`, default on): a request's `constraint` (json_schema,
+json_object, regex, choice) and `logit_bias` compile to a per-slot
+automaton cursor whose packed token masks are applied before every sample
+of that slot (`apply_token_mask`): the first token's at activation, then
+one masked eager decode step per loop iteration (`_cn_step_round`), or a
+masked verify round when its drafts, filtered to the automaton's legal
+prefix, compose. Constrained slots never ride the pipelined rounds: the
+mask of token t + 1 exists only once the host automaton has consumed token
+t. `TPU_CONSTRAIN=0` builds no compiler and no mask path.
+
+Not ported yet (ROADMAP queue 1): migration (and its constraint state), the
+fleet prefix tier, the model zoo, tenants, the flight recorder and its
+preempt/restore spans, capture of the ragged group and of the verify and
+masked rounds.
 """
 
 from __future__ import annotations
@@ -108,11 +134,13 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig, get_config
+from .. import constrain
 from ..models.llama import (
     init_kv_cache,
     init_llama_params,
     llama_decode_step,
     llama_prefill,
+    llama_prefill_chunk_batch,
     llama_prefill_chunk_ragged,
 )
 from ..models.quant import (
@@ -121,10 +149,11 @@ from ..models.quant import (
     init_llama_params_quantized,
     quantize_params,
 )
-from ..ops.sampling import sample_tokens
+from ..ops.sampling import apply_token_mask, sample_tokens, spec_verify
 from ..utils.device import resolve_device
 from ..utils.locks import OrderedLock
 from .common import fine_bucket, pow2_bucket
+from .drafter import NGramDrafter
 from .graphs import RoundGraphs
 from .memory import RESTORE_AGING_TTFT_MULT, KVPool, KVSnapshot, pytree_nbytes
 from .paging import PagedKVManager
@@ -169,6 +198,7 @@ def decode_round(
     paged: dict | None = None,
     banned: torch.Tensor | None = None,  # [V] bool: ids never sampled
     generator: torch.Generator | None = None,
+    cn: tuple | None = None,  # (masks [Ba, W], bias ids, bias values): a masked step
 ) -> torch.Tensor:
     """One decode round, the JAX engine's `decode_body`: `steps` decode
     steps and their samples, then the round's last tokens written back
@@ -177,7 +207,9 @@ def decode_round(
     else every slot is a row. Reads nothing on the host, so it runs as one
     CUDA graph. The counter (the round id; JAX derives the round's random
     key from it) is not read: the generator carries the stream. Returns
-    the sampled tokens [steps, Ba]."""
+    the sampled tokens [steps, Ba]. With `cn` (the constrained slots'
+    single masked step, JAX's `cn_step_fn`) each row's automaton mask and
+    logit_bias apply before sampling."""
     last, temp, topk, topp = state
     S = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
     if compact:
@@ -197,18 +229,77 @@ def decode_round(
         )
         if banned is not None:
             logits = logits.masked_fill(banned, float("-inf"))
+        if cn is not None:
+            logits = apply_token_mask(logits, *cn)
         # parked rows (lens >= S) carry stale parameters: they take no part
         # in the choice of the sampling regime
         toks = sample_tokens(logits, generator, temp, topk, topp, active=lens < S)
         outs.append(toks)
         lens = torch.where(lens < S, lens + 1, lens)
-    if compact:
+    if compact and cn is not None:
+        # the masked step's pad rows may aim at a live unconstrained row
+        # whose next round reads the ring: they write back what it holds
+        last[idx] = torch.where(packed[:Ba] < S, toks, last[idx])
+    elif compact:
         # pad rows all aim at one inactive row: the last write wins, on a
         # row that admission overwrites before it is read
         last[idx] = toks
     else:
         last.copy_(toks)
     return torch.stack(outs)
+
+
+def verify_round(
+    cfg: ModelConfig,
+    params: dict,
+    cache_k: Any,  # updated in place
+    cache_v: Any,
+    state: tuple,  # the device-resident round state, as `decode_round`'s
+    packed: torch.Tensor,  # i32: see `_spec_round`
+    *,
+    rows: int,  # A, the round's rows (pads included)
+    n: int,  # live rows, the first n
+    width: int,  # C = K + 1 positions a row
+    n_writes: int,
+    skey: int,
+    paged: dict | None = None,
+    banned: torch.Tensor | None = None,
+    cn: tuple | None = None,  # (masks [A, C, W], bias ids [A, NB], bias values [A, NB])
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One speculative verify round, JAX's `verify_fn`: a chunk pass over
+    [last token, drafts] for each row (`llama_prefill_chunk_batch` with
+    every position's logits), the constraint masks applied before
+    accept/reject (so the residual resample sees the masked target), then
+    `spec_verify` and the final tokens written into the token ring. Column
+    0 of the tokens is read from the ring on the device. Pad rows carry
+    slot B and write nothing. Returns (n_acc [A], final [A]) int32."""
+    last, temp, topk, topp = state
+    A, C = rows, width
+    B = last.shape[0]
+    K = C - 1
+    views, off = [], 0
+    for size in (A * C, A, A, A, A * K, A, n_writes, n_writes, n_writes):
+        views.append(packed[off: off + size])
+        off += size
+    tokens, slots, starts, nvalid, drafts, ndraft, keep, wslot, wpos = views
+    tokens = tokens.reshape(A, C).clone()
+    idx = slots.long().clamp(max=B - 1)
+    tokens[:, 0] = last[idx]
+    logits, _, _ = llama_prefill_chunk_batch(
+        cfg, params, cache_k, cache_v, tokens, slots, starts, nvalid, skey=skey,
+        all_logits=True, paged=paged, writes=(keep, wslot, wpos),
+    )  # [A, C, V]
+    if banned is not None:
+        logits = logits.masked_fill(banned, float("-inf"))
+    if cn is not None:
+        logits = apply_token_mask(logits, *cn)
+    n_acc, final = spec_verify(
+        logits, drafts.reshape(A, K), ndraft, generator, temp[idx], topk[idx], topp[idx],
+        active=slots < B, exact=cn is not None,
+    )
+    last[idx[:n]] = final[:n]
+    return n_acc, final
 
 
 @dataclass
@@ -223,6 +314,12 @@ class GenRequest:
     out: "queue.Queue[Any]" = field(default_factory=queue.Queue)
     created_at: float = field(default_factory=time.time)
     priority: int = 0  # preemption: a higher one may take a lower one's slot
+    # constrained decoding: the spec ({"type": "json_schema" | "json_object"
+    # | "regex" | "choice", ...}) and the [token id, bias] pairs; None and
+    # None: the request never touches the constraint path
+    constraint: dict | None = None
+    logit_bias: list | None = None
+    cn: Any = None  # the compiled cursor, attached when admission pops the request
 
 
 @dataclass
@@ -242,6 +339,10 @@ class _Slot:
     shared_entry: Any = None
     shared_len: int = 0
     preempted_s: float = 0.0  # wall spent parked off-slot
+    spec: Any = None  # the n-gram drafter (None with TPU_SPEC=0)
+    cn: Any = None  # the automaton cursor (None when unconstrained)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 @dataclass
@@ -440,6 +541,42 @@ class GenerationEngine:
                 allowed[bad] = False
         self._banned = None if allowed.all() else torch.from_numpy(~allowed).to(self.device)
 
+        # Self-speculative decoding (module docstring), gated as the JAX
+        # engine: TPU_SPEC=0 (or TPU_SPEC_K=0) builds no verify function
+        self.spec_k = max(0, int(os.environ.get("TPU_SPEC_K", "") or 7))
+        self.spec_min_ngram = max(1, int(os.environ.get("TPU_SPEC_MIN_NGRAM", "") or 2))
+        self.spec_max_ngram = max(self.spec_min_ngram, 3)
+        self.spec_enabled = os.environ.get("TPU_SPEC", "1") != "0" and self.spec_k > 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_calls = 0
+        # a round that accepts under a quarter of its drafts pauses
+        # speculation: a verify round emits 1 + accepted tokens a slot, a
+        # decode round K
+        self._spec_cooldown = 0
+        self._verify_fn = self._build_verify() if self.spec_enabled else None
+
+        # Constrained decoding: TPU_CONSTRAIN=0 builds no compiler, so no
+        # request carries a cursor and no mask path exists
+        self.constrain_enabled = constrain.constrain_enabled()
+        self.cn_bias_max = max(1, int(os.environ.get("LLM_MCP_TPU_CN_BIAS_MAX", "") or 64))
+        self._constrain = (
+            constrain.ConstraintCompiler(
+                self.tokenizer, self.cfg.vocab_size,
+                cache_size=int(os.environ.get("TPU_CONSTRAIN_CACHE", "") or 64),
+            ) if self.constrain_enabled else None
+        )
+        self.cn_requests = 0
+        self.cn_tokens = 0
+        self.cn_illegal = 0  # automaton-illegal emissions: stays 0
+        self.cn_finished = 0
+        self.cn_finished_accepting = 0
+        self.cn_spec_drafted = 0
+        self.cn_spec_accepted = 0
+        self.cn_mask_s = 0.0  # host wall building the mask rows
+        self._cn_step_fn = None  # the masked single step, built on first use
+
         self._admit: "queue.Queue[GenRequest]" = queue.Queue()
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
@@ -485,9 +622,12 @@ class GenerationEngine:
         top_p: float = 1.0,
         stop: list[str] | None = None,
         priority: int = 0,
+        constraint: dict | None = None,
+        logit_bias: list | None = None,
     ) -> Iterator[dict[str, Any]]:
         """Yield {"type":"token","text":...} events then a final
-        {"type":"done", "usage":..., "finish_reason":..., "ttft_ms":...}."""
+        {"type":"done", "usage":..., "finish_reason":..., "ttft_ms":...}.
+        `constraint` and `logit_bias` as in `GenRequest`."""
         req = GenRequest(
             prompt_ids=self.tokenizer.encode(prompt),
             max_tokens=max_tokens,
@@ -496,6 +636,8 @@ class GenerationEngine:
             top_p=top_p,
             stop=stop or [],
             priority=int(priority),
+            constraint=constraint,
+            logit_bias=logit_bias,
         )
         self.submit(req)
         while True:
@@ -555,6 +697,52 @@ class GenerationEngine:
             out["hbm_bytes_ratio_peak"] = self._phys_hbm_peak_ratio
         else:
             out["physical"] = 0.0
+        return out
+
+    def speculation_stats(self) -> dict[str, float]:
+        """Self-speculative decoding's counters, JAX's keys: drafted,
+        accepted and emitted tokens, verify calls, the accept rate and the
+        tokens a verify call emits."""
+        drafted = float(self.spec_drafted)
+        calls = float(self.spec_calls)
+        return {
+            "enabled": 1.0 if self._verify_fn is not None else 0.0,
+            "k": float(self.spec_k),
+            "min_ngram": float(self.spec_min_ngram),
+            "drafted_tokens": drafted,
+            "accepted_tokens": float(self.spec_accepted),
+            "emitted_tokens": float(self.spec_emitted),
+            "verify_calls": calls,
+            "accept_rate": (self.spec_accepted / drafted) if drafted else 0.0,
+            "tok_per_call": (self.spec_emitted / calls) if calls else 0.0,
+        }
+
+    def constrain_stats(self) -> dict[str, Any]:
+        """Constrained decoding's counters, JAX's keys: traffic, the
+        illegal emissions (0: the mask makes them impossible; the counter
+        is the check), the share of finished constrained requests that
+        ended in an accepting state, the host's mask time a token, the
+        masked verify's acceptance and the compile cache."""
+        toks = float(self.cn_tokens)
+        fin = float(self.cn_finished)
+        drafted = float(self.cn_spec_drafted)
+        out: dict[str, Any] = {
+            "enabled": 1.0 if self._constrain is not None else 0.0,
+            "requests": float(self.cn_requests),
+            "tokens": toks,
+            "illegal_tokens": float(self.cn_illegal),
+            "finished": fin,
+            "finished_accepting": float(self.cn_finished_accepting),
+            "schema_valid_rate": (
+                (self.cn_finished_accepting / fin) if fin else 1.0
+            ) if self.cn_illegal == 0 else 0.0,
+            "mask_us_per_tok": (self.cn_mask_s * 1e6 / toks) if toks else 0.0,
+            "spec_drafted": drafted,
+            "spec_accepted": float(self.cn_spec_accepted),
+            "spec_accept_rate": (self.cn_spec_accepted / drafted) if drafted else 0.0,
+        }
+        if self._constrain is not None:
+            out["cache"] = self._constrain.stats()
         return out
 
     # -- KV pool: admission ----------------------------------------------------
@@ -945,6 +1133,16 @@ class GenerationEngine:
         active = [
             i for i, s in enumerate(self._slots) if s is not None and self._lengths[i] + K <= S
         ]
+        cn_active = [i for i in active if self._slots[i].cn is not None]
+        if cn_active:
+            # constrained slots leave the pipelined rounds: each of their
+            # rounds is synchronous and committed before the next mask
+            active = [i for i in active if self._slots[i].cn is None]
+            self._cn_round(cn_active)
+        if self._verify_fn is not None and active:
+            active = self._try_spec(active)
+            if active is None:
+                return True  # a verify round ran
         group = self._stage_ragged_group(len(active))
         if active:
             self._inflight.append(self._dispatch_decode(active, group))
@@ -959,7 +1157,38 @@ class GenerationEngine:
         if self._inflight and (len(self._inflight) >= self.pipeline_depth or not active):
             self._pending = self._complete_round(self._inflight.popleft())
             return True
-        return bool(active or group is not None or admitted or self._inflight)
+        return bool(active or cn_active or group is not None or admitted or self._inflight)
+
+    def _try_spec(self, active: list[int]) -> list[int] | None:
+        """The JAX loop's speculative branch: with a draft majority, fetch
+        and emit every round in flight (drafts continue the committed
+        history; acceptance is data dependent, so lengths cannot advance
+        optimistically), draft again over the post-drain history, run the
+        verify round with its tokens reserved against the prefill budget,
+        the staged group alone behind it, then admit. None when a verify
+        round ran; else the dispatchable slots for the pipelined path
+        (recounted when the drain freed some)."""
+        if self._spec_cooldown > 0:
+            self._spec_cooldown -= 1
+            return active
+        if self._stage_spec(active) is None:
+            return active
+        self._drain()
+        K, S = self.decode_chunk, self.max_seq_len
+        active = [
+            i for i, s in enumerate(self._slots)
+            if s is not None and self._lengths[i] + K <= S and s.cn is None
+        ]
+        entries = self._stage_spec(active) if active else None
+        if entries is None:
+            return active
+        reserved = sum(1 + len(d) for _, d in entries)
+        group = self._stage_ragged_group(len(active), reserved)
+        self._spec_round(entries)
+        if group is not None:
+            self._run_prefill_group(group)
+        self._admit_pending()
+        return None
 
     def _drain(self) -> None:
         """Emit the fetched round, then fetch and emit every round in flight."""
@@ -1001,16 +1230,20 @@ class GenerationEngine:
     def _sample_first(self, logits: torch.Tensor, slots: list[int], reqs: list) -> np.ndarray:
         """Activation: sample each prompt's first token from its logits and
         write it and the request's sampling parameters into the device
-        round state at its slot (JAX's `op_bsample`). Returns the tokens on
-        the host, for emission: a host sync."""
+        round state at its slot (JAX's `op_bsample`); a constrained
+        request's first token is masked by its automaton and bias. Returns
+        the tokens on the host, for emission: a host sync."""
         n = len(slots)
+        cn = self._cn_payload([r.cn for r in reqs], n)
         ints = self._up(np.asarray(slots + [r.top_k for r in reqs], dtype=np.int32))
         flts = self._up(np.asarray([r.temperature for r in reqs] + [r.top_p for r in reqs],
                                    dtype=np.float32))
         idx, topk, temp, topp = ints[:n].long(), ints[n:], flts[:n], flts[n:]
         if self._banned is not None:
             logits = logits.masked_fill(self._banned, float("-inf"))
-        toks = sample_tokens(logits, self._gen, temp, topk, topp)
+        if cn is not None:
+            logits = apply_token_mask(logits, *cn)
+        toks = sample_tokens(logits, self._gen, temp, topk, topp, exact=cn is not None)
         self._d_last[idx] = toks
         self._d_temp[idx] = temp
         self._d_topk[idx] = topk
@@ -1043,21 +1276,19 @@ class GenerationEngine:
         compact = Ba < B
         rid = self._rid_dispatched + 1
         if compact:
-            # pad rows are parked (w = S: the append writes nothing) and aim
-            # at a row that is neither active nor mid-prefill, as in JAX
-            in_round = set(active)
-            free = next(
-                (i for i in range(B) if self._slots[i] is None and i not in self._prefills),
-                next((i for i in range(B) if self._slots[i] is None),
-                     next(i for i in range(B) if i not in in_round)),
-            )
-            ids = np.full(Ba, free, dtype=np.int32)
+            ids = np.full(Ba, self._pad_row(active), dtype=np.int32)
             ids[:nact] = active
             lens_in = np.full(Ba, S, dtype=np.int32)
             lens_in[:nact] = self._lengths[active]
             packed = np.concatenate([lens_in, ids, [rid]]).astype(np.int32)
         else:
-            packed = np.concatenate([self._lengths, [rid]]).astype(np.int32)
+            lens = self._lengths
+            cn_rows = [i for i, s in enumerate(self._slots) if s is not None and s.cn is not None]
+            if cn_rows:
+                # constrained rows decode only in their own masked rounds
+                lens = lens.copy()
+                lens[cn_rows] = S
+            packed = np.concatenate([lens, [rid]]).astype(np.int32)
         paged = self._phys is not None and self._phys.paged(active)
         # the tables do not change in a round
         tbl = self._phys.device_table(self.device) if paged else None
@@ -1087,6 +1318,18 @@ class GenerationEngine:
         self._rid_dispatched = rid
         self.compact_rounds += int(compact)
         return disp
+
+    def _pad_row(self, rows: list[int]) -> int:
+        """The cache row a compacted round's pad rows aim at (they are
+        parked: w = S, the append writes nothing): one that is neither in
+        the round nor mid-prefill, as in JAX."""
+        B = self.max_slots
+        in_round = set(rows)
+        return next(
+            (i for i in range(B) if self._slots[i] is None and i not in self._prefills),
+            next((i for i in range(B) if self._slots[i] is None),
+                 next(i for i in range(B) if i not in in_round)),
+        )
 
     def _complete_round(self, disp: _DispatchedRound) -> _PendingRound:
         """Fetch a round (its one host sync) and feed the scheduler: a round
@@ -1142,6 +1385,256 @@ class GenerationEngine:
                     s.last_emit = time.time()
             if finish is not None:
                 self._finish_slot(b, s, finish)
+
+    # -- speculation and constraints ----------------------------------------
+
+    def _build_verify(self):
+        """The verify round over the engine's caches and round state
+        (`verify_round`), run eagerly."""
+        def fn(packed: torch.Tensor, **kw):
+            return verify_round(
+                self.cfg, self.params, self._ck, self._cv,
+                (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
+                banned=self._banned, generator=self._gen, **kw,
+            )
+        return fn
+
+    def _build_cn_step(self):
+        """The constrained slots' masked single step (JAX's
+        `_build_cn_step`): one compacted `decode_round` step with each
+        row's automaton mask, run eagerly."""
+        def fn(packed: torch.Tensor, paged: dict | None, cn: tuple) -> torch.Tensor:
+            return decode_round(
+                self.cfg, self.params, self._ck, self._cv,
+                (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
+                steps=1, compact=True, paged=paged, banned=self._banned, generator=self._gen,
+                cn=cn,
+            )
+        return fn
+
+    def _stage_spec(self, active: list[int]) -> list[tuple[int, list[int]]] | None:
+        """Drafts for a verify round, or None to keep the pipelined path.
+        Every active slot joins (one without a draft verifies its single
+        token), but the round runs only when a majority of them draft: it
+        displaces a K-token decode round and drains the pipeline. Every
+        row must have room for C = spec_k + 1 positions, or no round runs.
+        A constrained slot's draft is cut to its longest legal prefix."""
+        if not active:
+            return None
+        C = self.spec_k + 1
+        entries: list[tuple[int, list[int]]] = []
+        n_drafting = 0
+        for b in active:
+            s = self._slots[b]
+            if s is None or s.spec is None:
+                return None
+            if int(self._lengths[b]) + C > self.max_seq_len:
+                return None
+            d = s.spec.draft(self.spec_k)
+            if d and s.cn is not None:
+                d = s.cn.filter_draft(d)
+            if d:
+                n_drafting += 1
+            entries.append((b, d))
+        if n_drafting == 0 or 2 * n_drafting < len(entries):
+            return None
+        return entries
+
+    def _spec_round(self, entries: list[tuple[int, list[int]]]) -> None:
+        """One verify round, synchronous (the pipeline is drained): pack
+        the rows (A = pow2 rows, pads at slot B) into one i32 upload
+        `[tokens (A*C) | slots | starts | nvalid | drafts (A*K) | ndraft |
+        keep | wslot | wpos]`, run `verify_round`, fetch (n_acc, final),
+        emit each row's accepted drafts and final token, and roll its
+        length forward to the accepted position."""
+        t0 = time.perf_counter()
+        B, S, Kd = self.max_slots, self.max_seq_len, self.spec_k
+        C = Kd + 1
+        n = len(entries)
+        A = 1 << (n - 1).bit_length()
+        tokens = np.zeros((A, C), dtype=np.int32)  # column 0 comes from the ring
+        slots = np.full(A, B, dtype=np.int32)
+        starts = np.zeros(A, dtype=np.int32)
+        nvalid = np.ones(A, dtype=np.int32)
+        drafts = np.zeros((A, Kd), dtype=np.int32)
+        ndraft = np.zeros(A, dtype=np.int32)
+        for i, (b, d) in enumerate(entries):
+            tokens[i, 1: 1 + len(d)] = d
+            drafts[i, : len(d)] = d
+            slots[i], starts[i] = b, self._lengths[b]
+            nvalid[i], ndraft[i] = 1 + len(d), len(d)
+        total = int(nvalid[:n].sum())
+        skey = min(pow2_bucket(int(starts[:n].max()), S), S)
+        # every live row writes its C positions (len + C <= S holds)
+        keep = np.arange(n * C, dtype=np.int32)
+        wslot = np.repeat(slots[:n], C)
+        wpos = (starts[:n, None] + np.arange(C, dtype=np.int32)[None, :]).reshape(-1)
+        packed = np.concatenate([tokens.reshape(-1), slots, starts, nvalid, drafts.reshape(-1),
+                                 ndraft, keep, wslot, wpos]).astype(np.int32)
+        cns = [self._slots[b].cn for b, _ in entries]
+        cn = None
+        if any(c is not None for c in cns):
+            # per-position masks: row j constrains the token at draft offset
+            # j; pad rows and positions stay all ones
+            t_m = time.perf_counter()
+            W = constrain.mask_words(self.cfg.vocab_size)
+            masks = np.full((A, C, W), 0xFFFFFFFF, dtype=np.uint32)
+            bids, bvals = self._bias_rows(A)
+            for i, (b, d) in enumerate(entries):
+                c = cns[i]
+                if c is None:
+                    continue
+                rows = c.masks_for_draft(d)
+                masks[i, : rows.shape[0]] = rows
+                self._bias_row(c, bids[i], bvals[i])
+            self.cn_mask_s += time.perf_counter() - t_m
+            cn = (self._up(masks.view(np.int32)), self._up(bids), self._up(bvals))
+        n_acc, final = self._verify_fn(
+            self._up(packed), rows=A, n=n, width=C, n_writes=len(keep), skey=skey,
+            paged=self._paged_operand([b for b, _ in entries]), cn=cn,
+        )
+        n_acc, final = torch.stack([n_acc, final]).cpu().numpy()  # the round's host sync
+        self._sched.observe_verify(total, time.perf_counter() - t0)
+        eos = self.tokenizer.eos_id
+        drafted_round = accepted_round = 0
+        grown: dict[int, int] = {}
+        for i, (b, d) in enumerate(entries):
+            s = self._slots[b]
+            if s is None or s.done:
+                continue
+            na = min(int(n_acc[i]), len(d))
+            base = int(starts[i])
+            drafted_round += len(d)
+            accepted_round += na
+            s.spec_drafted += len(d)
+            s.spec_accepted += na
+            parts: list[str] = []
+            finish = None
+            for j, tok in enumerate(list(d[:na]) + [int(final[i])]):
+                emit, finish = self._process_token(s, int(tok), base + j)
+                self.spec_emitted += int(tok) != eos  # `_process_token`'s count
+                if emit:
+                    parts.append(emit)
+                if finish is not None:
+                    break
+            if parts:
+                s.req.out.put({"type": "token", "text": "".join(parts)})
+                if self._pool is not None:
+                    s.last_emit = time.time()
+            if finish is not None:
+                self._finish_slot(b, s, finish)
+            else:
+                # the KV is valid through base + na; the final token's is
+                # written by the slot's next round
+                self._lengths[b] = base + 1 + na
+                grown[b] = base + 1 + na
+        if grown:
+            self._paging.extend_many(grown)
+        self.spec_calls += 1
+        self.spec_drafted += drafted_round
+        self.spec_accepted += accepted_round
+        if cn is not None:
+            self.cn_spec_drafted += drafted_round
+            self.cn_spec_accepted += accepted_round
+        if drafted_round and accepted_round * 4 < drafted_round:
+            self._spec_cooldown = 50
+
+    def _cn_attach(self, req: GenRequest) -> bool:
+        """Compile the request's constraint and bias into its cursor
+        (`req.cn`; cached by the spec's hash). A bad spec errors the
+        request: False."""
+        if self._constrain is None or not (req.constraint or req.logit_bias):
+            return True
+        try:
+            req.cn = self._constrain.make(req.constraint, req.logit_bias)
+        except constrain.GrammarError as e:
+            self._error(req, f"constraint: {e}")
+            return False
+        self.cn_requests += 1
+        return True
+
+    def _bias_rows(self, n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+        NB = self.cn_bias_max
+        return (np.full((n_rows, NB), -1, dtype=np.int32),
+                np.zeros((n_rows, NB), dtype=np.float32))
+
+    def _bias_row(self, cn, ids: np.ndarray, vals: np.ndarray) -> None:
+        nb = min(len(cn.bias_ids), self.cn_bias_max)
+        ids[:nb] = cn.bias_ids[:nb]
+        vals[:nb] = cn.bias_vals[:nb]
+
+    def _cn_payload(self, cns: list, n_rows: int) -> tuple | None:
+        """The mask operand of a round of `n_rows` rows, row i serving
+        cursor cns[i] (None: unconstrained): (packed masks [n_rows, W] as
+        int32, bias ids, bias values) on the device, or None when nothing
+        is constrained (the unmasked path runs). Pad and unconstrained
+        rows get all-ones masks and no bias."""
+        if not any(cn is not None for cn in cns):
+            return None
+        t0 = time.perf_counter()
+        W = constrain.mask_words(self.cfg.vocab_size)
+        masks = np.full((n_rows, W), 0xFFFFFFFF, dtype=np.uint32)
+        bids, bvals = self._bias_rows(n_rows)
+        for i, cn in enumerate(cns):
+            if cn is not None:
+                masks[i] = cn.mask_row()
+                self._bias_row(cn, bids[i], bvals[i])
+        self.cn_mask_s += time.perf_counter() - t0
+        return self._up(masks.view(np.int32)), self._up(bids), self._up(bvals)
+
+    def _cn_round(self, cn_active: list[int]) -> None:
+        """One synchronous round for the constrained slots: a masked verify
+        round when their filtered drafts compose (a majority drafts), else
+        one masked decode step. Their ring entries are written first from
+        the host (each cursor's last consumed token): a compacted round's
+        pad rows may have aimed at one of these rows."""
+        last = [self._slots[b].cn.consumed[-1] for b in cn_active]
+        self._d_last[self._up(np.asarray(cn_active, dtype=np.int64))] = self._up(
+            np.asarray(last, dtype=np.int32))
+        if self._verify_fn is not None and self._spec_cooldown <= 0:
+            entries = self._stage_spec(cn_active)
+            if entries is not None:
+                self._spec_round(entries)
+                return
+        self._cn_step_round(cn_active)
+
+    def _cn_step_round(self, cn_active: list[int]) -> None:
+        """One masked decode step for the constrained slots, compacted
+        (`[lengths | slot_ids | counter]`, pads parked at a free row),
+        each row's mask from its cursor's current state; the token is
+        committed through `_process_token`, which advances the cursor for
+        the next step's mask."""
+        B, S = self.max_slots, self.max_seq_len
+        n = len(cn_active)
+        Ba = pow2_bucket(n, B, floor=min(8, B))
+        ids = np.full(Ba, self._pad_row(cn_active) if Ba > n else 0, dtype=np.int32)
+        ids[:n] = cn_active
+        lens_in = np.full(Ba, S, dtype=np.int32)
+        lens_in[:n] = self._lengths[cn_active]
+        packed = np.concatenate([lens_in, ids, [0]]).astype(np.int32)
+        cn = self._cn_payload([self._slots[b].cn for b in cn_active], Ba)
+        if self._cn_step_fn is None:
+            self._cn_step_fn = self._build_cn_step()
+        out = self._cn_step_fn(self._up(packed), self._paged_operand(cn_active), cn)
+        toks = out[0].cpu().numpy()  # synchronous: the step's host sync
+        grown: dict[int, int] = {}
+        for i, b in enumerate(cn_active):
+            s = self._slots[b]
+            if s is None or s.done:
+                continue
+            pos = int(self._lengths[b])
+            emit, finish = self._process_token(s, int(toks[i]), pos)
+            if emit:
+                s.req.out.put({"type": "token", "text": emit})
+                if self._pool is not None:
+                    s.last_emit = time.time()
+            if finish is not None:
+                self._finish_slot(b, s, finish)
+            else:
+                self._lengths[b] = pos + 1
+                grown[b] = pos + 1
+        if grown:
+            self._paging.extend_many(grown)
 
     # -- admission ---------------------------------------------------------
 
@@ -1319,6 +1812,13 @@ class GenerationEngine:
         table row is rebuilt."""
         s = snap.slot_obj
         s.preempted_s += max(0.0, time.time() - snap.preempted_at)
+        if s.cn is not None:
+            # a fresh cursor from the raw spec, replayed over the consumed
+            # ids: JAX's restore of a migrated snapshot (the slot's own
+            # cursor, which rode along, ends in the same state)
+            cn = self._constrain.make(s.req.constraint, s.req.logit_bias)
+            cn.replay(s.cn.consumed)
+            s.cn = s.req.cn = cn
         self._sync()  # rounds in flight end first: the time below is the restore's
         t0 = time.perf_counter()
         start = snap.shared_len
@@ -1388,6 +1888,8 @@ class GenerationEngine:
                     req.out.put(_DONE)
                     continue
                 admitted = True
+                if not self._cn_attach(req):
+                    continue  # a bad constraint spec: the request is errored
                 ent = self._match_prefix(ids)
                 if ent is not None:
                     # cached prefix: only the suffix prefills, in ragged chunks
@@ -1468,7 +1970,12 @@ class GenerationEngine:
         want = min(P + max(0, req.max_tokens) + self.decode_chunk, self.max_seq_len)
         mgr.note_admit_cost(mgr.blocks_for(want) - shared_len // mgr.block_tokens)
         s = _Slot(req=req, prompt_len=P, first_token_at=time.time(),
-                  shared_entry=shared_entry if shared_len else None, shared_len=shared_len)
+                  shared_entry=shared_entry if shared_len else None, shared_len=shared_len,
+                  cn=req.cn)
+        if self._verify_fn is not None:
+            # the drafter starts from the prompt; every emitted token joins it
+            s.spec = NGramDrafter(self.spec_min_ngram, self.spec_max_ngram)
+            s.spec.extend(ids)
         self._slots[slot] = s
         self._lengths[slot] = P  # tok0 is in the token ring already (`_sample_first`)
         # tok0's K/V is written at position P by the first decode round
@@ -1483,13 +1990,15 @@ class GenerationEngine:
     def _prefill_backlog(self) -> int:
         return sum(len(st.ids) - st.done for st in self._prefills.values())
 
-    def _stage_ragged_group(self, n_active: int) -> _PrefillGroup | None:
+    def _stage_ragged_group(self, n_active: int, reserved: int = 0) -> _PrefillGroup | None:
         """Pack up to admit_batch mid-prefill slots' next chunks back to
-        back into one [T] buffer under the scheduler's budget."""
+        back into one [T] buffer under the scheduler's budget, less the
+        `reserved` tokens a verify round takes this iteration."""
         if not self._prefill_q:
             return None
         oldest = min(self._prefills[s].req.created_at for s in self._prefill_q)
-        budget = self._sched.decide(self._prefill_backlog(), n_active, time.time() - oldest)
+        budget = self._sched.decide(self._prefill_backlog(), n_active, time.time() - oldest,
+                                    reserved_tokens=reserved)
         if budget <= 0:
             return None
         R = self.admit_batch
@@ -1614,10 +2123,18 @@ class GenerationEngine:
         finish = None
         emit = ""
         cut = -1
+        if s.cn is not None:
+            # every emission path passes here: the cursor consumes the token
+            # so the next mask reflects it
+            self.cn_tokens += 1
+            if not s.cn.advance(tok):
+                self.cn_illegal += 1
         if tok == self.tokenizer.eos_id:
             finish = "stop"
         else:
             s.generated += 1
+            if s.spec is not None:
+                s.spec.append(tok)
             text, s.pending = self.tokenizer.decode_stream(s.pending, [tok])
             # stop sequences trim before emission; scan the window where a
             # stop could straddle the old/new text boundary
@@ -1653,6 +2170,12 @@ class GenerationEngine:
         with self.stats_lock:
             self.finished_requests += 1
             self.finished_tokens += s.generated
+        if s.cn is not None and s.cn.constrained:
+            # a constrained stream ending anywhere but an accepting state
+            # produced an incomplete document (cut by max_tokens, say)
+            self.cn_finished += 1
+            if s.cn.accepting:
+                self.cn_finished_accepting += 1
         req.out.put({
             "type": "done",
             "finish_reason": finish,

@@ -14,8 +14,11 @@ With no active decode slot the budget is the whole backlog. Both cost
 terms are EMAs of measured dispatches: plain rounds feed the decode term,
 standalone groups the prefill term, and a round that carried a group
 feeds the prefill term with its time over the decode term
-(`observe_fused`). The same decode term prices the API's shed path
-(`drain_estimate_s`, the Retry-After of a 429). Tenant quotas and the
+(`observe_fused`); a speculative verify round feeds the prefill term too
+(`observe_verify`: it runs the chunk machinery), and its tokens come out
+of that iteration's budget (`decide(reserved_tokens=)`). The same
+decode term prices the API's shed path (`drain_estimate_s`, the
+Retry-After of a 429). Tenant quotas and the
 flight recorder hooks of the JAX scheduler come with tenancy and
 telemetry, in later slices.
 """
@@ -41,6 +44,8 @@ class TokenBudgetScheduler:
         self.decode_round_s = float(decode_seed_s)
         self.prefill_tok_s = float(prefill_tok_seed_s)
         self.pad_waste = 0.0  # EMA of per-dispatch waste fraction
+        self.verify_rounds = 0
+        self.verify_tokens = 0
 
     def observe_decode(self, round_s: float) -> None:
         """A prefill-free decode round's wall time (dispatch to fetch)."""
@@ -65,13 +70,23 @@ class TokenBudgetScheduler:
         if prefill_tokens > 0 and extra > 0:
             self.observe_prefill(prefill_tokens, extra, padded_tokens=padded_tokens)
 
+    def observe_verify(self, tokens: int, seconds: float) -> None:
+        """A speculative verify round: `tokens` chunk positions (each row's
+        base token and drafts) in `seconds`, priced like prompt tokens."""
+        self.verify_rounds += 1
+        self.verify_tokens += max(0, int(tokens))
+        self.observe_prefill(tokens, seconds)
+
     def fair_cap(self) -> int:
         cap = self.decode_round_s / self.prefill_tok_s
         cap *= max(0.0, 1.0 - self.pad_waste)
         return max(self.min_budget, int(cap))
 
-    def decide(self, backlog_tokens: int, n_active: int, oldest_wait_s: float) -> int:
-        """Prefill token budget for the next engine iteration."""
+    def decide(self, backlog_tokens: int, n_active: int, oldest_wait_s: float,
+               reserved_tokens: int = 0) -> int:
+        """Prefill token budget for the next engine iteration.
+        `reserved_tokens`: chunk positions this iteration already owes a
+        verify round; they come out of the budget, which may drop to 0."""
         if backlog_tokens <= 0:
             return 0
         if n_active == 0:
@@ -79,7 +94,10 @@ class TokenBudgetScheduler:
         headroom_s = max(self.target_ttft_s - oldest_wait_s, self.decode_round_s)
         rounds_left = max(1.0, headroom_s / max(self.decode_round_s, 1e-6))
         need = int(math.ceil(backlog_tokens / rounds_left))
-        return max(self.min_budget, min(need, self.fair_cap()))
+        budget = max(self.min_budget, min(need, self.fair_cap()))
+        if reserved_tokens > 0:
+            budget = max(0, budget - int(reserved_tokens))
+        return budget
 
     def drain_estimate_s(
         self,

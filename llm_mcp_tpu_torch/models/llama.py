@@ -46,6 +46,7 @@ from ..kernels.attention import (
     decode_attend_bf16,
     decode_attend_q8,
     flash_prefill_attention,
+    paged_gather,
     ragged_prefill_attend_bf16,
     ragged_prefill_attend_q8,
 )
@@ -452,6 +453,146 @@ def llama_prefill_chunk_ragged(
             cache_k[li][wslot, :, wpos] = k[keep].to(cache_k.dtype)
             cache_v[li][wslot, :, wpos] = v[keep].to(cache_v.dtype)
     last = h[torch.clamp(last_idx.long(), 0, T - 1)]  # [R, D]
+    return _logits(cfg, params, last), cache_k, cache_v
+
+
+def chunk_write_targets(slots, starts, C: int, B: int, S: int) -> tuple:
+    """(keep, wslot, wpos) of a batch of [A, C] chunks: the flat indices
+    (a * C + c) of the positions that write the cache (rows whose slot is
+    below B, positions below S) and the slot and position each writes.
+    On the card, one host sync."""
+    pos = starts.long()[:, None] + torch.arange(C, device=slots.device)[None, :]
+    live = (slots.long() < B)[:, None] & (pos < S)
+    keep = torch.nonzero(live.reshape(-1)).squeeze(1)
+    return keep, slots.long()[:, None].expand_as(pos).reshape(-1)[keep], pos.reshape(-1)[keep]
+
+
+def past_rows(arena, pool, rows, tbl, Sk: int, nbs: int | None = None):
+    """Each chunk row's past cache rows [0, Sk) of one layer: contiguous
+    (arena [B, Hx, S, *rest] at `rows`), or through the block tables `tbl`
+    [A, nsel] (`paged_gather`; pool [PXB, Hx, bt, *rest]). Returns
+    [A, Hx, Sk, *rest]."""
+    if tbl is None:
+        return arena[rows, :, :Sk]
+    return paged_gather(arena, pool, tbl, nbs=nbs)[:, :, :Sk]
+
+
+@torch.no_grad()
+def llama_prefill_chunk_batch(
+    cfg: ModelConfig,
+    params: Params,
+    cache_k: Any,  # [L, B, Hkv, S, hd] or the fused int8 dict — updated in place
+    cache_v: Any,
+    tokens: torch.Tensor,  # [A, C] int32 — right-padded chunks, one per row
+    slots: torch.Tensor,  # [A] int32 — engine slot per row (pads: B, writes nothing)
+    starts: torch.Tensor,  # [A] int32 — absolute position of each chunk's first token
+    nvalid: torch.Tensor,  # [A] int32 — valid tokens per chunk
+    skey: int = 0,  # bound on the PAST key range (0 = whole S); >= max(starts)
+    all_logits: bool = False,  # logits at every chunk position, not just the last
+    paged: dict | None = None,  # {"tbl","k","v"} physical paging operand
+    writes: tuple | None = None,  # (keep, wslot, wpos): see chunk_write_targets
+) -> tuple[torch.Tensor, Any, Any]:
+    """Batched chunked prefill, JAX's `llama_prefill_chunk_batch`: one
+    chunk of C tokens for each of A slots, each attending its slot's past
+    rows [0, starts) and itself causally under one joint softmax.
+
+    Every layer reads first and writes after: the past rows come from the
+    cache as the layer found it (through the block tables with `paged`;
+    dequantized after the dot over the fused int8 cache), while the chunk's
+    own K/V come straight from the projection, exact even over an int8
+    cache. Then the chunk's C rows are written at [starts, starts + C)
+    (fused int8 rows over an int8 cache), the positions past `nvalid` too,
+    as JAX writes them; later steps overwrite them. Plain torch, as JAX
+    computes it outside any Pallas kernel. Pad rows carry slot B: they
+    read slot B - 1 and write nothing. `writes` are the write targets when
+    the caller has them (else found on the device at one host sync).
+    Returns (logits [A, V] f32 at each row's last valid position, or
+    [A, C, V] at every position with `all_logits` (the speculative verify
+    scores each draft against the position before it), cache_k, cache_v).
+    MLA configs take `mla.mla_prefill_chunk_batch`."""
+    if cfg.kv_lora_rank:
+        from .mla import mla_prefill_chunk_batch
+
+        return mla_prefill_chunk_batch(cfg, params, cache_k, cache_v, tokens, slots, starts,
+                                       nvalid, skey=skey, all_logits=all_logits, paged=paged,
+                                       writes=writes)
+    quantized = isinstance(cache_k, dict)
+    L, B, _, S, hd = _cache_shape(cache_k)
+    Hkv, H = cfg.n_kv_heads, cfg.n_heads
+    G = H // Hkv
+    A, C = tokens.shape
+    Sk = min(skey, S) if skey else S
+    dev = tokens.device
+    rows = slots.long().clamp(max=B - 1)
+    starts_l = starts.long()
+    keep, wslot, wpos = (chunk_write_targets(slots, starts, C, B, S) if writes is None
+                         else (w.long() for w in writes))
+    tbl = nbs = None
+    if paged is not None:
+        nbs = paged["tbl"].shape[1]
+        tbl = paged["tbl"].index_select(0, rows)[:, :max(1, -(-Sk // (S // nbs)))]
+
+    h = _embed_in(cfg, params, tokens)  # [A, C, D]
+    q_pos = starts_l[:, None] + torch.arange(C, device=dev)[None, :]  # [A, C]
+    cos, sin = rope_tables(cfg, hd, q_pos)
+    key_pos = torch.arange(Sk, device=dev)
+    past_mask = (key_pos[None, None, :] < starts_l[:, None, None]).expand(A, C, Sk)
+    c_idx = torch.arange(C, device=dev)
+    self_mask = (c_idx[None, :] <= c_idx[:, None])[None].expand(A, C, C)
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    for li in range(L):
+        lp = _layer(params, li)
+        x = _norm(cfg, h, lp["attn_norm"])
+        q, k, v = _qkv(cfg, lp, x)
+        q = apply_rope(q.reshape(A, C, H, hd), cos, sin)
+        k = apply_rope(k.reshape(A, C, Hkv, hd), cos, sin)
+        v = v.reshape(A, C, Hkv, hd)
+        kh = k.transpose(1, 2)  # [A, Hkv, C, hd]
+        vh = v.transpose(1, 2)
+        qg = q.reshape(A, C, Hkv, G, hd)
+
+        # reads first: the past rows from the cache as this layer found it
+        if quantized:
+            pk = None if paged is None else paged["k"]
+            pays = past_rows(cache_k["q"][li], None if pk is None else pk["q"][li], rows, tbl,
+                             Sk, nbs)[:, : 2 * Hkv]  # [A, 2*Hkv, Sk, hd] int8
+            srows = past_rows(cache_k["s"][li], None if pk is None else pk["s"][li], rows, tbl,
+                              Sk, nbs).float()  # [A, 2*Hkv, Sk]
+            krows, vrows = pays[:, :Hkv], pays[:, Hkv:]
+            ksr, vsr = srows[:, :Hkv], srows[:, Hkv:]
+        else:
+            krows = past_rows(cache_k[li], None if paged is None else paged["k"][li], rows, tbl,
+                              Sk, nbs)
+            vrows = past_rows(cache_v[li], None if paged is None else paged["v"][li], rows, tbl,
+                              Sk, nbs)
+        s_past = torch.einsum("achgd,ahsd->ahgcs", qg, krows.to(h.dtype)).float()
+        if quantized:
+            s_past = s_past * ksr[:, :, None, None, :]  # dequantized after the dot
+        s_self = torch.einsum("achgd,ahtd->ahgct", qg, kh).float()
+        s_past = torch.where(past_mask[:, None, None], s_past * cfg.attn_scale, neg)
+        s_self = torch.where(self_mask[:, None, None], s_self * cfg.attn_scale, neg)
+        probs = torch.softmax(torch.cat([s_past, s_self], dim=-1), dim=-1)
+        p_past, p_self = probs[..., :Sk], probs[..., Sk:]
+        if quantized:
+            p_past = p_past * vsr[:, :, None, None, :]
+        ctx = (torch.einsum("ahgcs,ahsd->achgd", p_past.to(h.dtype), vrows.to(h.dtype))
+               + torch.einsum("ahgct,ahtd->achgd", p_self.to(h.dtype), vh))
+        h = _attn_residual(cfg, lp, ctx.reshape(A, C, H * hd), h)
+        h = _ffn_residual(cfg, lp, h, moe_valid=c_idx[None, :] < nvalid.long()[:, None])
+
+        # writes last, positional and table-free (private positions are
+        # identity-homed)
+        if quantized:
+            fused = fuse_prompt_kv(kh, vh, scale_dtype=cache_k["s"].dtype)
+            cache_k["q"][li][wslot, :, wpos] = fused["q"].transpose(1, 2).reshape(
+                A * C, -1, hd)[keep]
+            cache_k["s"][li][wslot, :, wpos] = fused["s"].transpose(1, 2).reshape(A * C, -1)[keep]
+        else:
+            cache_k[li][wslot, :, wpos] = k.reshape(A * C, Hkv, hd)[keep].to(cache_k.dtype)
+            cache_v[li][wslot, :, wpos] = v.reshape(A * C, Hkv, hd)[keep].to(cache_v.dtype)
+    if all_logits:
+        return _logits(cfg, params, h), cache_k, cache_v  # [A, C, V]
+    last = h[torch.arange(A, device=dev), (nvalid.long() - 1).clamp(0, C - 1)]
     return _logits(cfg, params, last), cache_k, cache_v
 
 

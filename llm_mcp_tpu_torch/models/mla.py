@@ -34,7 +34,16 @@ import torch
 from ..kernels.attention import decode_attend_q8_mla, paged_gather, ragged_prefill_attend_mla
 from ..ops.rope import apply_rope, rope_tables
 from .configs import ModelConfig
-from .llama import _embed_in, _ffn_residual, _logits, _norm, quantize_kv, ragged_write_targets
+from .llama import (
+    _embed_in,
+    _ffn_residual,
+    _logits,
+    _norm,
+    chunk_write_targets,
+    past_rows,
+    quantize_kv,
+    ragged_write_targets,
+)
 from .moe import init_moe_layer_params, moe_shapes
 from .quant import qdot
 
@@ -348,6 +357,115 @@ def mla_prefill_chunk_ragged(
             cache_c[li, wslot, 0, wpos] = c[keep].to(cache_c.dtype)
             cache_r[li, wslot, 0, wpos] = kr[keep].to(cache_r.dtype)
     last = h[torch.clamp(last_idx.long(), 0, T - 1)]
+    return _logits(cfg, params, last), cache_c, cache_r
+
+
+@torch.no_grad()
+def mla_prefill_chunk_batch(
+    cfg: ModelConfig,
+    params: Params,
+    cache_c: Any,  # latents [L, B, 1, S, R] or the int8 dict — updated in place
+    cache_r: Any,  # rope keys [L, B, 1, S, dr] or the int8 dict — updated in place
+    tokens: torch.Tensor,  # [A, C] int32 — right-padded chunks, one per row
+    slots: torch.Tensor,  # [A] int32 (pads: B, writes nothing)
+    starts: torch.Tensor,  # [A] int32 absolute position of each chunk's start
+    nvalid: torch.Tensor,  # [A] int32 valid tokens per chunk
+    skey: int = 0,  # bound on the PAST key range (0 = whole S)
+    all_logits: bool = False,  # logits at every chunk position
+    paged: dict | None = None,  # {"tbl","k","v"}: tables, latent pool, rope pool
+    writes: tuple | None = None,  # (keep, wslot, wpos): llama.chunk_write_targets
+) -> tuple[torch.Tensor, Any, Any]:
+    """Batched chunked prefill for MLA, JAX's `mla_prefill_chunk_batch`:
+    the queries fold through W_uk so the past segment scores straight
+    against the latent cache (int8 latents dequantized after the dot, the
+    latent scales folded into the probabilities on the value side); the
+    self segment scores against the chunk's own exact latents. One joint
+    softmax over [past | self], the attended [H, R] context re-expanded
+    through W_uv. Reads before writes in every layer, as
+    `llama_prefill_chunk_batch`; plain torch."""
+    H, dn, dr, dv = _dims(cfg)
+    quantized = isinstance(cache_c, dict)
+    L, B, _, S, R = (cache_c["q"] if quantized else cache_c).shape
+    A, C = tokens.shape
+    Sk = min(skey, S) if skey else S
+    scale = mla_scale(cfg)
+    dev = tokens.device
+    rows = slots.long().clamp(max=B - 1)
+    starts_l = starts.long()
+    keep, wslot, wpos = (chunk_write_targets(slots, starts, C, B, S) if writes is None
+                         else (w.long() for w in writes))
+    tbl = nbs = None
+    if paged is not None:
+        nbs = paged["tbl"].shape[1]
+        tbl = paged["tbl"].index_select(0, rows)[:, :max(1, -(-Sk // (S // nbs)))]
+    pk = None if paged is None else paged["k"]
+    pr = None if paged is None else paged["v"]
+
+    def past(cache, pool, li):  # [A, Sk, ·] (or [A, Sk] for a scale plane)
+        return past_rows(cache[li], None if pool is None else pool[li], rows, tbl, Sk, nbs)[:, 0]
+
+    h = _embed_in(cfg, params, tokens)  # [A, C, D]
+    q_pos = starts_l[:, None] + torch.arange(C, device=dev)[None, :]
+    cos, sin = rope_tables(cfg, dr, q_pos)  # [A, C, dr/2]
+    key_pos = torch.arange(Sk, device=dev)
+    past_mask = (key_pos[None, None, :] < starts_l[:, None, None]).expand(A, C, Sk)
+    c_idx = torch.arange(C, device=dev)
+    self_mask = (c_idx[None, :] <= c_idx[:, None])[None].expand(A, C, C)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    moe_valid = c_idx[None, :] < nvalid.long()[:, None]
+    for li, lp in enumerate(layer_params(params)):
+        x = _norm(cfg, h, lp["attn_norm"])
+        qn, qr = _queries(cfg, lp, x)  # [A, C, H, dn/dr]
+        qr = apply_rope(qr, cos, sin)
+        c, kr = _latents(cfg, lp, x)  # [A, C, R], [A, C, dr]
+        kr = apply_rope(kr[..., None, :], cos, sin)[..., 0, :]
+        w_uk, w_uv = _absorbed_w(cfg, lp, h.dtype)
+        qt = torch.einsum("achd,rhd->achr", qn, w_uk)  # [A, C, H, R]
+
+        # reads first: past latents and rope keys as this layer found them
+        if quantized:
+            lat = past(cache_c["q"], None if pk is None else pk["q"], li)
+            rop = past(cache_r["q"], None if pr is None else pr["q"], li)
+            ls = past(cache_c["s"], None if pk is None else pk["s"], li).float()
+            rs = past(cache_r["s"], None if pr is None else pr["s"], li).float()
+            s_past = (
+                torch.einsum("achr,asr->ahcs", qt, lat.to(qt.dtype)).float() * ls[:, None, None]
+                + torch.einsum("achd,asd->ahcs", qr, rop.to(qr.dtype)).float() * rs[:, None, None]
+            ) * scale
+        else:
+            lat = past(cache_c, pk, li)
+            rop = past(cache_r, pr, li)
+            s_past = (
+                torch.einsum("achr,asr->ahcs", qt, lat.to(qt.dtype))
+                + torch.einsum("achd,asd->ahcs", qr, rop.to(qr.dtype))
+            ).float() * scale
+        s_self = (
+            torch.einsum("achr,atr->ahct", qt, c) + torch.einsum("achd,atd->ahct", qr, kr)
+        ).float() * scale
+        s_past = torch.where(past_mask[:, None], s_past, neg)
+        s_self = torch.where(self_mask[:, None], s_self, neg)
+        probs = torch.softmax(torch.cat([s_past, s_self], dim=-1), dim=-1)
+        p_past, p_self = probs[..., :Sk], probs[..., Sk:]
+        if quantized:
+            p_past = p_past * ls[:, None, None]  # the value side's dequantization
+        ctx_lat = (torch.einsum("ahcs,asr->achr", p_past.to(h.dtype), lat.to(h.dtype))
+                   + torch.einsum("ahct,atr->achr", p_self.to(h.dtype), c))
+        ctx = torch.einsum("achr,rhd->achd", ctx_lat, w_uv).reshape(A, C, H * dv)
+        h = h + qdot(ctx, lp["wo_mla"])
+        h = _ffn_residual(cfg, lp, h, moe_valid=moe_valid)
+
+        # writes last, positional and table-free
+        if quantized:
+            for cache, new in ((cache_c, c), (cache_r, kr)):
+                q = quantize_kv(new.reshape(A * C, -1)[keep], scale_dtype=cache["s"].dtype)
+                cache["q"][li, wslot, 0, wpos] = q["q"]
+                cache["s"][li, wslot, 0, wpos] = q["s"]
+        else:
+            cache_c[li, wslot, 0, wpos] = c.reshape(A * C, R)[keep].to(cache_c.dtype)
+            cache_r[li, wslot, 0, wpos] = kr.reshape(A * C, dr)[keep].to(cache_r.dtype)
+    if all_logits:
+        return _logits(cfg, params, h), cache_c, cache_r  # [A, C, V]
+    last = h[torch.arange(A, device=dev), (nvalid.long() - 1).clamp(0, C - 1)]
     return _logits(cfg, params, last), cache_c, cache_r
 
 

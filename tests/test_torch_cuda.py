@@ -1203,6 +1203,9 @@ def test_cuda_preempt_restore_captured_matches_eager(monkeypatch, case):
     from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
 
     monkeypatch.setenv("TPU_KV_HOST_OFFLOAD", "1")
+    # contended tokens are held to uncontended ones: with speculation on
+    # they depend on where the verify rounds fall, which contention moves
+    monkeypatch.setenv("TPU_SPEC", "0")
     kind, B, q8, hit = PREEMPT_CASES[case]
     cfg = _graph_cfg(kind)
     kw = dict(max_slots=B, max_seq_len=512, seed=3, quant="int8" if q8 else "",
@@ -1297,3 +1300,129 @@ def test_cuda_engine_memory_released_after_shutdown(monkeypatch):
     after = torch.cuda.memory_allocated()
     assert built - base > 64 << 20
     assert after - base <= 64 << 20, (base, built, after)
+
+
+SPEC_PROMPTS = ("repeat this exact list again and again: alpha beta gamma delta "
+                "alpha beta gamma delta alpha beta gamma delta",
+                "count with me: one two three, one two three, one two three")
+
+
+def _step_logits_both_paths(cfg, params, seq, quantized):
+    """The logits after `seq` from a decode step (the decode kernels) and
+    from a one-token chunk pass (`llama_prefill_chunk_batch`, the verify
+    round's arithmetic), both on one fresh cache holding seq[:-1]."""
+    from llm_mcp_tpu_torch.models import llama as TL
+
+    n = len(seq)
+    cache = TL.init_kv_cache(cfg, 1, 512, dtype=torch.bfloat16, device="cuda",
+                             quantized=quantized)
+    ck, cv = cache["k"], cache["v"]
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device="cuda")
+
+    def each(fn, *trees):
+        return ({k: fn(*(t[k] for t in trees)) for k in trees[0]} if isinstance(trees[0], dict)
+                else fn(*trees))
+
+    with torch.inference_mode():
+        _, ks, vs = TL.llama_prefill(cfg, params, i32([seq[:-1]]), i32([n - 1]),
+                                     quant_kv=quantized)
+        for c, k in ((ck, ks), (cv, vs)):
+            each(lambda a, b: a[:, :, :, : n - 1].copy_(b), c, k)
+        z_chunk, _, _ = TL.llama_prefill_chunk_batch(
+            cfg, params, each(torch.clone, ck), each(torch.clone, cv), i32([[seq[-1]]]),
+            i32([0]), i32([n - 1]), i32([1]), all_logits=True)
+        z_dec, _, _ = TL.llama_decode_step(cfg, params, ck, cv, i32([seq[-1]]), i32([n - 1]))
+    return z_dec[0].float(), z_chunk[0, 0].float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_cuda_engine_spec_on_matches_off(monkeypatch, kind):
+    """Two engines on one parameter tree, `TPU_SPEC` on and off, serve two
+    greedy requests with repetitive prompts, driven by hand: the verify
+    rounds ran on the card and accepted drafts, and each request's tokens
+    are identical both ways or part at a near tie: where they part, a
+    decode step and a chunk pass on one fresh cache both rank the two
+    tokens as their best two among the ids the engine may sample, and the
+    two tokens' logits lie within the paths' largest disagreement on that
+    step (the verify's chunk arithmetic and the decode kernels round
+    differently)."""
+    _card(960)  # skips without a card
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    q8 = kind == "int8"
+    kw = dict(max_slots=2, max_seq_len=512, seed=3, quant="int8" if q8 else "",
+              kv_quant="int8" if q8 else "", device="cuda")
+    cfg = _graph_cfg("llm")
+    runs, params, prompts = [], None, None
+    for spec in ("1", "0"):
+        monkeypatch.setenv("TPU_SPEC", spec)
+        eng = GenerationEngine(cfg, params=params, **kw)
+        params = eng.params
+        reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=48, temperature=0.0)
+                for p in SPEC_PROMPTS]
+        prompts = [r.prompt_ids for r in reqs]
+        banned = eng._banned  # ids the engine never samples
+        runs.append((_drive_by_hand(eng, reqs), eng.speculation_stats()))
+        eng.shutdown()
+        del eng
+    (on, st), (off, st_off) = runs
+    assert st["verify_calls"] > 0 and st["accepted_tokens"] > 0
+    assert st_off["verify_calls"] == 0
+    for ids, a, b in zip(prompts, off, on):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        assert i > 0  # the first token comes from the admission prefill, either way
+        z_dec, z_chunk = (z if banned is None else z.masked_fill(banned, -1e9) for z in
+                          _step_logits_both_paths(cfg, params, ids + a[:i], q8))
+        for z in (z_dec, z_chunk):
+            assert set(z.topk(2).indices.tolist()) == {a[i], b[i]}
+        assert abs(float(z_dec[a[i]] - z_dec[b[i]])) <= float((z_dec - z_chunk).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_cuda_masked_step_launches_decode_kernel(monkeypatch, kind):
+    """Constrained requests on the card: with `TPU_SPEC=0` every token comes
+    from a masked single step, and each step launches the decode kernel
+    once a layer; with it on, masked verify rounds run and the tokens are
+    the same. The texts match their grammar."""
+    _card(961)
+    import re
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    q8 = kind == "int8"
+    kw = dict(max_slots=2, max_seq_len=512, seed=3, quant="int8" if q8 else "",
+              kv_quant="int8" if q8 else "", device="cuda")
+    kernel = "decode_attend_q8" if q8 else "decode_attend_bf16"
+    pattern = "(alpha beta gamma delta ){3}done"
+    runs, params = [], None
+    for spec in ("0", "1"):
+        monkeypatch.setenv("TPU_SPEC", spec)
+        eng = GenerationEngine(_graph_cfg("llm"), params=params, **kw)
+        params = eng.params
+        steps = []
+        cn_step = eng._cn_step_round
+
+        def counted(active, cn_step=cn_step, steps=steps):
+            before = P.LAUNCHES[kernel]
+            cn_step(active)
+            steps.append(P.LAUNCHES[kernel] - before)
+
+        eng._cn_step_round = counted
+        reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=96, temperature=0.0,
+                           constraint={"type": "regex", "pattern": pattern})
+                for p in ("say it", "say it again")]
+        toks = _drive_by_hand(eng, reqs)
+        text = [eng.tokenizer.decode(t) for t in toks]
+        runs.append((toks, steps, eng.cn_spec_drafted, eng.constrain_stats()))
+        assert all(re.fullmatch(pattern, t) for t in text), text
+        eng.shutdown()
+        del eng
+    (t_off, steps_off, _, st_off), (t_on, _, drafted, st_on) = runs
+    L = _graph_cfg("llm").n_layers
+    assert steps_off and all(n == L for n in steps_off)
+    assert drafted > 0 and t_on == t_off
+    assert st_off["illegal_tokens"] == st_on["illegal_tokens"] == 0.0
