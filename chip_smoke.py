@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels   # phases 1-2 and the MLA kernel checks,
                                       # with the bf16 decode chunk sweep
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
+                                      # (--planted=a,b: the named ones)
+    python3 chip_smoke.py --families  # the decoder families' kernel rows,
+                                      # phases 11 and 12
 
 Phases; any failure exits non-zero and prints no result line (a result
 outside its tolerance is reported and the later phases still run, so that
@@ -121,6 +124,22 @@ one run reads every check; the script then exits non-zero):
      `TPU_SPEC` on and off; the tokens must be identical and a verify
      round must have run; the accept rate, tokens per verify call, the
      verify round's wall and device ms and tok/s both ways are reported.
+ 11. the decoder families (FAMILIES): Qwen2.5-7B int8 (full depth, G = 7,
+     plus prefix traffic), Gemma-2-9B bf16 (full depth, head_dim 256,
+     max_seq_len 8192, plus a prompt past its 4096-token window),
+     R1-Distill-Qwen-1.5B bf16 (G = 6) and, at 4 layers, Mistral-7B,
+     Qwen3-8B and R1-Distill-Llama-8B bf16 and Mixtral-8x7B int8, each
+     on fresh random weights: the four chats over HTTP (its kernels
+     launched; the windowed and softcapped families no decode or ragged
+     kernel), every stream finished with [DONE], and greedy tokens
+     identical with the round captured and eager. Their kernel arms
+     (head_dim-256 flash, ragged at G = 7 and 6, decode at G = 7) are
+     held against their plain versions with the other kernel checks;
+ 12. a checkpoint: a Qwen2.5-7B tree at full width and 2 layers written as
+     two safetensors shards with an index, config.json and the fixture's
+     tokenizer.json, served by `weights_dir`: logits and greedy tokens
+     bit for bit those of `params_from_numpy`'s engine; load seconds and
+     GB/s; the native BPE built with g++ against the Python merge core.
 
 After each model's engines are shut down and dropped, the device memory
 allocated must be back within RELEASE_SLACK of its value before they were
@@ -170,6 +189,26 @@ TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attent
        "decode_attend_q8_mla": ATTN_TOL, "decode_attend_q8_mla_paged": ATTN_TOL,
        "ragged_prefill_attend_mla": ATTN_TOL, "ragged_prefill_attend_mla_paged": ATTN_TOL,
        "ragged_prefill_attend_mla_q8": ATTN_TOL, "ragged_prefill_attend_mla_q8_paged": ATTN_TOL}
+# the kernel arms the decoder families add (kernel_phase_families): row ->
+# (its source, the Pallas body it replaces, the phase whose served launches
+# it reports); the launches count under the row's `counter`
+FAMILY_ROWS = {
+    "flash_prefill_attention_hd256": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill_hd256.cu",
+                                      "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16"),
+    **{f"ragged_prefill_attend_{a}_g{g}{p}": (
+        "llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
+        "llm_mcp_tpu/kernels/attention.py:" + ("2752" if a == "bf16" else "2908"),
+        {("bf16", 7): "checkpoint", ("q8", 7): "qwen2.5-7b int8",
+         ("bf16", 6): "deepseek-r1-distill-qwen-1.5b bf16", ("q8", 6): None}[a, g])
+       for a in ("bf16", "q8") for g in (7, 6) for p in ("", "_paged")},
+    **{f"decode_attend_{a}_g7{p}": (
+        "llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
+        "llm_mcp_tpu/kernels/attention.py:" + {("bf16", ""): "1142", ("bf16", "_paged"): "1312",
+                                               ("q8", ""): "330", ("q8", "_paged"): "581"}[a, p],
+        "checkpoint" if a == "bf16" else "qwen2.5-7b int8")
+       for a in ("bf16", "q8") for p in ("", "_paged")},
+}
+TOL.update({n: ATTN_TOL for n in FAMILY_ROWS})
 SOURCES = {
     "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
                        "llm_mcp_tpu/kernels/attention.py:2508"),
@@ -1480,6 +1519,228 @@ def kernel_phase_mla() -> dict[str, dict]:
     return res
 
 
+def kernel_phase_families() -> dict[str, dict]:
+    """The kernel arms the decoder families add, against their plain
+    versions at the served families' shapes:
+
+      - flash prefill at head_dim 256, Gemma-2-9B's heads (16 over 8),
+        softcap 50, scale 224**-0.5, one 8192-token prompt: a sliding
+        layer (window 4096, the row `flash_prefill_attention_hd256`) and a
+        global one (checked, timed beside). SDPA has no softcap: no library
+        call computes the function, so library_ms is null;
+      - ragged prefill, bf16 and int8, identity and 64-token block tables,
+        at Qwen2.5-7B's heads (28 over 4: G = 7) and R1-Distill-Qwen-1.5B's
+        (12 over 2: G = 6), which do not divide the tile's 64 rows: the
+        Llama row's packing (T = 2048, prefixes 0-1536);
+      - decode, bf16 and int8, contiguous and paged, at G = 7 (Qwen2.5-7B):
+        the Llama rows' fills over 4096 keys.
+
+    Each row's `counter` is the LAUNCHES name its launches count under."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.llama import fuse_prompt_kv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1515)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    res: dict[str, dict] = {}
+    record = functools.partial(_record, res)
+
+    # -- flash prefill at head_dim 256 (Gemma-2-9B) --
+    Bf, H, Hkv, Sf, hd = 1, 16, 8, 8192, 256
+    sc, cap = 224.0**-0.5, 50.0
+    qp, kp, vp = rn(Bf, H, Sf, hd), rn(Bf, Hkv, Sf, hd), rn(Bf, Hkv, Sf, hd)
+    lp = i32([Sf])
+    fbytes = (2 * qp.numel() + 2 * kp.numel()) * 2
+    glob = {}
+    for win in (0, 4096):  # the timed row last: the sliding layer
+        kw = dict(window=win, softcap=cap, scale=sc)
+        out = K.flash_prefill_attention(qp, kp, vp, lp, **kw)
+        ref = K.flash_prefill_plain(qp, kp, vp, lp, **kw)
+        pairs = sum(min(t + 1, win) if win else t + 1 for t in range(Sf))
+        ms = time_ms(lambda: K.flash_prefill_attention(qp, kp, vp, lp, **kw), 10)
+        if not win:
+            err, ratio = compare("flash_prefill_attention_hd256", out, ref)
+            glob = {"max_abs_err": err, "worst_err_over_limit": ratio, "ms": ms,
+                    "bound_ms": max(fbytes / HBM_BYTES_PER_S * 1e3,
+                                    4.0 * hd * H * pairs / BF16_FLOPS * 1e3)}
+            log(f"flash_prefill_attention_hd256 global layer: {json.dumps(glob)}")
+            continue
+        record("flash_prefill_attention_hd256", out, ref, ms,
+               time_ms(lambda: K.flash_prefill_plain(qp, kp, vp, lp, **kw), 2),
+               fbytes, 4.0 * hd * H * pairs / BF16_FLOPS * 1e3, None,
+               {"q": [Bf, H, Sf, hd], "kv_heads": Hkv, "window": win, "softcap": cap,
+                "scale": sc, "global_layer": glob,
+                "library": "none: SDPA has no score softcap, so no one call computes it"})
+    res["flash_prefill_attention_hd256"]["counter"] = "flash_prefill_attention_hd256"
+    del qp, kp, vp
+
+    # -- ragged prefill at G = 7 and 6, bf16 and int8, identity and paged --
+    L, B, S, hd, bt = 2, 8, 4096, 128, BLOCK_TOKENS
+    sc128 = hd**-0.5
+    T, R = 2048, 4
+    starts, ns = [0, 512, 1024, 1536], [500, 480, 460, 460]
+    n_pad = T - sum(ns)
+    rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [R] * n_pad)
+    offsets = i32([sum(ns[:r]) for r in range(R + 1)])
+    slots, st = i32([2, 5, 0, 7]), i32(starts)
+    past = sum(s_ * n for s_, n in zip(starts, ns))
+    selfp = sum(n * (n + 1) // 2 for n in ns) + n_pad * (n_pad + 1) // 2
+    nbs, nsh = S // bt, SHARED_TOKENS // bt
+    tbl = torch.arange(B * nbs, dtype=torch.int32, device=dev).reshape(B, nbs)
+    tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
+    for b in range(B):  # block nsh of row b lives in row (b + 3) % B's home
+        tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
+    for G, Hkv, model in ((7, 4, "qwen2.5-7b"), (6, 2, "deepseek-r1-distill-qwen-1.5b")):
+        H = Hkv * G
+        qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+        ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
+        fused = {"q": torch.empty((L, B, 2 * Hkv + 1, S, hd), dtype=torch.int8, device=dev),
+                 "s": torch.empty((L, B, 2 * Hkv, S), dtype=torch.bfloat16, device=dev)}
+        for li in range(L):
+            e = fuse_prompt_kv(ck[li], cv[li])
+            fused["q"][li], fused["s"][li] = e["q"], e["s"]
+        pool_k = ck[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+        pool_v = cv[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+        pool8 = {k: v[:, 0, :, : nsh * bt].reshape(L, v.shape[2], nsh, bt, *v.shape[4:])
+                 .transpose(1, 2).contiguous() for k, v in fused.items()}
+        for arm in ("bf16", "q8"):
+            for paged in (False, True):
+                name = (f"ragged_prefill_attend_{arm}_g{G}" + ("_paged" if paged else ""))
+                counter = (f"ragged_prefill_attend_{arm}" + ("_paged" if paged else ""))
+                if arm == "bf16":
+                    args = (qr, kr, vr, ck, cv, 1, rowids, offsets, slots, st)
+                    pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
+                    call = functools.partial(K.ragged_prefill_attend_bf16, *args, scale=sc128,
+                                             **pkw)
+                    plain = (functools.partial(K.ragged_prefill_paged_plain, *args, tbl, pool_k,
+                                               pool_v, sc128) if paged else
+                             functools.partial(K.ragged_prefill_plain, *args, scale=sc128))
+                    kg = (K.paged_gather(ck[1], pool_k[1], tbl[slots.long()]) if paged
+                          else ck[1][slots.long()])
+                    vg = (K.paged_gather(cv[1], pool_v[1], tbl[slots.long()]) if paged
+                          else cv[1][slots.long()])
+                    nbytes = (2 * qr.numel() + 2 * kr.numel() + 2 * sum(starts) * Hkv * hd) * 2
+                    ops_ms = 4.0 * hd * H * (past + selfp) / BF16_FLOPS * 1e3
+                else:
+                    args = (qr, kr, vr, fused, 1, rowids, offsets, slots, st)
+                    call = functools.partial(K.ragged_prefill_attend_q8, *args, scale=sc128,
+                                             **(dict(block_tables=tbl, pool=pool8) if paged
+                                                else {}))
+                    plain = (functools.partial(K.ragged_prefill_q8_plain, *args, sc128, tbl,
+                                               pool8) if paged else
+                             functools.partial(K.ragged_prefill_q8_plain, *args, sc128))
+                    pay = (K.paged_gather(fused["q"][1], pool8["q"][1], tbl[slots.long()])
+                           if paged else fused["q"][1][slots.long()])
+                    ss = (K.paged_gather(fused["s"][1], pool8["s"][1], tbl[slots.long()])
+                          if paged else fused["s"][1][slots.long()])
+                    kg = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16)
+                    vg = (pay[:, Hkv:2 * Hkv].float()
+                          * ss[:, Hkv:, :, None].float()).to(torch.bfloat16)
+                    nbytes = ((2 * qr.numel() + 2 * kr.numel()) * 2
+                              + sum(starts) * Hkv * (2 * hd + 2 * 2))
+                    ops_ms = (4.0 * hd * H * past / INT8_OPS
+                              + 4.0 * hd * H * selfp / BF16_FLOPS) * 1e3
+                if paged:
+                    nbytes += sum(-(-s_ // bt) for s_ in starts) * 4
+                lib = _ragged_sdpa(qr, kr, vr, rowids, starts, kg, vg)
+                record(name, call(), plain(), time_ms(call, 10), time_ms(plain, 3), nbytes,
+                       ops_ms, time_ms(lib, 10),
+                       {"model": model, "q": [T, Hkv, G, hd], "tile_tokens": 64 // G,
+                        "tile_rows": 64 // G * G, "tokens": ns, "pads": n_pad,
+                        "starts": starts, "block_tokens": bt if paged else 0,
+                        "library": "SDPA, one call, block-causal mask over the prefixes "
+                                   "(dequantized to bf16 for int8) and the chunk"})
+                res[name]["counter"] = counter
+                del lib
+        del ck, cv, fused, pool_k, pool_v, pool8
+
+    # -- decode at G = 7 (Qwen2.5-7B), bf16 and int8, contiguous and paged --
+    G, Hkv = 7, 4
+    H = Hkv * G
+    q, nk1, nv1 = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
+    ids = i32([3, 0, 7, 1, 6, 2, 5, 4])
+    keys = sum(w + 1 if w < S else 1 for w in lens.tolist())
+    live = lens < S
+    rows_ = torch.arange(B, device=dev)[live]
+    qs = q.reshape(B, H, 1, hd)
+    pos = torch.arange(S, device=dev)[None, :]
+    amask = torch.where(live[:, None], pos <= lens[:, None], pos < 1)[:, None, None, :]
+    ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
+    fused = {"q": torch.empty((L, B, 2 * Hkv + 1, S, hd), dtype=torch.int8, device=dev),
+             "s": torch.empty((L, B, 2 * Hkv, S), dtype=torch.bfloat16, device=dev)}
+    for li in range(L):
+        e = fuse_prompt_kv(ck[li], cv[li])
+        fused["q"][li], fused["s"][li] = e["q"], e["s"]
+    pool_k = ck[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+    pool_v = cv[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
+    pool8 = {k: v[:, 0, :, : nsh * bt].reshape(L, v.shape[2], nsh, bt, *v.shape[4:])
+             .transpose(1, 2).contiguous() for k, v in fused.items()}
+
+    def sdpa_rows(kk, vv):
+        kk, vv = kk.clone(), vv.clone()
+        kk[rows_, :, lens.long()[live]] = nk1[live]
+        vv[rows_, :, lens.long()[live]] = nv1[live]
+        return lambda: F.scaled_dot_product_attention(qs, kk, vv, attn_mask=amask,
+                                                      enable_gqa=True)
+
+    for arm in ("bf16", "q8"):
+        for paged in (False, True):
+            name = f"decode_attend_{arm}_g{G}" + ("_paged" if paged else "")
+            counter = f"decode_attend_{arm}" + ("_paged" if paged else "")
+            rtbl = tbl[ids.long()]
+            if arm == "bf16":
+                pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
+                call = functools.partial(K.decode_attend_bf16, q, nk1, nv1, ck, cv, 1, lens,
+                                         slot_ids=ids, scale=sc128, **pkw)
+                plain = (functools.partial(K.decode_attend_paged_plain, q, nk1, nv1, ck, cv, 1,
+                                           lens, tbl, pool_k, pool_v, ids, sc128) if paged
+                         else functools.partial(K.decode_attend_plain, q, nk1, nv1, ck, cv, 1,
+                                                lens, ids, sc128))
+                kk = K.paged_gather(ck[1], pool_k[1], rtbl) if paged else ck[1][ids.long()]
+                vv = K.paged_gather(cv[1], pool_v[1], rtbl) if paged else cv[1][ids.long()]
+                nbytes = keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2
+                ops_ms = 4.0 * hd * H * keys / BF16_FLOPS * 1e3
+            else:
+                pkw = dict(block_tables=tbl, pool_k=pool8) if paged else {}
+                call = functools.partial(K.decode_attend_q8, q, nk1, nv1, fused, {}, 1, lens,
+                                         slot_ids=ids, scale=sc128, **pkw)
+                plain = functools.partial(
+                    K.decode_attend_q8_plain, q, nk1, nv1, fused, 1, lens, ids, sc128,
+                    *((bt, tbl, pool8) if paged else (K.q8_group(S),)))
+                pay = (K.paged_gather(fused["q"][1], pool8["q"][1], rtbl) if paged
+                       else fused["q"][1][ids.long()])
+                ss = (K.paged_gather(fused["s"][1], pool8["s"][1], rtbl) if paged
+                      else fused["s"][1][ids.long()])
+                kk = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16)
+                vv = (pay[:, Hkv:2 * Hkv].float() * ss[:, Hkv:, :, None].float()).to(
+                    torch.bfloat16)
+                nbytes = keys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2
+                ops_ms = 4.0 * hd * H * keys / INT8_OPS * 1e3
+            if paged:
+                nbytes += sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist()) * 4
+            lib = sdpa_rows(kk, vv)
+            record(name, call(), plain(), time_ms(call, 50), time_ms(plain, 5), nbytes, ops_ms,
+                   time_ms(lib, 50),
+                   {"model": "qwen2.5-7b", "q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd],
+                    "lengths": lens.tolist(), "slot_ids": ids.tolist(),
+                    "block_tokens": bt if paged else 0,
+                    "library": "SDPA, length mask, the rows (dequantized to bf16 for int8, "
+                               "gathered through the tables when paged)"})
+            res[name]["counter"] = counter
+            del lib
+    return res
+
+
 def int8_gemm_phase() -> dict:
     """The int8 GEMM behind `qdot` (`torch._int_mm`) at the decode step's
     shapes (32 padded rows; Llama-3.1-8B's wqkv, wo, w13 and w2), with the
@@ -2478,6 +2739,24 @@ PLANTED = {
         "const float2 r = q8_row_max(rs, (bh * nsplit + sp) * G + 2 * t + i, 1, G);"),
     "q8_append_skips_v_scale": ("decode_attend.cu", "ap.s[(lr * Hs + head) * c.S + w] = sb;",
                                 "if (wid == 0) ap.s[(lr * Hs + head) * c.S + w] = sb;"),
+    # the arms the decoder families add: the second warpgroup of the
+    # head_dim-256 tile reading the first one's V columns, a window one key
+    # too wide, and the ragged tile's padding rows (G not dividing 64)
+    # taking the next tile's first token
+    "hd256_second_warpgroup_v_columns": (
+        "tile_attention.cuh", "return desc(t + 2 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);",
+        "return desc(t + 0 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);"),
+    "flash_window_off_by_one": ("flash_prefill.cuh", "(window <= 0 || qp - kp < window)",
+                                "(window <= 0 || qp - kp <= window)"),
+    "ragged_pad_rows_take_a_token": (
+        "ragged_prefill.cu", "auto token = [&](int r) { return r < TQ * G ? t0 + r / G : T; };",
+        "auto token = [&](int r) { return t0 + r / G; };"),
+}
+# the rows each family-arm fault must fail (at least one of them)
+PLANTED_ROWS = {
+    "hd256_second_warpgroup_v_columns": ("flash_prefill_attention_hd256",),
+    "flash_window_off_by_one": ("flash_prefill_attention_hd256",),
+    "ragged_pad_rows_take_a_token": tuple(n for n in FAMILY_ROWS if n.startswith("ragged")),
 }
 Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged", "decode_attend_q8_row")
 
@@ -2494,7 +2773,11 @@ def planted_phase() -> dict:
 
     root = Path(__file__).resolve().parent
     out: dict[str, dict] = {}
+    # `--planted=a,b` runs the named faults alone
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--planted=")]
     for fault, (src, old, new) in PLANTED.items():
+        if only and fault not in only[0]:
+            continue
         dst = root / "build" / "planted" / fault
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(root / "llm_mcp_tpu_torch", dst / "llm_mcp_tpu_torch",
@@ -2533,6 +2816,8 @@ def planted_phase() -> dict:
             check_failed(f"planted fault {fault} failed no int8 decode row: {failed}")
         elif fault.startswith("q8_append") and "append_kv_q8_fused" not in failed:
             check_failed(f"planted fault {fault} failed not the fused int8 append: {failed}")
+        elif fault in PLANTED_ROWS and not set(failed) & set(PLANTED_ROWS[fault]):
+            check_failed(f"planted fault {fault} failed none of {PLANTED_ROWS[fault]}: {failed}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
@@ -2966,6 +3251,302 @@ def _shed_check(params) -> dict:
     return report
 
 
+# The decoder families served on the card: (tag, catalog name,
+# layers kept (0: all), engine options, the kernels their chats must launch,
+# the GQA kernels they must not: windowed and softcapped families take plain
+# torch for decode and bucketed chunks, as JAX takes XLA)
+_PLAIN_ATTN = ("decode_attend_bf16", "decode_attend_bf16_paged", "append_kv_bf16_fused",
+               "decode_attend_q8", "decode_attend_q8_paged", "append_kv_q8_fused",
+               "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged",
+               "ragged_prefill_attend_q8", "ragged_prefill_attend_q8_paged")
+_BF16_PATH = ("flash_prefill_attention", "ragged_prefill_attend_bf16", "decode_attend_bf16",
+              "append_kv_bf16_fused")
+_Q8_PATH = ("flash_prefill_attention", "ragged_prefill_attend_q8", "decode_attend_q8",
+            "append_kv_q8_fused")
+FAMILIES = (
+    ("qwen2.5-7b int8", "qwen2.5-7b", 0,
+     dict(quant="int8", kv_quant="int8", max_slots=Q8_SLOTS), _Q8_PATH, ()),
+    ("gemma2-9b bf16", "gemma2-9b", 0, dict(max_slots=4, max_seq_len=8192),
+     ("flash_prefill_attention_hd256",), _PLAIN_ATTN + ("flash_prefill_attention",)),
+    ("mistral-7b bf16 (4 layers)", "mistral-7b", 4, dict(max_slots=8),
+     ("flash_prefill_attention",), _PLAIN_ATTN),
+    ("qwen3-8b bf16 (4 layers)", "qwen3-8b", 4, dict(max_slots=8), _BF16_PATH, ()),
+    ("deepseek-r1-distill-llama-8b bf16 (4 layers)", "deepseek-r1-distill-llama-8b", 4,
+     dict(max_slots=8), _BF16_PATH, ()),
+    ("deepseek-r1-distill-qwen-1.5b bf16", "deepseek-r1-distill-qwen-1.5b", 0,
+     dict(max_slots=8), _BF16_PATH, ()),
+    ("mixtral-8x7b int8 (4 layers)", "mixtral-8x7b", 4,
+     dict(quant="int8", kv_quant="int8", max_slots=Q8_SLOTS), _Q8_PATH, ()),
+)
+GEMMA_LONG = " ".join(f"Note {i}: the window keeps the last 4096 tokens." for i in range(110))
+
+
+def _greedy_tokens(cfg, params, graphs: bool, prompts: list[str], **engine_kw) -> list:
+    """Greedy tokens of `prompts` on a fresh engine over `params`, queued
+    before the loop starts with the prefill budget held at AB_BUDGET, so
+    that runs with the round eager and captured schedule alike."""
+    import torch
+
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+
+    eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, seed=0, **engine_kw)
+    eng._sched.decide = lambda backlog, n_active, wait, reserved_tokens=0: min(backlog, AB_BUDGET)
+    seen: dict = {}
+    process = eng._process_token
+
+    def rec(s, tok, pos):
+        seen.setdefault(s.req.request_id, []).append(int(tok))
+        return process(s, tok, pos)
+
+    eng._process_token = rec
+    reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=24, temperature=0.0)
+            for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    eng.start()
+    for r in reqs:
+        while True:
+            evt = r.out.get(timeout=600)
+            if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
+                if not isinstance(evt, dict) or evt["type"] != "done":
+                    fail(f"capture A/B {cfg.name}: a request did not finish: {evt}")
+                break
+    eng.shutdown()
+    out = [seen.get(r.request_id, []) for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_phase() -> dict:
+    """Each configuration of FAMILIES at published widths (depth as listed),
+    random weights from seed 0, the engine's defaults otherwise
+    (max_seq_len 4096 unless listed, prompt cache 256 MiB): the four chats
+    over HTTP (counters reset just before, read just after: its kernels
+    launched, the excluded ones not), every stream finished, SSE ending in
+    [DONE]; Gemma-2 also a prompt past its 4096-token window; then the
+    greedy chats with the round captured and eager on fresh engines over
+    the same weights: identical tokens."""
+    import dataclasses
+
+    import torch
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.configs import get_config
+
+    out: dict[str, dict] = {}
+    for tag, name, layers, kw, must, must_not in FAMILIES:
+        t0 = time.time()
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        kw = dict(dict(max_seq_len=4096, prefill_chunk=512), **kw)
+        mem0 = torch.cuda.memory_allocated()
+        engine = GenerationEngine(cfg, seed=0, device="cuda", **kw)
+        leaf = weakref.ref(_first_leaf(engine.params["layers"]))
+        torch.cuda.synchronize()
+        built_s = time.time() - t0
+        engine.start()
+        api = serve({cfg.name: engine}, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{api.port}"
+        try:
+            res = e2e_phase(engine, base, kernels=must)
+            if name == "qwen2.5-7b":  # G = 7 through the tables: prefix hits at int8
+                res["prefix"] = prefix_phase(engine, base, kernels=(
+                    "decode_attend_q8_paged", "ragged_prefill_attend_q8_paged"))
+            long_res: dict = {}
+            if cfg.sliding_window and kw["max_seq_len"] > cfg.sliding_window:
+                chat(base, cfg.name, GEMMA_LONG, True, long_res, max_tokens=16, temperature=0)
+                if "error" in long_res or not long_res.get("done"):
+                    fail(f"{tag}: the prompt past the window did not finish: {long_res}")
+                if long_res["usage"]["prompt_tokens"] <= cfg.sliding_window:
+                    fail(f"{tag}: the long prompt did not pass the window")
+                res["past_window"] = {k: long_res[k] for k in ("usage", "finish", "t_end")}
+            launches = dict(K.LAUNCHES)
+        finally:
+            api.shutdown()
+            engine.shutdown()
+        for n in must_not:
+            if launches[n]:
+                check_failed(f"{tag}: {n} launched {launches[n]} times; this family takes "
+                             "the plain path there")
+        params = engine.params
+        del engine, api
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompts = [p for _, p, _, c in CHATS if c["temperature"] == 0]
+        on = _greedy_tokens(cfg, params, True, prompts, **kw)
+        off = _greedy_tokens(cfg, params, False, prompts, **kw)
+        if on != off:
+            check_failed(f"{tag}: greedy tokens with the round captured differ from eager: "
+                         f"first parting at {[_first_diff(a, b) for a, b in zip(on, off)]}")
+        del params
+        res.update(built_s=built_s, layers=cfg.n_layers, engine=kw, launches_after_long=launches,
+                   greedy_captured_equals_eager=on == off, seconds=time.time() - t0,
+                   released=_released(tag, mem0, leaf))
+        out[tag] = res
+        log(f"family {tag}: {time.time() - t0:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return out
+
+
+def checkpoint_phase() -> dict:
+    """A Qwen2.5-7B checkpoint at full width and 2 layers (random bf16
+    weights from seed 0), written by the port as two safetensors shards,
+    `model.safetensors.index.json`, config.json and the real-vocabulary
+    fixture's tokenizer.json into a temporary directory, then served by
+    `weights_dir`: its first-step logits and greedy tokens must equal, bit
+    for bit, those of an engine built from the same tree by
+    `params_from_numpy`. Reports the load's seconds and GB/s. The same
+    phase builds the native BPE with g++ and holds its piece encodings
+    against the Python merge core, and reports which of regex, tokenizers,
+    safetensors and ml_dtypes import and the backend load_tokenizer chose."""
+    import dataclasses
+    import importlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from llm_mcp_tpu_torch import native
+    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+    from llm_mcp_tpu_torch.executor.bpe import _NativeBpeCore, _PyBpeCore, BPETokenizer
+    from llm_mcp_tpu_torch.executor.tokenizer import load_tokenizer
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.configs import get_config
+    from llm_mcp_tpu_torch.models.llama import init_llama_params, llama_prefill
+    from llm_mcp_tpu_torch.models.weights import (
+        llama_to_hf_tensors, params_from_numpy, write_checkpoint_dir)
+
+    t0 = time.time()
+    res: dict = {}
+    modules = {}
+    for m in ("regex", "tokenizers", "safetensors", "ml_dtypes"):
+        try:
+            importlib.import_module(m)
+            modules[m] = True
+        except ImportError:
+            modules[m] = False
+    res["imports"] = modules
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "tiny_real_vocab")
+    tok = load_tokenizer(fixture)
+    res["tokenizer_backend"] = type(tok).__name__ + (
+        (" (native core)" if tok.is_native else " (python core)") if isinstance(tok, BPETokenizer)
+        else "")
+    if not modules["regex"]:
+        log("checkpoint: `regex` is missing here, so the in-repo BPE cannot split a real "
+            "vocabulary's pre-tokens on this machine (ROADMAP queue 1 item 6)")
+    # the native core, built here with g++, against the Python merge core
+    tb = time.time()
+    built = native.build()
+    res["native_build_s"] = time.time() - tb
+    if not built or native.load_bpe() is None:
+        check_failed("checkpoint: the native BPE library did not build or load")
+    elif modules["regex"]:
+        nat, py = BPETokenizer(os.path.join(fixture, "tokenizer.json")), BPETokenizer(
+            os.path.join(fixture, "tokenizer.json"), force_python=True)
+        if not (isinstance(nat.core, _NativeBpeCore) and isinstance(py.core, _PyBpeCore)):
+            check_failed("checkpoint: the BPE cores are not the native and Python ones")
+        texts = [p for _, p, _, _ in CHATS] + [SYSTEM_LONG, "naïve café 中文字符 🚀"]
+        pieces = [p.encode("utf-8") for t in texts for p in nat._pretok.findall(t)]
+        same = sum(nat.core.encode_piece(p) == py.core.encode_piece(p) for p in pieces)
+        res["bpe_pieces"] = {"pieces": len(pieces), "identical": same}
+        if same != len(pieces):
+            check_failed(f"checkpoint: native BPE pieces differ from the Python core's: "
+                         f"{res['bpe_pieces']}")
+
+    cfg = dataclasses.replace(get_config("qwen2.5-7b"), n_layers=2, name="qwen2.5-7b-2l")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = init_llama_params(cfg, g, torch.bfloat16, device="cuda")
+    host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in tree.items()}
+    del tree
+    ckpt = tempfile.mkdtemp(prefix="qwen2l-")
+    try:
+        tw = time.time()
+        hf = llama_to_hf_tensors(cfg, host)
+        nbytes = sum(t.numel() * t.element_size() for t in hf.values())
+        write_checkpoint_dir(ckpt, hf, shards=2, config={
+            "model_type": "qwen2", "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads, "intermediate_size": cfg.ffn_hidden,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+            "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False})
+        shutil.copy(os.path.join(fixture, "tokenizer.json"), ckpt)
+        res["write_s"] = time.time() - tw
+        del hf
+        kw = dict(max_slots=4, max_seq_len=4096, prefill_chunk=512, seed=0, device="cuda",
+                  weights_dir=ckpt)
+        eng = GenerationEngine("qwen2.5-7b-2l", **kw)
+        res.update(load_s=eng.load_seconds, bytes=nbytes,
+                   load_gb_per_s=nbytes / max(eng.load_seconds, 1e-9) / 1e9,
+                   shards=sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors")),
+                   config_layers=eng.cfg.n_layers, tokenizer=type(eng.tokenizer).__name__)
+        tree_np = {k: ({n: t.float().numpy() for n, t in v.items()} if isinstance(v, dict)
+                       else v.float().numpy()) for k, v in host.items()}
+        ref_params = params_from_numpy(tree_np, eng.cfg, "cuda", torch.bfloat16)
+        del tree_np, host
+        ref = GenerationEngine("qwen2.5-7b-2l", params=ref_params, **kw)
+        same_tree = all(torch.equal(a, b) for a, b in zip(_leaves(eng.params), _leaves(ref_params)))
+        prompt = ("Summarize the following in one line: " + SYSTEM_LONG)
+        ids = eng.tokenizer.encode(prompt)
+        tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+        lengths = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+        la = llama_prefill(eng.cfg, eng.params, tokens, lengths)[0]
+        lb = llama_prefill(ref.cfg, ref_params, tokens, lengths)[0]
+        res["first_step_logits_equal"] = bool(torch.equal(la, lb))
+        greedy = []
+        K.reset_launches()
+        for e in (eng, ref):
+            seen: dict = {}
+            process = e._process_token
+
+            def rec(s, tok, pos, seen=seen, process=process):
+                seen.setdefault(s.req.request_id, []).append(int(tok))
+                return process(s, tok, pos)
+
+            e._process_token = rec
+            e.start()
+            reqs = [GenRequest(prompt_ids=e.tokenizer.encode(p), max_tokens=16, temperature=0.0)
+                    for p in (prompt, "Hello there, how are you today?")]
+            for r in reqs:  # one at a time: both engines schedule alike
+                e.submit(r)
+                while True:
+                    evt = r.out.get(timeout=600)
+                    if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
+                        break
+            e.shutdown()
+            greedy.append([seen.get(r.request_id, []) for r in reqs])
+        res.update(prompt_tokens=len(ids), trees_equal=same_tree, launches=dict(K.LAUNCHES),
+                   greedy_tokens_equal=greedy[0] == greedy[1],
+                   greedy_tokens=[len(t) for t in greedy[0]])
+        if not (same_tree and res["first_step_logits_equal"] and greedy[0] == greedy[1]):
+            check_failed(f"checkpoint: the loaded engine differs from params_from_numpy's: "
+                         f"trees {same_tree}, logits {res['first_step_logits_equal']}, greedy "
+                         f"{greedy}")
+        if not all(greedy[0]):
+            check_failed(f"checkpoint: a request produced no token: {greedy[0]}")
+        del eng, ref, ref_params
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.time() - t0
+    log(f"checkpoint: {json.dumps(res)}")
+    return res
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def main() -> None:
     try:
         import torch
@@ -2981,7 +3562,7 @@ def main() -> None:
     t_start = time.time()
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
-    if "--planted" in sys.argv[1:]:
+    if any(a.split("=")[0] == "--planted" for a in sys.argv[1:]):
         print(json.dumps({"planted": planted_phase()}), flush=True)
         print(card, flush=True)
         sys.exit(1 if FAILURES else 0)
@@ -3008,9 +3589,17 @@ def main() -> None:
                                 for r in regs.values()):
             check_failed(f"{kernel} spills or was not reported: {regs}")
 
+    if "--families" in sys.argv[1:]:
+        # the decoder families alone: their kernel rows, served phases and
+        # the checkpoint phase
+        out = {"kernels": kernel_phase_families(), "families": families_phase(),
+               "checkpoint": checkpoint_phase(), "failures": FAILURES}
+        print(json.dumps(out), flush=True)
+        sys.exit(1 if FAILURES else 0)
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
     kernels.update(kernel_phase_mla())
+    kernels.update(kernel_phase_families())
     if "--kernels" in sys.argv[1:]:
         # the kernel checks alone (planted-fault runs): rows, then the verdict
         print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
@@ -3069,11 +3658,25 @@ def main() -> None:
     for tag in ("int8", "bf16_latents"):
         released[f"{MLA_MODEL} {tag}"] = mla[tag].pop("released")
     preempt = preempt_phase()
+    families = families_phase()
+    checkpoint = checkpoint_phase()
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
     rows = []
     for name, r in kernels.items():
+        if name in FAMILY_ROWS:
+            src, replaces, phase = FAMILY_ROWS[name]
+            served = {"checkpoint": checkpoint}.get(phase) or families.get(phase) or {}
+            counter = r["counter"]
+            if counter.endswith("_paged") and "prefix" in served:
+                served = served["prefix"]
+            row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                   "launches": served.get("launches", {}).get(counter, 0),
+                   "launches_from": phase or "none: no served configuration has this shape"}
+            row.update(r)
+            rows.append(row)
+            continue
         src, replaces = SOURCES[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces}
         if name in ALSO_REPLACES:
@@ -3091,8 +3694,8 @@ def main() -> None:
     print(json.dumps({"e2e": e2e, "prefix": prefix, "model_check": check, "int8": q8,
                       MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
                       "graph_ab": graph_ab, "preempt": preempt, "released": released,
-                      "constrain": constrained, "spec": spec,
-                      "seconds": time.time() - t_start}), flush=True)
+                      "constrain": constrained, "spec": spec, "families": families,
+                      "checkpoint": checkpoint, "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

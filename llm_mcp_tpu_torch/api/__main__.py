@@ -4,8 +4,17 @@
         --max-seq-len 4096 --port 8080
 
 Serves `POST /v1/chat/completions`, `GET /v1/models` and `GET /health`
-until SIGINT or SIGTERM. Weights are random from `--seed` (no checkpoint
-loading yet) and the tokenizer is the byte tokenizer. `--device cpu` runs
+until SIGINT or SIGTERM. `--weights-dir DIR` (env `TPU_WEIGHTS_DIR`)
+serves a Hugging Face checkpoint directory: its config.json decides the
+architecture, its safetensors shards are the weights (quantized on load
+with `--quant int8`) and its tokenizer.json the tokenizer (the in-repo
+BPE; `LLM_MCP_TPU_TOKENIZER=native|python|hf|byte` forces a backend).
+Without it the weights are random from `--seed` and the tokenizer is the
+byte tokenizer. `--model` (env `TPU_MODEL`) names the model and, without
+a config.json, resolves it in the catalog as the JAX server resolves
+`TPU_MODEL` ("qwen2.5-7b", "mistral-7b", "gemma2-9b", "mixtral-8x7b",
+"deepseek-r1:1.5b", ...). On the card every family runs but head_dim 64
+(Qwen2.5-0.5B), which the engine refuses there. `--device cpu` runs
 the plain PyTorch versions of the kernels on the CPU. `--prompt-cache-mb`
 (default 256, as the JAX server) sizes the prompt-prefix cache and its
 paged pool; 0 turns it off.
@@ -43,7 +52,9 @@ import torch
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m llm_mcp_tpu_torch.api")
-    ap.add_argument("--model", default="llama-3.1-8b")
+    ap.add_argument("--model", default=os.environ.get("TPU_MODEL", "llama-3.1-8b"))
+    ap.add_argument("--weights-dir", default=os.environ.get("TPU_WEIGHTS_DIR", ""),
+                    help="Hugging Face checkpoint directory (env TPU_WEIGHTS_DIR)")
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--max-seq-len", type=int, default=4096)
     ap.add_argument("--prefill-chunk", type=int, default=512)
@@ -70,6 +81,7 @@ def main(argv: list[str] | None = None) -> None:
     dtype = torch.bfloat16 if args.device != "cpu" else torch.float32
     engine = GenerationEngine(
         args.model,
+        weights_dir=args.weights_dir,
         max_slots=args.max_slots,
         max_seq_len=args.max_seq_len,
         prefill_chunk=args.prefill_chunk,

@@ -4,7 +4,10 @@ local chat path of `llm_mcp_tpu/api/inference.py`).
 `POST /v1/chat/completions` answers from a local `GenerationEngine`,
 streaming (SSE chunks ending in `data: [DONE]`) or in one JSON body.
 `GET /v1/models` lists the served models and `GET /health` reports the
-engines (each one's `prefix_cache`, `paging` and `memory` blocks).
+engines (each one's `prefix_cache`, `paging` and `memory` blocks). An
+engine serves any decoder family of the catalog, or a Hugging Face
+checkpoint directory with its own tokenizer (`GenerationEngine(...,
+weights_dir=)`; `python -m llm_mcp_tpu_torch.api --weights-dir`).
 
 Load shedding, as the reference: before dispatch the engine's
 `admission_state()` is asked; above its watermark the request is shed

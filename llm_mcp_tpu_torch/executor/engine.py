@@ -6,7 +6,10 @@ is the JAX engine's pipelined one (`_run` there). Each iteration:
 
   1. stages a ragged prefill group under the token-budget scheduler
      (`scheduler.py`): up to `admit_batch` mid-prefill prompts' next
-     chunks packed back to back into one [T] token buffer;
+     chunks packed back to back into one [T] token buffer (windowed and
+     softcapped families, which no ragged kernel covers, stage a bucketed
+     [Ab, bucket] group for `llama_prefill_chunk_batch` instead, as the JAX
+     engine gates them);
   2. dispatches decode round N (`decode_chunk` steps) for the active slots
      and, fused behind it on the same stream, the staged group
      (`llama_prefill_chunk_ragged`), then activates the prompts whose last
@@ -133,7 +136,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from ..models.configs import ModelConfig, get_config
+from ..models.configs import ModelConfig, resolve_config
 from .. import constrain
 from ..models.llama import (
     init_kv_cache,
@@ -142,7 +145,9 @@ from ..models.llama import (
     llama_prefill,
     llama_prefill_chunk_batch,
     llama_prefill_chunk_ragged,
+    plain_attention,
 )
+from ..models.weights import has_safetensors, load_llama_checkpoint
 from ..models.quant import (
     fuse_layer_weights,
     gemm_layout,
@@ -159,7 +164,7 @@ from .memory import RESTORE_AGING_TTFT_MULT, KVPool, KVSnapshot, pytree_nbytes
 from .paging import PagedKVManager
 from .physical import PhysicalPool, pool_like
 from .scheduler import TokenBudgetScheduler
-from .tokenizer import ByteTokenizer
+from .tokenizer import Tokenizer, load_tokenizer
 
 log = logging.getLogger("executor")
 
@@ -183,6 +188,28 @@ def _leaves(*trees) -> list[torch.Tensor]:
 
 def _nbytes(*trees) -> int:
     return sum(x.numel() * x.element_size() for x in _leaves(*trees))
+
+
+def _check_kernel_shapes(cfg: ModelConfig) -> None:
+    """Refuse, on the card, a configuration that some kernel of its path has
+    no arm for (the engine never falls back to the plain versions there):
+    GQA families need head_dim 128 (flash, ragged and decode kernels), or
+    256 where only the flash kernel runs (the windowed and softcapped
+    families: Gemma-2), and G = n_heads / n_kv_heads of at most 8 for the
+    decode kernels. MLA configs are the MLA kernels' own to check."""
+    if cfg.kv_lora_rank:
+        return
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    flash_only = plain_attention(cfg)
+    if hd == 128 or (hd == 256 and flash_only):
+        if flash_only or 1 <= G <= 8:
+            return
+    raise ValueError(
+        f"{cfg.name}: head_dim {hd}, {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads "
+        "has no arm in the CUDA kernels (head_dim 128, or 256 for windowed or softcapped "
+        "families, and at most 8 query heads a KV head); the head_dim-64 arms are left to "
+        "ROADMAP queue 1 item 7. Serve it on the CPU (device=\"cpu\")"
+    )
 
 
 def decode_round(
@@ -358,15 +385,19 @@ class _PrefillState:
 
 @dataclass
 class _PrefillGroup:
-    """A staged ragged chunk group: metas row i ↔ descriptor row i."""
+    """A staged chunk group: metas row i ↔ descriptor row i. Ragged: the
+    packed [T] buffer and its descriptors. Bucketed (`bucket` > 0): tokens
+    [Ab, bucket], one row a slot (pad rows carry slot B and write
+    nothing), `nvalid` [Ab] and the past-key bound `skey`; rowids,
+    positions and last_idx are None."""
 
     metas: list  # [(slot, _PrefillState, n)]
-    tokens: np.ndarray  # [T]
-    rowids: np.ndarray  # [T] (pads = R)
-    positions: np.ndarray  # [T] (pads = max_seq_len)
-    slots: np.ndarray  # [R]
-    starts: np.ndarray  # [R]
-    last_idx: np.ndarray  # [R]
+    tokens: np.ndarray  # [T], or [Ab, bucket]
+    rowids: np.ndarray | None  # [T] (pads = R)
+    positions: np.ndarray | None  # [T] (pads = max_seq_len)
+    slots: np.ndarray  # [R] / [Ab]
+    starts: np.ndarray  # [R] / [Ab]
+    last_idx: np.ndarray | None  # [R]
     n_tokens: int
     # the cache writes, as the host packed them: packed index, slot and
     # position of every real token
@@ -374,6 +405,14 @@ class _PrefillGroup:
     wslot: np.ndarray
     wpos: np.ndarray
     logits: torch.Tensor | None = None  # [R, V], once dispatched
+    nvalid: np.ndarray | None = None  # bucketed: [Ab]
+    bucket: int = 0
+    skey: int = 0
+
+    @property
+    def padded(self) -> int:
+        """The tokens the dispatch computes, pads included."""
+        return int(self.tokens.size)
 
 
 @dataclass
@@ -407,7 +446,8 @@ class GenerationEngine:
         model: str | ModelConfig = "tiny-llm",
         *,
         params: dict | None = None,
-        tokenizer: ByteTokenizer | None = None,
+        tokenizer: Tokenizer | None = None,
+        weights_dir: str = "",
         max_slots: int = 8,
         max_seq_len: int = 512,
         dtype: torch.dtype = torch.bfloat16,
@@ -424,7 +464,11 @@ class GenerationEngine:
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
-        self.cfg = get_config(model) if isinstance(model, str) else model
+        # a config.json beside the weights describes them and wins over the
+        # catalog, as in the JAX engine
+        self.cfg = resolve_config(model, weights_dir)
+        if self.device.type == "cuda":
+            _check_kernel_shapes(self.cfg)
         self.dtype = dtype
         # the JAX engine's options and warnings: int8 weights, int8 KV, and
         # slot compaction (auto = on with the int8 cache, on one device)
@@ -447,7 +491,7 @@ class GenerationEngine:
         self.decode_chunk = decode_chunk
         self.prefill_chunk = max(0, prefill_chunk)
         self.admit_batch = max(1, admit_batch)
-        self.tokenizer = tokenizer or ByteTokenizer()
+        self.tokenizer: Tokenizer = tokenizer or load_tokenizer(weights_dir)
         self.target_ttft_ms = float(target_ttft_ms)
         self._sched = TokenBudgetScheduler(
             target_ttft_ms=target_ttft_ms,
@@ -456,8 +500,17 @@ class GenerationEngine:
         # packed-buffer capacity: the pow2 floor of a full group's tokens
         cap = max(self.admit_batch * self.prefill_chunk, 1)
         self._ragged_cap = 1 << (cap.bit_length() - 1)
+        # ragged chunks, as the JAX engine gates them: not for windows or
+        # softcaps, which no ragged kernel covers; those stage bucketed groups
+        self.ragged_prefill = not plain_attention(self.cfg)
 
-        if params is None:
+        self.load_seconds = 0.0  # reading and placing a checkpoint
+        if params is None and has_safetensors(weights_dir):
+            t0 = time.perf_counter()
+            params = load_llama_checkpoint(self.cfg, weights_dir, dtype=dtype,
+                                           device=self.device)
+            self.load_seconds = time.perf_counter() - t0
+        elif params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
             init = init_llama_params_quantized if self.quant else init_llama_params
             params = init(self.cfg, g, dtype, device=self.device)
@@ -1143,7 +1196,7 @@ class GenerationEngine:
             active = self._try_spec(active)
             if active is None:
                 return True  # a verify round ran
-        group = self._stage_ragged_group(len(active))
+        group = self._stage_group(len(active))
         if active:
             self._inflight.append(self._dispatch_decode(active, group))
             if group is not None:
@@ -1183,7 +1236,7 @@ class GenerationEngine:
         if entries is None:
             return active
         reserved = sum(1 + len(d) for _, d in entries)
-        group = self._stage_ragged_group(len(active), reserved)
+        group = self._stage_group(len(active), reserved)
         self._spec_round(entries)
         if group is not None:
             self._run_prefill_group(group)
@@ -1303,7 +1356,7 @@ class GenerationEngine:
         # the group's slots are mid-prefill, disjoint from the round's rows:
         # running it behind the round is the two dispatches' result
         if group is not None and self._launch_group(group):
-            disp.prefill_tokens, disp.prefill_padded = group.n_tokens, len(group.tokens)
+            disp.prefill_tokens, disp.prefill_padded = group.n_tokens, group.padded
         if out.device.type == "cuda":
             # the graph's output is rewritten by its next replay: copy it out
             # behind the round, into pinned memory the fetch reads
@@ -1990,15 +2043,87 @@ class GenerationEngine:
     def _prefill_backlog(self) -> int:
         return sum(len(st.ids) - st.done for st in self._prefills.values())
 
+    def _stage_group(self, n_active: int, reserved: int = 0) -> _PrefillGroup | None:
+        """Stage this iteration's chunk group: ragged, or bucketed for the
+        families the ragged path does not cover."""
+        if self.ragged_prefill:
+            return self._stage_ragged_group(n_active, reserved)
+        return self._stage_bucketed_group(n_active, reserved)
+
+    def _chunk_budget(self, n_active: int, reserved: int) -> int:
+        """The scheduler's prefill budget for this iteration, less the
+        `reserved` tokens a verify round takes (0: no group)."""
+        if not self._prefill_q:
+            return 0
+        oldest = min(self._prefills[s].req.created_at for s in self._prefill_q)
+        return self._sched.decide(self._prefill_backlog(), n_active, time.time() - oldest,
+                                  reserved_tokens=reserved)
+
+    def _chunk_shape(self, slot: int, cap: int = 0) -> tuple[int, int, int, int]:
+        """(start, n, bucket, skey) of a mid-prefill slot's next bucketed
+        chunk, as the JAX engine's `_chunk_shape`: n at most `cap` (> 0),
+        the bucket its pow2 ceiling, never past the cache row's end, and
+        skey the pow2 bound of the past keys (128 for a first chunk)."""
+        st = self._prefills[slot]
+        start = st.done
+        n = min(self.prefill_chunk, len(st.ids) - start)
+        if cap > 0:
+            n = min(n, cap)
+        bucket = min(pow2_bucket(n, self.prefill_chunk), self.max_seq_len - start)
+        skey = (min(pow2_bucket(start, self.max_seq_len), self.max_seq_len) if start
+                else min(128, self.max_seq_len))
+        return start, n, bucket, skey
+
+    def _stage_bucketed_group(self, n_active: int, reserved: int = 0) -> _PrefillGroup | None:
+        """The JAX engine's bucketed staging: the first queued slot's chunk
+        sets (bucket, skey), and up to admit_batch - 1 more slots join
+        whose next chunks share the skey and fit the bucket; rows pad to a
+        pow2 count. The write targets are every position of each real row's
+        bucket (the ones past n are overwritten later, as in JAX)."""
+        budget = self._chunk_budget(n_active, reserved)
+        if budget <= 0:
+            return None
+        B, S = self.max_slots, self.max_seq_len
+        first = self._prefill_q[0]
+        _, f_n, f_bucket, f_skey = self._chunk_shape(first, cap=budget)
+        group, used = [first], f_n
+        for slot in list(self._prefill_q)[1:]:
+            if len(group) >= self.admit_batch or used >= budget:
+                break
+            start2, n2, _, s2 = self._chunk_shape(slot, cap=min(budget - used, f_bucket))
+            if s2 == f_skey and n2 > 0 and start2 + f_bucket <= S:
+                group.append(slot)
+                used += n2
+        Ab = 1 << (len(group) - 1).bit_length()
+        tokens = np.zeros((Ab, f_bucket), dtype=np.int32)
+        slots = np.full((Ab,), B, dtype=np.int32)  # pads: slot B, no writes
+        starts = np.zeros((Ab,), dtype=np.int32)
+        nvalid = np.ones((Ab,), dtype=np.int32)
+        metas, keep, wslot, wpos = [], [], [], []
+        total, rem = 0, budget
+        for i, slot in enumerate(group):
+            st = self._prefills[slot]
+            start, n, _, _ = self._chunk_shape(slot, cap=min(rem, f_bucket) if i else budget)
+            tokens[i, :n] = st.ids[start: start + n]
+            slots[i], starts[i], nvalid[i] = slot, start, n
+            metas.append((slot, st, n))
+            keep.append(np.arange(i * f_bucket, (i + 1) * f_bucket))
+            wslot.append(np.full(f_bucket, slot))
+            wpos.append(np.arange(start, start + f_bucket))
+            total += n
+            rem -= n
+        cat = (lambda xs: np.concatenate(xs).astype(np.int32))
+        return _PrefillGroup(
+            metas=metas, tokens=tokens, rowids=None, positions=None, slots=slots,
+            starts=starts, last_idx=None, n_tokens=total, keep=cat(keep), wslot=cat(wslot),
+            wpos=cat(wpos), nvalid=nvalid, bucket=f_bucket, skey=f_skey,
+        )
+
     def _stage_ragged_group(self, n_active: int, reserved: int = 0) -> _PrefillGroup | None:
         """Pack up to admit_batch mid-prefill slots' next chunks back to
         back into one [T] buffer under the scheduler's budget, less the
         `reserved` tokens a verify round takes this iteration."""
-        if not self._prefill_q:
-            return None
-        oldest = min(self._prefills[s].req.created_at for s in self._prefill_q)
-        budget = self._sched.decide(self._prefill_backlog(), n_active, time.time() - oldest,
-                                    reserved_tokens=reserved)
+        budget = self._chunk_budget(n_active, reserved)
         if budget <= 0:
             return None
         R = self.admit_batch
@@ -2044,24 +2169,41 @@ class GenerationEngine:
             keep=np.arange(used, dtype=np.int32), wslot=wslot, wpos=positions[:used].copy(),
         )
 
+    def _upload_parts(self, parts: tuple) -> list[torch.Tensor]:
+        """One packed i32 upload of host arrays; a view of it for each."""
+        packed = self._up(np.concatenate(parts))
+        views, off = [], 0
+        for a in parts:
+            views.append(packed[off: off + len(a)])
+            off += len(a)
+        return views
+
     def _launch_group(self, group: _PrefillGroup) -> bool:
-        """Enqueue a staged group's ragged chunk (no host sync): its
-        descriptors and write targets go up as one packed i32 upload, and
-        its last-token logits stay on the device in `group.logits`. False
-        when it failed (its requests are errored)."""
+        """Enqueue a staged group's chunk (no host sync): its descriptors
+        and write targets go up as one packed i32 upload, and its
+        last-token logits stay on the device in `group.logits`. A ragged
+        group runs `llama_prefill_chunk_ragged`, a bucketed one
+        `llama_prefill_chunk_batch`. False when it failed (its requests are
+        errored)."""
         try:
-            parts = (group.tokens, group.rowids, group.positions, group.slots, group.starts,
-                     group.last_idx, group.keep, group.wslot, group.wpos)
-            packed = self._up(np.concatenate(parts))
-            views, off = [], 0
-            for a in parts:
-                views.append(packed[off: off + len(a)])
-                off += len(a)
-            tokens, rowids, positions, slots, starts, last_idx, keep, wslot, wpos = views
+            paged = self._paged_operand([slot for slot, _, _ in group.metas])
+            if group.bucket:
+                tokens, slots, starts, nvalid, keep, wslot, wpos = self._upload_parts((
+                    group.tokens.reshape(-1), group.slots, group.starts, group.nvalid,
+                    group.keep, group.wslot, group.wpos))
+                group.logits, self._ck, self._cv = llama_prefill_chunk_batch(
+                    self.cfg, self.params, self._ck, self._cv, tokens.reshape(group.tokens.shape),
+                    slots, starts, nvalid, skey=group.skey, paged=paged,
+                    writes=(keep, wslot, wpos),
+                )
+                return True
+            tokens, rowids, positions, slots, starts, last_idx, keep, wslot, wpos = (
+                self._upload_parts((group.tokens, group.rowids, group.positions, group.slots,
+                                    group.starts, group.last_idx, group.keep, group.wslot,
+                                    group.wpos)))
             group.logits, self._ck, self._cv = llama_prefill_chunk_ragged(
                 self.cfg, self.params, self._ck, self._cv, tokens, rowids, positions, slots,
-                starts, last_idx, paged=self._paged_operand([slot for slot, _, _ in group.metas]),
-                writes=(keep, wslot, wpos),
+                starts, last_idx, paged=paged, writes=(keep, wslot, wpos),
             )
             return True
         except Exception as e:
@@ -2076,7 +2218,7 @@ class GenerationEngine:
             return
         self._sync()
         self._sched.observe_prefill(
-            group.n_tokens, time.perf_counter() - t0, padded_tokens=len(group.tokens)
+            group.n_tokens, time.perf_counter() - t0, padded_tokens=group.padded
         )
         self._finish_prefill_group(group)
 

@@ -1,14 +1,17 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Eighteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
+Nineteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
 
   - `append_kv_bf16`             ← `_append_bf16_kernel`
   - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
   - `decode_attend_bf16_paged`   ← `_attend_bf16_paged_kernel`
   - `decode_attention`           ← `_decode_attn_kernel` (post-append, on no
                                    served path)
-  - `flash_prefill_attention`    ← `_flash_prefill_kernel`
+  - `flash_prefill_attention`    ← `_flash_prefill_kernel` (head_dim 128)
+  - `flash_prefill_attention_hd256` ← `_flash_prefill_kernel` at head_dim
+                                   256 (Gemma-2; `flash_prefill_hd256.cu`,
+                                   the same wrapper)
   - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel`, identity tables
   - `ragged_prefill_attend_bf16_paged` ← the same body's block-table path
   - `append_kv_q8`               ← `_append_q8_kernel` with the quantization
@@ -74,6 +77,7 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
+FLASH_HEAD_DIMS = (128, 256)  # the flash prefill kernel's arms
 DECODE_CHUNK = 256  # key positions per int8 decode split: whole groups (q8_decode_plan)
 # key positions per bf16 decode split; depends on S alone, so the wrappers
 # never read lengths on the host (chosen by the sweep in chip_smoke.py)
@@ -90,6 +94,7 @@ LAUNCHES: dict[str, int] = {
     "decode_attend_bf16_paged": 0,
     "decode_attention": 0,
     "flash_prefill_attention": 0,
+    "flash_prefill_attention_hd256": 0,
     "ragged_prefill_attend_bf16": 0,
     "ragged_prefill_attend_bf16_paged": 0,
     "append_kv_q8": 0,
@@ -122,6 +127,7 @@ _SIGNATURES = {
     "decode_attend_bf16_paged": ("decode_attend", [_P] * 14 + [_I] * 12 + [_F, _I, _P]),
     "decode_attention_bf16": ("decode_attend", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "flash_prefill_bf16": ("flash_prefill", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
+    "flash_prefill_bf16_hd256": ("flash_prefill_hd256", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
     "ragged_prefill_bf16": ("ragged_prefill", [_P] * 10 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_bf16_paged": ("ragged_prefill", [_P] * 13 + [_I] * 11 + [_F, _P]),
     "append_kv_q8": ("append_kv_q8", [_P] * 6 + [_I] * 6 + [_P]),
@@ -514,22 +520,25 @@ def flash_prefill_attention(
     softcap: float = 0.0,  # score soft-capping (0 = off)
     scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
 ) -> torch.Tensor:
-    """Causal, length-masked GQA flash attention. Returns [B, H, S, hd]."""
+    """Causal, length-masked GQA flash attention. Returns [B, H, S, hd].
+    head_dim 128 launches `flash_prefill_bf16`, 256 (Gemma-2)
+    `flash_prefill_bf16_hd256`."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, lengths, window, softcap, scale)
-    name = "flash_prefill_attention"
     B, H, S, hd = q.shape
+    name = "flash_prefill_attention" if hd != 256 else "flash_prefill_attention_hd256"
     Hkv = k.shape[1]
     dev = q.device
     _check(name, q, torch.bfloat16, (B, H, S, hd), dev)
     for t in (k, v):
         _check(name, t, torch.bfloat16, (B, Hkv, S, hd), dev)
     _check(name, lengths, torch.int32, (B,), dev)
-    if hd != HEAD_DIM or H % Hkv:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and H % Hkv == 0")
+    if hd not in FLASH_HEAD_DIMS or H % Hkv:
+        raise ValueError(f"{name}: built for head_dim in {FLASH_HEAD_DIMS} and H % Hkv == 0")
     out = torch.empty_like(q)
     _launch(
-        name, "flash_prefill_bf16", q, k, v, lengths, out,
+        name, "flash_prefill_bf16" if hd == 128 else "flash_prefill_bf16_hd256",
+        q, k, v, lengths, out,
         B, H, Hkv, S, hd, int(window), float(softcap), float(scale or hd**-0.5),
     )
     return out
@@ -658,8 +667,8 @@ def ragged_prefill_attend_bf16(
     _check(name, offsets, torch.int32, (R + 1,), dev)
     for t in (slots, starts):
         _check(name, t, torch.int32, (R,), dev)
-    if hd != HEAD_DIM or 64 % G:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G dividing 64")
+    if hd != HEAD_DIM or not 1 <= G <= 64:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= 64")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(q)
@@ -1047,8 +1056,8 @@ def ragged_prefill_attend_q8(
     _check(name, offsets, torch.int32, (R + 1,), dev)
     for t in (slots, starts):
         _check(name, t, torch.int32, (R,), dev)
-    if hd != HEAD_DIM or 64 % G:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G dividing 64")
+    if hd != HEAD_DIM or not 1 <= G <= 64:
+        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= 64")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(q)

@@ -25,8 +25,11 @@
 // attended (token, key) pair per query head. So both products run on the
 // bf16 tensor cores (`wgmma`, the tile of tile_attention.cuh), key tiles
 // streaming through a two-stage `cp.async` ring. One CTA (one warpgroup)
-// per (tile of 64/G packed tokens, KV head): its 64 query rows are the G
-// query heads of each token, so all G heads share every K/V tile read.
+// per (tile of TQ = floor(64/G) packed tokens, KV head): its query rows are
+// the G query heads of each token, so all G heads share every K/V tile
+// read. Where G does not divide 64 (Qwen2.5-7B: G = 7, 9 tokens and 63
+// rows; R1-Distill-Qwen-1.5B: G = 6, 10 tokens and 60 rows) the rows past
+// TQ*G are padding: they load zeros, attend nothing and store nothing.
 // Each descriptor row's prefix and the chunk's own keys are segments of
 // tiles; the keys of a tile are resolved once (through the table, for the
 // paged arm) before their copies are issued.
@@ -49,22 +52,26 @@ struct Rows {
 
 // Query rows, Q load and the chunk's own segment, shared by both kernels:
 // tokens [u_lo, t_last] in 64-key tiles, same descriptor row and packed
-// index <= the query's (the pads attend earlier pads).
+// index <= the query's (the pads attend earlier pads). Rows past TQ*G
+// (G not dividing 64) hold no token: tok -1, rid -1, zero queries.
 __device__ __forceinline__ int setup_rows(Rows& rows, const tile::Smem& s, const bf16* q,
                                           const int* rowids, int T, int Hkv, int G, int h,
                                           int t0) {
   const int tid = threadIdx.x;
+  const int TQ = tile::BQ / G;
+  // row r's packed token, or T (none) for a padding row
+  auto token = [&](int r) { return r < TQ * G ? t0 + r / G : T; };
   if (tid < tile::BQ) {
-    const int t = t0 + tid / G;
+    const int t = token(tid);
     rows.tok[tid] = t < T ? t : -1;
     rows.rid[tid] = t < T ? rowids[t] : -1;
   }
   tile::load_q(s, [&](int r) -> const bf16* {
-    const int t = t0 + r / G;
+    const int t = token(r);
     return t < T ? q + (((size_t)t * Hkv + h) * G + r % G) * tile::HD : nullptr;
   });
   __syncthreads();
-  return min(t0 + tile::BQ / G, T) - 1;
+  return min(t0 + TQ, T) - 1;
 }
 
 __device__ __forceinline__ void self_segment(const tile::Smem& s, tile::State& st,
@@ -147,7 +154,7 @@ int launch(const void* q, const void* ks, const void* vs, const void* ck, const 
            const void* rowids, const void* offsets, const void* slots, const void* starts,
            void* out, int layer, int T, int R, int B, int Hkv, int G, int S, int hd,
            float scale, PagedKV pg, void* stream) {
-  if (hd != tile::HD || G < 1 || tile::BQ % G != 0) return (int)cudaErrorInvalidValue;
+  if (hd != tile::HD || G < 1 || G > tile::BQ) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(ragged_prefill_kernel<PAGED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)tile::SMEM_BYTES);
@@ -212,7 +219,7 @@ int launch_q8(const void* q, const void* ks, const void* vs, const FusedQ8& c,
               const void* rowids, const void* offsets, const void* slots, const void* starts,
               void* out, int layer, int T, int R, int Hkv, int G, int hd, float scale,
               void* stream) {
-  if (hd != tile::HD || G < 1 || tile::BQ % G != 0 || c.Hs != 2 * Hkv ||
+  if (hd != tile::HD || G < 1 || G > tile::BQ || c.Hs != 2 * Hkv ||
       (c.Hf != c.Hs && c.Hf != c.Hs + 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(ragged_prefill_q8_kernel<PAGED>,

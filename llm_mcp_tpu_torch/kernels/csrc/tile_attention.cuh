@@ -42,20 +42,37 @@
 //
 // Shared memory: Q 16 KB + two stages of K and V 64 KB + the key tables,
 // about 85 KB a CTA, so two CTAs share an SM.
+//
+// head_dim 256 (Gemma-2; a source defines TILE_HD 256 before including
+// this header, so its tile is built for that width alone): the CTA is two
+// warpgroups (256 threads) over the same 64 query rows. Each computes the
+// whole S = Q.K^T (16 k-steps over the 256 columns; the product is
+// repeated, the registers are not: a 64 x 256 f32 O would need 128 a
+// thread on top of the scores) and the same online softmax, then P.V for
+// its own 128 output columns, so each keeps the 128-column O of the
+// head_dim-128 tile. Tiles are four 64-column blocks; Q plus two stages of
+// K and V take 160 KB, one CTA an SM. bf16 only (no Q8 step at 256).
 
 #pragma once
 
 #include "common.cuh"
 
+#ifndef TILE_HD
+#define TILE_HD 128
+#endif
+
 namespace tile {
 
-constexpr int HD = 128;
+constexpr int HD = TILE_HD;
+static_assert(HD == 128 || HD == 256, "the tile is built for head_dim 128 or 256");
+constexpr int NWG = HD / 128;  // warpgroups a CTA: each owns 128 output columns
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 128;
-constexpr int TILE_BYTES = BQ * HD * 2;  // one bf16 [64][128] tile
-constexpr int HALF_BYTES = TILE_BYTES / 2;
-constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][128] tile
+constexpr int THREADS = 128 * NWG;
+constexpr int CH = HD / 8;  // 16-byte chunks a bf16 row
+constexpr int TILE_BYTES = BQ * HD * 2;  // one bf16 [64][HD] tile
+constexpr int HALF_BYTES = BQ * 128;     // one 64-column block of a tile (8 KB)
+constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][HD] tile (HD 128 only)
 // byte offsets from the 1024-aligned base
 constexpr int Q_OFF = 0;
 constexpr int KV_OFF = TILE_BYTES;          // stage s: K at + 2s tiles, V at + (2s+1)
@@ -125,7 +142,7 @@ struct State {
 
 // -- shared memory, copies and fences -----------------------------------------
 
-// Byte offset of 16-byte chunk c (0..15) of row r in a swizzled tile.
+// Byte offset of 16-byte chunk c (0..CH-1) of row r in a swizzled tile.
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 3) * HALF_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
@@ -151,10 +168,11 @@ __device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* t, int kk) 
   return desc(t + (kk >> 2) * HALF_BYTES + (kk & 3) * 32, 16, 1024);
 }
 
-// MN-major B operand (V [keys][hd]): k-step kk covers keys 16kk..16kk+15;
-// the two 64-column halves HALF_BYTES apart, 8-key groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* t, int kk) {
-  return desc(t + kk * 16 * 128, HALF_BYTES, 1024);
+// MN-major B operand (V [keys][hd]): k-step kk covers keys 16kk..16kk+15
+// of warpgroup wg's 128 columns (blocks 2wg and 2wg + 1); the two 64-column
+// blocks HALF_BYTES apart, 8-key groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* t, int kk, int wg) {
+  return desc(t + 2 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -221,10 +239,10 @@ template <class Row>
 __device__ __forceinline__ void load_q(const Smem& s, Row row) {
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < BQ * 16 / THREADS; ++i) {
+  for (int i = 0; i < BQ * CH / THREADS; ++i) {
     const int c = i * THREADS + tid;
-    const int r = c >> 4;
-    const int ch = c & 15;
+    const int r = c / CH;
+    const int ch = c % CH;
     const bf16* p = row(r);
     cp16(s.q() + swz(r, ch), p != nullptr ? p + ch * 8 : nullptr, s.any);
   }
@@ -269,10 +287,10 @@ __device__ __forceinline__ void issue(const Smem& s, int st) {
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < BK * 16 / THREADS; ++i) {
+    for (int i = 0; i < BK * CH / THREADS; ++i) {
       const int c = i * THREADS + tid;
-      const int r = c >> 4;
-      const int ch = c & 15;
+      const int r = c / CH;
+      const int ch = c % CH;
       const bf16* k = static_cast<const bf16*>(kp[r]);
       const bf16* v = static_cast<const bf16*>(vp[r]);
       cp16(s.k(st) + swz(r, ch), k != nullptr ? k + ch * 8 : nullptr, s.any);
@@ -316,8 +334,10 @@ __device__ __forceinline__ void widen(const Smem& s, int st) {
 template <bool Q8, class Mask>
 __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, int st,
                                      int nkeys, float scale, float softcap, Mask mask) {
+  static_assert(!Q8 || HD == 128, "int8 key tiles are built for head_dim 128");
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int wg = threadIdx.x >> 7;  // this warpgroup's 128 output columns
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
   float sc[32];
 #pragma unroll
@@ -413,8 +433,8 @@ __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, i
   wg_fence();
 #pragma unroll
   for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
-    mma_pv(S_.o, pa[kk2], desc_mnmajor(s.v(kv), kk2));
-    mma_pv(S_.o, pb[kk2], desc_mnmajor(s.v(kv), kk2));
+    mma_pv(S_.o, pa[kk2], desc_mnmajor(s.v(kv), kk2, wg));
+    mma_pv(S_.o, pb[kk2], desc_mnmajor(s.v(kv), kk2, wg));
   }
   wg_commit();
   wg_wait();
@@ -451,15 +471,15 @@ __device__ void run(const Smem& s, State& S_, int ntiles, int n, Prep prep, Mask
   }
 }
 
-// Write rows r0 and r0 + 8 of the normalized output: dst(r) points at row
-// r's HD bf16 values (nullptr: not stored). Rows that attended nothing
-// emit 0.
+// Write rows r0 and r0 + 8 of the normalized output, this warpgroup's 128
+// columns: dst(r) points at row r's HD bf16 values (nullptr: not stored).
+// Rows that attended nothing emit 0.
 template <class Dst>
 __device__ void store(const State& S_, Dst dst) {
   cp_wait<0>();
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-  const int c0 = 2 * (lane & 3);
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int c0 = 128 * (threadIdx.x >> 7) + 2 * (lane & 3);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     bf16* out = dst(r0 + 8 * i);

@@ -32,7 +32,17 @@ at private positions, which are identity-homed in the arena.
 
 MLA configs (kv_lora_rank > 0, the DeepSeek-V2 family) dispatch from each
 entry point to `mla.py`, as in JAX; `_ffn_residual` runs a layer with a
-"router" through `moe.moe_ffn`.
+"router" through `moe.moe_ffn` (Mixtral's layers and DeepSeek's MoE stack).
+
+The family seams are JAX's: `_qkv` adds Qwen2's q/k/v biases and Qwen3's
+per-head q/k norms, `_norm` Gemma's (1 + w) weights, the residuals Gemma-2's
+post-norms, `_embed_in` its sqrt(dim) scale and `_logits` its logit
+softcap. Prefill passes each layer's window (`layer_windows`), the score
+softcap and `cfg.attn_scale` to the flash kernel. Windowed and softcapped
+families never take the ragged chunk (the engine stages bucketed
+`llama_prefill_chunk_batch` groups for them, which mask windows and cap
+scores) nor the decode kernels: their decode step is `_decode_step_plain`,
+JAX's XLA branch, in plain torch.
 """
 
 from __future__ import annotations
@@ -73,27 +83,38 @@ def param_shapes(cfg: ModelConfig, fused: bool = False) -> dict[str, Any]:
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
     )
-    shapes: dict[str, Any] = {
-        "embed": (V, D),
-        "final_norm": (D,),
-        "layers": {
-            "attn_norm": (L, D),
-            "ffn_norm": (L, D),
-            "wq": (L, D, H * hd),
-            "wk": (L, D, Hkv * hd),
-            "wv": (L, D, Hkv * hd),
-            "wo": (L, H * hd, D),
-            "w1": (L, D, Fh),
-            "w3": (L, D, Fh),
-            "w2": (L, Fh, D),
-        },
+    ls: dict[str, Any] = {
+        "attn_norm": (L, D),
+        "ffn_norm": (L, D),
+        "wq": (L, D, H * hd),
+        "wk": (L, D, Hkv * hd),
+        "wv": (L, D, Hkv * hd),
+        "wo": (L, H * hd, D),
     }
+    if cfg.qkv_bias:
+        ls.update(bq=(L, H * hd), bk=(L, Hkv * hd), bv=(L, Hkv * hd))
+    if cfg.qk_norm:
+        ls.update(q_norm=(L, hd), k_norm=(L, hd))
+    if cfg.post_norms:
+        ls.update(post_attn_norm=(L, D), post_ffn_norm=(L, D))
+    if cfg.n_experts:  # Mixtral: routed banks in place of the dense FFN
+        from .moe import moe_shapes
+
+        ls.update(moe_shapes(cfg, L))
+    else:
+        ls.update(w1=(L, D, Fh), w3=(L, D, Fh), w2=(L, Fh, D))
+    shapes: dict[str, Any] = {"embed": (V, D), "final_norm": (D,), "layers": ls}
     if fused:
-        ls = shapes["layers"]
         ls["wqkv"] = (L, D, (H + 2 * Hkv) * hd)
-        ls["w13"] = (L, D, 2 * Fh)
-        for k in ("wq", "wk", "wv", "w1", "w3"):
+        for k in ("wq", "wk", "wv"):
             del ls[k]
+        if cfg.qkv_bias:
+            ls["bqkv"] = (L, (H + 2 * Hkv) * hd)
+            for k in ("bq", "bk", "bv"):
+                del ls[k]
+        if "w1" in ls:
+            ls["w13"] = (L, D, 2 * Fh)
+            del ls["w1"], ls["w3"]
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
@@ -107,8 +128,10 @@ def init_llama_params(
 ) -> Params:
     """Random weights with fan-in scaling from `generator` (seeded by the
     caller), made one layer at a time on `device` so the float32 draw never
-    exceeds one layer's slice. Norm weights start at 1. MLA configs take
-    `mla.init_mla_params`."""
+    exceeds one layer's slice. Norm weights start at 1 - norm_weight_offset
+    (the identity scale of Gemma's (1 + w) norms too), biases at 0, the
+    q/k norms at 1; Mixtral's routed banks come from
+    `moe.init_moe_layer_params`. MLA configs take `mla.init_mla_params`."""
     if cfg.kv_lora_rank:
         from .mla import init_mla_params
 
@@ -124,21 +147,28 @@ def init_llama_params(
 
     D = cfg.dim
     ls = shapes["layers"]
-    layers = {
-        "attn_norm": torch.ones(ls["attn_norm"], dtype=dtype, device=device),
-        "ffn_norm": torch.ones(ls["ffn_norm"], dtype=dtype, device=device),
-        "wq": w(ls["wq"], D),
-        "wk": w(ls["wk"], D),
-        "wv": w(ls["wv"], D),
-        "wo": w(ls["wo"], ls["wo"][1]),
-        "w1": w(ls["w1"], D),
-        "w3": w(ls["w3"], D),
-        "w2": w(ls["w2"], cfg.ffn_hidden),
-    }
+
+    def norm(shape):
+        return torch.full(shape, 1.0 - cfg.norm_weight_offset, dtype=dtype, device=device)
+
+    layers: Params = {}
+    for name, shape in ls.items():
+        if name in ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm"):
+            layers[name] = norm(shape)
+        elif name in ("q_norm", "k_norm"):
+            layers[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif name in ("bq", "bk", "bv"):
+            layers[name] = torch.zeros(shape, dtype=dtype, device=device)
+        elif name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2"):
+            layers[name] = w(shape, shape[1])
+    if cfg.n_experts:
+        from .moe import init_moe_layer_params
+
+        layers.update(init_moe_layer_params(cfg, generator, dtype, cfg.n_layers, device))
     params: Params = {
         "embed": w(shapes["embed"], D),
         "layers": layers,
-        "final_norm": torch.ones(shapes["final_norm"], dtype=dtype, device=device),
+        "final_norm": norm(shapes["final_norm"]),
     }
     if "lm_head" in shapes:
         params["lm_head"] = w(shapes["lm_head"], D)
@@ -233,22 +263,49 @@ def _layer(params: Params, li: int) -> Params:
 
 
 def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """RMSNorm with the family's weight: w, or Gemma's (1 + w) (the offset
+    added in w's dtype, as in JAX)."""
+    if cfg.norm_weight_offset:
+        w = w + cfg.norm_weight_offset
     return rms_norm(x, w, cfg.norm_eps)
 
 
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu is the tanh approximation by default
+    return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap else x
+
+
 def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor):
-    """Q/K/V projections on [..., D] activations; flat outputs. The fused
-    `wqkv` is one product whose columns are the separate ones'."""
+    """Q/K/V projections on [..., D] activations, with Qwen2's biases and
+    Qwen3's per-head RMSNorm over head_dim (before rope); flat outputs.
+    The fused `wqkv` (and `bqkv`) is one product whose columns are the
+    separate ones'."""
+    hd = cfg.resolved_head_dim
     if "wqkv" in lp:
-        hd = cfg.resolved_head_dim
         nq, nk = cfg.n_heads * hd, cfg.n_kv_heads * hd
         qkv = qdot(x, lp["wqkv"])
-        return qkv[..., :nq], qkv[..., nq: nq + nk], qkv[..., nq + nk:]
-    return qdot(x, lp["wq"]), qdot(x, lp["wk"]), qdot(x, lp["wv"])
+        if cfg.qkv_bias:
+            qkv = qkv + lp["bqkv"]
+        q, k, v = qkv[..., :nq], qkv[..., nq: nq + nk], qkv[..., nq + nk:]
+    else:
+        q, k, v = qdot(x, lp["wq"]), qdot(x, lp["wk"]), qdot(x, lp["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q.reshape(*q.shape[:-1], -1, hd), lp["q_norm"], cfg.norm_eps).reshape(q.shape)
+        k = rms_norm(k.reshape(*k.shape[:-1], -1, hd), lp["k_norm"], cfg.norm_eps).reshape(k.shape)
+    return q, k, v
 
 
 def _attn_residual(cfg: ModelConfig, lp: Params, ctx: torch.Tensor, h: torch.Tensor):
-    return h + qdot(ctx, lp["wo"])
+    out = qdot(ctx, lp["wo"])
+    if cfg.post_norms:
+        out = _norm(cfg, out, lp["post_attn_norm"])
+    return h + out
 
 
 def _ffn_residual(
@@ -262,32 +319,52 @@ def _ffn_residual(
     layer's own weights: a layer with a "router" is MoE (`moe.moe_ffn` over
     the flattened tokens; `moe_capacity` > 0 sets the capacity, decode
     passes the batch: dropless; `moe_valid` marks the tokens that route),
-    DeepSeek's dense prologue layers have a gated MLP."""
+    DeepSeek's dense prologue layers have a gated MLP. Gemma-2's
+    post-FFN norm applies before the residual add."""
     x = _norm(cfg, h, lp["ffn_norm"])
     if "router" in lp:
         from .moe import moe_ffn
 
         flat = x.reshape(-1, x.shape[-1])
         valid = None if moe_valid is None else moe_valid.reshape(-1)
-        out = moe_ffn(cfg, lp, flat, capacity=moe_capacity or None, valid=valid)
-        return h + out.reshape(h.shape)
-    if "w13" in lp:
+        out = moe_ffn(cfg, lp, flat, capacity=moe_capacity or None, valid=valid).reshape(h.shape)
+    elif "w13" in lp:
         g13 = qdot(x, lp["w13"])
         Fh = g13.shape[-1] // 2
-        return h + qdot(F.silu(g13[..., :Fh]) * g13[..., Fh:], lp["w2"])
-    gate = F.silu(qdot(x, lp["w1"]))
-    up = qdot(x, lp["w3"])
-    return h + qdot(gate * up, lp["w2"])
+        out = qdot(_act(cfg, g13[..., :Fh]) * g13[..., Fh:], lp["w2"])
+    else:
+        out = qdot(_act(cfg, qdot(x, lp["w1"])) * qdot(x, lp["w3"]), lp["w2"])
+    if cfg.post_norms:
+        out = _norm(cfg, out, lp["post_ffn_norm"])
+    return h + out
+
+
+def layer_windows(cfg: ModelConfig) -> list[int]:
+    """Each layer's attention window (0: global). `sliding_pattern` 1: every
+    layer slides (Mistral); p: every p-th layer is global (Gemma-2, p = 2)."""
+    p = max(cfg.sliding_pattern, 1)
+    return [cfg.sliding_window if cfg.sliding_window and (p == 1 or li % p != p - 1) else 0
+            for li in range(cfg.n_layers)]
+
+
+def plain_attention(cfg: ModelConfig) -> bool:
+    """Whether decode steps and chunks take the plain-torch paths: windows
+    and score softcaps are in no decode or ragged kernel, as in JAX (whose
+    decode takes XLA and whose engine stages bucketed chunks for them)."""
+    return bool(cfg.sliding_window or cfg.attn_softcap)
 
 
 def _embed_in(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return embed_lookup(params["embed"], tokens)
+    h = embed_lookup(params["embed"], tokens)
+    if cfg.embed_scale:  # Gemma: sqrt(dim), rounded to the activation dtype first
+        h = h * float(torch.tensor(cfg.dim**0.5, dtype=h.dtype))
+    return h
 
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = _norm(cfg, h, params["final_norm"])
     src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return logits_head(src, h, tied=cfg.tie_embeddings)
+    return _softcap(logits_head(src, h, tied=cfg.tie_embeddings), cfg.logit_softcap)
 
 
 def prefill_layer(
@@ -297,9 +374,12 @@ def prefill_layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     lengths: torch.Tensor,  # [B] int32
+    window: int = 0,  # this layer's sliding window (0: global)
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One decoder layer over full prompts; returns (h, (k, v)) with k/v in
-    cache layout [B, Hkv, S, hd]."""
+    cache layout [B, Hkv, S, hd]. The flash kernel takes the layer's
+    window, the score softcap and `cfg.attn_scale`; MoE routes only the
+    tokens inside each prompt."""
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -311,11 +391,13 @@ def prefill_layer(
     kh = k.transpose(1, 2).contiguous()  # [B, Hkv, S, hd]
     vh = v.transpose(1, 2).contiguous()
     ctx = flash_prefill_attention(
-        q.transpose(1, 2).contiguous(), kh, vh, lengths, scale=cfg.attn_scale
+        q.transpose(1, 2).contiguous(), kh, vh, lengths, window=window,
+        softcap=cfg.attn_softcap, scale=cfg.attn_scale,
     )
     ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)
     h = _attn_residual(cfg, lp, ctx, h)
-    h = _ffn_residual(cfg, lp, h)
+    valid = torch.arange(S, device=h.device)[None, :] < lengths.long()[:, None]
+    h = _ffn_residual(cfg, lp, h, moe_valid=valid if "router" in lp else None)
     return h, (kh, vh)
 
 
@@ -342,8 +424,8 @@ def llama_prefill(
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
     cos, sin = rope_tables(cfg, cfg.resolved_head_dim, positions)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        h, (kh, vh) = prefill_layer(cfg, _layer(params, li), h, cos, sin, lengths)
+    for li, win in enumerate(layer_windows(cfg)):
+        h, (kh, vh) = prefill_layer(cfg, _layer(params, li), h, cos, sin, lengths, win)
         if quant_kv:
             ks.append(fuse_prompt_kv(kh, vh))
         else:
@@ -394,13 +476,19 @@ def llama_prefill_chunk_ragged(
     `writes` are the cache writes' targets when the caller has them (the
     engine builds them on the host); else they are found on the device,
     at one host sync. Returns (logits [R, V] f32, cache_k, cache_v). MLA
-    configs take `mla.mla_prefill_chunk_ragged`."""
+    configs take `mla.mla_prefill_chunk_ragged`. Windowed and softcapped
+    families raise, as in JAX: the engine stages bucketed chunks for them."""
     if cfg.kv_lora_rank:
         from .mla import mla_prefill_chunk_ragged
 
         return mla_prefill_chunk_ragged(cfg, params, cache_k, cache_v, tokens, rowids,
                                         positions, slots, starts, last_idx, paged=paged,
                                         writes=writes)
+    if plain_attention(cfg):
+        raise NotImplementedError(
+            "ragged prefill covers global-attention, no-softcap families; the engine stages "
+            "bucketed chunks for the others"
+        )
     quantized = isinstance(cache_k, dict)
     L, B, _, S, hd = _cache_shape(cache_k)
     Hkv, H = cfg.n_kv_heads, cfg.n_heads
@@ -441,7 +529,7 @@ def llama_prefill_chunk_ragged(
                 scale=cfg.attn_scale, **_paged_kw(paged),
             )
         h = _attn_residual(cfg, lp, ctx.reshape(T, H * hd), h)
-        h = _ffn_residual(cfg, lp, h)
+        h = _ffn_residual(cfg, lp, h, moe_valid=rid < R if "router" in lp else None)
         # writes last: this layer's reads above saw the pre-write cache;
         # positional and table-free (private positions are identity-homed)
         if quantized:
@@ -502,8 +590,9 @@ def llama_prefill_chunk_batch(
     own K/V come straight from the projection, exact even over an int8
     cache. Then the chunk's C rows are written at [starts, starts + C)
     (fused int8 rows over an int8 cache), the positions past `nvalid` too,
-    as JAX writes them; later steps overwrite them. Plain torch, as JAX
-    computes it outside any Pallas kernel. Pad rows carry slot B: they
+    as JAX writes them; later steps overwrite them. Windows (each layer's
+    `layer_windows` entry) and the score softcap apply as in JAX. Plain
+    torch, as JAX computes it outside any Pallas kernel. Pad rows carry slot B: they
     read slot B - 1 and write nothing. `writes` are the write targets when
     the caller has them (else found on the device at one host sync).
     Returns (logits [A, V] f32 at each row's last valid position, or
@@ -540,7 +629,7 @@ def llama_prefill_chunk_batch(
     c_idx = torch.arange(C, device=dev)
     self_mask = (c_idx[None, :] <= c_idx[:, None])[None].expand(A, C, C)
     neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
-    for li in range(L):
+    for li, win in enumerate(layer_windows(cfg)):
         lp = _layer(params, li)
         x = _norm(cfg, h, lp["attn_norm"])
         q, k, v = _qkv(cfg, lp, x)
@@ -569,8 +658,14 @@ def llama_prefill_chunk_batch(
         if quantized:
             s_past = s_past * ksr[:, :, None, None, :]  # dequantized after the dot
         s_self = torch.einsum("achgd,ahtd->ahgct", qg, kh).float()
-        s_past = torch.where(past_mask[:, None, None], s_past * cfg.attn_scale, neg)
-        s_self = torch.where(self_mask[:, None, None], s_self * cfg.attn_scale, neg)
+        s_past = _softcap(s_past * cfg.attn_scale, cfg.attn_softcap)
+        s_self = _softcap(s_self * cfg.attn_scale, cfg.attn_softcap)
+        pm, sm = past_mask, self_mask
+        if win:  # q_pos - k_pos < window, in both segments
+            pm = pm & (q_pos[:, :, None] - key_pos[None, None, :] < win)
+            sm = sm & (c_idx[None, :] - c_idx[:, None] > -win)[None]
+        s_past = torch.where(pm[:, None, None], s_past, neg)
+        s_self = torch.where(sm[:, None, None], s_self, neg)
         probs = torch.softmax(torch.cat([s_past, s_self], dim=-1), dim=-1)
         p_past, p_self = probs[..., :Sk], probs[..., Sk:]
         if quantized:
@@ -631,7 +726,91 @@ def _decode_step_q8(
             pool_k=None if paged is None else paged["k"], append=True,
         )
         h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
-        h = _ffn_residual(cfg, lp, h)
+        h = _ffn_residual(cfg, lp, h, moe_capacity=Ba)  # dropless at decode
+    return _logits(cfg, params, h), cache_k, cache_v
+
+
+def _decode_step_plain(
+    cfg: ModelConfig,
+    params: Params,
+    cache_k: Any,  # [L, B, Hkv, S, hd] or the fused int8 dict — updated in place
+    cache_v: Any,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    slot_ids: torch.Tensor | None = None,
+    paged: dict | None = None,
+) -> tuple[torch.Tensor, Any, Any]:
+    """Decode step of the windowed and softcapped families, JAX's XLA
+    branch of `llama_decode_step` in plain torch: each layer first writes
+    the step's K/V at position lengths[b] (quantized into a fused row over
+    an int8 cache), then attends positions <= lengths[b] of its cache row
+    (through the block tables with `paged`), inside the layer's window,
+    with the score softcap. Rows parked at lengths >= S write back what
+    their position S - 1 holds (JAX drops those writes; a host-free mask
+    here, so the step can be captured). Reads nothing on the host."""
+    quantized = isinstance(cache_k, dict)
+    _, B, _, S, hd = _cache_shape(cache_k)
+    Ba = tokens.shape[0]
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    G = H // Hkv
+    dev = tokens.device
+    rows = torch.arange(B, device=dev) if slot_ids is None else slot_ids.long()
+    lens = lengths.long()
+    live = lens < S
+    wpos = lens.clamp(max=S - 1)
+    key_pos = torch.arange(S, device=dev)[None, :]
+    tbl = None if paged is None else paged["tbl"].index_select(0, rows)
+    h = _embed_in(cfg, params, tokens)  # [Ba, D]
+    cos, sin = rope_tables(cfg, hd, lengths)
+
+    def write(arena, new):  # arena [B, Hx, S, *rest], new [Ba, Hx, *rest]
+        old = arena[rows, :, wpos]
+        keep = live.reshape(Ba, *([1] * (new.dim() - 1)))
+        arena[rows, :, wpos] = torch.where(keep, new.to(arena.dtype), old)
+
+    def rows_of(arena, pool):  # each row's [Hx, S, *rest], through the tables
+        return arena[rows] if tbl is None else paged_gather(arena, pool, tbl)
+
+    for li, win in enumerate(layer_windows(cfg)):
+        lp = _layer(params, li)
+        x = _norm(cfg, h, lp["attn_norm"])
+        q, k, v = _qkv(cfg, lp, x)
+        q = apply_rope(q.reshape(Ba, 1, H, hd), cos[:, None], sin[:, None])[:, 0]
+        k = apply_rope(k.reshape(Ba, 1, Hkv, hd), cos[:, None], sin[:, None])[:, 0]
+        v = v.reshape(Ba, Hkv, hd)
+        qg = q.reshape(Ba, Hkv, G, hd)
+        if quantized:
+            kq = quantize_kv(k, scale_dtype=cache_k["s"].dtype)
+            vq = quantize_kv(v, scale_dtype=cache_k["s"].dtype)
+            s_new = torch.cat([kq["s"], vq["s"]], dim=1)  # [Ba, 2*Hkv]
+            pay = torch.cat([kq["q"], vq["q"]], dim=1)  # [Ba, 2*Hkv, hd]
+            if cache_k["q"].shape[2] > 2 * Hkv:  # the packed pseudo-head too
+                pay = torch.cat([pay, pack_scales(s_new[..., None], hd)[..., 0, :]], dim=1)
+            write(cache_k["q"][li], pay)
+            write(cache_k["s"][li], s_new)
+            pk = None if paged is None else paged["k"]
+            payl = rows_of(cache_k["q"][li], None if pk is None else pk["q"][li])
+            ssl = rows_of(cache_k["s"][li], None if pk is None else pk["s"][li]).float()
+            ck, cv = payl[:, :Hkv].to(h.dtype), payl[:, Hkv: 2 * Hkv].to(h.dtype)
+            ks, vs = ssl[:, :Hkv], ssl[:, Hkv:]
+        else:
+            write(cache_k[li], k)
+            write(cache_v[li], v)
+            ck = rows_of(cache_k[li], None if paged is None else paged["k"][li])
+            cv = rows_of(cache_v[li], None if paged is None else paged["v"][li])
+        scores = torch.einsum("bhgd,bhsd->bhgs", qg, ck).float()
+        if quantized:
+            scores = scores * ks[:, :, None, :]
+        scores = _softcap(scores * cfg.attn_scale, cfg.attn_softcap)
+        m = key_pos <= lens[:, None]
+        if win:
+            m = m & (key_pos > lens[:, None] - win)
+        probs = torch.softmax(torch.where(m[:, None, None, :], scores, -1e30), dim=-1)
+        if quantized:
+            probs = probs * vs[:, :, None, :]
+        ctx = torch.einsum("bhgs,bhsd->bhgd", probs.to(h.dtype), cv).reshape(Ba, H * hd)
+        h = _attn_residual(cfg, lp, ctx, h)
+        h = _ffn_residual(cfg, lp, h, moe_capacity=Ba)
     return _logits(cfg, params, h), cache_k, cache_v
 
 
@@ -654,11 +833,15 @@ def llama_decode_step(
     li's rows are read by layer li's call alone, before its write. Rows
     parked at lengths >= S write nothing.
     A fused int8 cache takes `_decode_step_q8`, MLA configs
-    `mla.mla_decode_step`. Returns (logits [Ba, V] f32, cache_k, cache_v)."""
+    `mla.mla_decode_step`, windowed and softcapped families
+    `_decode_step_plain`. Returns (logits [Ba, V] f32, cache_k, cache_v)."""
     if cfg.kv_lora_rank:
         from .mla import mla_decode_step
 
         return mla_decode_step(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids, paged)
+    if plain_attention(cfg):
+        return _decode_step_plain(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids,
+                                  paged)
     if isinstance(cache_k, dict):
         return _decode_step_q8(cfg, params, cache_k, cache_v, tokens, lengths, slot_ids, paged)
     L, B, Hkv, S, hd = cache_k.shape
@@ -679,5 +862,5 @@ def llama_decode_step(
             **_paged_kw(paged), append=True,
         )
         h = _attn_residual(cfg, lp, ctx.reshape(Ba, H * hd), h)
-        h = _ffn_residual(cfg, lp, h)
+        h = _ffn_residual(cfg, lp, h, moe_capacity=Ba)  # dropless at decode
     return _logits(cfg, params, h), cache_k, cache_v

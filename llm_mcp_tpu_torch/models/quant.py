@@ -147,8 +147,9 @@ def quantize_params(params: Params) -> Params:
     """Quantize every dense linear of a Llama-family or MLA tree (both
     stacks), plus the embedding (per-row scales, which are also
     per-output-channel of its transpose, the tied head) and the LM head.
-    Norm weights and routed expert banks stay as they are.
-    Already-quantized leaves are kept."""
+    Norm weights, biases, the q/k norms, the router and routed expert banks
+    stay as they are (Mixtral's and DeepSeek's banks in the model dtype, as
+    in JAX). Already-quantized leaves are kept."""
 
     def quant_block(b: Params) -> Params:
         for k in LAYER_QUANT_KEYS:
@@ -178,7 +179,9 @@ def init_llama_params_quantized(
     never exists. MLA configs get the MLA factorization in int8 and, with
     experts, routed banks drawn in `scale_dtype` and shared experts drawn
     and quantized (JAX's `init_llama_params_quantized`), the dense
-    prologue in `dense_layers`."""
+    prologue in `dense_layers`. The family leaves are JAX's: norms at
+    1 - norm_weight_offset, zero biases, unit q/k norms, and Mixtral's
+    router and routed banks drawn in `scale_dtype`."""
     hd = cfg.resolved_head_dim
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
@@ -189,25 +192,40 @@ def init_llama_params_quantized(
     def qw(shape, fan_in):
         return _qw(shape, fan_in, generator, scale_dtype, device)
 
-    ones = torch.ones((L, D), dtype=scale_dtype, device=device)
+    def norm():
+        return torch.full((L, D), 1.0 - cfg.norm_weight_offset, dtype=scale_dtype, device=device)
+
     layers = {
-        "attn_norm": ones,
-        "ffn_norm": ones.clone(),
+        "attn_norm": norm(),
+        "ffn_norm": norm(),
         "wq": qw((L, D, H * hd), D),
         "wk": qw((L, D, Hkv * hd), D),
         "wv": qw((L, D, Hkv * hd), D),
         "wo": qw((L, H * hd, D), H * hd),
-        "w1": qw((L, D, Fh), D),
-        "w3": qw((L, D, Fh), D),
-        "w2": qw((L, Fh, D), Fh),
     }
+    if cfg.qkv_bias:
+        for k, n in (("bq", H), ("bk", Hkv), ("bv", Hkv)):
+            layers[k] = torch.zeros((L, n * hd), dtype=scale_dtype, device=device)
+    if cfg.qk_norm:
+        for k in ("q_norm", "k_norm"):
+            layers[k] = torch.ones((L, hd), dtype=scale_dtype, device=device)
+    if cfg.post_norms:
+        layers["post_attn_norm"] = norm()
+        layers["post_ffn_norm"] = norm()
+    if cfg.n_experts:
+        from .moe import init_moe_layer_params
+
+        layers.update(init_moe_layer_params(cfg, generator, scale_dtype, L, device))
+    else:
+        layers.update(w1=qw((L, D, Fh), D), w3=qw((L, D, Fh), D), w2=qw((L, Fh, D), Fh))
     embed_q = torch.randint(-127, 128, (V, D), generator=generator, dtype=torch.int8,
                             device=device)
     params: Params = {
         "embed": {"q": embed_q,
                   "s": torch.full((V,), (D**-0.5) / 73.3, dtype=scale_dtype, device=device)},
         "layers": layers,
-        "final_norm": torch.ones((D,), dtype=scale_dtype, device=device),
+        "final_norm": torch.full((D,), 1.0 - cfg.norm_weight_offset, dtype=scale_dtype,
+                                 device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = qw((D, V), D)
@@ -281,13 +299,16 @@ def _concat_w(parts):
 
 def fuse_layer_weights(params: Params) -> Params:
     """The single-device layer layout: wq|wk|wv become one `wqkv` product
-    and w1|w3 one `w13`, two GEMMs instead of five per layer. `llama._qkv`
-    and `llama._ffn_residual` split the fused outputs. An MLA stack fuses
-    only w13 (its dense prologue; MoE layers have none)."""
+    and w1|w3 one `w13`, two GEMMs instead of five per layer (Qwen2's
+    biases become one `bqkv`). `llama._qkv` and `llama._ffn_residual`
+    split the fused outputs. An MLA stack fuses only w13 (its dense
+    prologue; MoE layers have none)."""
 
     def fuse_block(b: Params) -> Params:
         if all(k in b for k in ("wq", "wk", "wv")):
             b["wqkv"] = _concat_w([b.pop("wq"), b.pop("wk"), b.pop("wv")])
+            if all(k in b for k in ("bq", "bk", "bv")):
+                b["bqkv"] = torch.cat([b.pop("bq"), b.pop("bk"), b.pop("bv")], dim=-1)
         if "w1" in b and "w3" in b:
             b["w13"] = _concat_w([b.pop("w1"), b.pop("w3")])
         return b

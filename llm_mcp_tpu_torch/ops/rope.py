@@ -103,8 +103,13 @@ def llama3_rope_frequencies(
 
 def rope_tables(cfg, head_dim: int, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Config-dispatched rope tables, the entry point every forward path
-    uses: llama3 or yarn scaling when configured (rope_factor > 1 with an
-    original context), plain otherwise."""
+    uses: linear position interpolation, llama3 or yarn scaling when
+    configured (rope_factor > 1; the last two with an original context),
+    plain otherwise."""
+    if cfg.rope_factor > 1.0 and cfg.rope_type == "linear":
+        # every frequency divided by the factor: the positions are
+        return rope_frequencies(head_dim, cfg.rope_theta,
+                                positions.to(torch.float32) / cfg.rope_factor)
     if cfg.rope_factor > 1.0 and cfg.rope_orig_max:
         if cfg.rope_type == "llama3":
             return llama3_rope_frequencies(

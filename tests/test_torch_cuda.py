@@ -459,7 +459,7 @@ def test_cuda_decode_attention_matches_plain(G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [67, 200, 640])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 6, 7, 8])
 def test_cuda_flash_prefill_tile_edges(S, G):
     """The wgmma prefill tile at its edges: S not a multiple of 64 (a short
     last query tile and key tile), every G, a row of length 0 (emits 0),
@@ -478,7 +478,7 @@ def test_cuda_flash_prefill_tile_edges(S, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 6, 7, 8])
 @pytest.mark.parametrize("arm", ["bf16", "q8"])
 @pytest.mark.parametrize("bt", [0, 32, 64, 128])
 def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
@@ -529,7 +529,7 @@ def _decode_case(rn, i32, L, B, Hkv, G, S, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 8])
 def test_cuda_decode_bf16_split_edges(monkeypatch, G, chunk):
     """The bf16 decode kernel (cp.async ring of 32-key stages, per-warp
     keys and softmax) against its plain version at every edge of its
@@ -851,7 +851,7 @@ def _q8_paged_case(g, dev, L, B, Hkv, S, hd, bt, packed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 8])
 def test_cuda_q8_decode_split_edges(G, packed):
     """The int8 decode kernel (a CTA per 256-key split, a warp per 64 keys
     in two 32-key stages, one exchange of maxima per split) against its
@@ -1426,3 +1426,62 @@ def test_cuda_masked_step_launches_decode_kernel(monkeypatch, kind):
     assert steps_off and all(n == L for n in steps_off)
     assert drafted > 0 and t_on == t_off
     assert st_off["illegal_tokens"] == st_on["illegal_tokens"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(67, 0), (640, 200), (1100, 0), (4500, 4096)])
+def test_cuda_flash_prefill_hd256(S, window):
+    """The head_dim-256 flash arm (two warpgroups, each its 128 output
+    columns) at Gemma-2-9B's heads (16 over 8 KV heads) with its softcap 50
+    and scale 224**-0.5: S not a multiple of 64, a window shorter and
+    longer than a tile, a row of length 0 (emits 0), a length inside a
+    tile; |err| <= 1e-3 + 1e-2*|ref|; the launch counts under its own
+    name."""
+    _, _, rn, i32 = _card(900 + S)
+    B, H, Hkv, hd = 2, 16, 8, 256
+    if S > 1024:
+        B = 1
+    q, k, v = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    ln = i32([S, 0] if B == 2 else [S - 5])
+    before = P.LAUNCHES["flash_prefill_attention_hd256"]
+    kw = dict(window=window, softcap=50.0, scale=224.0**-0.5)
+    out = P.flash_prefill_attention(q, k, v, ln, **kw)
+    ref = P.flash_prefill_plain(q, k, v, ln, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    if B == 2:
+        assert not out[1].any()
+    assert P.LAUNCHES["flash_prefill_attention_hd256"] == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [6, 7])
+@pytest.mark.parametrize("arm", ["bf16", "q8"])
+def test_cuda_decode_g_not_dividing_64_paged(G, arm):
+    """The decode kernels at G = 6 and 7 (R1-Distill-Qwen-1.5B's and
+    Qwen2.5-7B's query heads a KV head) through block tables: pool rows,
+    a foreign arena home, a parked row; bf16 and the fused int8 cache."""
+    dev, g, rn, i32 = _card(950 + G + (arm == "q8"))
+    L, B, Hkv, S, hd, pxb, bt = 2, 4, 4, 1024, 128, 5, 64
+    nbs = S // bt
+    tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+    for b in range(B):
+        tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+    tbl[1, 3] = 2 * nbs + 3
+    tbl = tbl.to(dev)
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    lens, ids = i32([5, 3 * bt + 7, S - 1, S]), i32([1, 3, 0, 2])
+    if arm == "q8":
+        cache = _fused_cache(g, dev, L, B, Hkv, S, hd)
+        pool = _fused_cache(g, dev, L, pxb, Hkv, bt, hd)
+        out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, slot_ids=ids, scale=0.09,
+                                 block_tables=tbl, pool_k=pool)
+        ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, bt, tbl, pool)
+    else:
+        ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
+        pk, pv = rn(L, pxb, Hkv, bt, hd), rn(L, pxb, Hkv, bt, hd)
+        out = P.decode_attend_bf16(q, nk, nv, ck, cv, 1, lens, slot_ids=ids, scale=0.09,
+                                   block_tables=tbl, pool_k=pk, pool_v=pv)
+        ref = P.decode_attend_paged_plain(q, nk, nv, ck, cv, 1, lens, tbl, pk, pv, ids, 0.09)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()

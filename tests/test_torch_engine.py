@@ -478,10 +478,37 @@ _IMPORT_PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["llm_mcp_tpu"] = None
+sys.modules["ml_dtypes"] = None
 import torch
 import llm_mcp_tpu_torch
-for m in pkgutil.walk_packages(llm_mcp_tpu_torch.__path__, "llm_mcp_tpu_torch."):
-    importlib.import_module(m.name)
+mods = [m.name for m in pkgutil.walk_packages(llm_mcp_tpu_torch.__path__, "llm_mcp_tpu_torch.")]
+for name in ("llm_mcp_tpu_torch.models.weights", "llm_mcp_tpu_torch.executor.bpe",
+             "llm_mcp_tpu_torch.executor.tokenizer", "llm_mcp_tpu_torch.native"):
+    assert name in mods, name
+for name in mods:
+    importlib.import_module(name)
+# a checkpoint directory (a windowed family, the real-vocabulary tokenizer)
+import json, os, shutil, tempfile
+from llm_mcp_tpu_torch.executor.bpe import BPETokenizer
+from llm_mcp_tpu_torch.models.configs import get_config
+from llm_mcp_tpu_torch.models.llama import init_llama_params
+from llm_mcp_tpu_torch.models.weights import llama_to_hf_tensors, write_checkpoint_dir
+ckpt = tempfile.mkdtemp()
+cfg = get_config("tiny-mistral")
+tree = init_llama_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+write_checkpoint_dir(ckpt, llama_to_hf_tensors(cfg, tree), shards=2, config={
+    "model_type": "mistral", "vocab_size": 512, "hidden_size": 128, "num_hidden_layers": 2,
+    "num_attention_heads": 4, "num_key_value_heads": 2, "intermediate_size": 256,
+    "sliding_window": 64, "tie_word_embeddings": True})
+shutil.copy(os.path.join("tests", "fixtures", "tiny_real_vocab", "tokenizer.json"), ckpt)
+from llm_mcp_tpu_torch.executor import GenerationEngine
+eng = GenerationEngine("my-mistral", weights_dir=ckpt, max_slots=2, max_seq_len=128,
+                       prefill_chunk=16, dtype=torch.float32, device="cpu").start()
+assert isinstance(eng.tokenizer, BPETokenizer) and eng.cfg.sliding_window == 64
+out = eng.generate("Hello there, a checkpoint directory.", max_tokens=4, temperature=0)
+assert out["usage"]["completion_tokens"] >= 1, out
+eng.shutdown()
+shutil.rmtree(ckpt)
 from llm_mcp_tpu_torch.executor import GenerationEngine
 eng = GenerationEngine("tiny-llm", max_slots=2, max_seq_len=128, prefill_chunk=16,
                        dtype=torch.float32, device="cpu", prompt_cache_mb=1).start()

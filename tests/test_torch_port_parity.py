@@ -34,6 +34,7 @@ FUSED = "tests/test_torch_fused_append.py"
 WHOLE_ROW = "tests/test_torch_q8_whole_row.py"
 FUSED_CPU = (FUSED, "test_decode_step_fused_append_matches_post_scan_and_jax")
 FUSED_CARD = "test_cuda_decode_fused_append"
+FAMILY = "tests/test_torch_family_kernels.py"
 
 # entry point: (Pallas bodies, (CPU parity test file, name) or a tuple of
 # them, card test name or a tuple of them)
@@ -48,18 +49,27 @@ PORT_PARITY = {
     "decode_attend_bf16_paged": (
         ("_attend_bf16_paged_kernel", "_append_bf16_kernel"),
         ((KERNELS, "test_decode_attend_paged_matches_pallas"), FUSED_CPU),
-        ("test_cuda_decode_bf16_paged_edges", FUSED_CARD)),
+        ("test_cuda_decode_bf16_paged_edges", FUSED_CARD,
+         "test_cuda_decode_g_not_dividing_64_paged")),
     "decode_attention_bf16": (
         ("_decode_attn_kernel",), (KERNELS, "test_decode_attention_matches_pallas"),
         "test_cuda_decode_attention_split_edges"),
     "flash_prefill_bf16": (
         ("_flash_prefill_kernel",), (KERNELS, "test_flash_prefill_matches_pallas"),
         "test_cuda_flash_prefill_tile_edges"),
+    # head_dim 256 (Gemma-2): the same body on the two-warpgroup tile
+    "flash_prefill_bf16_hd256": (
+        ("_flash_prefill_kernel",), (FAMILY, "test_flash_prefill_hd256_matches_pallas"),
+        "test_cuda_flash_prefill_hd256"),
     "ragged_prefill_bf16": (
-        ("_ragged_prefill_bf16_kernel",), (KERNELS, "test_ragged_prefill_matches_pallas"),
+        ("_ragged_prefill_bf16_kernel",),
+        ((KERNELS, "test_ragged_prefill_matches_pallas"),
+         (FAMILY, "test_ragged_prefill_g_not_dividing_64_matches_pallas")),
         "test_cuda_ragged_prefill_tile_edges"),
     "ragged_prefill_bf16_paged": (
-        ("_ragged_prefill_bf16_kernel",), (KERNELS, "test_ragged_prefill_paged_matches_pallas"),
+        ("_ragged_prefill_bf16_kernel",),
+        ((KERNELS, "test_ragged_prefill_paged_matches_pallas"),
+         (FAMILY, "test_ragged_prefill_g_not_dividing_64_matches_pallas")),
         "test_cuda_ragged_prefill_tile_edges"),
     "append_kv_q8": (
         ("_append_q8_kernel",), (KERNELS, "test_append_kv_q8_bitwise"),
@@ -72,12 +82,17 @@ PORT_PARITY = {
     "decode_attend_q8_paged": (
         ("_attend_q8_paged_kernel", "_append_q8_kernel"),
         ((KERNELS, "test_decode_attend_q8_paged_matches_pallas"), FUSED_CPU),
-        ("test_cuda_q8_paged_kernels_match_plain", FUSED_CARD)),
+        ("test_cuda_q8_paged_kernels_match_plain", FUSED_CARD,
+         "test_cuda_decode_g_not_dividing_64_paged")),
     "ragged_prefill_q8": (
-        ("_ragged_prefill_q8_kernel",), (KERNELS, "test_ragged_prefill_q8_matches_pallas"),
+        ("_ragged_prefill_q8_kernel",),
+        ((KERNELS, "test_ragged_prefill_q8_matches_pallas"),
+         (FAMILY, "test_ragged_prefill_q8_g_not_dividing_64_matches_pallas")),
         "test_cuda_ragged_prefill_tile_edges"),
     "ragged_prefill_q8_paged": (
-        ("_ragged_prefill_q8_kernel",), (KERNELS, "test_ragged_prefill_q8_paged_matches_pallas"),
+        ("_ragged_prefill_q8_kernel",),
+        ((KERNELS, "test_ragged_prefill_q8_paged_matches_pallas"),
+         (FAMILY, "test_ragged_prefill_q8_g_not_dividing_64_matches_pallas")),
         "test_cuda_ragged_prefill_tile_edges"),
     "decode_attend_q8_mla": (
         ("_attend_q8_mla_kernel", "_attend_q8_mla_blocked_kernel"),
@@ -124,7 +139,7 @@ def test_every_entry_point_is_registered():
     """Each `extern "C"` of the port's CUDA sources is in PORT_PARITY and
     nothing else is; the wrappers bind exactly these symbols."""
     entries = _entry_points()
-    assert len(entries) == 18
+    assert len(entries) == 19
     assert set(entries) == set(PORT_PARITY)
     assert set(P._SIGNATURES) == set(PORT_PARITY)
 
