@@ -6,8 +6,6 @@
                                       # with the bf16 decode chunk sweep
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
                                       # (--planted=a,b: the named ones)
-    python3 chip_smoke.py --families  # the decoder families' kernel rows,
-                                      # phases 11 and 12
 
 Phases; any failure exits non-zero and prints no result line (a result
 outside its tolerance is reported and the later phases still run, so that
@@ -15,14 +13,17 @@ one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
      nvcc per source, in parallel) and print ptxas's register report; no
-     instantiation of the bf16 or int8 decode kernels, of the MLA ragged
-     kernel or of the MLA decode kernels may spill;
+     instantiation of the flash prefill kernels (head_dim 128 and 256), the
+     ragged prefill kernels, the bf16 or int8 decode kernels, the MLA
+     ragged kernel or the MLA decode kernels may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
      call (where one computes the same function) and the bound with CUDA
-     events. With `--kernels` the three bf16 decode arms
-     at each split size of DECODE_CHUNKS (the sweep behind
+     events. The prefill tile's rows (flash at head_dim 128 and 256, ragged
+     bf16, ragged at G = 7 and 6) are also called REPEATS times more, each
+     output equal to the first bit for bit. With `--kernels` the three bf16
+     decode arms at each split size of DECODE_CHUNKS (the sweep behind
      `DECODE_CHUNK_BF16`), at these rows and at the breakdown's 8 rows
      of fill 1024. `decode_attention` (post-append, on no served path) runs
      at the decode shapes over the cache with this step's K/V written;
@@ -132,7 +133,8 @@ one run reads every check; the script then exits non-zero):
      on fresh random weights: the four chats over HTTP (its kernels
      launched; the windowed and softcapped families no decode or ragged
      kernel), every stream finished with [DONE], and greedy tokens
-     identical with the round captured and eager. Their kernel arms
+     identical with the round captured and eager, the captured run
+     replaying rounds from its graphs. Their kernel arms
      (head_dim-256 flash, ragged at G = 7 and 6, decode at G = 7) are
      held against their plain versions with the other kernel checks;
  12. a checkpoint: a Qwen2.5-7B tree at full width and 2 layers written as
@@ -404,6 +406,22 @@ def compare(name, out, ref) -> tuple[float, float]:
                      f"|err| <= {TOL[name]['atol']} + {TOL[name]['rtol']}*|ref| "
                      f"(max_abs_err {err}, worst err/limit {ratio})")
     return err, ratio
+
+
+REPEATS = 20  # calls of a prefill tile kernel held bit for bit against its first
+
+
+def repeat_check(name, call, n: int = REPEATS) -> int:
+    """Call `call` n more times: each output must equal the first bit for
+    bit (the tile's reductions have a fixed order, so a race in it shows as
+    an output that moves between calls). Returns n."""
+    import torch
+
+    first = call()
+    bad = sum(not torch.equal(call(), first) for _ in range(n))
+    if bad:
+        check_failed(f"{name}: {bad} of {n} repeated calls differ from the first")
+    return n
 
 
 def torch_where_ratio(diff, limit) -> float:
@@ -713,6 +731,8 @@ def kernel_phase() -> dict[str, dict]:
         time_ms(lambda: F.scaled_dot_product_attention(qp, kx, vx, is_causal=True), 20),
         {"q": [Bp, H, Sp, hd], "lengths": lp.tolist()},
     )
+    res["flash_prefill_attention"]["repeats_bitwise"] = repeat_check(
+        "flash_prefill_attention", lambda: K.flash_prefill_attention(qp, kp, vp, lp, scale=scale))
     del kx, vx
 
     # ragged prefill: 4 rows (1900 tokens) with cached prefixes, packed into
@@ -740,6 +760,8 @@ def kernel_phase() -> dict[str, dict]:
         {"q": [T, Hkv, G, hd], "rows": R, "tokens": ns, "pads": n_pad, "starts": starts,
          "library": "SDPA, one call, block-causal mask over the prefixes and the chunk"},
     )
+    res["ragged_prefill_attend_bf16"]["repeats_bitwise"] = repeat_check(
+        "ragged_prefill_attend_bf16", lambda: K.ragged_prefill_attend_bf16(*args, scale=scale))
     del rlib
     # -- paged: the same work, read through block tables -----------------
     # Each row's first SHARED_TOKENS come from the prefix pool (copied from
@@ -1567,11 +1589,14 @@ def kernel_phase_families() -> dict[str, dict]:
         ref = K.flash_prefill_plain(qp, kp, vp, lp, **kw)
         pairs = sum(min(t + 1, win) if win else t + 1 for t in range(Sf))
         ms = time_ms(lambda: K.flash_prefill_attention(qp, kp, vp, lp, **kw), 10)
+        repeats = repeat_check("flash_prefill_attention_hd256",
+                               lambda: K.flash_prefill_attention(qp, kp, vp, lp, **kw))
         if not win:
             err, ratio = compare("flash_prefill_attention_hd256", out, ref)
             glob = {"max_abs_err": err, "worst_err_over_limit": ratio, "ms": ms,
                     "bound_ms": max(fbytes / HBM_BYTES_PER_S * 1e3,
-                                    4.0 * hd * H * pairs / BF16_FLOPS * 1e3)}
+                                    4.0 * hd * H * pairs / BF16_FLOPS * 1e3),
+                    "repeats_bitwise": repeats}
             log(f"flash_prefill_attention_hd256 global layer: {json.dumps(glob)}")
             continue
         record("flash_prefill_attention_hd256", out, ref, ms,
@@ -1580,7 +1605,8 @@ def kernel_phase_families() -> dict[str, dict]:
                {"q": [Bf, H, Sf, hd], "kv_heads": Hkv, "window": win, "softcap": cap,
                 "scale": sc, "global_layer": glob,
                 "library": "none: SDPA has no score softcap, so no one call computes it"})
-    res["flash_prefill_attention_hd256"]["counter"] = "flash_prefill_attention_hd256"
+    res["flash_prefill_attention_hd256"].update(counter="flash_prefill_attention_hd256",
+                                                repeats_bitwise=repeats)
     del qp, kp, vp
 
     # -- ragged prefill at G = 7 and 6, bf16 and int8, identity and paged --
@@ -1599,23 +1625,43 @@ def kernel_phase_families() -> dict[str, dict]:
     tbl[:, :nsh] = B * nbs + torch.arange(nsh, dtype=torch.int32, device=dev)
     for b in range(B):  # block nsh of row b lives in row (b + 3) % B's home
         tbl[b, nsh] = ((b + 3) % B) * nbs + nsh
-    for G, Hkv, model in ((7, 4, "qwen2.5-7b"), (6, 2, "deepseek-r1-distill-qwen-1.5b")):
-        H = Hkv * G
-        qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+
+    def caches(Hkv):
+        """bf16 caches [L, B, Hkv, S, hd], the same in the fused int8 form,
+        and the prefix pool of each (row 0's first SHARED_TOKENS)."""
         ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
         fused = {"q": torch.empty((L, B, 2 * Hkv + 1, S, hd), dtype=torch.int8, device=dev),
                  "s": torch.empty((L, B, 2 * Hkv, S), dtype=torch.bfloat16, device=dev)}
         for li in range(L):
             e = fuse_prompt_kv(ck[li], cv[li])
             fused["q"][li], fused["s"][li] = e["q"], e["s"]
-        pool_k = ck[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
-        pool_v = cv[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
-        pool8 = {k: v[:, 0, :, : nsh * bt].reshape(L, v.shape[2], nsh, bt, *v.shape[4:])
-                 .transpose(1, 2).contiguous() for k, v in fused.items()}
+
+        def pool(x):
+            return (x[:, 0, :, : nsh * bt].reshape(L, x.shape[2], nsh, bt, *x.shape[4:])
+                    .transpose(1, 2).contiguous())
+
+        return ck, cv, fused, pool(ck), pool(cv), {k: pool(v) for k, v in fused.items()}
+
+    def rows_of(x, pool, rows, paged):
+        """Layer 1's rows `rows` of cache `x`, through the tables if paged."""
+        return K.paged_gather(x[1], pool[1], tbl[rows.long()]) if paged else x[1][rows.long()]
+
+    def kv_of(fused, pool8, rows, paged, Hkv):
+        """K and V of those rows of the fused int8 cache, dequantized to bf16
+        (the library call's inputs)."""
+        pay, ss = rows_of(fused["q"], pool8["q"], rows, paged), rows_of(
+            fused["s"], pool8["s"], rows, paged)
+        return ((pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16),
+                (pay[:, Hkv:2 * Hkv].float() * ss[:, Hkv:, :, None].float()).to(torch.bfloat16))
+
+    for G, Hkv, model in ((7, 4, "qwen2.5-7b"), (6, 2, "deepseek-r1-distill-qwen-1.5b")):
+        H = Hkv * G
+        qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
+        ck, cv, fused, pool_k, pool_v, pool8 = caches(Hkv)
         for arm in ("bf16", "q8"):
             for paged in (False, True):
-                name = (f"ragged_prefill_attend_{arm}_g{G}" + ("_paged" if paged else ""))
-                counter = (f"ragged_prefill_attend_{arm}" + ("_paged" if paged else ""))
+                counter = f"ragged_prefill_attend_{arm}" + ("_paged" if paged else "")
+                name = counter.replace(arm, f"{arm}_g{G}")
                 if arm == "bf16":
                     args = (qr, kr, vr, ck, cv, 1, rowids, offsets, slots, st)
                     pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
@@ -1624,10 +1670,7 @@ def kernel_phase_families() -> dict[str, dict]:
                     plain = (functools.partial(K.ragged_prefill_paged_plain, *args, tbl, pool_k,
                                                pool_v, sc128) if paged else
                              functools.partial(K.ragged_prefill_plain, *args, scale=sc128))
-                    kg = (K.paged_gather(ck[1], pool_k[1], tbl[slots.long()]) if paged
-                          else ck[1][slots.long()])
-                    vg = (K.paged_gather(cv[1], pool_v[1], tbl[slots.long()]) if paged
-                          else cv[1][slots.long()])
+                    kg, vg = rows_of(ck, pool_k, slots, paged), rows_of(cv, pool_v, slots, paged)
                     nbytes = (2 * qr.numel() + 2 * kr.numel() + 2 * sum(starts) * Hkv * hd) * 2
                     ops_ms = 4.0 * hd * H * (past + selfp) / BF16_FLOPS * 1e3
                 else:
@@ -1635,16 +1678,9 @@ def kernel_phase_families() -> dict[str, dict]:
                     call = functools.partial(K.ragged_prefill_attend_q8, *args, scale=sc128,
                                              **(dict(block_tables=tbl, pool=pool8) if paged
                                                 else {}))
-                    plain = (functools.partial(K.ragged_prefill_q8_plain, *args, sc128, tbl,
-                                               pool8) if paged else
-                             functools.partial(K.ragged_prefill_q8_plain, *args, sc128))
-                    pay = (K.paged_gather(fused["q"][1], pool8["q"][1], tbl[slots.long()])
-                           if paged else fused["q"][1][slots.long()])
-                    ss = (K.paged_gather(fused["s"][1], pool8["s"][1], tbl[slots.long()])
-                          if paged else fused["s"][1][slots.long()])
-                    kg = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16)
-                    vg = (pay[:, Hkv:2 * Hkv].float()
-                          * ss[:, Hkv:, :, None].float()).to(torch.bfloat16)
+                    plain = functools.partial(K.ragged_prefill_q8_plain, *args, sc128,
+                                              *((tbl, pool8) if paged else ()))
+                    kg, vg = kv_of(fused, pool8, slots, paged, Hkv)
                     nbytes = ((2 * qr.numel() + 2 * kr.numel()) * 2
                               + sum(starts) * Hkv * (2 * hd + 2 * 2))
                     ops_ms = (4.0 * hd * H * past / INT8_OPS
@@ -1659,8 +1695,8 @@ def kernel_phase_families() -> dict[str, dict]:
                         "starts": starts, "block_tokens": bt if paged else 0,
                         "library": "SDPA, one call, block-causal mask over the prefixes "
                                    "(dequantized to bf16 for int8) and the chunk"})
-                res[name]["counter"] = counter
-                del lib
+                res[name].update(counter=counter, repeats_bitwise=repeat_check(name, call))
+                del lib, kg, vg
         del ck, cv, fused, pool_k, pool_v, pool8
 
     # -- decode at G = 7 (Qwen2.5-7B), bf16 and int8, contiguous and paged --
@@ -1675,16 +1711,7 @@ def kernel_phase_families() -> dict[str, dict]:
     qs = q.reshape(B, H, 1, hd)
     pos = torch.arange(S, device=dev)[None, :]
     amask = torch.where(live[:, None], pos <= lens[:, None], pos < 1)[:, None, None, :]
-    ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
-    fused = {"q": torch.empty((L, B, 2 * Hkv + 1, S, hd), dtype=torch.int8, device=dev),
-             "s": torch.empty((L, B, 2 * Hkv, S), dtype=torch.bfloat16, device=dev)}
-    for li in range(L):
-        e = fuse_prompt_kv(ck[li], cv[li])
-        fused["q"][li], fused["s"][li] = e["q"], e["s"]
-    pool_k = ck[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
-    pool_v = cv[:, 0, :, : nsh * bt].reshape(L, Hkv, nsh, bt, hd).transpose(1, 2).contiguous()
-    pool8 = {k: v[:, 0, :, : nsh * bt].reshape(L, v.shape[2], nsh, bt, *v.shape[4:])
-             .transpose(1, 2).contiguous() for k, v in fused.items()}
+    ck, cv, fused, pool_k, pool_v, pool8 = caches(Hkv)
 
     def sdpa_rows(kk, vv):
         kk, vv = kk.clone(), vv.clone()
@@ -1695,9 +1722,8 @@ def kernel_phase_families() -> dict[str, dict]:
 
     for arm in ("bf16", "q8"):
         for paged in (False, True):
-            name = f"decode_attend_{arm}_g{G}" + ("_paged" if paged else "")
             counter = f"decode_attend_{arm}" + ("_paged" if paged else "")
-            rtbl = tbl[ids.long()]
+            name = counter.replace(arm, f"{arm}_g{G}")
             if arm == "bf16":
                 pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
                 call = functools.partial(K.decode_attend_bf16, q, nk1, nv1, ck, cv, 1, lens,
@@ -1706,8 +1732,7 @@ def kernel_phase_families() -> dict[str, dict]:
                                            lens, tbl, pool_k, pool_v, ids, sc128) if paged
                          else functools.partial(K.decode_attend_plain, q, nk1, nv1, ck, cv, 1,
                                                 lens, ids, sc128))
-                kk = K.paged_gather(ck[1], pool_k[1], rtbl) if paged else ck[1][ids.long()]
-                vv = K.paged_gather(cv[1], pool_v[1], rtbl) if paged else cv[1][ids.long()]
+                kk, vv = rows_of(ck, pool_k, ids, paged), rows_of(cv, pool_v, ids, paged)
                 nbytes = keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2
                 ops_ms = 4.0 * hd * H * keys / BF16_FLOPS * 1e3
             else:
@@ -1717,13 +1742,7 @@ def kernel_phase_families() -> dict[str, dict]:
                 plain = functools.partial(
                     K.decode_attend_q8_plain, q, nk1, nv1, fused, 1, lens, ids, sc128,
                     *((bt, tbl, pool8) if paged else (K.q8_group(S),)))
-                pay = (K.paged_gather(fused["q"][1], pool8["q"][1], rtbl) if paged
-                       else fused["q"][1][ids.long()])
-                ss = (K.paged_gather(fused["s"][1], pool8["s"][1], rtbl) if paged
-                      else fused["s"][1][ids.long()])
-                kk = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16)
-                vv = (pay[:, Hkv:2 * Hkv].float() * ss[:, Hkv:, :, None].float()).to(
-                    torch.bfloat16)
+                kk, vv = kv_of(fused, pool8, ids, paged, Hkv)
                 nbytes = keys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2
                 ops_ms = 4.0 * hd * H * keys / INT8_OPS * 1e3
             if paged:
@@ -1737,7 +1756,7 @@ def kernel_phase_families() -> dict[str, dict]:
                     "library": "SDPA, length mask, the rows (dequantized to bf16 for int8, "
                                "gathered through the tables when paged)"})
             res[name]["counter"] = counter
-            del lib
+            del lib, kk, vv
     return res
 
 
@@ -2490,7 +2509,7 @@ def graph_ab_phase(cfg, params, tag: str, **engine_kw) -> dict:
     port kernels' launch counts too (a replay adds its graph's tally)."""
     import torch
 
-    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+    from llm_mcp_tpu_torch.executor import GenRequest
     from llm_mcp_tpu_torch.kernels import attention as K
 
     runs: dict[str, dict] = {}
@@ -2498,23 +2517,17 @@ def graph_ab_phase(cfg, params, tag: str, **engine_kw) -> dict:
     for graphs in (False, True):
         for profiled in (False, True):
             name = ("on" if graphs else "off") + ("_profiled" if profiled else "")
-            eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, seed=0, **engine_kw)
-            eng._sched.decide = lambda backlog, n_active, wait, reserved_tokens=0: min(
-                backlog, AB_BUDGET)
+            eng = _held_engine(cfg, params, graphs, **engine_kw)
             fetched: list[float] = []
-            seen: dict = {}
-            complete, process = eng._complete_round, eng._process_token
+            seen = _record_tokens(eng)
+            complete = eng._complete_round
 
             def timed_fetch(disp, complete=complete, fetched=fetched):
                 out = complete(disp)
                 fetched.append(time.perf_counter())
                 return out
 
-            def rec(s, tok, pos, seen=seen, process=process):
-                seen.setdefault(s.req.request_id, []).append(int(tok))
-                return process(s, tok, pos)
-
-            eng._complete_round, eng._process_token = timed_fetch, rec
+            eng._complete_round = timed_fetch
             reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=64,
                                temperature=kw["temperature"], top_p=kw.get("top_p", 1.0))
                     for _, p, _, kw in CHATS]
@@ -3281,16 +3294,20 @@ FAMILIES = (
 GEMMA_LONG = " ".join(f"Note {i}: the window keeps the last 4096 tokens." for i in range(110))
 
 
-def _greedy_tokens(cfg, params, graphs: bool, prompts: list[str], **engine_kw) -> list:
-    """Greedy tokens of `prompts` on a fresh engine over `params`, queued
-    before the loop starts with the prefill budget held at AB_BUDGET, so
-    that runs with the round eager and captured schedule alike."""
-    import torch
-
-    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+def _held_engine(cfg, params, graphs: bool, **engine_kw):
+    """A fresh engine over `params`, the round captured or eager, with the
+    prefill budget held at AB_BUDGET tokens a round, so that runs with the
+    round eager and captured admit, chunk and dispatch alike."""
+    from llm_mcp_tpu_torch.executor import GenerationEngine
 
     eng = GenerationEngine(cfg, params=params, cuda_graphs=graphs, seed=0, **engine_kw)
     eng._sched.decide = lambda backlog, n_active, wait, reserved_tokens=0: min(backlog, AB_BUDGET)
+    return eng
+
+
+def _record_tokens(eng) -> dict:
+    """Wrap the engine's token hook: returns {request_id: [token, ...]},
+    filled as the engine emits."""
     seen: dict = {}
     process = eng._process_token
 
@@ -3299,24 +3316,42 @@ def _greedy_tokens(cfg, params, graphs: bool, prompts: list[str], **engine_kw) -
         return process(s, tok, pos)
 
     eng._process_token = rec
-    reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=24, temperature=0.0)
-            for p in prompts]
-    for r in reqs:
-        eng.submit(r)
-    eng.start()
-    for r in reqs:
+    return seen
+
+
+def _greedy_tokens(eng, prompts: list[str], max_tokens: int,
+                   one_at_a_time: bool = False) -> tuple[list, int]:
+    """Greedy tokens of `prompts` on `eng` (not yet started), queued before
+    the loop starts, or each after the last finished; shuts the engine
+    down. Returns the tokens per prompt and the rounds replayed from a
+    captured graph."""
+    from llm_mcp_tpu_torch.executor import GenRequest
+
+    seen = _record_tokens(eng)
+    reqs = [GenRequest(prompt_ids=eng.tokenizer.encode(p), max_tokens=max_tokens,
+                       temperature=0.0) for p in prompts]
+
+    def wait(r):
         while True:
             evt = r.out.get(timeout=600)
             if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
                 if not isinstance(evt, dict) or evt["type"] != "done":
-                    fail(f"capture A/B {cfg.name}: a request did not finish: {evt}")
-                break
+                    fail(f"greedy tokens {eng.cfg.name}: a request did not finish: {evt}")
+                return
+
+    if one_at_a_time:
+        eng.start()
+        for r in reqs:
+            eng.submit(r)
+            wait(r)
+    else:
+        for r in reqs:
+            eng.submit(r)
+        eng.start()
+        for r in reqs:
+            wait(r)
     eng.shutdown()
-    out = [seen.get(r.request_id, []) for r in reqs]
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return [seen.get(r.request_id, []) for r in reqs], eng._graphs.replays if eng._graphs else 0
 
 
 def families_phase() -> dict:
@@ -3327,7 +3362,8 @@ def families_phase() -> dict:
     launched, the excluded ones not), every stream finished, SSE ending in
     [DONE]; Gemma-2 also a prompt past its 4096-token window; then the
     greedy chats with the round captured and eager on fresh engines over
-    the same weights: identical tokens."""
+    the same weights: identical tokens, and the captured run replayed at
+    least one round from its graph."""
     import dataclasses
 
     import torch
@@ -3378,15 +3414,21 @@ def families_phase() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         prompts = [p for _, p, _, c in CHATS if c["temperature"] == 0]
-        on = _greedy_tokens(cfg, params, True, prompts, **kw)
-        off = _greedy_tokens(cfg, params, False, prompts, **kw)
+        runs = []
+        for graphs in (True, False):  # one engine at a time
+            runs.append(_greedy_tokens(_held_engine(cfg, params, graphs, **kw), prompts, 24))
+            gc.collect()
+            torch.cuda.empty_cache()
+        (on, replays), (off, _) = runs
         if on != off:
             check_failed(f"{tag}: greedy tokens with the round captured differ from eager: "
                          f"first parting at {[_first_diff(a, b) for a, b in zip(on, off)]}")
+        if not replays:
+            check_failed(f"{tag}: the captured run replayed no round")
         del params
         res.update(built_s=built_s, layers=cfg.n_layers, engine=kw, launches_after_long=launches,
-                   greedy_captured_equals_eager=on == off, seconds=time.time() - t0,
-                   released=_released(tag, mem0, leaf))
+                   greedy_captured_equals_eager=on == off, captured_replays=replays,
+                   seconds=time.time() - t0, released=_released(tag, mem0, leaf))
         out[tag] = res
         log(f"family {tag}: {time.time() - t0:.1f} s, launches "
             f"{json.dumps({k: v for k, v in launches.items() if v})}")
@@ -3413,7 +3455,7 @@ def checkpoint_phase() -> dict:
     import torch
 
     from llm_mcp_tpu_torch import native
-    from llm_mcp_tpu_torch.executor import GenerationEngine, GenRequest
+    from llm_mcp_tpu_torch.executor import GenerationEngine
     from llm_mcp_tpu_torch.executor.bpe import _NativeBpeCore, _PyBpeCore, BPETokenizer
     from llm_mcp_tpu_torch.executor.tokenizer import load_tokenizer
     from llm_mcp_tpu_torch.kernels import attention as K
@@ -3500,28 +3542,10 @@ def checkpoint_phase() -> dict:
         la = llama_prefill(eng.cfg, eng.params, tokens, lengths)[0]
         lb = llama_prefill(ref.cfg, ref_params, tokens, lengths)[0]
         res["first_step_logits_equal"] = bool(torch.equal(la, lb))
-        greedy = []
         K.reset_launches()
-        for e in (eng, ref):
-            seen: dict = {}
-            process = e._process_token
-
-            def rec(s, tok, pos, seen=seen, process=process):
-                seen.setdefault(s.req.request_id, []).append(int(tok))
-                return process(s, tok, pos)
-
-            e._process_token = rec
-            e.start()
-            reqs = [GenRequest(prompt_ids=e.tokenizer.encode(p), max_tokens=16, temperature=0.0)
-                    for p in (prompt, "Hello there, how are you today?")]
-            for r in reqs:  # one at a time: both engines schedule alike
-                e.submit(r)
-                while True:
-                    evt = r.out.get(timeout=600)
-                    if not isinstance(evt, dict) or evt["type"] in ("done", "error"):
-                        break
-            e.shutdown()
-            greedy.append([seen.get(r.request_id, []) for r in reqs])
+        # one at a time: both engines schedule alike
+        greedy = [_greedy_tokens(e, [prompt, "Hello there, how are you today?"], 16,
+                                 one_at_a_time=True)[0] for e in (eng, ref)]
         res.update(prompt_tokens=len(ids), trees_equal=same_tree, launches=dict(K.LAUNCHES),
                    greedy_tokens_equal=greedy[0] == greedy[1],
                    greedy_tokens=[len(t) for t in greedy[0]])
@@ -3575,6 +3599,11 @@ def main() -> None:
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     for source, kernel, n, what in (
+            ("flash_prefill", "flash_prefill_kernel", 1, "flash prefill, head_dim 128"),
+            ("flash_prefill_hd256", "flash_prefill_kernel", 1,
+             "flash prefill, head_dim 256: two warpgroups"),
+            ("ragged_prefill", "ragged_prefill_", 4,
+             "ragged prefill, bf16 and int8, identity and block tables"),
             ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
             ("decode_attend", "decode_q8_split_kernel", 10,
              "int8 decode: contiguous and paged, packed and plain scales, the exact arm and "
@@ -3589,13 +3618,6 @@ def main() -> None:
                                 for r in regs.values()):
             check_failed(f"{kernel} spills or was not reported: {regs}")
 
-    if "--families" in sys.argv[1:]:
-        # the decoder families alone: their kernel rows, served phases and
-        # the checkpoint phase
-        out = {"kernels": kernel_phase_families(), "families": families_phase(),
-               "checkpoint": checkpoint_phase(), "failures": FAILURES}
-        print(json.dumps(out), flush=True)
-        sys.exit(1 if FAILURES else 0)
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
     kernels.update(kernel_phase_mla())
