@@ -13,9 +13,10 @@ one run reads every check; the script then exits non-zero):
 
   1. build the CUDA kernels from `llm_mcp_tpu_torch/kernels/csrc/` (one
      nvcc per source, in parallel) and print ptxas's register report; no
-     instantiation of the flash prefill kernels (head_dim 128 and 256), the
-     ragged prefill kernels, the bf16 or int8 decode kernels, the MLA
-     ragged kernel or the MLA decode kernels may spill;
+     instantiation of the flash prefill kernels (head_dim 128, 64 and
+     256), the ragged prefill kernels, the bf16 or int8 decode kernels
+     (head_dim 128 and 64), the MLA ragged kernel or the MLA decode
+     kernels may spill;
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
@@ -37,7 +38,12 @@ one run reads every check; the script then exits non-zero):
      requantization group; the int8 decode rows are timed cold (the layer
      turned over all 32 layers, about 1 GB against the 50 MB L2) with warm
      (layer 1 again) and every-row-parked times beside, and its exact arm
-     is checked at S = 4072 (no int8 group divides it) and reported;
+     is checked at S = 4072 (no int8 group divides it) and reported. The
+     head_dim-64 arms (`kernel_phase_hd64`) run at Llama-3.2-1B's heads
+     (G = 4) and Qwen2.5-0.5B's (G = 7): flash, ragged and decode, bf16
+     and int8, contiguous and paged, the fused appends bit for bit (the
+     64-byte packed-scale row), the whole row at S = 1000 and the
+     post-append decode; their prefill rows held to bit-equal repeats;
   3. check the first two Llama-3.1-8B layers (full width, the served
      weights) on a small input: prefill, one decode step and one ragged
      chunk, unpaged and paged, through the kernels on the card against the
@@ -128,15 +134,19 @@ one run reads every check; the script then exits non-zero):
  11. the decoder families (FAMILIES): Qwen2.5-7B int8 (full depth, G = 7,
      plus prefix traffic), Gemma-2-9B bf16 (full depth, head_dim 256,
      max_seq_len 8192, plus a prompt past its 4096-token window),
-     R1-Distill-Qwen-1.5B bf16 (G = 6) and, at 4 layers, Mistral-7B,
-     Qwen3-8B and R1-Distill-Llama-8B bf16 and Mixtral-8x7B int8, each
-     on fresh random weights: the four chats over HTTP (its kernels
+     R1-Distill-Qwen-1.5B bf16 (G = 6), Llama-3.2-1B bf16 (full depth,
+     head_dim 64, plus prefix traffic) and Qwen2.5-0.5B int8 (full depth,
+     head_dim 64, G = 7, plus prefix traffic) and, at 4 layers,
+     Mistral-7B, Qwen3-8B and R1-Distill-Llama-8B bf16 and Mixtral-8x7B
+     int8, each on fresh random weights: the four chats over HTTP (its kernels
      launched; the windowed and softcapped families no decode or ragged
      kernel), every stream finished with [DONE], and greedy tokens
      identical with the round captured and eager, the captured run
-     replaying rounds from its graphs. Their kernel arms
-     (head_dim-256 flash, ragged at G = 7 and 6, decode at G = 7) are
-     held against their plain versions with the other kernel checks;
+     replaying rounds from its graphs; the head_dim-64 models launched
+     their `_hd64` arms and no 128 arm. Their kernel arms (head_dim-256
+     flash, ragged at G = 7 and 6, decode at G = 7, the head_dim-64
+     arms) are held against their plain versions with the other kernel
+     checks;
  12. a checkpoint: a Qwen2.5-7B tree at full width and 2 layers written as
      two safetensors shards with an index, config.json and the fixture's
      tokenizer.json, served by `weights_dir`: logits and greedy tokens
@@ -211,6 +221,35 @@ FAMILY_ROWS = {
        for a in ("bf16", "q8") for p in ("", "_paged")},
 }
 TOL.update({n: ATTN_TOL for n in FAMILY_ROWS})
+# the head_dim-64 arms (kernel_phase_hd64): row -> (its source, the Pallas
+# body it replaces, the served phase whose launches it reports: G = 4 rows
+# Llama-3.2-1B bf16's, G = 7 rows Qwen2.5-0.5B int8's, where that served
+# configuration runs the arm)
+_HD64 = "llm_mcp_tpu_torch/kernels/csrc/"
+HD64_ROWS = {
+    "flash_prefill_attention_hd64": (_HD64 + "flash_prefill_hd64.cu",
+                                     "llm_mcp_tpu/kernels/attention.py:178", "llama-3.2-1b bf16"),
+    **{f"ragged_prefill_attend_{a}_g{g}{p}_hd64": (
+        _HD64 + "ragged_prefill_hd64.cu",
+        "llm_mcp_tpu/kernels/attention.py:" + ("2752" if a == "bf16" else "2908"),
+        {("bf16", 4): "llama-3.2-1b bf16", ("q8", 7): "qwen2.5-0.5b int8"}.get((a, g)))
+       for a in ("bf16", "q8") for g in (4, 7) for p in ("", "_paged")},
+    **{f"decode_attend_{a}_g{g}{p}_hd64": (
+        _HD64 + "decode_attend_hd64.cu",
+        "llm_mcp_tpu/kernels/attention.py:" + {("bf16", ""): "1142", ("bf16", "_paged"): "1312",
+                                               ("q8", ""): "330", ("q8", "_paged"): "581"}[a, p],
+        {("bf16", 4): "llama-3.2-1b bf16", ("q8", 7): "qwen2.5-0.5b int8"}.get((a, g)))
+       for a in ("bf16", "q8") for g in (4, 7) for p in ("", "_paged")},
+    "append_kv_bf16_fused_hd64": (_HD64 + "decode_attend_hd64.cu",
+                                  "llm_mcp_tpu/kernels/attention.py:2508", "llama-3.2-1b bf16"),
+    "append_kv_q8_fused_hd64": (_HD64 + "decode_attend_hd64.cu",
+                                "llm_mcp_tpu/kernels/attention.py:2349", "qwen2.5-0.5b int8"),
+    "decode_attend_q8_row_hd64": (_HD64 + "decode_attend_hd64.cu",
+                                  "llm_mcp_tpu/kernels/attention.py:330", None),
+    "decode_attention_hd64": (_HD64 + "decode_attend_hd64.cu",
+                              "llm_mcp_tpu/kernels/attention.py:298", None),
+}
+TOL.update({n: BITWISE if "fused" in n else ATTN_TOL for n in HD64_ROWS})
 SOURCES = {
     "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
                        "llm_mcp_tpu/kernels/attention.py:2508"),
@@ -1559,10 +1598,8 @@ def kernel_phase_families() -> dict[str, dict]:
 
     Each row's `counter` is the LAUNCHES name its launches count under."""
     import torch
-    import torch.nn.functional as F
 
     from llm_mcp_tpu_torch.kernels import attention as K
-    from llm_mcp_tpu_torch.models.llama import fuse_prompt_kv
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1515)
@@ -1609,9 +1646,31 @@ def kernel_phase_families() -> dict[str, dict]:
                                                 repeats_bitwise=repeats)
     del qp, kp, vp
 
-    # -- ragged prefill at G = 7 and 6, bf16 and int8, identity and paged --
-    L, B, S, hd, bt = 2, 8, 4096, 128, BLOCK_TOKENS
-    sc128 = hd**-0.5
+    _gqa_arm_rows(res, rn, i32, dev, 128, ((7, 4, "qwen2.5-7b"),
+                                           (6, 2, "deepseek-r1-distill-qwen-1.5b")),
+                  ((7, 4, "qwen2.5-7b"),), "")
+    return res
+
+
+def _gqa_arm_rows(res, rn, i32, dev, hd, ragged_cases, decode_cases, suffix) -> None:
+    """Rows of the ragged prefill (bf16 and int8, identity and 64-token block
+    tables, the Llama row's packing: T = 2048, prefixes 0-1536) and decode
+    (bf16 and int8, contiguous and paged, the Llama rows' fills over 4096
+    keys) kernels at head_dim `hd`, for each (G, Hkv, model) of
+    `ragged_cases` / `decode_cases`: row `<counter>` with `_g<G>` after the
+    arm and `suffix` after it all, counting under `<counter>`. Each row's
+    library call is SDPA; each ragged row is also held to bit-equal
+    repeats."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.llama import fuse_prompt_kv
+
+    record = functools.partial(_record, res)
+
+    L, B, S, bt = 2, 8, 4096, BLOCK_TOKENS
+    qscale = hd**-0.5
     T, R = 2048, 4
     starts, ns = [0, 512, 1024, 1536], [500, 480, 460, 460]
     n_pad = T - sum(ns)
@@ -1654,31 +1713,31 @@ def kernel_phase_families() -> dict[str, dict]:
         return ((pay[:, :Hkv].float() * ss[:, :Hkv, :, None].float()).to(torch.bfloat16),
                 (pay[:, Hkv:2 * Hkv].float() * ss[:, Hkv:, :, None].float()).to(torch.bfloat16))
 
-    for G, Hkv, model in ((7, 4, "qwen2.5-7b"), (6, 2, "deepseek-r1-distill-qwen-1.5b")):
+    for G, Hkv, model in ragged_cases:
         H = Hkv * G
         qr, kr, vr = rn(T, Hkv, G, hd), rn(T, Hkv, hd), rn(T, Hkv, hd)
         ck, cv, fused, pool_k, pool_v, pool8 = caches(Hkv)
         for arm in ("bf16", "q8"):
             for paged in (False, True):
-                counter = f"ragged_prefill_attend_{arm}" + ("_paged" if paged else "")
-                name = counter.replace(arm, f"{arm}_g{G}")
+                base = f"ragged_prefill_attend_{arm}" + ("_paged" if paged else "")
+                counter, name = base + suffix, base.replace(arm, f"{arm}_g{G}") + suffix
                 if arm == "bf16":
                     args = (qr, kr, vr, ck, cv, 1, rowids, offsets, slots, st)
                     pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
-                    call = functools.partial(K.ragged_prefill_attend_bf16, *args, scale=sc128,
+                    call = functools.partial(K.ragged_prefill_attend_bf16, *args, scale=qscale,
                                              **pkw)
                     plain = (functools.partial(K.ragged_prefill_paged_plain, *args, tbl, pool_k,
-                                               pool_v, sc128) if paged else
-                             functools.partial(K.ragged_prefill_plain, *args, scale=sc128))
+                                               pool_v, qscale) if paged else
+                             functools.partial(K.ragged_prefill_plain, *args, scale=qscale))
                     kg, vg = rows_of(ck, pool_k, slots, paged), rows_of(cv, pool_v, slots, paged)
                     nbytes = (2 * qr.numel() + 2 * kr.numel() + 2 * sum(starts) * Hkv * hd) * 2
                     ops_ms = 4.0 * hd * H * (past + selfp) / BF16_FLOPS * 1e3
                 else:
                     args = (qr, kr, vr, fused, 1, rowids, offsets, slots, st)
-                    call = functools.partial(K.ragged_prefill_attend_q8, *args, scale=sc128,
+                    call = functools.partial(K.ragged_prefill_attend_q8, *args, scale=qscale,
                                              **(dict(block_tables=tbl, pool=pool8) if paged
                                                 else {}))
-                    plain = functools.partial(K.ragged_prefill_q8_plain, *args, sc128,
+                    plain = functools.partial(K.ragged_prefill_q8_plain, *args, qscale,
                                               *((tbl, pool8) if paged else ()))
                     kg, vg = kv_of(fused, pool8, slots, paged, Hkv)
                     nbytes = ((2 * qr.numel() + 2 * kr.numel()) * 2
@@ -1699,64 +1758,243 @@ def kernel_phase_families() -> dict[str, dict]:
                 del lib, kg, vg
         del ck, cv, fused, pool_k, pool_v, pool8
 
-    # -- decode at G = 7 (Qwen2.5-7B), bf16 and int8, contiguous and paged --
-    G, Hkv = 7, 4
-    H = Hkv * G
-    q, nk1, nv1 = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    for G, Hkv, model in decode_cases:
+        H = Hkv * G
+        q, nk1, nv1 = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+        lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
+        ids = i32([3, 0, 7, 1, 6, 2, 5, 4])
+        keys = sum(w + 1 if w < S else 1 for w in lens.tolist())
+        live = lens < S
+        rows_ = torch.arange(B, device=dev)[live]
+        qs = q.reshape(B, H, 1, hd)
+        pos = torch.arange(S, device=dev)[None, :]
+        amask = torch.where(live[:, None], pos <= lens[:, None], pos < 1)[:, None, None, :]
+        ck, cv, fused, pool_k, pool_v, pool8 = caches(Hkv)
+
+        def sdpa_rows(kk, vv):
+            kk, vv = kk.clone(), vv.clone()
+            kk[rows_, :, lens.long()[live]] = nk1[live]
+            vv[rows_, :, lens.long()[live]] = nv1[live]
+            return lambda: F.scaled_dot_product_attention(qs, kk, vv, attn_mask=amask,
+                                                          enable_gqa=True)
+
+        for arm in ("bf16", "q8"):
+            for paged in (False, True):
+                base = f"decode_attend_{arm}" + ("_paged" if paged else "")
+                counter, name = base + suffix, base.replace(arm, f"{arm}_g{G}") + suffix
+                if arm == "bf16":
+                    pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
+                    call = functools.partial(K.decode_attend_bf16, q, nk1, nv1, ck, cv, 1,
+                                             lens, slot_ids=ids, scale=qscale, **pkw)
+                    plain = (functools.partial(K.decode_attend_paged_plain, q, nk1, nv1, ck, cv,
+                                               1, lens, tbl, pool_k, pool_v, ids, qscale)
+                             if paged else
+                             functools.partial(K.decode_attend_plain, q, nk1, nv1, ck, cv, 1,
+                                               lens, ids, qscale))
+                    kk, vv = rows_of(ck, pool_k, ids, paged), rows_of(cv, pool_v, ids, paged)
+                    nbytes = keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2
+                    ops_ms = 4.0 * hd * H * keys / BF16_FLOPS * 1e3
+                else:
+                    pkw = dict(block_tables=tbl, pool_k=pool8) if paged else {}
+                    call = functools.partial(K.decode_attend_q8, q, nk1, nv1, fused, {}, 1,
+                                             lens, slot_ids=ids, scale=qscale, **pkw)
+                    plain = functools.partial(
+                        K.decode_attend_q8_plain, q, nk1, nv1, fused, 1, lens, ids, qscale,
+                        *((bt, tbl, pool8) if paged else (K.q8_group(S),)))
+                    kk, vv = kv_of(fused, pool8, ids, paged, Hkv)
+                    nbytes = (keys * Hkv * (2 * hd + 2 * 2)
+                              + (2 * q.numel() + 2 * nk1.numel()) * 2)
+                    ops_ms = 4.0 * hd * H * keys / INT8_OPS * 1e3
+                if paged:
+                    nbytes += sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist()) * 4
+                lib = sdpa_rows(kk, vv)
+                record(name, call(), plain(), time_ms(call, 50), time_ms(plain, 5), nbytes,
+                       ops_ms, time_ms(lib, 50),
+                       {"model": model, "q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd],
+                        "lengths": lens.tolist(), "slot_ids": ids.tolist(),
+                        "block_tokens": bt if paged else 0,
+                        "library": "SDPA, length mask, the rows (dequantized to bf16 for int8, "
+                                   "gathered through the tables when paged)"})
+                res[name]["counter"] = counter
+                del lib, kk, vv
+
+
+def kernel_phase_hd64() -> dict[str, dict]:
+    """The head_dim-64 arms (Llama-3.2-1B: 32 query heads over 8 KV heads,
+    G = 4; Qwen2.5-0.5B: 14 over 2, G = 7) against their plain versions:
+
+      - flash prefill at Llama-3.2-1B's heads and the shape of the
+        `flash_prefill_attention` row (4 prompts in a 512 bucket);
+      - ragged prefill and decode, bf16 and int8, contiguous and paged, at
+        G = 4 (8 KV heads) and G = 7 (2 KV heads): `_gqa_arm_rows`;
+      - the fused appends (bf16 at G = 4, int8 at G = 7), bit for bit, the
+        64-byte packed-scale row included; the standalone int8 append is
+        built for 128, so its plain version stands in for it;
+      - the int8 whole-row arm at S = ROW_S and Llama-3.2-1B's heads, timed
+        cold over ROW_LAYERS layers;
+      - the post-append decode at Llama-3.2-1B's heads.
+
+    Each row's `counter` is the LAUNCHES name its launches count under; the
+    prefill rows are held to bit-equal repeats."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.llama import fuse_prompt_kv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1616)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    res: dict[str, dict] = {}
+    record = functools.partial(_record, res)
+    hd, Hkv, G = 64, 8, 4  # Llama-3.2-1B
+    H, scale = Hkv * G, hd**-0.5
+
+    # -- flash prefill: an admission batch of 4 prompts in a 512 bucket --
+    Bp, Sp = 4, 512
+    qp, kp, vp = rn(Bp, H, Sp, hd), rn(Bp, Hkv, Sp, hd), rn(Bp, Hkv, Sp, hd)
+    lp = i32([512, 400, 300, 200])
+    call = functools.partial(K.flash_prefill_attention, qp, kp, vp, lp, scale=scale)
+    plain = functools.partial(K.flash_prefill_plain, qp, kp, vp, lp, scale=scale)
+    pairs = sum(min(t + 1, n) for n in lp.tolist() for t in range(Sp))
+    kx, vx = kp.repeat_interleave(G, 1), vp.repeat_interleave(G, 1)
+    record("flash_prefill_attention_hd64", call(), plain(), time_ms(call, 20),
+           time_ms(plain, 10), (2 * qp.numel() + 2 * kp.numel()) * 2,
+           4.0 * hd * H * pairs / BF16_FLOPS * 1e3,
+           time_ms(lambda: F.scaled_dot_product_attention(qp, kx, vx, is_causal=True), 20),
+           {"model": "llama-3.2-1b", "q": [Bp, H, Sp, hd], "kv_heads": Hkv,
+            "lengths": lp.tolist()})
+    res["flash_prefill_attention_hd64"].update(
+        counter="flash_prefill_attention_hd64",
+        repeats_bitwise=repeat_check("flash_prefill_attention_hd64", call))
+    del qp, kp, vp, kx, vx
+
+    # -- ragged prefill and decode at G = 4 and 7 --
+    cases = ((4, 8, "llama-3.2-1b"), (7, 2, "qwen2.5-0.5b"))
+    _gqa_arm_rows(res, rn, i32, dev, hd, cases, cases, "_hd64")
+
+    # -- the fused appends, on two layers (layer 1 written) --
+    L, B, S = 2, 8, 4096
     lens = i32([511, 1023, 1535, 2047, S, 3071, 3583, 4095])
     ids = i32([3, 0, 7, 1, 6, 2, 5, 4])
-    keys = sum(w + 1 if w < S else 1 for w in lens.tolist())
     live = lens < S
-    rows_ = torch.arange(B, device=dev)[live]
+    for arm, (G_, Hkv_) in (("bf16", (4, 8)), ("q8", (7, 2))):
+        q, nk1, nv1 = rn(B, Hkv_, G_, hd), rn(B, Hkv_, hd), rn(B, Hkv_, hd)
+        ck, cv = rn(L, B, Hkv_, S, hd), rn(L, B, Hkv_, S, hd)
+        name = f"append_kv_{arm}_fused_hd64"
+        if arm == "bf16":
+            check = fused_append_check(
+                name,
+                lambda c, append: K.decode_attend_bf16(q, nk1, nv1, c["k"], c["v"], 1, lens,
+                                                       slot_ids=ids, scale=scale, append=append),
+                lambda c: K.append_kv_bf16(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None],
+                                           lens, slot_ids=ids),
+                lambda c: K.append_kv_plain(c["k"][1:2], c["v"][1:2], nk1[None], nv1[None],
+                                            lens, ids),
+                {"k": ck, "v": cv}, timed=True)
+            nbytes = 4 * int(live.sum()) * Hkv_ * hd * 2
+        else:
+            fused = {"q": torch.empty((L, B, 2 * Hkv_ + 1, S, hd), dtype=torch.int8, device=dev),
+                     "s": torch.empty((L, B, 2 * Hkv_, S), dtype=torch.bfloat16, device=dev)}
+            for li in range(L):
+                e = fuse_prompt_kv(ck[li], cv[li])
+                fused["q"][li], fused["s"][li] = e["q"], e["s"]
+            # the packed rows the append rewrites hold stale bytes first, so
+            # that a byte it leaves unwritten shows
+            rl, wl = ids.long()[live], lens.long()[live]
+            fused["q"][1, rl, 2 * Hkv_, wl] = torch.randint(
+                -127, 128, (len(rl), hd), generator=g, device=dev, dtype=torch.int8)
+
+            def plain_q8(c):
+                K.append_kv_q8_plain({k: v[1:2] for k, v in c.items()}, nk1[None], nv1[None],
+                                     lens, ids)
+
+            check = fused_append_check(
+                name,
+                lambda c, append: K.decode_attend_q8(q, nk1, nv1, c, {}, 1, lens, slot_ids=ids,
+                                                     scale=scale, append=append),
+                plain_q8, plain_q8, fused, timed=True)
+            nbytes = int(live.sum()) * (2 * Hkv_ * hd * 2 + (2 * Hkv_ + 1) * hd + 2 * Hkv_ * 2)
+        _fused_row(res, name, check, nbytes,
+                   {"decode": f"decode_attend_{arm} at G = {G_}, {Hkv_} KV heads",
+                    "layers_written": 1, "lengths": lens.tolist(), "slot_ids": ids.tolist(),
+                    "ms": "decode call with the write minus without",
+                    "standalone": "append_kv_bf16" if arm == "bf16" else
+                                  "the plain append (the int8 append kernel is built for 128)",
+                    "library": "none: the rows' write fused into the decode call"})
+        res[name]["counter"] = name
+        del ck, cv
+
+    # -- the int8 whole row: S = ROW_S, which no int8 group divides --
+    Sr = ROW_S
+    q, nk1, nv1 = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    rc = {"q": torch.empty((ROW_LAYERS, B, 2 * Hkv + 1, Sr, hd), dtype=torch.int8, device=dev),
+          "s": torch.empty((ROW_LAYERS, B, 2 * Hkv, Sr), dtype=torch.bfloat16, device=dev)}
+    for li in range(ROW_LAYERS):
+        e = fuse_prompt_kv(rn(B, Hkv, Sr, hd), rn(B, Hkv, Sr, hd))
+        rc["q"][li], rc["s"][li] = e["q"], e["s"]
+    rlens = i32([124, 249, 374, 499, Sr, 749, 874, Sr - 1])
+    if K.q8_decode_plan(Sr, hd, Hkv, H)[0] != Sr:
+        check_failed(f"decode_attend_q8_row_hd64: the plan at S={Sr} is not the whole row")
+    before = K.LAUNCHES["decode_attend_q8_row_hd64"]
+    out = K.decode_attend_q8(q, nk1, nv1, rc, {}, 1, rlens, slot_ids=ids, scale=scale)
+    if K.LAUNCHES["decode_attend_q8_row_hd64"] != before + 1:
+        check_failed("decode_attend_q8_row_hd64: the call did not take the whole-row arm")
+    ref = K.decode_attend_q8_plain(q, nk1, nv1, rc, 1, rlens, ids, scale, Sr)
+    rkeys = sum(w + 1 if w < Sr else 1 for w in rlens.tolist())
+    rlive = rlens < Sr
+    rpos = torch.arange(Sr, device=dev)[None, :]
+    rmask = torch.where(rlive[:, None], rpos <= rlens[:, None], rpos < 1)[:, None, None, :]
+    pay, ss = rc["q"][1][ids.long()], rc["s"][1][ids.long()].float()
+    kd = (pay[:, :Hkv].float() * ss[:, :Hkv, :, None]).to(torch.bfloat16)
+    vd = (pay[:, Hkv:2 * Hkv].float() * ss[:, Hkv:, :, None]).to(torch.bfloat16)
+    rrows = torch.arange(B, device=dev)[rlive]
+    kd[rrows, :, rlens.long()[rlive]] = nk1[rlive]
+    vd[rrows, :, rlens.long()[rlive]] = nv1[rlive]
     qs = q.reshape(B, H, 1, hd)
-    pos = torch.arange(S, device=dev)[None, :]
-    amask = torch.where(live[:, None], pos <= lens[:, None], pos < 1)[:, None, None, :]
-    ck, cv, fused, pool_k, pool_v, pool8 = caches(Hkv)
+    cold, warm = cold_warm_ms(lambda li: K.decode_attend_q8(
+        q, nk1, nv1, rc, {}, li, rlens, slot_ids=ids, scale=scale), ROW_LAYERS, 64)
+    record(
+        "decode_attend_q8_row_hd64", out, ref, cold,
+        time_ms(lambda: K.decode_attend_q8_plain(q, nk1, nv1, rc, 1, rlens, ids, scale, Sr), 10),
+        rkeys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2,
+        4.0 * hd * G * Hkv * rkeys / INT8_OPS * 1e3,
+        time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=rmask,
+                                                       enable_gqa=True), 50),
+        {"model": "llama-3.2-1b", "q": [B, Hkv, G, hd], "cache": [ROW_LAYERS, B, 2 * Hkv + 1,
+                                                                  Sr, hd],
+         "lengths": rlens.tolist(), "slot_ids": ids.tolist(), "group": Sr,
+         "timing": f"ms cold: the layer turned over {ROW_LAYERS} layers; warm_ms: layer 1",
+         "library": "SDPA, length mask, on the rows dequantized to bf16"})
+    res["decode_attend_q8_row_hd64"].update(warm_ms=warm, counter="decode_attend_q8_row_hd64")
+    del rc, kd, vd, pay, ss
 
-    def sdpa_rows(kk, vv):
-        kk, vv = kk.clone(), vv.clone()
-        kk[rows_, :, lens.long()[live]] = nk1[live]
-        vv[rows_, :, lens.long()[live]] = nv1[live]
-        return lambda: F.scaled_dot_product_attention(qs, kk, vv, attn_mask=amask,
-                                                      enable_gqa=True)
-
-    for arm in ("bf16", "q8"):
-        for paged in (False, True):
-            counter = f"decode_attend_{arm}" + ("_paged" if paged else "")
-            name = counter.replace(arm, f"{arm}_g{G}")
-            if arm == "bf16":
-                pkw = dict(block_tables=tbl, pool_k=pool_k, pool_v=pool_v) if paged else {}
-                call = functools.partial(K.decode_attend_bf16, q, nk1, nv1, ck, cv, 1, lens,
-                                         slot_ids=ids, scale=sc128, **pkw)
-                plain = (functools.partial(K.decode_attend_paged_plain, q, nk1, nv1, ck, cv, 1,
-                                           lens, tbl, pool_k, pool_v, ids, sc128) if paged
-                         else functools.partial(K.decode_attend_plain, q, nk1, nv1, ck, cv, 1,
-                                                lens, ids, sc128))
-                kk, vv = rows_of(ck, pool_k, ids, paged), rows_of(cv, pool_v, ids, paged)
-                nbytes = keys * Hkv * hd * 2 * 2 + (2 * q.numel() + 2 * nk1.numel()) * 2
-                ops_ms = 4.0 * hd * H * keys / BF16_FLOPS * 1e3
-            else:
-                pkw = dict(block_tables=tbl, pool_k=pool8) if paged else {}
-                call = functools.partial(K.decode_attend_q8, q, nk1, nv1, fused, {}, 1, lens,
-                                         slot_ids=ids, scale=sc128, **pkw)
-                plain = functools.partial(
-                    K.decode_attend_q8_plain, q, nk1, nv1, fused, 1, lens, ids, sc128,
-                    *((bt, tbl, pool8) if paged else (K.q8_group(S),)))
-                kk, vv = kv_of(fused, pool8, ids, paged, Hkv)
-                nbytes = keys * Hkv * (2 * hd + 2 * 2) + (2 * q.numel() + 2 * nk1.numel()) * 2
-                ops_ms = 4.0 * hd * H * keys / INT8_OPS * 1e3
-            if paged:
-                nbytes += sum(-(-(w + 1) // bt) if w < S else 0 for w in lens.tolist()) * 4
-            lib = sdpa_rows(kk, vv)
-            record(name, call(), plain(), time_ms(call, 50), time_ms(plain, 5), nbytes, ops_ms,
-                   time_ms(lib, 50),
-                   {"model": "qwen2.5-7b", "q": [B, Hkv, G, hd], "cache": [L, B, Hkv, S, hd],
-                    "lengths": lens.tolist(), "slot_ids": ids.tolist(),
-                    "block_tokens": bt if paged else 0,
-                    "library": "SDPA, length mask, the rows (dequantized to bf16 for int8, "
-                               "gathered through the tables when paged)"})
-            res[name]["counter"] = counter
-            del lib, kk, vv
+    # -- the post-append decode: the decode rows' lengths, inclusive --
+    ck, cv = rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    q = rn(B, Hkv, G, hd)
+    keys = sum(min(w, S - 1) + 1 for w in lens.tolist())
+    pmask = (torch.arange(S, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+    qs = q.reshape(B, H, 1, hd)
+    record("decode_attention_hd64", K.decode_attention(q, ck, cv, lens),
+           K.decode_attention_plain(q, ck, cv, lens),
+           time_ms(lambda: K.decode_attention(q, ck, cv, lens), 50),
+           time_ms(lambda: K.decode_attention_plain(q, ck, cv, lens), 10),
+           keys * Hkv * hd * 2 * 2 + 2 * q.numel() * 2,
+           4.0 * hd * G * Hkv * keys / BF16_FLOPS * 1e3,
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qs, ck, cv, attn_mask=pmask, enable_gqa=True), 50),
+           {"model": "llama-3.2-1b", "q": [B, Hkv, G, hd], "cache": [B, Hkv, S, hd],
+            "lengths": lens.tolist(), "library": "SDPA, inclusive length mask, same rows",
+            "served": "none: no model, engine or API of either package calls it"})
+    res["decode_attention_hd64"]["counter"] = "decode_attention_hd64"
+    del ck, cv
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2762,14 +3000,32 @@ PLANTED = {
     "flash_window_off_by_one": ("flash_prefill.cuh", "(window <= 0 || qp - kp < window)",
                                 "(window <= 0 || qp - kp <= window)"),
     "ragged_pad_rows_take_a_token": (
-        "ragged_prefill.cu", "auto token = [&](int r) { return r < TQ * G ? t0 + r / G : T; };",
+        "ragged_prefill.cuh", "auto token = [&](int r) { return r < TQ * G ? t0 + r / G : T; };",
         "auto token = [&](int r) { return t0 + r / G; };"),
+    # the head_dim-64 arms: the tile's P.V reading V 8 columns off, the bf16
+    # decode merging lane groups 4 lanes apart (the same row's other dims)
+    # in its second round, the fused int8 append writing a scale two slots
+    # off in the packed row (the replacements leave the 128 arms as they are)
+    "hd64_pv_columns": (
+        "tile_attention.cuh",
+        "if constexpr (HD == 64) return desc(t + kk * 16 * 128, HALF_BYTES, 1024);",
+        "if constexpr (HD == 64) return desc(t + kk * 16 * 128 + 16, HALF_BYTES, 1024);"),
+    "hd64_decode_lane_groups": (
+        "decode_attend.cuh", "if constexpr (SUB == 4) merge(8);",
+        "if constexpr (SUB == 4) merge(4);"),
+    "hd64_packed_scale_row": (
+        "decode_attend.cuh", "if (c.Hf > Hs) reinterpret_cast<bf16*>(prow)[head] = sb;",
+        "if (c.Hf > Hs) reinterpret_cast<bf16*>(prow)[head + (128 - HD) / 32] = sb;"),
 }
 # the rows each family-arm fault must fail (at least one of them)
 PLANTED_ROWS = {
     "hd256_second_warpgroup_v_columns": ("flash_prefill_attention_hd256",),
     "flash_window_off_by_one": ("flash_prefill_attention_hd256",),
     "ragged_pad_rows_take_a_token": tuple(n for n in FAMILY_ROWS if n.startswith("ragged")),
+    "hd64_pv_columns": tuple(n for n in HD64_ROWS if "prefill" in n),
+    "hd64_decode_lane_groups": tuple(n for n in HD64_ROWS if n.startswith("decode_attend_bf16")
+                                     or n == "decode_attention_hd64"),
+    "hd64_packed_scale_row": ("append_kv_q8_fused_hd64",),
 }
 Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged", "decode_attend_q8_row")
 
@@ -2831,6 +3087,10 @@ def planted_phase() -> dict:
             check_failed(f"planted fault {fault} failed not the fused int8 append: {failed}")
         elif fault in PLANTED_ROWS and not set(failed) & set(PLANTED_ROWS[fault]):
             check_failed(f"planted fault {fault} failed none of {PLANTED_ROWS[fault]}: {failed}")
+        elif fault.startswith("hd64") and not set(failed) <= set(PLANTED_ROWS[fault]):
+            # a head_dim-64 fault fails its own rows alone: no 128 or 256 row
+            check_failed(f"planted fault {fault} failed rows outside its own: "
+                         f"{sorted(set(failed) - set(PLANTED_ROWS[fault]))}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
 
@@ -3276,6 +3536,9 @@ _BF16_PATH = ("flash_prefill_attention", "ragged_prefill_attend_bf16", "decode_a
               "append_kv_bf16_fused")
 _Q8_PATH = ("flash_prefill_attention", "ragged_prefill_attend_q8", "decode_attend_q8",
             "append_kv_q8_fused")
+_HD128_GQA = ("flash_prefill_attention", "decode_attend_bf16", "decode_attend_bf16_paged",
+              "append_kv_bf16_fused", "ragged_prefill_attend_bf16",
+              "ragged_prefill_attend_bf16_paged") + Q8_KERNELS
 FAMILIES = (
     ("qwen2.5-7b int8", "qwen2.5-7b", 0,
      dict(quant="int8", kv_quant="int8", max_slots=Q8_SLOTS), _Q8_PATH, ()),
@@ -3290,7 +3553,20 @@ FAMILIES = (
      dict(max_slots=8), _BF16_PATH, ()),
     ("mixtral-8x7b int8 (4 layers)", "mixtral-8x7b", 4,
      dict(quant="int8", kv_quant="int8", max_slots=Q8_SLOTS), _Q8_PATH, ()),
+    # head_dim 64: the _hd64 arms, and no 128 arm
+    ("llama-3.2-1b bf16", "llama-3.2-1b", 0, dict(max_slots=8),
+     tuple(n + "_hd64" for n in _BF16_PATH), _HD128_GQA),
+    ("qwen2.5-0.5b int8", "qwen2.5-0.5b", 0,
+     dict(quant="int8", kv_quant="int8", max_slots=Q8_SLOTS),
+     tuple(n + "_hd64" for n in _Q8_PATH), _HD128_GQA),
 )
+# the families that also serve the prefix traffic, and the paged kernels it
+# must launch
+FAMILY_PREFIX = {
+    "qwen2.5-7b int8": ("decode_attend_q8_paged", "ragged_prefill_attend_q8_paged"),
+    "llama-3.2-1b bf16": ("decode_attend_bf16_paged_hd64", "ragged_prefill_attend_bf16_paged_hd64"),
+    "qwen2.5-0.5b int8": ("decode_attend_q8_paged_hd64", "ragged_prefill_attend_q8_paged_hd64"),
+}
 GEMMA_LONG = " ".join(f"Note {i}: the window keeps the last 4096 tokens." for i in range(110))
 
 
@@ -3390,9 +3666,8 @@ def families_phase() -> dict:
         base = f"http://127.0.0.1:{api.port}"
         try:
             res = e2e_phase(engine, base, kernels=must)
-            if name == "qwen2.5-7b":  # G = 7 through the tables: prefix hits at int8
-                res["prefix"] = prefix_phase(engine, base, kernels=(
-                    "decode_attend_q8_paged", "ragged_prefill_attend_q8_paged"))
+            if tag in FAMILY_PREFIX:  # through the tables: prefix hits
+                res["prefix"] = prefix_phase(engine, base, kernels=FAMILY_PREFIX[tag])
             long_res: dict = {}
             if cfg.sliding_window and kw["max_seq_len"] > cfg.sliding_window:
                 chat(base, cfg.name, GEMMA_LONG, True, long_res, max_tokens=16, temperature=0)
@@ -3602,6 +3877,12 @@ def main() -> None:
             ("flash_prefill", "flash_prefill_kernel", 1, "flash prefill, head_dim 128"),
             ("flash_prefill_hd256", "flash_prefill_kernel", 1,
              "flash prefill, head_dim 256: two warpgroups"),
+            ("flash_prefill_hd64", "flash_prefill_kernel", 1,
+             "flash prefill, head_dim 64: one 64-column block"),
+            ("ragged_prefill_hd64", "ragged_prefill_", 4,
+             "ragged prefill at head_dim 64, bf16 and int8, identity and block tables"),
+            ("decode_attend_hd64", "decode_split_kernel", 3, "bf16 decode at head_dim 64"),
+            ("decode_attend_hd64", "decode_q8_split_kernel", 10, "int8 decode at head_dim 64"),
             ("ragged_prefill", "ragged_prefill_", 4,
              "ragged prefill, bf16 and int8, identity and block tables"),
             ("decode_attend", "decode_split_kernel", 3, "bf16 decode, three arms"),
@@ -3622,6 +3903,7 @@ def main() -> None:
     kernels.update(kernel_phase_q8())
     kernels.update(kernel_phase_mla())
     kernels.update(kernel_phase_families())
+    kernels.update(kernel_phase_hd64())
     if "--kernels" in sys.argv[1:]:
         # the kernel checks alone (planted-fault runs): rows, then the verdict
         print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
@@ -3687,11 +3969,11 @@ def main() -> None:
 
     rows = []
     for name, r in kernels.items():
-        if name in FAMILY_ROWS:
-            src, replaces, phase = FAMILY_ROWS[name]
+        if name in FAMILY_ROWS or name in HD64_ROWS:
+            src, replaces, phase = FAMILY_ROWS.get(name) or HD64_ROWS[name]
             served = {"checkpoint": checkpoint}.get(phase) or families.get(phase) or {}
             counter = r["counter"]
-            if counter.endswith("_paged") and "prefix" in served:
+            if "_paged" in counter and "prefix" in served:
                 served = served["prefix"]
             row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                    "launches": served.get("launches", {}).get(counter, 0),

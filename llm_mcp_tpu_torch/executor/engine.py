@@ -193,22 +193,22 @@ def _nbytes(*trees) -> int:
 def _check_kernel_shapes(cfg: ModelConfig) -> None:
     """Refuse, on the card, a configuration that some kernel of its path has
     no arm for (the engine never falls back to the plain versions there):
-    GQA families need head_dim 128 (flash, ragged and decode kernels), or
-    256 where only the flash kernel runs (the windowed and softcapped
+    GQA families need head_dim 128 or 64 (flash, ragged and decode kernels),
+    or 256 where only the flash kernel runs (the windowed and softcapped
     families: Gemma-2), and G = n_heads / n_kv_heads of at most 8 for the
     decode kernels. MLA configs are the MLA kernels' own to check."""
     if cfg.kv_lora_rank:
         return
     hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
     flash_only = plain_attention(cfg)
-    if hd == 128 or (hd == 256 and flash_only):
+    if hd in (64, 128) or (hd == 256 and flash_only):
         if flash_only or 1 <= G <= 8:
             return
     raise ValueError(
         f"{cfg.name}: head_dim {hd}, {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads "
-        "has no arm in the CUDA kernels (head_dim 128, or 256 for windowed or softcapped "
-        "families, and at most 8 query heads a KV head); the head_dim-64 arms are left to "
-        "ROADMAP queue 1 item 7. Serve it on the CPU (device=\"cpu\")"
+        "has no arm in the CUDA kernels (head_dim 64 or 128, or 256 for windowed or softcapped "
+        "families, and at most 8 query heads a KV head); the head_dim-32 arms are left to "
+        "ROADMAP queue 2. Serve it on the CPU (device=\"cpu\")"
     )
 
 

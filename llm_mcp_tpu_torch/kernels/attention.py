@@ -1,7 +1,7 @@
 """Attention kernels of the serving path (counterpart of
 `llm_mcp_tpu/kernels/attention.py`).
 
-Nineteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
+Twenty-nine CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
 
   - `append_kv_bf16`             ← `_append_bf16_kernel`
   - `decode_attend_bf16`         ← `_attend_bf16_kernel` + `_attend_bf16_blocked_kernel`
@@ -25,6 +25,17 @@ Nineteen CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
   - `ragged_prefill_attend_mla`  ← `_ragged_prefill_mla_kernel`, bf16 or int8
                                    latents (`_q8`), identity or block tables
                                    (`_paged`): four entry points
+
+Widths. The GQA kernels are built for head_dim 128 (the entry points
+above) and 64 (Llama-3.2-1B, Qwen2.5-0.5B): the same wrappers launch
+`flash_prefill_bf16_hd64` (`flash_prefill_hd64.cu`), the four ragged entry
+points with `_hd64` (`ragged_prefill_hd64.cu`), and `decode_attend_bf16`,
+`decode_attend_bf16_paged`, `decode_attention_bf16`, `decode_attend_q8`
+and `decode_attend_q8_paged` with `_hd64` (`decode_attend_hd64.cu`, the
+fused appends included); their launches count under the wrapper's name
+with `_hd64` (`_arm`). Flash prefill also runs at 256. The standalone
+appends and the MLA kernels are built for 128 (MLA: its own widths) only;
+every wrapper raises on a width it has no arm for.
 
 The flash and ragged prefill kernels (bf16 and int8) multiply on the
 tensor cores (`wgmma`, `csrc/tile_attention.cuh`), and so does the MLA
@@ -76,8 +87,9 @@ import torch.nn.functional as F
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
-FLASH_HEAD_DIMS = (128, 256)  # the flash prefill kernel's arms
+HEAD_DIM = 128  # the head_dim of the standalone appends
+HEAD_DIMS = (64, 128)  # the ragged and decode kernels' arms
+FLASH_HEAD_DIMS = (64, 128, 256)  # the flash prefill kernel's arms
 DECODE_CHUNK = 256  # key positions per int8 decode split: whole groups (q8_decode_plan)
 # key positions per bf16 decode split; depends on S alone, so the wrappers
 # never read lengths on the host (chosen by the sweep in chip_smoke.py)
@@ -95,6 +107,7 @@ LAUNCHES: dict[str, int] = {
     "decode_attention": 0,
     "flash_prefill_attention": 0,
     "flash_prefill_attention_hd256": 0,
+    "flash_prefill_attention_hd64": 0,
     "ragged_prefill_attend_bf16": 0,
     "ragged_prefill_attend_bf16_paged": 0,
     "append_kv_q8": 0,
@@ -111,6 +124,12 @@ LAUNCHES: dict[str, int] = {
     "ragged_prefill_attend_mla_q8": 0,
     "ragged_prefill_attend_mla_q8_paged": 0,
 }
+# the head_dim-64 arms count under the same names with `_hd64`
+LAUNCHES.update({f"{n}_hd64": 0 for n in (
+    "append_kv_bf16_fused", "decode_attend_bf16", "decode_attend_bf16_paged",
+    "decode_attention", "ragged_prefill_attend_bf16", "ragged_prefill_attend_bf16_paged",
+    "append_kv_q8_fused", "decode_attend_q8", "decode_attend_q8_row", "decode_attend_q8_paged",
+    "ragged_prefill_attend_q8", "ragged_prefill_attend_q8_paged")})
 
 
 def reset_launches() -> None:
@@ -142,6 +161,22 @@ _SIGNATURES = {
     "ragged_prefill_mla_q8": ("ragged_prefill_mla", [_P] * 13 + [_I] * 8 + [_F, _P]),
     "ragged_prefill_mla_q8_paged": ("ragged_prefill_mla", [_P] * 18 + [_I] * 11 + [_F, _P]),
 }
+# the head_dim-64 arms: the same signatures, from their own libraries
+_SIGNATURES.update({
+    "flash_prefill_bf16_hd64": ("flash_prefill_hd64", _SIGNATURES["flash_prefill_bf16"][1]),
+    **{f"{n}_hd64": ("ragged_prefill_hd64", _SIGNATURES[n][1])
+       for n in ("ragged_prefill_bf16", "ragged_prefill_bf16_paged", "ragged_prefill_q8",
+                 "ragged_prefill_q8_paged")},
+    **{f"{n}_hd64": ("decode_attend_hd64", _SIGNATURES[n][1])
+       for n in ("decode_attend_bf16", "decode_attend_bf16_paged", "decode_attention_bf16",
+                 "decode_attend_q8", "decode_attend_q8_paged")},
+})
+
+
+def _arm(name: str, hd: int) -> str:
+    """The entry point or launch counter `name` at head_dim hd: the 128 arm
+    bears the bare name, the others end in `_hd64` / `_hd256`."""
+    return name if hd == 128 else f"{name}_hd{hd}"
 
 
 _FNS: dict[str, ctypes._CFuncPtr] = {}
@@ -381,8 +416,8 @@ def decode_attend_bf16(
             append_kv_plain(cache_k[li:li + 1], cache_v[li:li + 1], new_k[None], new_v[None],
                             lengths, slot_ids)
         return out
-    name = "decode_attend_bf16" if block_tables is None else "decode_attend_bf16_paged"
     Ba, Hkv, G, hd = q.shape
+    name = _arm("decode_attend_bf16" if block_tables is None else "decode_attend_bf16_paged", hd)
     L, B, _, S, _ = cache_k.shape
     dev = q.device
     rows = _rows(slot_ids, Ba, dev)
@@ -393,8 +428,8 @@ def decode_attend_bf16(
         _check(name, t, torch.bfloat16, (L, B, Hkv, S, hd), dev)
     for t in (lengths, rows):
         _check(name, t, torch.int32, (Ba,), dev)
-    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    if hd not in HEAD_DIMS or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim in {HEAD_DIMS} and G <= {MAX_G}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     chunk = DECODE_CHUNK_BF16
@@ -406,7 +441,7 @@ def decode_attend_bf16(
     sc = float(scale or hd**-0.5)
     if block_tables is None:
         _launch(
-            name, "decode_attend_bf16", q, new_k, new_v, cache_k,
+            name, _arm("decode_attend_bf16", hd), q, new_k, new_v, cache_k,
             cache_v, lengths, rows, pm, pl, pacc,
             out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, sc, int(append),
         )
@@ -415,12 +450,12 @@ def decode_attend_bf16(
         if block_tables.shape[0] != B:
             raise ValueError(f"{name}: block_tables has {block_tables.shape[0]} rows, cache {B}")
         _launch(
-            name, "decode_attend_bf16_paged", q, new_k, new_v, cache_k,
+            name, _arm("decode_attend_bf16_paged", hd), q, new_k, new_v, cache_k,
             cache_v, lengths, rows, block_tables, pool_k, pool_v, pm, pl, pacc,
             out, int(layer), B, Ba, Hkv, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc, int(append),
         )
     if append:
-        LAUNCHES["append_kv_bf16_fused"] += 1
+        LAUNCHES[_arm("append_kv_bf16_fused", hd)] += 1
     return out
 
 
@@ -456,16 +491,16 @@ def decode_attention(
     head_dim**-0.5. Returns [B, Hkv, G, hd]."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k, cache_v, lengths)
-    name = "decode_attention"
     B, Hkv, G, hd = q.shape
+    name = _arm("decode_attention", hd)
     S = cache_k.shape[2]
     dev = q.device
     _check(name, q, torch.bfloat16, (B, Hkv, G, hd), dev)
     for t in (cache_k, cache_v):
         _check(name, t, torch.bfloat16, (B, Hkv, S, hd), dev)
     _check(name, lengths, torch.int32, (B,), dev)
-    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    if hd not in HEAD_DIMS or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim in {HEAD_DIMS} and G <= {MAX_G}")
     chunk = DECODE_CHUNK_BF16
     nsplit = -(-S // chunk)
     pm = torch.empty((B, Hkv, nsplit, G), dtype=torch.float32, device=dev)
@@ -473,7 +508,7 @@ def decode_attention(
     pacc = torch.empty((B, Hkv, nsplit, G, hd), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     _launch(
-        name, "decode_attention_bf16", q, cache_k, cache_v, lengths, pm, pl, pacc, out,
+        name, _arm("decode_attention_bf16", hd), q, cache_k, cache_v, lengths, pm, pl, pacc, out,
         B, Hkv, G, S, hd, chunk, nsplit, float(hd**-0.5),
     )
     return out
@@ -521,12 +556,13 @@ def flash_prefill_attention(
     scale: float = 0.0,  # query scale (0 = head_dim**-0.5)
 ) -> torch.Tensor:
     """Causal, length-masked GQA flash attention. Returns [B, H, S, hd].
-    head_dim 128 launches `flash_prefill_bf16`, 256 (Gemma-2)
+    head_dim 128 launches `flash_prefill_bf16`, 64 (Llama-3.2-1B,
+    Qwen2.5-0.5B) `flash_prefill_bf16_hd64`, 256 (Gemma-2)
     `flash_prefill_bf16_hd256`."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, lengths, window, softcap, scale)
     B, H, S, hd = q.shape
-    name = "flash_prefill_attention" if hd != 256 else "flash_prefill_attention_hd256"
+    name = _arm("flash_prefill_attention", hd)
     Hkv = k.shape[1]
     dev = q.device
     _check(name, q, torch.bfloat16, (B, H, S, hd), dev)
@@ -537,8 +573,7 @@ def flash_prefill_attention(
         raise ValueError(f"{name}: built for head_dim in {FLASH_HEAD_DIMS} and H % Hkv == 0")
     out = torch.empty_like(q)
     _launch(
-        name, "flash_prefill_bf16" if hd == 128 else "flash_prefill_bf16_hd256",
-        q, k, v, lengths, out,
+        name, _arm("flash_prefill_bf16", hd), q, k, v, lengths, out,
         B, H, Hkv, S, hd, int(window), float(softcap), float(scale or hd**-0.5),
     )
     return out
@@ -653,8 +688,9 @@ def ragged_prefill_attend_bf16(
             q, k_self, v_self, cache_k, cache_v, layer, rowids, offsets, slots,
             starts, scale,
         )
-    name = "ragged_prefill_attend_bf16" if block_tables is None else "ragged_prefill_attend_bf16_paged"
     T, Hkv, G, hd = q.shape
+    name = _arm("ragged_prefill_attend_bf16" if block_tables is None
+                else "ragged_prefill_attend_bf16_paged", hd)
     L, B, _, S, _ = cache_k.shape
     R = slots.shape[0]
     dev = q.device
@@ -667,15 +703,15 @@ def ragged_prefill_attend_bf16(
     _check(name, offsets, torch.int32, (R + 1,), dev)
     for t in (slots, starts):
         _check(name, t, torch.int32, (R,), dev)
-    if hd != HEAD_DIM or not 1 <= G <= 64:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= 64")
+    if hd not in HEAD_DIMS or not 1 <= G <= 64:
+        raise ValueError(f"{name}: built for head_dim in {HEAD_DIMS} and G <= 64")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(q)
     sc = float(scale or hd**-0.5)
     if block_tables is None:
         _launch(
-            name, "ragged_prefill_bf16", q, k_self, v_self, cache_k,
+            name, _arm("ragged_prefill_bf16", hd), q, k_self, v_self, cache_k,
             cache_v, rowids, offsets, slots, starts, out,
             int(layer), T, R, B, Hkv, G, S, hd, sc,
         )
@@ -684,7 +720,7 @@ def ragged_prefill_attend_bf16(
     # the descriptor rows' tables, as JAX's `_ragged_tables` gathers them
     tbl = block_tables.index_select(0, slots.long()).contiguous()
     _launch(
-        name, "ragged_prefill_bf16_paged", q, k_self, v_self, cache_k,
+        name, _arm("ragged_prefill_bf16_paged", hd), q, k_self, v_self, cache_k,
         cache_v, rowids, offsets, slots, starts, tbl, pool_k, pool_v, out,
         int(layer), T, R, B, Hkv, G, S, hd, nbs, bt, pxb, sc,
     )
@@ -935,7 +971,7 @@ def decode_attend_q8(
             append_kv_q8_plain({k: v[li:li + 1] for k, v in cache_k.items()}, new_k[None],
                                new_v[None], lengths, slot_ids)
         return out
-    name = "decode_attend_q8" if block_tables is None else "decode_attend_q8_paged"
+    name = _arm("decode_attend_q8" if block_tables is None else "decode_attend_q8_paged", hd)
     L, B, Hf, _, _ = cache_k["q"].shape
     dev = q.device
     rows = _rows(slot_ids, Ba, dev)
@@ -945,8 +981,8 @@ def decode_attend_q8(
     _check_fused(name, cache_k, L, B, Hkv, S, hd, dev)
     for t in (lengths, rows):
         _check(name, t, torch.int32, (Ba,), dev)
-    if hd != HEAD_DIM or not 1 <= G <= MAX_G:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= {MAX_G}")
+    if hd not in HEAD_DIMS or not 1 <= G <= MAX_G:
+        raise ValueError(f"{name}: built for head_dim in {HEAD_DIMS} and G <= {MAX_G}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     if block_tables is not None:
@@ -966,20 +1002,20 @@ def decode_attend_q8(
         rs = (torch.empty((Ba, Hkv, nsplit, G, 2), dtype=torch.float32, device=dev)
               if row else None)
         _launch(
-            name, "decode_attend_q8", q, new_k, new_v, cache_k["q"], cache_k["s"],
+            name, _arm("decode_attend_q8", hd), q, new_k, new_v, cache_k["q"], cache_k["s"],
             lengths, rows, pm, pl, pacc, out,
             int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, group, sc, rs, int(append),
         )
         if row:
-            LAUNCHES["decode_attend_q8_row"] += 1
+            LAUNCHES[_arm("decode_attend_q8_row", hd)] += 1
     else:
         _launch(
-            name, "decode_attend_q8_paged", q, new_k, new_v, cache_k["q"], cache_k["s"],
+            name, _arm("decode_attend_q8_paged", hd), q, new_k, new_v, cache_k["q"], cache_k["s"],
             lengths, rows, block_tables, pool_k["q"], pool_k["s"], pm, pl, pacc, out,
             int(layer), B, Ba, Hkv, Hf, G, S, hd, chunk, nsplit, nbs, bt, pxb, sc, int(append),
         )
     if append:
-        LAUNCHES["append_kv_q8_fused"] += 1
+        LAUNCHES[_arm("append_kv_q8_fused", hd)] += 1
     return out
 
 
@@ -1043,8 +1079,9 @@ def ragged_prefill_attend_q8(
             q, k_self, v_self, cache_k, layer, rowids, offsets, slots, starts, scale,
             block_tables, pool,
         )
-    name = "ragged_prefill_attend_q8" if block_tables is None else "ragged_prefill_attend_q8_paged"
     T, Hkv, G, hd = q.shape
+    name = _arm("ragged_prefill_attend_q8" if block_tables is None
+                else "ragged_prefill_attend_q8_paged", hd)
     L, B, Hf, S, _ = cache_k["q"].shape
     R = slots.shape[0]
     dev = q.device
@@ -1056,15 +1093,15 @@ def ragged_prefill_attend_q8(
     _check(name, offsets, torch.int32, (R + 1,), dev)
     for t in (slots, starts):
         _check(name, t, torch.int32, (R,), dev)
-    if hd != HEAD_DIM or not 1 <= G <= 64:
-        raise ValueError(f"{name}: built for head_dim {HEAD_DIM} and G <= 64")
+    if hd not in HEAD_DIMS or not 1 <= G <= 64:
+        raise ValueError(f"{name}: built for head_dim in {HEAD_DIMS} and G <= 64")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     out = torch.empty_like(q)
     sc = float(scale or hd**-0.5)
     if block_tables is None:
         _launch(
-            name, "ragged_prefill_q8", q, k_self, v_self, cache_k["q"], cache_k["s"],
+            name, _arm("ragged_prefill_q8", hd), q, k_self, v_self, cache_k["q"], cache_k["s"],
             rowids, offsets, slots, starts, out,
             int(layer), T, R, B, Hkv, Hf, G, S, hd, sc,
         )
@@ -1072,7 +1109,7 @@ def ragged_prefill_attend_q8(
     nbs, bt, pxb = _check_paged_q8(name, block_tables, pool, L, B, Hkv, Hf, S, hd, dev)
     tbl = block_tables.index_select(0, slots.long()).contiguous()
     _launch(
-        name, "ragged_prefill_q8_paged", q, k_self, v_self, cache_k["q"], cache_k["s"],
+        name, _arm("ragged_prefill_q8_paged", hd), q, k_self, v_self, cache_k["q"], cache_k["s"],
         rowids, offsets, slots, starts, tbl, pool["q"], pool["s"], out,
         int(layer), T, R, B, Hkv, Hf, G, S, hd, nbs, bt, pxb, sc,
     )

@@ -21,8 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("append_kv", "append_kv_q8", "decode_attend", "flash_prefill", "flash_prefill_hd256",
-           "ragged_prefill", "decode_attend_mla", "ragged_prefill_mla")
+SOURCES = ("append_kv", "append_kv_q8", "decode_attend", "decode_attend_hd64", "flash_prefill",
+           "flash_prefill_hd64", "flash_prefill_hd256", "ragged_prefill", "ragged_prefill_hd64",
+           "decode_attend_mla", "ragged_prefill_mla")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -43,6 +43,17 @@
 // Shared memory: Q 16 KB + two stages of K and V 64 KB + the key tables,
 // about 85 KB a CTA, so two CTAs share an SM.
 //
+// head_dim 64 (Llama-3.2-1B, Qwen2.5-0.5B; a source defines TILE_HD 64):
+// the CTA is one warpgroup with a single 64-column block, so a bf16 row is
+// 128 bytes, exactly one swizzle atom. S = Q.K^T takes 4 k-steps of
+// m64n64k16, O += P.V is m64n64k16 (32 O values a thread, not 64), and the
+// descriptors are the 128 tile's first block (V's leading byte offset, the
+// step between 64-column blocks, is then never taken). An int8 row is 64
+// bytes: four 16-byte copies into the staging ring, widened into eight bf16
+// chunks. Q 8 KB + two stages of K and V 32 KB + the key tables take about
+// 45 KB a CTA, so shared memory would let five CTAs share an SM; the
+// registers (ptxas's report in chip_smoke.py) set how many do.
+//
 // head_dim 256 (Gemma-2; a source defines TILE_HD 256 before including
 // this header, so its tile is built for that width alone): the CTA is two
 // warpgroups (256 threads) over the same 64 query rows. Each computes the
@@ -64,15 +75,20 @@
 namespace tile {
 
 constexpr int HD = TILE_HD;
-static_assert(HD == 128 || HD == 256, "the tile is built for head_dim 128 or 256");
-constexpr int NWG = HD / 128;  // warpgroups a CTA: each owns 128 output columns
+static_assert(HD == 64 || HD == 128 || HD == 256,
+              "the tile is built for head_dim 64, 128 or 256");
+constexpr int NWG = HD == 64 ? 1 : HD / 128;  // warpgroups a CTA
+constexpr int WGC = HD / NWG;                 // output columns a warpgroup owns (64 or 128)
+constexpr int OREG = WGC / 2;                 // O values a thread holds
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 128 * NWG;
 constexpr int CH = HD / 8;  // 16-byte chunks a bf16 row
 constexpr int TILE_BYTES = BQ * HD * 2;  // one bf16 [64][HD] tile
 constexpr int HALF_BYTES = BQ * 128;     // one 64-column block of a tile (8 KB)
-constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][HD] tile (HD 128 only)
+constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][HD] tile (HD 64 or 128)
+constexpr int Q8CH = HD / 16;            // 16-byte chunks an int8 row
+constexpr int Q8SH = HD == 64 ? 2 : 3;   // log2(Q8CH) at the int8 widths
 // byte offsets from the 1024-aligned base
 constexpr int Q_OFF = 0;
 constexpr int KV_OFF = TILE_BYTES;          // stage s: K at + 2s tiles, V at + (2s+1)
@@ -126,7 +142,7 @@ struct Smem {
 };
 
 struct State {
-  float o[64];  // O rows (r0, r0 + 8), columns 8j + 2t + {0, 1}: o[4j + 2i + c]
+  float o[OREG];  // O rows (r0, r0 + 8), columns 8j + 2t + {0, 1}: o[4j + 2i + c]
   float m[2];
   float l[2];
   __device__ void init() {
@@ -136,7 +152,7 @@ struct State {
       l[i] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) o[j] = 0.f;
+    for (int j = 0; j < OREG; ++j) o[j] = 0.f;
   }
 };
 
@@ -172,6 +188,7 @@ __device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* t, int kk) 
 // of warpgroup wg's 128 columns (blocks 2wg and 2wg + 1); the two 64-column
 // blocks HALF_BYTES apart, 8-key groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* t, int kk, int wg) {
+  if constexpr (HD == 64) return desc(t + kk * 16 * 128, HALF_BYTES, 1024);  // the one block
   return desc(t + 2 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);
 }
 
@@ -230,6 +247,23 @@ __device__ __forceinline__ void mma_pv(float (&d)[64], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// P.V of the head_dim-64 tile: one 64-column block, m64n64k16
+__device__ __forceinline__ void mma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // -- loads ----------------------------------------------------------------------
 
 // Stage the 64 query rows: `row(r)` points at row r's HD bf16 values, or is
@@ -276,10 +310,10 @@ __device__ __forceinline__ void issue(const Smem& s, int st) {
   const void* const* vp = s.vp(st);
   if constexpr (Q8) {
 #pragma unroll
-    for (int i = 0; i < BK * 8 / THREADS; ++i) {
+    for (int i = 0; i < BK * Q8CH / THREADS; ++i) {
       const int c = i * THREADS + tid;
-      const int r = c >> 3;
-      const int ch = c & 7;
+      const int r = c >> Q8SH;
+      const int ch = c & (Q8CH - 1);
       const int8_t* k = static_cast<const int8_t*>(kp[r]);
       const int8_t* v = static_cast<const int8_t*>(vp[r]);
       cp16(s.k8(st) + r * HD + ch * 16, k != nullptr ? k + ch * 16 : nullptr, s.any);
@@ -304,12 +338,12 @@ __device__ __forceinline__ void issue(const Smem& s, int st) {
 __device__ __forceinline__ void widen(const Smem& s, int st) {
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < 2 * BK * 8 / THREADS; ++i) {
+  for (int i = 0; i < 2 * BK * Q8CH / THREADS; ++i) {
     const int c = i * THREADS + tid;
-    const bool is_v = c >= BK * 8;
-    const int cc = is_v ? c - BK * 8 : c;
-    const int r = cc >> 3;
-    const int ch = cc & 7;
+    const bool is_v = c >= BK * Q8CH;
+    const int cc = is_v ? c - BK * Q8CH : c;
+    const int r = cc >> Q8SH;
+    const int ch = cc & (Q8CH - 1);
     const int8_t* src = (is_v ? s.v8(st) : s.k8(st)) + r * HD + ch * 16;
     unsigned char* dst = is_v ? s.v(0) : s.k(0);
     const int4 raw = *reinterpret_cast<const int4*>(src);
@@ -334,7 +368,7 @@ __device__ __forceinline__ void widen(const Smem& s, int st) {
 template <bool Q8, class Mask>
 __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, int st,
                                      int nkeys, float scale, float softcap, Mask mask) {
-  static_assert(!Q8 || HD == 128, "int8 key tiles are built for head_dim 128");
+  static_assert(!Q8 || HD <= 128, "int8 key tiles are built for head_dim 64 and 128");
   const int lane = threadIdx.x & 31;
   const int wg = threadIdx.x >> 7;  // this warpgroup's 128 output columns
   const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
@@ -423,7 +457,7 @@ __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, i
     S_.m[i] = m_new[i];
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < OREG / 4; ++j) {
     S_.o[4 * j + 0] *= alpha[0];
     S_.o[4 * j + 1] *= alpha[0];
     S_.o[4 * j + 2] *= alpha[1];
@@ -471,7 +505,7 @@ __device__ void run(const Smem& s, State& S_, int ntiles, int n, Prep prep, Mask
   }
 }
 
-// Write rows r0 and r0 + 8 of the normalized output, this warpgroup's 128
+// Write rows r0 and r0 + 8 of the normalized output, this warpgroup's WGC
 // columns: dst(r) points at row r's HD bf16 values (nullptr: not stored).
 // Rows that attended nothing emit 0.
 template <class Dst>
@@ -486,7 +520,7 @@ __device__ void store(const State& S_, Dst dst) {
     if (out == nullptr) continue;
     const float inv = S_.l[i] > 0.f ? 1.f / S_.l[i] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < OREG / 4; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c0) =
           __floats2bfloat162_rn(S_.o[4 * j + 2 * i] * inv, S_.o[4 * j + 2 * i + 1] * inv);
   }

@@ -486,8 +486,14 @@ def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
     descriptor rows, a pad tail, prefixes that end inside a 64-key tile,
     contiguous (bt = 0) and through tables at bt in {32, 64, 128} (pool
     rows in shuffled order, a foreign arena home); bf16 and int8 caches."""
-    dev, g, rn, i32 = _card(100 * G + bt + (arm == "q8"))
-    L, B, Hkv, S, hd, pxb = 2, 4, 2, 512, 128, 6
+    _ragged_tile_case(G, arm, bt, 128)
+
+
+def _ragged_tile_case(G, arm, bt, hd):
+    """The body of `test_cuda_ragged_prefill_tile_edges` at head_dim hd; a
+    second call must repeat the first bit for bit, each launch counted."""
+    dev, g, rn, i32 = _card(100 * G + bt + (arm == "q8") + (hd != 128) * 1600)
+    L, B, Hkv, S, pxb = 2, 4, 2, 512, 6
     ns = [7, 21, 50, 13]
     T, R = sum(ns) + 9, len(ns)
     rowids = i32(sum(([r] * n for r, n in enumerate(ns)), []) + [R] * (T - sum(ns)))
@@ -506,7 +512,8 @@ def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
         cache = _fused_cache(g, dev, L, B, Hkv, S, hd)
         args = (qr, kr, vr, cache, 1, rowids, offsets, slots, starts)
         pool = _fused_cache(g, dev, L, pxb, Hkv, bt, hd) if bt else None
-        out = P.ragged_prefill_attend_q8(*args, scale=0.07, block_tables=tbl, pool=pool)
+        call = functools.partial(P.ragged_prefill_attend_q8, *args, scale=0.07,
+                                 block_tables=tbl, pool=pool)
         ref = P.ragged_prefill_q8_plain(*args, 0.07, tbl, pool)
     else:
         ck, cv = rn(L, B, Hkv, S, hd), rn(L, B, Hkv, S, hd)
@@ -517,8 +524,13 @@ def test_cuda_ragged_prefill_tile_edges(G, arm, bt):
             ref = P.ragged_prefill_paged_plain(*args, tbl, pk, pv, 0.07)
         else:
             ref = P.ragged_prefill_plain(*args, 0.07)
-        out = P.ragged_prefill_attend_bf16(*args, scale=0.07, **kw)
+        call = functools.partial(P.ragged_prefill_attend_bf16, *args, scale=0.07, **kw)
+    counter = P._arm(f"ragged_prefill_attend_{arm}" + ("_paged" if bt else ""), hd)
+    before = P.LAUNCHES[counter]
+    out = call()
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    assert torch.equal(out, call())
+    assert P.LAUNCHES[counter] == before + 2
     torch.cuda.synchronize()
 
 
@@ -704,9 +716,17 @@ def test_cuda_decode_fused_append(arm, packed):
     S = 1024, the exact arm at 32 KV heads (S = 1000 past the whole-S
     budget), the whole-row arm at S = 1000, the paged arms at 64-token
     blocks with pool rows and foreign homes."""
-    dev, g, rn, i32 = _card(1300 + FUSED_APPEND_ARMS.index((arm, packed)))
-    L, B, hd, layer = 3, 7, 128, 1
-    Hkv, G, S = {"q8_exact": (32, 1, 1000), "q8_row": (2, 4, 1000)}.get(arm, (2, 4, 1024))
+    _fused_append_case(arm, packed, 128)
+
+
+def _fused_append_case(arm, packed, hd):
+    """The body of `test_cuda_decode_fused_append` at head_dim hd."""
+    dev, g, rn, i32 = _card(1300 + FUSED_APPEND_ARMS.index((arm, packed)) + (hd != 128) * 50)
+    L, B, layer = 3, 7, 1
+    # the exact arm: a length past JAX's whole-S budget that no group divides
+    # (at head_dim 64 the packed row holds the scales of 16 KV heads at most)
+    exact = (32, 1, 1000) if hd == 128 else (16, 1, 4072)
+    Hkv, G, S = {"q8_exact": exact, "q8_row": (2, 4, 1000)}.get(arm, (2, 4, 1024))
     if arm.startswith("bf16"):
         S = 640
     split = P.DECODE_CHUNK_BF16 if arm.startswith("bf16") else P.DECODE_CHUNK
@@ -755,9 +775,12 @@ def test_cuda_decode_fused_append(arm, packed):
         def call(c, append):
             return P.decode_attend_q8(q, nk, nv, c, {}, layer, lens, append=append, **kw)
 
-        def standalone(c):
-            P.append_kv_q8({k: v[layer:layer + 1] for k, v in c.items()}, {}, nk[None], nv[None],
-                           lens, slot_ids=ids)
+        def standalone(c):  # the standalone kernel is built for head_dim 128: plain at 64
+            rows = {k: v[layer:layer + 1] for k, v in c.items()}
+            if hd == 128:
+                P.append_kv_q8(rows, {}, nk[None], nv[None], lens, slot_ids=ids)
+            else:
+                P.append_kv_q8_plain(rows, nk[None], nv[None], lens, ids)
 
         def plain(c):
             P.append_kv_q8_plain({k: v[layer:layer + 1] for k, v in c.items()}, nk[None],
@@ -781,7 +804,7 @@ def test_cuda_decode_fused_append(arm, packed):
     P.reset_launches()
     fused = call(got, True)
     torch.cuda.synchronize()
-    assert P.LAUNCHES[counter] == 1
+    assert P.LAUNCHES[P._arm(counter, hd)] == 1
     assert torch.equal(fused, out)
     assert same(got, ref)
     assert same(got, want)
@@ -1485,3 +1508,195 @@ def test_cuda_decode_g_not_dividing_64_paged(G, arm):
         ref = P.decode_attend_paged_plain(q, nk, nv, ck, cv, 1, lens, tbl, pk, pv, ids, 0.09)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
     torch.cuda.synchronize()
+
+
+# -- the head_dim-64 arms (Llama-3.2-1B: G = 4; Qwen2.5-0.5B: G = 7) ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [67, 640])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+def test_cuda_flash_prefill_hd64(S, G):
+    """The head_dim-64 flash arm (one warpgroup, one 64-column block, P.V
+    on m64n64k16) at the tile's edges: S not a multiple of 64, every G of
+    the catalog at 64 and the tile's, a row of length 0 (emits 0), a
+    length inside a tile, a sliding window, softcap with a scale; repeats
+    bit for bit; the launch counts under its own name."""
+    _, _, rn, i32 = _card(1500 + S + G)
+    B, Hkv, hd = 3, 2, 64
+    H = Hkv * G
+    q, k, v = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    ln = i32([S, 0, S // 2 + 3])
+    before = P.LAUNCHES["flash_prefill_attention_hd64"]
+    for kw in (dict(), dict(window=37), dict(softcap=20.0, scale=0.05)):
+        out = P.flash_prefill_attention(q, k, v, ln, **kw)
+        ref = P.flash_prefill_plain(q, k, v, ln, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+        assert not out[1].any()
+        assert torch.equal(out, P.flash_prefill_attention(q, k, v, ln, **kw))
+    assert P.LAUNCHES["flash_prefill_attention_hd64"] == before + 6
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("arm", ["bf16", "q8"])
+@pytest.mark.parametrize("bt", [0, 32, 64, 128])
+def test_cuda_ragged_prefill_hd64(G, arm, bt):
+    """`test_cuda_ragged_prefill_tile_edges` on the head_dim-64 tile (the
+    int8 staging ring of 64-byte rows): CTAs straddling descriptor rows, a
+    pad tail, prefixes ending inside a 64-key tile, contiguous and through
+    tables with pool rows and a foreign home; bf16 and int8 caches;
+    repeats bit for bit."""
+    _ragged_tile_case(G, arm, bt, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("bt", [0, 32, 64, 128, 256])
+def test_cuda_decode_bf16_hd64(monkeypatch, bt, G, chunk):
+    """The head_dim-64 bf16 decode kernel (8 lanes a row, four lane groups
+    a warp, 64-key stages, two shuffle rounds of merge, a 64-thread
+    combine) against its plain version at every edge: w = 0, a lane-group
+    and stage edge (63, 64), a split edge (chunk - 1, chunk), S - 1 and a
+    parked row; contiguous and through tables (pool rows in shuffled
+    order, a foreign arena home) at every block size."""
+    dev, _, rn, i32 = _card(1700 + bt + 10 * G + chunk)
+    monkeypatch.setattr(P, "DECODE_CHUNK_BF16", chunk)
+    L, B, Hkv, S, hd, pxb = 2, 8, 2, 1024, 64, 5
+    q, nk, nv, ck, cv = _decode_case(rn, i32, L, B, Hkv, G, S, hd)
+    lens = i32([0, 63, 64, chunk - 1, chunk, 2 * chunk + 17, S - 1, S])
+    ids = i32([5, 2, 7, 0, 3, 6, 1, 4])
+    kw, name = dict(slot_ids=ids, scale=0.09), "decode_attend_bf16_hd64"
+    if bt:
+        nbs = S // bt
+        pk, pv = rn(L, pxb, Hkv, bt, hd), rn(L, pxb, Hkv, bt, hd)
+        tbl = torch.arange(B * nbs, dtype=torch.int32).reshape(B, nbs)
+        for b in range(B):
+            tbl[b, :3] = B * nbs + torch.tensor([(b + j) % pxb for j in range(3)])
+        tbl[2, 3] = 4 * nbs + 3
+        tbl = tbl.to(dev)
+        kw.update(block_tables=tbl, pool_k=pk, pool_v=pv)
+        ref = P.decode_attend_paged_plain(q, nk, nv, ck, cv, 1, lens, tbl, pk, pv, ids, 0.09)
+        name = "decode_attend_bf16_paged_hd64"
+    else:
+        ref = P.decode_attend_plain(q, nk, nv, ck, cv, 1, lens, ids, 0.09)
+    before = P.LAUNCHES[name]
+    out = P.decode_attend_bf16(q, nk, nv, ck, cv, 1, lens, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    assert P.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_decode_attention_hd64(monkeypatch, G, chunk):
+    """The post-append arm at head_dim 64: lengths -1 (the mean of V over
+    S), 0, the stage and split edges, mid-row, S - 1 and >= S."""
+    _, _, rn, i32 = _card(1800 + G + chunk)
+    monkeypatch.setattr(P, "DECODE_CHUNK_BF16", chunk)
+    B, Hkv, S, hd = 10, 2, 1000, 64
+    q, ck, cv = rn(B, Hkv, G, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    lens = i32([-1, 0, 63, 64, chunk - 1, chunk, 500, S - 1, S, S + 3])
+    out = P.decode_attention(q, ck, cv, lens)
+    ref = P.decode_attention_plain(q, ck, cv, lens)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    torch.cuda.synchronize()
+
+
+def _q8_tie_allowance(q, nk, cache, lens, ids, scale, group, tbl=None, pool=None):
+    """Per output element of the int8 decode, what one p8 step at each key
+    on a rounding tie would move it: the keys whose p * vss / psc lies
+    within 1e-4 of k + 1/2 in float64 (the plain version's arithmetic: the
+    group's psc, p against the row max), each adding psc * |v8| / l in
+    every dim. On such a tie the kernel (fast exp, p through its split's
+    max, a reciprocal multiply) and the plain version (exact exp, one
+    division) may round p8 apart by one step. Zero where no key sits on a
+    tie, and for the exact arm (group 0), which does not requantize."""
+    from llm_mcp_tpu_torch.models.quant import INV127
+
+    Ba, Hkv, G, hd = q.shape
+    allow = torch.zeros(q.shape, dtype=torch.float64, device=q.device)
+    if not group:
+        return allow
+    pay, ss = P._q8_rows(cache, 1, ids.long(), tbl, pool)
+    S = pay.shape[2]
+    for b in range(Ba):
+        w = int(lens[b])
+        if not 0 <= w < S:
+            continue
+        for h in range(Hkv):
+            k8, v8 = pay[b, h].double(), pay[b, Hkv + h].double()
+            kss, vss = ss[b, h].double(), ss[b, Hkv + h].double()
+            for g in range(G):
+                qf = q[b, h, g].double()
+                qsc = max(float(qf.abs().max()) * INV127, 1e-30)
+                sc = (k8 @ torch.round(qf / qsc)) * (scale * qsc) * kss
+                sc[w] = float(qf @ nk[b, h].double()) * scale
+                sc[w + 1:] = -torch.inf
+                p = torch.exp(sc - sc[: w + 1].max())
+                pv = p * vss
+                pv[w] = 0.0
+                psc = (pv.reshape(S // group, group).amax(1) * INV127).clamp(min=1e-30)
+                psc = psc.repeat_interleave(group)
+                r = pv / psc
+                tie = ((r - r.floor() - 0.5).abs() < 1e-4) & (pv > 0)
+                allow[b, h, g] = (psc[tie, None] * v8[tie].abs()).sum(0) / p.sum()
+    return allow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("case,G", [(c, G) for c in ("g256", "g32", "row", "bt32", "bt64", "bt256")
+                                    for G in (1, 4, 7, 8)] + [("exact", 1)])
+def test_cuda_q8_decode_hd64(case, G, packed):
+    """The head_dim-64 int8 decode kernel (2 KB slots, two rows a swizzle
+    line, 2 s8 k-steps) against its plain version with the same group:
+    256 (S = 1024) and 32 (S = 608) contiguous, the whole row (S = 1000),
+    the exact arm (S = 4072 past the whole-S budget at 16 KV heads), and
+    through tables at 32-, 64- and 256-token blocks (pool rows, foreign
+    homes, scrambled arena); w at 0, stage, warp and split edges, S - 1
+    and parked; two calls agree bit for bit. |err| <= 1e-3 + 1e-2*|ref|,
+    plus one p8 step at each key whose p8 sits on a rounding tie
+    (`_q8_tie_allowance`; the whole row's one scale over 1000 keys makes
+    small p8 and such ties likely: at G = 1 with plain scales a key on
+    exactly 2.5 steps moved 13 outputs of one head by one step)."""
+    dev, g, rn, i32 = _card(1900 + 10 * G + packed + 3 * len(case))
+    L, B, hd = 2, 11, 64
+    Hkv = 16 if case == "exact" else 2
+    S = {"g256": 1024, "g32": 608, "row": 1000, "exact": 4072}.get(case, 1024)
+    bt = int(case[2:]) if case.startswith("bt") else 0
+    lens = i32([0, 31, 32, 63, 64, 255, 256, 257, 700, S - 1, S])
+    ids = i32([5, 2, 7, 0, 3, 6, 1, 4, 10, 9, 8])
+    q, nk, nv = rn(B, Hkv, G, hd), rn(B, Hkv, hd), rn(B, Hkv, hd)
+    kw, tbl, pool = dict(slot_ids=ids, scale=0.09), None, None
+    if bt:
+        cache, pool, tbl, _ = _q8_paged_case(g, dev, L, B, Hkv, S, hd, bt, packed)
+        kw.update(block_tables=tbl, pool_k=pool)
+    else:
+        cache = _fused_cache(g, dev, L, B, Hkv, S, hd, packed)
+    group = P.q8_decode_plan(S, hd, Hkv, Hkv * G, S // bt if bt else None)[0]
+    assert group == {"g256": 256, "g32": 32, "row": S, "exact": 0}.get(case, bt)
+    out = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, **kw)
+    again = P.decode_attend_q8(q, nk, nv, cache, {}, 1, lens, **kw)
+    ref = P.decode_attend_q8_plain(q, nk, nv, cache, 1, lens, ids, 0.09, group, tbl, pool)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    allow = _q8_tie_allowance(q, nk, cache, lens, ids, 0.09, group, tbl, pool)
+    err = (out.double() - ref.double()).abs()
+    limit = 1e-3 + 1e-2 * ref.double().abs() + allow
+    assert (err <= limit).all(), (err - limit).max()
+    torch.testing.assert_close(out[10], nv[10][:, None].expand(Hkv, G, hd), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,packed", FUSED_APPEND_ARMS)
+def test_cuda_decode_fused_append_hd64(arm, packed):
+    """`test_cuda_decode_fused_append` at head_dim 64: every decode arm's
+    append bit for bit, the 64-byte packed-scale row with its zero tail
+    included (the standalone int8 append is built for 128: its plain
+    version stands in)."""
+    _fused_append_case(arm, packed, 64)
+

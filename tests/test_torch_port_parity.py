@@ -35,6 +35,10 @@ WHOLE_ROW = "tests/test_torch_q8_whole_row.py"
 FUSED_CPU = (FUSED, "test_decode_step_fused_append_matches_post_scan_and_jax")
 FUSED_CARD = "test_cuda_decode_fused_append"
 FAMILY = "tests/test_torch_family_kernels.py"
+HD64 = "tests/test_torch_hd64.py"
+HD64_DECODE = (HD64, "test_decode_bf16_hd64_matches_pallas_and_appends")
+HD64_Q8 = (HD64, "test_decode_q8_hd64_matches_pallas_and_appends")
+HD64_ENGINE = (HD64, "test_engine_hd64_greedy_tokens_match_jax")
 
 # entry point: (Pallas bodies, (CPU parity test file, name) or a tuple of
 # them, card test name or a tuple of them)
@@ -105,6 +109,32 @@ PORT_PARITY = {
               "test_cuda_mla_ragged_tile_edges")
        for name in ("ragged_prefill_mla", "ragged_prefill_mla_paged", "ragged_prefill_mla_q8",
                     "ragged_prefill_mla_q8_paged")},
+    # head_dim 64 (Llama-3.2-1B, Qwen2.5-0.5B): the same bodies, the _hd64
+    # libraries
+    "flash_prefill_bf16_hd64": (
+        ("_flash_prefill_kernel",), ((HD64, "test_flash_prefill_hd64_matches_pallas"),
+                                     HD64_ENGINE), "test_cuda_flash_prefill_hd64"),
+    **{f"ragged_prefill_{a}_hd64": (
+        (f"_ragged_prefill_{a.split('_')[0]}_kernel",),
+        ((HD64, "test_ragged_prefill_hd64_matches_pallas"), HD64_ENGINE),
+        "test_cuda_ragged_prefill_hd64")
+       for a in ("bf16", "bf16_paged", "q8", "q8_paged")},
+    "decode_attend_bf16_hd64": (
+        ("_attend_bf16_kernel", "_attend_bf16_blocked_kernel", "_append_bf16_kernel"),
+        (HD64_DECODE, HD64_ENGINE), ("test_cuda_decode_bf16_hd64",
+                                     "test_cuda_decode_fused_append_hd64")),
+    "decode_attend_bf16_paged_hd64": (
+        ("_attend_bf16_paged_kernel", "_append_bf16_kernel"), (HD64_DECODE, HD64_ENGINE),
+        ("test_cuda_decode_bf16_hd64", "test_cuda_decode_fused_append_hd64")),
+    "decode_attention_bf16_hd64": (
+        ("_decode_attn_kernel",), (HD64, "test_decode_attention_hd64_matches_pallas"),
+        "test_cuda_decode_attention_hd64"),
+    "decode_attend_q8_hd64": (
+        ("_attend_q8_kernel", "_attend_q8_blocked_kernel", "_append_q8_kernel"),
+        (HD64_Q8, HD64_ENGINE), ("test_cuda_q8_decode_hd64", "test_cuda_decode_fused_append_hd64")),
+    "decode_attend_q8_paged_hd64": (
+        ("_attend_q8_paged_kernel", "_append_q8_kernel"), (HD64_Q8, HD64_ENGINE),
+        ("test_cuda_q8_decode_hd64", "test_cuda_decode_fused_append_hd64")),
 }
 
 
@@ -139,7 +169,7 @@ def test_every_entry_point_is_registered():
     """Each `extern "C"` of the port's CUDA sources is in PORT_PARITY and
     nothing else is; the wrappers bind exactly these symbols."""
     entries = _entry_points()
-    assert len(entries) == 19
+    assert len(entries) == 29
     assert set(entries) == set(PORT_PARITY)
     assert set(P._SIGNATURES) == set(PORT_PARITY)
 
