@@ -4,6 +4,8 @@
     python3 chip_smoke.py             # every phase below, one card
     python3 chip_smoke.py --kernels   # phases 1-2 and the MLA kernel checks,
                                       # with the bf16 decode chunk sweep
+    python3 chip_smoke.py --hd256     # the head_dim-256 flash rows alone
+                                      # (its build, ptxas report, rows)
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
                                       # (--planted=a,b: the named ones)
 
@@ -20,7 +22,9 @@ one run reads every check; the script then exits non-zero):
   2. hold each kernel against its plain PyTorch version at the main
      path's shapes in bf16, element by element (|err| <= 1e-3 + 1e-2*|ref|;
      the appends bit for bit), and time kernel, plain version, library
-     call (where one computes the same function) and the bound with CUDA
+     call (where one computes the same function; for the head_dim-256 flash
+     rows, an 8192-token prompt and Gemma-2's admission shape, flex_attention
+     under torch.compile) and the bound with CUDA
      events. The prefill tile's rows (flash at head_dim 128 and 256, ragged
      bf16, ragged at G = 7 and 6) are also called REPEATS times more, each
      output equal to the first bit for bit. With `--kernels` the three bf16
@@ -178,6 +182,7 @@ import time
 import urllib.error
 import urllib.request
 import weakref
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -205,8 +210,9 @@ TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attent
 # (its source, the Pallas body it replaces, the phase whose served launches
 # it reports); the launches count under the row's `counter`
 FAMILY_ROWS = {
-    "flash_prefill_attention_hd256": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill_hd256.cu",
-                                      "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16"),
+    **{n: ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill_hd256.cu",
+           "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16")
+       for n in ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")},
     **{f"ragged_prefill_attend_{a}_g{g}{p}": (
         "llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
         "llm_mcp_tpu/kernels/attention.py:" + ("2752" if a == "bf16" else "2908"),
@@ -772,6 +778,14 @@ def kernel_phase() -> dict[str, dict]:
     )
     res["flash_prefill_attention"]["repeats_bitwise"] = repeat_check(
         "flash_prefill_attention", lambda: K.flash_prefill_attention(qp, kp, vp, lp, scale=scale))
+    # the same inputs under a 200-key window and a softcap (Mistral-7B's
+    # and Gemma-2's masks at this width), checked and not timed
+    wkw = dict(window=200, softcap=30.0, scale=scale)
+    err, ratio = compare("flash_prefill_attention",
+                         K.flash_prefill_attention(qp, kp, vp, lp, **wkw),
+                         K.flash_prefill_plain(qp, kp, vp, lp, **wkw))
+    res["flash_prefill_attention"]["window_check"] = {
+        **wkw, "max_abs_err": err, "worst_err_over_limit": ratio}
     del kx, vx
 
     # ragged prefill: 4 rows (1900 tokens) with cached prefixes, packed into
@@ -1580,23 +1594,78 @@ def kernel_phase_mla() -> dict[str, dict]:
     return res
 
 
-def kernel_phase_families() -> dict[str, dict]:
-    """The kernel arms the decoder families add, against their plain
-    versions at the served families' shapes:
+def _flex_library(q, k, v, lens, ref, window, cap, scale, iters) -> dict:
+    """The yardstick of the head_dim-256 flash rows: one call of
+    `torch.nn.attention.flex_attention.flex_attention` under
+    `torch.compile`, with the softcap as `score_mod` and causal, window and
+    length as `block_mask`, timed on the row's inputs (the port never calls
+    it). {"library_ms", "library", "library_max_abs_err"}; where it does not
+    run on this torch, library_ms is None and "library" the error."""
+    import torch
 
-      - flash prefill at head_dim 256, Gemma-2-9B's heads (16 over 8),
-        softcap 50, scale 224**-0.5, one 8192-token prompt: a sliding
-        layer (window 4096, the row `flash_prefill_attention_hd256`) and a
-        global one (checked, timed beside). SDPA has no softcap: no library
-        call computes the function, so library_ms is null;
-      - ragged prefill, bf16 and int8, identity and 64-token block tables,
-        at Qwen2.5-7B's heads (28 over 4: G = 7) and R1-Distill-Qwen-1.5B's
-        (12 over 2: G = 6), which do not divide the tile's 64 rows: the
-        Llama row's packing (T = 2048, prefixes 0-1536);
-      - decode, bf16 and int8, contiguous and paged, at G = 7 (Qwen2.5-7B):
-        the Llama rows' fills over 4096 keys.
+    # inductor's and Triton's caches stay inside the checkout
+    cache = Path(__file__).resolve().parent / "build" / "compile_cache"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    what = (f"flex_attention under torch.compile: score_mod tanh(s / {cap}) * {cap}, "
+            f"block_mask causal & k < length" + (f" & q - k < {window}" if window else ""))
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
-    Each row's `counter` is the LAUNCHES name its launches count under."""
+        B, _, S, _ = q.shape
+
+        def score_mod(score, b, h, qi, ki):
+            return torch.tanh(score / cap) * cap
+
+        def mask_mod(b, h, qi, ki):
+            m = (ki <= qi) & (ki < lens[b])
+            return m & (qi - ki < window) if window else m
+
+        block_mask = create_block_mask(mask_mod, B, None, S, S, device=q.device)
+        flex = torch.compile(flex_attention)
+
+        def call():
+            return flex(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale,
+                        enable_gqa=True)
+
+        out = call()
+        torch.cuda.synchronize()
+        keep = lens > 0  # a prompt that sees no key is not compared: the port emits 0
+        err = (out[keep].float() - ref[keep].float()).abs().max()
+        return {"library_ms": time_ms(call, iters), "library": what,
+                "library_max_abs_err": err.item()}
+    except Exception as e:  # noqa: BLE001 - the yardstick's failure is the reason recorded
+        log(f"flex_attention yardstick failed: {type(e).__name__}: {e}")
+        return {"library_ms": None,
+                "library": f"none: {what} failed here: {type(e).__name__}: {str(e)[:400]}"}
+
+
+# ptxas's report of the head_dim-256 kernel (registers, spills) and its
+# dynamic shared memory, filled in by the build; its rows carry it
+HD256_PTXAS: dict = {}
+# Gemma-2-9B's attention (configs.py): 16 query heads over 8 KV heads,
+# head_dim 256, score softcap 50, scale 224**-0.5, a 4096-token window on
+# alternate layers
+GEMMA_HEADS = (16, 8, 256)
+GEMMA_SOFTCAP, GEMMA_SCALE, GEMMA_WINDOW = 50.0, 224.0**-0.5, 4096
+
+
+def kernel_phase_hd256(library: bool = True) -> dict[str, dict]:
+    """Flash prefill at head_dim 256 (`flash_prefill_hd256.cu`) against its
+    plain version at Gemma-2-9B's attention:
+
+      - `flash_prefill_attention_hd256`: one 8192-token prompt (a
+        whole-prompt admission), a sliding layer (window 4096); the global
+        layer checked and timed beside (`global_layer`);
+      - `flash_prefill_attention_hd256_admit`: Gemma-2's admission shape on
+        the served path (`prefill_chunk` 512): 4 prompts in a 512 bucket,
+        lengths 512/400/300/200 as the `flash_prefill_attention` row; a
+        global layer (a 4096-token window masks the same keys there).
+
+    Both are held to bit-equal repeats; `library` adds flex_attention's
+    time (`_flex_library`). Each row's `counter` is the LAUNCHES name its
+    launches count under."""
     import torch
 
     from llm_mcp_tpu_torch.kernels import attention as K
@@ -1611,41 +1680,72 @@ def kernel_phase_families() -> dict[str, dict]:
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
     res: dict[str, dict] = {}
-    record = functools.partial(_record, res)
+    H, Hkv, hd = GEMMA_HEADS
+    name = "flash_prefill_attention_hd256"
+    for row, B, S, lens, windows in (
+            (name, 1, 8192, [8192], (0, GEMMA_WINDOW)),  # the timed row last: sliding
+            (name + "_admit", 4, 512, [512, 400, 300, 200], (0,))):
+        qp, kp, vp = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+        lp = i32(lens)
+        fbytes = (2 * qp.numel() + 2 * kp.numel()) * 2
+        glob = {}
+        for win in windows:
+            kw = dict(window=win, softcap=GEMMA_SOFTCAP, scale=GEMMA_SCALE)
+            call = functools.partial(K.flash_prefill_attention, qp, kp, vp, lp, **kw)
+            plain = functools.partial(K.flash_prefill_plain, qp, kp, vp, lp, **kw)
+            out, ref = call(), plain()
+            pairs = sum(min(t + 1, n, win) if win else min(t + 1, n)
+                        for n in lens for t in range(S))
+            ops_ms = 4.0 * hd * H * pairs / BF16_FLOPS * 1e3
+            ms = time_ms(call, 10 if S > 1024 else 20)
+            repeats = repeat_check(row, call)
+            lib = (_flex_library(qp, kp, vp, lp, ref, win, GEMMA_SOFTCAP, GEMMA_SCALE,
+                                 10 if S > 1024 else 20)
+                   if library else {"library_ms": None, "library": "not timed in this run"})
+            if row == name and not win:
+                err, ratio = compare(row, out, ref)
+                glob = {"max_abs_err": err, "worst_err_over_limit": ratio, "ms": ms,
+                        "bound_ms": max(fbytes / HBM_BYTES_PER_S * 1e3, ops_ms),
+                        "repeats_bitwise": repeats, **lib}
+                log(f"{row} global layer: {json.dumps(glob)}")
+                continue
+            _record(res, row, out, ref, ms, time_ms(plain, 2 if S > 1024 else 10), fbytes,
+                    ops_ms, lib["library_ms"],
+                    {"q": [B, H, S, hd], "kv_heads": Hkv, "lengths": lens, "window": win,
+                     "softcap": GEMMA_SOFTCAP, "scale": GEMMA_SCALE, "library": lib["library"],
+                     **({"global_layer": glob} if glob else {})})
+            res[row].update(counter=name, repeats_bitwise=repeats, ptxas=HD256_PTXAS,
+                            **{k: v for k, v in lib.items() if k != "library_ms"})
+        del qp, kp, vp
+    return res
 
-    # -- flash prefill at head_dim 256 (Gemma-2-9B) --
-    Bf, H, Hkv, Sf, hd = 1, 16, 8, 8192, 256
-    sc, cap = 224.0**-0.5, 50.0
-    qp, kp, vp = rn(Bf, H, Sf, hd), rn(Bf, Hkv, Sf, hd), rn(Bf, Hkv, Sf, hd)
-    lp = i32([Sf])
-    fbytes = (2 * qp.numel() + 2 * kp.numel()) * 2
-    glob = {}
-    for win in (0, 4096):  # the timed row last: the sliding layer
-        kw = dict(window=win, softcap=cap, scale=sc)
-        out = K.flash_prefill_attention(qp, kp, vp, lp, **kw)
-        ref = K.flash_prefill_plain(qp, kp, vp, lp, **kw)
-        pairs = sum(min(t + 1, win) if win else t + 1 for t in range(Sf))
-        ms = time_ms(lambda: K.flash_prefill_attention(qp, kp, vp, lp, **kw), 10)
-        repeats = repeat_check("flash_prefill_attention_hd256",
-                               lambda: K.flash_prefill_attention(qp, kp, vp, lp, **kw))
-        if not win:
-            err, ratio = compare("flash_prefill_attention_hd256", out, ref)
-            glob = {"max_abs_err": err, "worst_err_over_limit": ratio, "ms": ms,
-                    "bound_ms": max(fbytes / HBM_BYTES_PER_S * 1e3,
-                                    4.0 * hd * H * pairs / BF16_FLOPS * 1e3),
-                    "repeats_bitwise": repeats}
-            log(f"flash_prefill_attention_hd256 global layer: {json.dumps(glob)}")
-            continue
-        record("flash_prefill_attention_hd256", out, ref, ms,
-               time_ms(lambda: K.flash_prefill_plain(qp, kp, vp, lp, **kw), 2),
-               fbytes, 4.0 * hd * H * pairs / BF16_FLOPS * 1e3, None,
-               {"q": [Bf, H, Sf, hd], "kv_heads": Hkv, "window": win, "softcap": cap,
-                "scale": sc, "global_layer": glob,
-                "library": "none: SDPA has no score softcap, so no one call computes it"})
-    res["flash_prefill_attention_hd256"].update(counter="flash_prefill_attention_hd256",
-                                                repeats_bitwise=repeats)
-    del qp, kp, vp
 
+def kernel_phase_families() -> dict[str, dict]:
+    """The kernel arms the decoder families add, against their plain
+    versions at the served families' shapes:
+
+      - flash prefill at head_dim 256, Gemma-2-9B's attention:
+        `kernel_phase_hd256`;
+      - ragged prefill, bf16 and int8, identity and 64-token block tables,
+        at Qwen2.5-7B's heads (28 over 4: G = 7) and R1-Distill-Qwen-1.5B's
+        (12 over 2: G = 6), which do not divide the tile's 64 rows: the
+        Llama row's packing (T = 2048, prefixes 0-1536);
+      - decode, bf16 and int8, contiguous and paged, at G = 7 (Qwen2.5-7B):
+        the Llama rows' fills over 4096 keys.
+
+    Each row's `counter` is the LAUNCHES name its launches count under."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1515)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    res = kernel_phase_hd256()
     _gqa_arm_rows(res, rn, i32, dev, 128, ((7, 4, "qwen2.5-7b"),
                                            (6, 2, "deepseek-r1-distill-qwen-1.5b")),
                   ((7, 4, "qwen2.5-7b"),), "")
@@ -2948,10 +3048,10 @@ def breakdown_phase(cfg, params, dev, quantized: bool = False, model_tag: str = 
 # each run in its own copy of the checkout by `python3 chip_smoke.py
 # --planted`: (source, text, replacement).
 PLANTED = {
-    "no_alpha_rescale": ("decode_attend.cu", "const float alpha = __expf(m[g] - mx);",
+    "no_alpha_rescale": ("decode_attend.cuh", "const float alpha = __expf(m[g] - mx);",
                          "const float alpha = 1.f;"),
-    "w_override_skipped": ("decode_attend.cu", "if (!POST && pos == we) {", "if (false) {"),
-    "wrong_ring_stage": ("decode_attend.cu", "mine + (st % NST) * STAGE_BYTES;  // the ring slot read",
+    "w_override_skipped": ("decode_attend.cuh", "if (!POST && pos == we) {", "if (false) {"),
+    "wrong_ring_stage": ("decode_attend.cuh", "mine + (st % NST) * STAGE_BYTES;  // the ring slot read",
                          "mine + ((st + 1) % NST) * STAGE_BYTES;  // the ring slot read"),
     "mla_rope_scale_swapped": ("ragged_prefill_mla.cu",
                                "const float v = Q8 ? (sl[e] * ls + sr[e] * rs) * scale",
@@ -2974,29 +3074,39 @@ PLANTED = {
                                       "if (false) v = sm.snew[hl];"),
     # the int8 decode kernel: a group's scale from one stage's keys, position
     # w's exact score skipped, the other V stage read
-    "q8_decode_group_scale_per_stage": ("decode_attend.cu",
+    "q8_decode_group_scale_per_stage": ("decode_attend.cuh",
                                         "const int gh = group / QSK;  // stages a group covers",
                                         "const int gh = 1;  // stages a group covers"),
-    "q8_decode_w_override_skipped": ("decode_attend.cu", "if (pos == we) v = sm.snew[hd2];",
+    "q8_decode_w_override_skipped": ("decode_attend.cuh", "if (pos == we) v = sm.snew[hd2];",
                                      "if (false) v = sm.snew[hd2];"),
     "q8_decode_wrong_ring_stage": (
-        "decode_attend.cu", "const unsigned char* vst = ring[ks ? 0 : 2];  // the V stage read",
+        "decode_attend.cuh", "const unsigned char* vst = ring[ks ? 0 : 2];  // the V stage read",
         "const unsigned char* vst = ring[ks ? 2 : 0];  // the V stage read"),
     # the whole-row arm's scale from the split's own keys alone; the fused
     # int8 append skipping its V scale
     "q8_decode_row_scale_one_split": (
-        "decode_attend.cu",
+        "decode_attend.cuh",
         "const float2 r = q8_row_max(rs, bh * nsplit * G + 2 * t + i, nlive, G);",
         "const float2 r = q8_row_max(rs, (bh * nsplit + sp) * G + 2 * t + i, 1, G);"),
-    "q8_append_skips_v_scale": ("decode_attend.cu", "ap.s[(lr * Hs + head) * c.S + w] = sb;",
+    "q8_append_skips_v_scale": ("decode_attend.cuh", "ap.s[(lr * Hs + head) * c.S + w] = sb;",
                                 "if (wid == 0) ap.s[(lr * Hs + head) * c.S + w] = sb;"),
-    # the arms the decoder families add: the second warpgroup of the
-    # head_dim-256 tile reading the first one's V columns, a window one key
-    # too wide, and the ragged tile's padding rows (G not dividing 64)
-    # taking the next tile's first token
-    "hd256_second_warpgroup_v_columns": (
-        "tile_attention.cuh", "return desc(t + 2 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);",
-        "return desc(t + 0 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);"),
+    # the head_dim-256 flash kernel: the second consumer warpgroup reading
+    # the first one's query rows, a V stage's empty barrier arrived before
+    # P.V has read it (the producer may then overwrite it), a window one key
+    # too wide; the tile's window one key too wide (the 128 and 64 flash
+    # arms); the ragged tile's padding rows (G not dividing 64) taking the
+    # next tile's first token
+    "hd256_second_wg_first_rows": (
+        "flash_prefill_hd256.cu", "const uint32_t qt = base + Q_OFF + wg * TILE_BYTES;",
+        "const uint32_t qt = base + Q_OFF + 0 * TILE_BYTES;"),
+    "hd256_v_released_before_pv": (
+        "flash_prefill_hd256.cu",
+        "    wg_wait();  // P.V has read V of stage s\n    hold(o);\n"
+        "    if ((threadIdx.x & 31) == 0) mbar_arrive(v_empty(bars, s));",
+        "    if ((threadIdx.x & 31) == 0) mbar_arrive(v_empty(bars, s));\n"
+        "    wg_wait();  // P.V has read V of stage s\n    hold(o);"),
+    "hd256_window_off_by_one": ("flash_prefill_hd256.cu", "(window <= 0 || qp - kp < window)",
+                                "(window <= 0 || qp - kp <= window)"),
     "flash_window_off_by_one": ("flash_prefill.cuh", "(window <= 0 || qp - kp < window)",
                                 "(window <= 0 || qp - kp <= window)"),
     "ragged_pad_rows_take_a_token": (
@@ -3018,9 +3128,12 @@ PLANTED = {
         "if (c.Hf > Hs) reinterpret_cast<bf16*>(prow)[head + (128 - HD) / 32] = sb;"),
 }
 # the rows each family-arm fault must fail (at least one of them)
+HD256_ROWS = ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")
 PLANTED_ROWS = {
-    "hd256_second_warpgroup_v_columns": ("flash_prefill_attention_hd256",),
-    "flash_window_off_by_one": ("flash_prefill_attention_hd256",),
+    "hd256_second_wg_first_rows": HD256_ROWS,
+    "hd256_v_released_before_pv": HD256_ROWS,
+    "hd256_window_off_by_one": HD256_ROWS,
+    "flash_window_off_by_one": ("flash_prefill_attention",),
     "ragged_pad_rows_take_a_token": tuple(n for n in FAMILY_ROWS if n.startswith("ragged")),
     "hd64_pv_columns": tuple(n for n in HD64_ROWS if "prefill" in n),
     "hd64_decode_lane_groups": tuple(n for n in HD64_ROWS if n.startswith("decode_attend_bf16")
@@ -3038,7 +3151,6 @@ def planted_phase() -> dict:
     catches fails the run, and so does a fault in an MLA kernel, the int8
     decode kernel or its fused append that no row of that kernel catches."""
     import shutil
-    from pathlib import Path
 
     root = Path(__file__).resolve().parent
     out: dict[str, dict] = {}
@@ -3087,12 +3199,21 @@ def planted_phase() -> dict:
             check_failed(f"planted fault {fault} failed not the fused int8 append: {failed}")
         elif fault in PLANTED_ROWS and not set(failed) & set(PLANTED_ROWS[fault]):
             check_failed(f"planted fault {fault} failed none of {PLANTED_ROWS[fault]}: {failed}")
-        elif fault.startswith("hd64") and not set(failed) <= set(PLANTED_ROWS[fault]):
-            # a head_dim-64 fault fails its own rows alone: no 128 or 256 row
+        elif fault.startswith(("hd64", "hd256")) and not set(failed) <= set(PLANTED_ROWS[fault]):
+            # a head_dim-64 or -256 fault fails its own rows alone
             check_failed(f"planted fault {fault} failed rows outside its own: "
                          f"{sorted(set(failed) - set(PLANTED_ROWS[fault]))}")
         shutil.rmtree(dst, ignore_errors=True)
     return out
+
+
+def hd256_smem_bytes() -> int | str:
+    """The dynamic shared memory the head_dim-256 flash kernel launches with:
+    `SMEM_BYTES` of its source, which a static_assert there ties to its
+    layout (ptxas reports static shared memory only)."""
+    src = Path(__file__).resolve().parent / FAMILY_ROWS["flash_prefill_attention_hd256"][0]
+    m = re.search(r"constexpr int SMEM_BYTES = (\d+);", src.read_text())
+    return int(m.group(1)) if m else "not stated in the source"
 
 
 def ptxas_report(text: str, kernel: str) -> dict[str, dict]:
@@ -3867,7 +3988,9 @@ def main() -> None:
         sys.exit(1 if FAILURES else 0)
 
     t0 = time.time()
-    reports = build.build(verbose=True)
+    hd256_only = "--hd256" in sys.argv[1:]
+    reports = build.build(("flash_prefill_hd256",) if hd256_only else build.SOURCES,
+                          verbose=True)
     log(f"built {len(reports)} kernel libraries in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -3875,8 +3998,8 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     for source, kernel, n, what in (
             ("flash_prefill", "flash_prefill_kernel", 1, "flash prefill, head_dim 128"),
-            ("flash_prefill_hd256", "flash_prefill_kernel", 1,
-             "flash prefill, head_dim 256: two warpgroups"),
+            ("flash_prefill_hd256", "flash_prefill_hd256_kernel", 1,
+             "flash prefill, head_dim 256: a TMA producer warp, two consumer warpgroups"),
             ("flash_prefill_hd64", "flash_prefill_kernel", 1,
              "flash prefill, head_dim 64: one 64-column block"),
             ("ragged_prefill_hd64", "ragged_prefill_", 4,
@@ -3893,12 +4016,21 @@ def main() -> None:
              "MLA ragged prefill, four arms"),
             ("decode_attend_mla", "mla_", 9,
              "MLA int8 decode: score and PV kernels in four arms each, and the combine")):
+        if hd256_only and source != "flash_prefill_hd256":
+            continue
         regs = ptxas_report(reports.get(source, ""), kernel)
         log(f"ptxas {kernel} ({what}): {json.dumps(regs)}")
+        if source == "flash_prefill_hd256":
+            HD256_PTXAS.update(kernels=regs, dynamic_smem_bytes=hd256_smem_bytes())
         if len(regs) < n or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                 for r in regs.values()):
             check_failed(f"{kernel} spills or was not reported: {regs}")
 
+    if hd256_only:
+        # the head_dim-256 flash rows alone: rows, then the verdict
+        print(json.dumps({"kernels": kernel_phase_hd256(), "failures": FAILURES}), flush=True)
+        print(card, flush=True)
+        sys.exit(1 if FAILURES else 0)
     kernels = kernel_phase()
     kernels.update(kernel_phase_q8())
     kernels.update(kernel_phase_mla())

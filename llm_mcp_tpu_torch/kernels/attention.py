@@ -11,7 +11,7 @@ Twenty-nine CUDA C++ entry points for `sm_90a`, sources in `csrc/`:
   - `flash_prefill_attention`    ← `_flash_prefill_kernel` (head_dim 128)
   - `flash_prefill_attention_hd256` ← `_flash_prefill_kernel` at head_dim
                                    256 (Gemma-2; `flash_prefill_hd256.cu`,
-                                   the same wrapper)
+                                   a kernel of its own; the same wrapper)
   - `ragged_prefill_attend_bf16` ← `_ragged_prefill_bf16_kernel`, identity tables
   - `ragged_prefill_attend_bf16_paged` ← the same body's block-table path
   - `append_kv_q8`               ← `_append_q8_kernel` with the quantization
@@ -38,8 +38,11 @@ appends and the MLA kernels are built for 128 (MLA: its own widths) only;
 every wrapper raises on a width it has no arm for.
 
 The flash and ragged prefill kernels (bf16 and int8) multiply on the
-tensor cores (`wgmma`, `csrc/tile_attention.cuh`), and so does the MLA
-ragged prefill kernel, on a tile of its own (`csrc/ragged_prefill_mla.cu`).
+tensor cores (`wgmma`, `csrc/tile_attention.cuh`); at head_dim 256 the
+flash kernel is one of its own, fed by a TMA producer warp, with two
+consumer warpgroups on different query rows (`csrc/flash_prefill_hd256.cu`).
+The MLA ragged prefill kernel multiplies on a tile of its own
+(`csrc/ragged_prefill_mla.cu`).
 The MLA int8 decode kernel takes all heads of a row and 128 of its keys a
 CTA, on the int8 tensor cores (`mma.sync`, `csrc/decode_attend_mla.cu`);
 the GQA int8 decode kernel a KV head of a row and 256 of its keys a CTA, on

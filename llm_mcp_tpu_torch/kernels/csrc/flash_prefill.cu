@@ -19,9 +19,10 @@
 // attend nothing and emit 0.
 //
 // Layouts: q [B, H, S, hd]; k/v [B, Hkv, S, hd]; lengths [B] int32;
-// out [B, H, S, hd]. This library is the head_dim-128 arm; the 256 arm
-// (Gemma-2) is flash_prefill_hd256.cu, the same kernel on the two-warpgroup
-// tile, and the 64 arm (Llama-3.2-1B, Qwen2.5-0.5B) flash_prefill_hd64.cu.
+// out [B, H, S, hd]. This library is the head_dim-128 arm; the 64 arm
+// (Llama-3.2-1B, Qwen2.5-0.5B) is flash_prefill_hd64.cu, the same kernel on
+// the 64-column tile, and the 256 arm (Gemma-2) flash_prefill_hd256.cu, a
+// kernel of its own (a TMA producer warp, two consumer warpgroups).
 
 #include "flash_prefill.cuh"
 

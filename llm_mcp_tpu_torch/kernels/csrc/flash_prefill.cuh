@@ -1,7 +1,6 @@
 // The flash prefill kernel over the tile of tile_attention.cuh, for the
 // head_dim the including source built the tile for (flash_prefill.cu: 128,
-// flash_prefill_hd64.cu: 64, flash_prefill_hd256.cu: 256). See
-// flash_prefill.cu.
+// flash_prefill_hd64.cu: 64). See flash_prefill.cu.
 
 #pragma once
 

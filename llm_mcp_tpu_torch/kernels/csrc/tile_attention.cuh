@@ -54,15 +54,7 @@
 // 45 KB a CTA, so shared memory would let five CTAs share an SM; the
 // registers (ptxas's report in chip_smoke.py) set how many do.
 //
-// head_dim 256 (Gemma-2; a source defines TILE_HD 256 before including
-// this header, so its tile is built for that width alone): the CTA is two
-// warpgroups (256 threads) over the same 64 query rows. Each computes the
-// whole S = Q.K^T (16 k-steps over the 256 columns; the product is
-// repeated, the registers are not: a 64 x 256 f32 O would need 128 a
-// thread on top of the scores) and the same online softmax, then P.V for
-// its own 128 output columns, so each keeps the 128-column O of the
-// head_dim-128 tile. Tiles are four 64-column blocks; Q plus two stages of
-// K and V take 160 KB, one CTA an SM. bf16 only (no Q8 step at 256).
+// head_dim 256 (Gemma-2) has a kernel of its own, flash_prefill_hd256.cu.
 
 #pragma once
 
@@ -75,18 +67,15 @@
 namespace tile {
 
 constexpr int HD = TILE_HD;
-static_assert(HD == 64 || HD == 128 || HD == 256,
-              "the tile is built for head_dim 64, 128 or 256");
-constexpr int NWG = HD == 64 ? 1 : HD / 128;  // warpgroups a CTA
-constexpr int WGC = HD / NWG;                 // output columns a warpgroup owns (64 or 128)
-constexpr int OREG = WGC / 2;                 // O values a thread holds
+static_assert(HD == 64 || HD == 128, "the tile is built for head_dim 64 or 128");
+constexpr int OREG = HD / 2;  // O values a thread holds
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 128 * NWG;
+constexpr int THREADS = 128;  // one warpgroup
 constexpr int CH = HD / 8;  // 16-byte chunks a bf16 row
 constexpr int TILE_BYTES = BQ * HD * 2;  // one bf16 [64][HD] tile
 constexpr int HALF_BYTES = BQ * 128;     // one 64-column block of a tile (8 KB)
-constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][HD] tile (HD 64 or 128)
+constexpr int Q8_TILE_BYTES = BK * HD;   // one int8 [64][HD] tile
 constexpr int Q8CH = HD / 16;            // 16-byte chunks an int8 row
 constexpr int Q8SH = HD == 64 ? 2 : 3;   // log2(Q8CH) at the int8 widths
 // byte offsets from the 1024-aligned base
@@ -185,11 +174,12 @@ __device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* t, int kk) 
 }
 
 // MN-major B operand (V [keys][hd]): k-step kk covers keys 16kk..16kk+15
-// of warpgroup wg's 128 columns (blocks 2wg and 2wg + 1); the two 64-column
-// blocks HALF_BYTES apart, 8-key groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* t, int kk, int wg) {
+// of all HD columns; the 64-column blocks HALF_BYTES apart (at head_dim 64
+// the one block: the leading byte offset is never taken), 8-key groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* t, int kk) {
   if constexpr (HD == 64) return desc(t + kk * 16 * 128, HALF_BYTES, 1024);  // the one block
-  return desc(t + 2 * wg * HALF_BYTES + kk * 16 * 128, HALF_BYTES, 1024);
+  return desc(t + kk * 16 * 128, HALF_BYTES, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -368,9 +358,7 @@ __device__ __forceinline__ void widen(const Smem& s, int st) {
 template <bool Q8, class Mask>
 __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, int st,
                                      int nkeys, float scale, float softcap, Mask mask) {
-  static_assert(!Q8 || HD <= 128, "int8 key tiles are built for head_dim 64 and 128");
   const int lane = threadIdx.x & 31;
-  const int wg = threadIdx.x >> 7;  // this warpgroup's 128 output columns
   const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
   float sc[32];
@@ -467,8 +455,8 @@ __device__ __forceinline__ void step(const Smem& s, State& S_, int ti, int kv, i
   wg_fence();
 #pragma unroll
   for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
-    mma_pv(S_.o, pa[kk2], desc_mnmajor(s.v(kv), kk2, wg));
-    mma_pv(S_.o, pb[kk2], desc_mnmajor(s.v(kv), kk2, wg));
+    mma_pv(S_.o, pa[kk2], desc_mnmajor(s.v(kv), kk2));
+    mma_pv(S_.o, pb[kk2], desc_mnmajor(s.v(kv), kk2));
   }
   wg_commit();
   wg_wait();
@@ -505,15 +493,15 @@ __device__ void run(const Smem& s, State& S_, int ntiles, int n, Prep prep, Mask
   }
 }
 
-// Write rows r0 and r0 + 8 of the normalized output, this warpgroup's WGC
-// columns: dst(r) points at row r's HD bf16 values (nullptr: not stored).
+// Write rows r0 and r0 + 8 of the normalized output: dst(r) points at row
+// r's HD bf16 values (nullptr: not stored).
 // Rows that attended nothing emit 0.
 template <class Dst>
 __device__ void store(const State& S_, Dst dst) {
   cp_wait<0>();
   const int lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int c0 = 128 * (threadIdx.x >> 7) + 2 * (lane & 3);
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     bf16* out = dst(r0 + 8 * i);

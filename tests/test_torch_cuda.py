@@ -1451,29 +1451,51 @@ def test_cuda_masked_step_launches_decode_kernel(monkeypatch, kind):
     assert st_off["illegal_tokens"] == st_on["illegal_tokens"] == 0.0
 
 
+# the head_dim-256 flash kernel's cases: (S, window, H, Hkv, lengths);
+# Gemma-2-9B's heads (16 over 8) unless a case says otherwise
+HD256_CASES = {
+    "S67": (67, 0, 16, 8, [67, 0]),  # S not a multiple of 64; a row of length 0
+    "S640_w200": (640, 200, 16, 8, [640, 0]),  # a window of three tiles
+    "S1100": (1100, 0, 16, 8, [1095]),
+    "S4500_w4096": (4500, 4096, 16, 8, [4495]),  # a window longer than most rows
+    "admission": (512, 0, 16, 8, [512, 400, 300, 200]),  # 4 prompts in a 512 bucket
+    "S8192_sliding": (8192, 4096, 16, 8, [8192]),  # a whole-prompt admission
+    "G1": (300, 0, 8, 8, [300, 129]),  # one head a KV head: two query tiles a CTA
+    "G3": (333, 100, 12, 4, [333, 65]),  # odd G: the same, over three heads a KV head
+    # lengths straddling the 64-row tiles and the 128-row pairs of odd G
+    "edges": (260, 0, 16, 8, [63, 64, 65, 127, 128, 129, 1, 0]),
+    "edges_G1": (260, 0, 4, 4, [63, 64, 65, 127, 128, 129, 1, 0]),
+    "window1": (200, 1, 16, 8, [200, 77]),  # each row its own key alone
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,window", [(67, 0), (640, 200), (1100, 0), (4500, 4096)])
-def test_cuda_flash_prefill_hd256(S, window):
-    """The head_dim-256 flash arm (two warpgroups, each its 128 output
-    columns) at Gemma-2-9B's heads (16 over 8 KV heads) with its softcap 50
-    and scale 224**-0.5: S not a multiple of 64, a window shorter and
-    longer than a tile, a row of length 0 (emits 0), a length inside a
-    tile; |err| <= 1e-3 + 1e-2*|ref|; the launch counts under its own
-    name."""
-    _, _, rn, i32 = _card(900 + S)
-    B, H, Hkv, hd = 2, 16, 8, 256
-    if S > 1024:
-        B = 1
+@pytest.mark.parametrize("case", sorted(HD256_CASES))
+def test_cuda_flash_prefill_hd256(case):
+    """The head_dim-256 flash kernel (a TMA producer warp, two consumer
+    warpgroups on different query rows) with Gemma-2's softcap 50 and scale
+    224**-0.5 against its plain version, |err| <= 1e-3 + 1e-2*|ref|: S not a
+    multiple of 64, windows of 1 key, three tiles and past S, rows of length
+    0 (they emit 0), lengths on and beside the 64- and 128-row edges, G = 1,
+    2 and 3 (the odd-G mapping), Gemma-2's admission shape and a whole
+    8192-token prompt. 20 more calls each equal the first bit for bit, and
+    every launch counts under the kernel's own name."""
+    S, window, H, Hkv, lens = HD256_CASES[case]
+    _, _, rn, i32 = _card(900 + S + H)
+    B, hd = len(lens), 256
     q, k, v = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
-    ln = i32([S, 0] if B == 2 else [S - 5])
+    ln = i32(lens)
     before = P.LAUNCHES["flash_prefill_attention_hd256"]
     kw = dict(window=window, softcap=50.0, scale=224.0**-0.5)
     out = P.flash_prefill_attention(q, k, v, ln, **kw)
     ref = P.flash_prefill_plain(q, k, v, ln, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
-    if B == 2:
-        assert not out[1].any()
-    assert P.LAUNCHES["flash_prefill_attention_hd256"] == before + 1
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+    for _ in range(20):
+        assert torch.equal(P.flash_prefill_attention(q, k, v, ln, **kw), out)
+    assert P.LAUNCHES["flash_prefill_attention_hd256"] == before + 21
     torch.cuda.synchronize()
 
 

@@ -1,9 +1,9 @@
 """The kernel arms the decoder families add, plain versions against the
 Pallas bodies in interpret mode (as `tests/test_torch_kernels.py`).
 
-  - flash prefill at head_dim 256 (Gemma-2's width) with a sliding window,
-    the score softcap 50 and the scale 224**-0.5, rows of full and partial
-    length;
+  - flash prefill at head_dim 256 (Gemma-2's width) with a sliding window
+    (one key, several tiles, past S), the score softcap 50 and the scale
+    224**-0.5, G = 1, 2 and 4, rows of full, partial and zero length;
   - ragged prefill, bf16 and int8, identity and block tables, at G = 6 and
     7 query heads a KV head (R1-Distill-Qwen-1.5B's and Qwen2.5-7B's),
     which do not divide the CUDA tile's 64 rows; a head count that fits
@@ -31,10 +31,23 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("window,lens", [(0, [256, 130]), (100, [256, 200]), (64, [0, 97])])
-def test_flash_prefill_hd256_matches_pallas(window, lens):
+# (G, window, lengths): G = 2 is Gemma-2's; the CUDA kernel pairs heads
+# 2j, 2j + 1 there and, at odd G, two 64-row query tiles of one head;
+# lengths on and beside its 64- and 128-row edges, windows of one key and
+# past S, rows of length 0
+HD256_CASES = [
+    (2, 0, [256, 130]), (2, 100, [256, 200]), (2, 64, [0, 97]),
+    (1, 0, [1, 63]), (1, 1, [64, 65]), (1, 300, [127, 0]),
+    (2, 1, [128, 129]), (2, 256, [63, 64]),
+    (4, 0, [65, 127]), (4, 1, [129, 1]), (4, 300, [128, 0]),
+]
+
+
+@pytest.mark.parametrize("G,window,lens", HD256_CASES)
+def test_flash_prefill_hd256_matches_pallas(G, window, lens):
     rng = np.random.default_rng(5)
-    B, H, Hkv, S, hd = 2, 4, 2, 256, 256
+    B, Hkv, S, hd = 2, 2, 256, 256
+    H = Hkv * G
     q = rng.standard_normal((B, H, S, hd)).astype(np.float32)
     k = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
     v = rng.standard_normal((B, Hkv, S, hd)).astype(np.float32)
