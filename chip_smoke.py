@@ -156,6 +156,20 @@ one run reads every check; the script then exits non-zero):
      tokenizer.json, served by `weights_dir`: logits and greedy tokens
      bit for bit those of `params_from_numpy`'s engine; load seconds and
      GB/s; the native BPE built with g++ against the Python merge core.
+ 13. embeddings (`embed_phase`, run while the bf16 server of 4 is up, its
+     generator idle): a server with that generator and an embedding engine
+     (`max_seq_len` 4096, `max_batch` 64, full depth, random weights)
+     answers `/v1/embeddings` for nomic-embed-text bf16 (one input a
+     request), qwen3-embedding-8b bf16 (64 inputs of 16-512 tokens,
+     `dimensions` 1024) and qwen3-embedding-8b int8 (the same batch). For
+     each: the 2-layer cut on the card against the host in float32
+     (cosine >= 0.9995), one input alone against the batch (cosine >=
+     0.999), unit vectors of the requested length, the flash kernel
+     launched 36 times a Qwen3 forward and nothing for nomic (counters set
+     to 0 just before each request), embeds/s, p50 latency and peak
+     memory; and one chat's tok/s beside batch-64 requests against alone.
+     Row 1d (`kernel_phase_embed`, with the other kernel checks) is the
+     flash kernel at that batch: 64 rows, 32/8 heads, S = 512.
 
 After each model's engines are shut down and dropped, the device memory
 allocated must be back within RELEASE_SLACK of its value before they were
@@ -206,10 +220,14 @@ TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attent
        "decode_attend_q8_mla": ATTN_TOL, "decode_attend_q8_mla_paged": ATTN_TOL,
        "ragged_prefill_attend_mla": ATTN_TOL, "ragged_prefill_attend_mla_paged": ATTN_TOL,
        "ragged_prefill_attend_mla_q8": ATTN_TOL, "ragged_prefill_attend_mla_q8_paged": ATTN_TOL}
-# the kernel arms the decoder families add (kernel_phase_families): row ->
-# (its source, the Pallas body it replaces, the phase whose served launches
-# it reports); the launches count under the row's `counter`
+# the kernel arms and shapes the decoder families and the embedders add
+# (kernel_phase_families, kernel_phase_embed): row -> (its source, the
+# Pallas body it replaces, the phase whose served launches it reports); the
+# launches count under the row's `counter`
 FAMILY_ROWS = {
+    "flash_prefill_attention_embed": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill.cu",
+                                      "llm_mcp_tpu/kernels/attention.py:178",
+                                      "qwen3-embedding-8b bf16"),
     **{n: ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill_hd256.cu",
            "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16")
        for n in ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")},
@@ -3961,6 +3979,295 @@ def checkpoint_phase() -> dict:
     return res
 
 
+# the embedders (phase 13): row 1d and embed_phase
+EMBED_ROW = "flash_prefill_attention_embed"  # in FAMILY_ROWS
+EMBED_BATCH = 64  # BASELINE config 4: batch-64 /v1/embeddings, Matryoshka dimensions=1024
+EMBED_DIMS = 1024
+EMBED_LENGTHS = [16 + (496 * i) // (EMBED_BATCH - 1) for i in range(EMBED_BATCH)]  # 16..512
+EMBED_COSINE = 0.999  # one input alone against the same input inside the batch
+
+
+def kernel_phase_embed() -> dict[str, dict]:
+    """Row 1d: the head_dim-128 flash prefill kernel at the embedding batch
+    shape of Qwen3-Embedding-8B (`llama_encode`): 64 rows at 32/8 heads in
+    the 512 bucket, lengths EMBED_LENGTHS (16 to 512), against its plain
+    version, held to bit-equal repeats; the library yardstick is SDPA with
+    the same boolean causal-and-length mask (K/V heads repeated outside the
+    timed call). Its `counter` is row 1's LAUNCHES name. JAX's embedding
+    path runs no Pallas kernel (its `llama_encode` takes the XLA branch):
+    the row's `replaces` names row 1's kernel, whose function it computes."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1818)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B, S, H, Hkv, hd = EMBED_BATCH, 512, 32, 8, 128
+    q, k, v = rn(B, H, S, hd), rn(B, Hkv, S, hd), rn(B, Hkv, S, hd)
+    lens = torch.tensor(EMBED_LENGTHS, dtype=torch.int32, device=dev)
+    call = functools.partial(K.flash_prefill_attention, q, k, v, lens)
+    plain = functools.partial(K.flash_prefill_plain, q, k, v, lens)
+    out, ref = call(), plain()
+    pos = torch.arange(S, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lens[:, None, None]))
+    kx, vx = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
+    lib = functools.partial(F.scaled_dot_product_attention, q, kx, vx, attn_mask=mask[:, None])
+    pairs = sum(min(t + 1, n) for n in EMBED_LENGTHS for t in range(S))
+    # bytes: Q read and O written over every row, K and V read only below
+    # each row's length (the keys the function needs)
+    kv_read = 2 * sum(EMBED_LENGTHS) * Hkv * hd
+    res: dict[str, dict] = {}
+    _record(res, EMBED_ROW, out, ref, time_ms(call, 20), time_ms(plain, 5),
+            (2 * q.numel() + kv_read) * 2, 4.0 * hd * H * pairs / BF16_FLOPS * 1e3,
+            time_ms(lib, 20),
+            {"q": [B, H, S, hd], "kv_heads": Hkv, "lengths": "16 to 512, EMBED_LENGTHS",
+             "library": "SDPA, boolean causal and length mask, K/V heads repeated"})
+    res[EMBED_ROW].update(counter="flash_prefill_attention",
+                          repeats_bitwise=repeat_check(EMBED_ROW, call))
+    del q, k, v, kx, vx, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def _embed_texts(n: int, lengths: list[int], seed: int) -> list[str]:
+    """Inputs of the given token counts under the byte tokenizer (one token
+    a byte, plus BOS): seeded lowercase words."""
+    import random
+
+    rs = random.Random(seed)
+    words = [rs.choice(["alpha", "beta", "gamma", "delta", "kernel", "vector", "token", "query"])
+             for _ in range(2 * max(lengths))]
+    text = " ".join(words)
+    return [text[i % 97:][: lengths[i] - 1] for i in range(n)]
+
+
+def embed_model_check(eng) -> dict:
+    """The engine's first CHECK_LAYERS layers (published widths, the served
+    weights) on the card against the same function on the host (the plain
+    versions): 4 rows in the 64 bucket, one of length 1, cosine >=
+    MODEL_COSINE per vector. The host runs in float32; at int8 weights it
+    runs in the served dtype, as `model_check` does at int8 (w8a8 rounds
+    each activation row to int8 steps, so float32 activations round apart
+    from bf16 ones); the float32 host's cosine is reported beside, and so
+    is the float32 host's against the served-dtype host on the same tree,
+    the gap the dtype makes with no card in it. Returns the report; a miss
+    is a failed check."""
+    import dataclasses
+
+    import torch
+
+    cut = dataclasses.replace(eng.cfg, n_layers=CHECK_LAYERS)
+
+    def cut_layers(v):
+        return {k: cut_layers(x) for k, x in v.items()} if isinstance(v, dict) \
+            else v[:CHECK_LAYERS]
+
+    def on_host(v, f32):
+        if isinstance(v, dict):
+            return {k: on_host(x, f32) for k, x in v.items()}
+        v = v.cpu()
+        return v.float() if f32 and v.is_floating_point() else v
+
+    tree = {**eng.params, "layers": cut_layers(eng.params["layers"])}
+    toks = torch.randint(3, 259, (4, 64), generator=torch.Generator().manual_seed(8),
+                         dtype=torch.int32)
+    lens = torch.tensor([64, 40, 1, 17], dtype=torch.int32)
+    got = eng._fwd(cut, tree, toks.to(eng.device), lens.to(eng.device)).cpu()
+    report: dict = {"layers": CHECK_LAYERS, "finite": bool(got.isfinite().all()),
+                    "host": "served dtype" if eng.quant else "float32"}
+    wants = {}
+    for f32 in (True, False) if eng.quant else (True,):
+        want = wants[f32] = eng._fwd(cut, on_host(tree, f32), toks, lens)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+        err = (got - want).abs().max().item()
+        if f32 and eng.quant:
+            report["host_float32"] = {"cosine_min": cos, "max_abs_err": err}
+        else:
+            report.update(cosine_min=cos, max_abs_err=err)
+    if eng.quant:
+        # the host alone, float32 against the served dtype on the same int8
+        # tree: the gap the dtype makes without the card
+        report["host_float32_vs_served_dtype"] = {
+            "cosine_min": torch.nn.functional.cosine_similarity(
+                wants[True], wants[False], dim=-1).min().item(),
+            "max_abs_err": (wants[True] - wants[False]).abs().max().item()}
+    log(f"embed {eng.cfg.name} model check: {json.dumps(report)}")
+    if not (report["finite"] and report["cosine_min"] >= MODEL_COSINE):
+        check_failed(f"embed {eng.cfg.name}: the 2-layer cut on the card disagrees with the "
+                     f"host's plain path: {report}")
+    return report
+
+
+def _embed_request(base: str, model: str, texts: list[str], dims: int | None = None) -> dict:
+    body = {"model": model, "input": texts}
+    if dims:
+        body["dimensions"] = dims
+    with _post(base + "/v1/embeddings", body) as r:
+        return json.loads(r.read())
+
+
+def _embed_config(base: str, model: str, eng, tag: str, texts: list[str], dims: int | None,
+                  reps: int, per_call: int) -> dict:
+    """One configuration over HTTP: a warm request, then `reps` timed ones
+    of all `texts` with the launch counters set to 0 just before each and
+    read just after (the generator is idle): the flash kernel must have
+    launched `per_call` times a forward call and nothing else any time.
+    Every vector must be of unit norm and the requested length. Returns
+    embeds/s, p50 latency, peak memory and the launches."""
+    import torch
+
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    want_len = dims or eng.cfg.dim
+    _embed_request(base, model, texts, dims)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, launches, bad = [], [], []
+    for _ in range(reps):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        doc = _embed_request(base, model, texts, dims)
+        lat.append(time.perf_counter() - t0)
+        launches.append({n: c for n, c in K.LAUNCHES.items() if c})
+        vecs = [d["embedding"] for d in doc["data"]]
+        norms = [math.sqrt(sum(x * x for x in vec)) for vec in vecs]
+        if len(vecs) != len(texts) or any(len(vec) != want_len for vec in vecs) or any(
+                not abs(nm - 1.0) <= 1e-3 for nm in norms):
+            bad.append({"vectors": len(vecs), "lengths": sorted({len(x) for x in vecs}),
+                        "norms": [min(norms, default=0), max(norms, default=0)]})
+    calls = -(-len(texts) // eng.max_batch)
+    want_launches = {"flash_prefill_attention": per_call * calls} if per_call else {}
+    out = {
+        "inputs": len(texts), "dimensions": want_len, "reps": reps,
+        "tokens": doc["usage"]["total_tokens"],
+        "p50_latency_s": sorted(lat)[len(lat) // 2], "latencies_s": lat,
+        "embeds_per_s": len(texts) * reps / sum(lat),
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches[-1], "forward_calls_per_request": calls,
+    }
+    log(f"embed {tag}: {json.dumps(out)}")
+    if bad:
+        check_failed(f"embed {tag}: vectors not of unit norm and length {want_len}: {bad}")
+    if any(ln != want_launches for ln in launches):
+        check_failed(f"embed {tag}: launches {launches}, expected {want_launches} a request")
+    return out
+
+
+def _alone_vs_batch(base: str, model: str, texts: list[str], dims: int | None, tag: str) -> float:
+    """Cosine of one input embedded alone against the same input inside the
+    batch; below EMBED_COSINE is a failed check."""
+    alone = _embed_request(base, model, texts[-1:], dims)["data"][0]["embedding"]
+    inside = _embed_request(base, model, texts, dims)["data"][-1]["embedding"]
+    cos = sum(a * b for a, b in zip(alone, inside)) / math.sqrt(
+        sum(a * a for a in alone) * sum(b * b for b in inside))
+    log(f"embed {tag}: alone vs inside the batch of {len(texts)}: cosine {cos}")
+    if not cos >= EMBED_COSINE:
+        check_failed(f"embed {tag}: one input alone against the batch: cosine {cos} "
+                     f"< {EMBED_COSINE}")
+    return cos
+
+
+def _chat_rate(base: str, model: str) -> dict:
+    r: dict = {}
+    chat(base, model, "Count slowly from one to one hundred, one number a line.", True, r,
+         max_tokens=128, temperature=0)
+    if "error" in r or not r.get("finish") or r.get("t_last") is None:
+        fail(f"embed phase: the chat did not finish: {r}")
+    n = r["usage"]["completion_tokens"]
+    return {"completion_tokens": n, "tok_per_s": (n - 1) / (r["t_last"] - r["t_first"])}
+
+
+def embed_phase(gen) -> dict:
+    """BASELINE's embedding configurations over HTTP, on one server with the
+    running generator `gen` (Llama-3.1-8B bf16) and an embedding engine, as
+    `python -m llm_mcp_tpu_torch.api` serves them (max_seq_len
+    min(4096, 8192), max_batch 64), each full depth on random weights from
+    seed 0:
+
+      - config 1, nomic-embed-text bf16: one input a request;
+      - config 4, qwen3-embedding-8b bf16: 64 inputs of 16 to 512 tokens
+        (EMBED_LENGTHS) with `dimensions` 1024; one chat's tok/s beside
+        batch-64 requests against the same chat alone;
+      - config 4 at `--embed-quant int8` (direct int8 weights): the same batch.
+
+    Each: the 2-layer check against the host (`embed_model_check`), one
+    input alone against the batch (the decoder's), and `_embed_config`'s
+    embeds/s, p50 latency, peak memory and launches (36 flash launches a
+    Qwen3 forward, none for nomic)."""
+    import torch
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import EmbeddingEngine
+
+    gmodel = gen.cfg.name
+    texts64 = _embed_texts(EMBED_BATCH, EMBED_LENGTHS, 11)
+    one = _embed_texts(1, [48], 12)
+    out: dict = {}
+    for tag, model, quant in (("nomic-embed-text bf16", "nomic-embed-text", ""),
+                              ("qwen3-embedding-8b bf16", "qwen3-embedding-8b", ""),
+                              ("qwen3-embedding-8b int8", "qwen3-embedding-8b", "int8")):
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.time()
+        eng = EmbeddingEngine(model, max_seq_len=min(4096, 8192), max_batch=EMBED_BATCH,
+                              quant=quant, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        res: dict = {"build_s": time.time() - t0,
+                     "weights_gib": (torch.cuda.memory_allocated() - mem0) / 2**30}
+        leaf = weakref.ref(_first_leaf(eng.params["layers"]))
+        res["model_check"] = embed_model_check(eng)
+        api = serve({gmodel: gen}, "127.0.0.1", 0, embed_engines={model: eng})
+        base = f"http://127.0.0.1:{api.port}"
+        try:
+            if model == "nomic-embed-text":
+                res["served"] = _embed_config(base, model, eng, tag, one, None, 20, 0)
+                res["alone_vs_batch_cosine"] = _alone_vs_batch(base, model, texts64[:8] + one,
+                                                               None, tag)
+            else:
+                res["served"] = _embed_config(base, model, eng, tag, texts64, EMBED_DIMS,
+                                              5 if not quant else 3, eng.cfg.n_layers)
+                res["alone_vs_batch_cosine"] = _alone_vs_batch(base, model, texts64,
+                                                               EMBED_DIMS, tag)
+            res["peak_above_before_build_gib"] = res["served"]["peak_allocated_gib"] - mem0 / 2**30
+            if tag == "qwen3-embedding-8b bf16":
+                res["chat_beside_embeddings"] = _chat_beside(base, gmodel, model, texts64)
+            health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+            res["health"] = health["embedders"][model]
+        finally:
+            api.shutdown()
+        del eng, api
+        res["released"] = _released(f"embed {tag}", mem0, leaf)
+        out[tag] = res
+    return out
+
+
+def _chat_beside(base: str, gmodel: str, model: str, texts: list[str]) -> dict:
+    """One greedy chat's decode tok/s alone, then again while batch-64
+    embedding requests run back to back beside it."""
+    alone = _chat_rate(base, gmodel)
+    stop, done = threading.Event(), []
+
+    def embed_loop():
+        while not stop.is_set():
+            _embed_request(base, model, texts, EMBED_DIMS)
+            done.append(time.perf_counter())
+
+    th = threading.Thread(target=embed_loop)
+    th.start()
+    time.sleep(0.5)  # the first embedding request is on the card
+    beside = _chat_rate(base, gmodel)
+    stop.set()
+    th.join(timeout=600)
+    out = {"alone": alone, "beside": beside, "embedding_requests_beside": len(done),
+           "ratio": beside["tok_per_s"] / alone["tok_per_s"]}
+    log(f"embed chat beside batch-{len(texts)} requests: {json.dumps(out)}")
+    return out
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -4036,6 +4343,7 @@ def main() -> None:
     kernels.update(kernel_phase_mla())
     kernels.update(kernel_phase_families())
     kernels.update(kernel_phase_hd64())
+    kernels.update(kernel_phase_embed())
     if "--kernels" in sys.argv[1:]:
         # the kernel checks alone (planted-fault runs): rows, then the verdict
         print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
@@ -4063,6 +4371,7 @@ def main() -> None:
         e2e = e2e_phase(engine, base)
         prefix = prefix_phase(engine, base)
         constrained = constrain_phase(engine, base)
+        embed = embed_phase(engine)
     finally:
         api.shutdown()
         engine.shutdown()
@@ -4103,7 +4412,8 @@ def main() -> None:
     for name, r in kernels.items():
         if name in FAMILY_ROWS or name in HD64_ROWS:
             src, replaces, phase = FAMILY_ROWS.get(name) or HD64_ROWS[name]
-            served = {"checkpoint": checkpoint}.get(phase) or families.get(phase) or {}
+            served = ({"checkpoint": checkpoint}.get(phase) or families.get(phase)
+                      or embed.get(phase, {}).get("served") or {})
             counter = r["counter"]
             if "_paged" in counter and "prefix" in served:
                 served = served["prefix"]
@@ -4131,7 +4441,8 @@ def main() -> None:
                       MLA_MODEL: mla, "int8_gemm": gemm, "breakdown": breakdown,
                       "graph_ab": graph_ab, "preempt": preempt, "released": released,
                       "constrain": constrained, "spec": spec, "families": families,
-                      "checkpoint": checkpoint, "seconds": time.time() - t_start}), flush=True)
+                      "checkpoint": checkpoint, "embed": embed,
+                      "seconds": time.time() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

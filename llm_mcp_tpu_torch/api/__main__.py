@@ -1,13 +1,13 @@
-"""`python -m llm_mcp_tpu_torch.api` — serve one model on the card.
+"""`python -m llm_mcp_tpu_torch.api` — serve a model and an embedder on the card.
 
     python -m llm_mcp_tpu_torch.api --model llama-3.1-8b --max-slots 8 \\
         --max-seq-len 4096 --port 8080
 
-Serves `POST /v1/chat/completions`, `GET /v1/models` and `GET /health`
-until SIGINT or SIGTERM. `--weights-dir DIR` (env `TPU_WEIGHTS_DIR`)
-serves a Hugging Face checkpoint directory: its config.json decides the
-architecture, its safetensors shards are the weights (quantized on load
-with `--quant int8`) and its tokenizer.json the tokenizer (the in-repo
+Serves `POST /v1/chat/completions`, `POST /v1/embeddings`, `GET
+/v1/models` and `GET /health` until SIGINT or SIGTERM. `--weights-dir
+DIR` (env `TPU_WEIGHTS_DIR`) serves a Hugging Face checkpoint directory:
+its config.json decides the architecture, its safetensors shards are the
+weights (quantized on load with `--quant int8`) and its tokenizer.json the tokenizer (the in-repo
 BPE; `LLM_MCP_TPU_TOKENIZER=native|python|hf|byte` forces a backend).
 Without it the weights are random from `--seed` and the tokenizer is the
 byte tokenizer. `--model` (env `TPU_MODEL`) names the model and, without
@@ -37,6 +37,20 @@ the int8 latent cache (the routed expert banks stay bf16, about 29 GB):
         --kv-quant int8 --max-slots 16 --max-seq-len 4096
 
 and `--kv-quant ""` serves it with bf16 latents.
+
+Beside the generator the server loads an embedding engine, as the JAX
+server does, and answers `POST /v1/embeddings`: `--embed-model` (env
+`TPU_EMBED_MODEL`, default `nomic-embed-text`; `qwen3-embedding-8b` is
+the 8B decoder embedder), `--embed-weights-dir` (`TPU_EMBED_WEIGHTS_DIR`,
+the embedder's own checkpoint directory: the generator's is never used
+for it, and a warning says so when only `--weights-dir` is set) and
+`--embed-quant int8` (`TPU_EMBED_QUANT`). Its longest input is
+`min(--max-seq-len, 8192)` tokens.
+
+    python -m llm_mcp_tpu_torch.api --model llama-3.1-8b \
+        --embed-model qwen3-embedding-8b --embed-quant int8
+    python -m llm_mcp_tpu_torch.api --device cpu --model tiny-llm \
+        --embed-model tiny-embed --max-seq-len 256
 """
 
 from __future__ import annotations
@@ -67,6 +81,12 @@ def main(argv: list[str] | None = None) -> None:
                     help='KV cache: "" (bf16) or int8 (env TPU_KV_QUANT)')
     ap.add_argument("--decode-compact", default=os.environ.get("TPU_DECODE_COMPACT", "auto"),
                     help="slot compaction: auto|on|off (env TPU_DECODE_COMPACT)")
+    ap.add_argument("--embed-model", default=os.environ.get("TPU_EMBED_MODEL", "nomic-embed-text"),
+                    help="embedding model (env TPU_EMBED_MODEL)")
+    ap.add_argument("--embed-weights-dir", default=os.environ.get("TPU_EMBED_WEIGHTS_DIR", ""),
+                    help="the embedder's checkpoint directory (env TPU_EMBED_WEIGHTS_DIR)")
+    ap.add_argument("--embed-quant", default=os.environ.get("TPU_EMBED_QUANT", ""),
+                    help='embedder weights: "" (bf16) or int8 (env TPU_EMBED_QUANT)')
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--host", default="127.0.0.1")
@@ -75,7 +95,7 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
     log = logging.getLogger("main")
 
-    from ..executor import GenerationEngine
+    from ..executor import EmbeddingEngine, GenerationEngine
     from .inference import serve
 
     dtype = torch.bfloat16 if args.device != "cpu" else torch.float32
@@ -94,8 +114,33 @@ def main(argv: list[str] | None = None) -> None:
         dtype=dtype,
         device=args.device,
     ).start()
-    api = serve({args.model: engine}, args.host, args.port)
-    log.info("serving %s on %s:%d (%s)", args.model, args.host, api.port, engine.device)
+    if args.weights_dir and not args.embed_weights_dir:
+        # the generator's directory never leaks into the embedder (its
+        # config.json would describe the wrong model), so the embedder
+        # falls back to the byte tokenizer: say it
+        log.warning(
+            "TPU_EMBED_WEIGHTS_DIR is unset while TPU_WEIGHTS_DIR=%s: embedder %s has no "
+            "checkpoint dir and will use the byte tokenizer; set TPU_EMBED_WEIGHTS_DIR to its "
+            "weights dir", args.weights_dir, args.embed_model,
+        )
+    log.info("loading embedding engine: %s", args.embed_model)
+    try:
+        embedder = EmbeddingEngine(
+            args.embed_model,
+            weights_dir=args.embed_weights_dir,
+            max_seq_len=min(args.max_seq_len, 8192),
+            quant=args.embed_quant,
+            seed=args.seed,
+            dtype=dtype,
+            device=args.device,
+        )
+    except BaseException:
+        engine.shutdown()
+        raise
+    api = serve({args.model: engine}, args.host, args.port,
+                embed_engines={args.embed_model: embedder})
+    log.info("serving %s and %s on %s:%d (%s)", args.model, args.embed_model, args.host,
+             api.port, engine.device)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())

@@ -1,10 +1,12 @@
-"""OpenAI-shaped chat completions over local engines (counterpart of the
-local chat path of `llm_mcp_tpu/api/inference.py`).
+"""OpenAI-shaped chat completions and embeddings over local engines
+(counterpart of the local chat and embedding paths of
+`llm_mcp_tpu/api/inference.py`).
 
 `POST /v1/chat/completions` answers from a local `GenerationEngine`,
 streaming (SSE chunks ending in `data: [DONE]`) or in one JSON body.
-`GET /v1/models` lists the served models and `GET /health` reports the
-engines (each one's `prefix_cache`, `paging` and `memory` blocks). An
+`GET /v1/models` lists the served models (`kind` chat or embed) and
+`GET /health` reports the engines (each one's `prefix_cache`, `paging`
+and `memory` blocks) and the embedders (`EmbeddingEngine.stats`). An
 engine serves any decoder family of the catalog, or a Hugging Face
 checkpoint directory with its own tokenizer (`GenerationEngine(...,
 weights_dir=)`; `python -m llm_mcp_tpu_torch.api --weights-dir`).
@@ -27,10 +29,18 @@ reference's message. They reach `generate` only when present, so an
 unconstrained request builds the same `GenRequest` as before. Smart model
 selection, proxying to other devices, the cloud fallback and tenants are
 not ported yet (ROADMAP queue 1).
+
+`POST /v1/embeddings` answers from a local `EmbeddingEngine` with the
+reference's local path: the same 400s for a bad body, `input` or
+`dimensions`, the first local embedding engine when no model is named,
+and the reference's body and `usage`. A model no local engine carries
+answers the 503s the reference gives with no cloud provider and no other
+device.
 """
 
 from __future__ import annotations
 
+import json
 import time
 import uuid
 from typing import Any
@@ -152,11 +162,13 @@ def parse_constraints(
 
 
 class InferenceAPI:
-    def __init__(self, engines: dict[str, Any]):
+    def __init__(self, engines: dict[str, Any], embed_engines: dict[str, Any] | None = None):
         self.engines = dict(engines)
+        self.embed_engines = dict(embed_engines or {})
 
     def register(self, api: HTTPApi) -> None:
         api.route("POST", "/v1/chat/completions", self.handle_chat_completions)
+        api.route("POST", "/v1/embeddings", self.handle_embeddings)
         api.route("GET", "/v1/models", self.handle_models)
         api.route("GET", "/health", self.handle_health)
 
@@ -169,7 +181,9 @@ class InferenceAPI:
         resp.write_json({
             "object": "list",
             "data": [
-                {"id": name, "object": "model", "owned_by": "local"} for name in self.engines
+                {"id": name, "object": "model", "owned_by": "local", "kind": kind}
+                for kind, names in (("chat", self.engines), ("embed", self.embed_engines))
+                for name in names
             ],
         })
 
@@ -187,6 +201,7 @@ class InferenceAPI:
                 }
                 for name, eng in self.engines.items()
             },
+            "embedders": {name: eng.stats() for name, eng in self.embed_engines.items()},
         })
 
     def handle_chat_completions(self, req: Request, resp: Response) -> None:
@@ -304,10 +319,63 @@ class InferenceAPI:
         resp.sse_data("[DONE]")
 
 
-def serve(engines: dict[str, Any], host: str = "127.0.0.1", port: int = 0) -> HTTPApi:
-    """Start an HTTP server answering for `engines`; returns it (its
-    `port` is the bound one, `shutdown()` stops it)."""
+    def handle_embeddings(self, req: Request, resp: Response) -> None:
+        try:
+            body = req.json()
+        except json.JSONDecodeError:
+            body = None
+        if not isinstance(body, dict):
+            resp.write_error("invalid JSON body", 400)
+            return
+        model = str(body.get("model") or "")
+        raw_input = body.get("input")
+        if isinstance(raw_input, str):
+            texts = [raw_input]
+        elif isinstance(raw_input, list) and all(isinstance(t, str) for t in raw_input):
+            texts = raw_input
+        else:
+            resp.write_error("input must be a string or list of strings", 400)
+            return
+        if not texts:
+            resp.write_error("input must not be empty", 400)
+            return
+        try:
+            dimensions = body.get("dimensions")
+            dimensions = int(dimensions) if dimensions else None
+        except (TypeError, ValueError):
+            resp.write_error("dimensions must be an integer", 400)
+            return
+        if not model:
+            model = next(iter(self.embed_engines), "")
+        if not model:
+            resp.write_error("no embedding model available", 503)
+            return
+        engine = self.embed_engines.get(model)
+        # the cloud provider, the proxy to other devices and the metrics
+        # counters of the reference's path are ROADMAP queue 1 item 9
+        if engine is None:
+            if "/" in model:
+                resp.write_error("no cloud provider configured", 503)
+            else:
+                resp.write_error(f"embeddings unavailable for {model!r}: no device has the model",
+                                 503)
+            return
+        vectors, ntok = engine.embed(texts, dimensions=dimensions)
+        resp.write_json({
+            "object": "list",
+            "data": [{"object": "embedding", "embedding": v, "index": i}
+                     for i, v in enumerate(vectors)],
+            "model": model,
+            "usage": {"prompt_tokens": ntok, "total_tokens": ntok},
+        })
+
+
+def serve(engines: dict[str, Any], host: str = "127.0.0.1", port: int = 0,
+          embed_engines: dict[str, Any] | None = None) -> HTTPApi:
+    """Start an HTTP server answering for `engines` (chat) and
+    `embed_engines` (embeddings); returns it (its `port` is the bound one,
+    `shutdown()` stops it)."""
     api = HTTPApi()
-    InferenceAPI(engines).register(api)
+    InferenceAPI(engines, embed_engines).register(api)
     api.serve(host, port)
     return api

@@ -1,5 +1,6 @@
-"""Generation engine of the port."""
+"""Generation and embedding engines of the port."""
 
+from .embedding import EmbeddingEngine
 from .engine import GenerationEngine, GenRequest
 
-__all__ = ["GenerationEngine", "GenRequest"]
+__all__ = ["EmbeddingEngine", "GenerationEngine", "GenRequest"]

@@ -467,6 +467,9 @@ class GenerationEngine:
         # a config.json beside the weights describes them and wins over the
         # catalog, as in the JAX engine
         self.cfg = resolve_config(model, weights_dir)
+        if self.cfg.arch == "encoder":
+            raise ValueError(f"{self.cfg.name} is an encoder: it serves embeddings "
+                             "(EmbeddingEngine), not generation")
         if self.device.type == "cuda":
             _check_kernel_shapes(self.cfg)
         self.dtype = dtype

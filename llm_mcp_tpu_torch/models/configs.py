@@ -7,8 +7,10 @@ R1-Distill-Llama), Qwen2.5 and R1-Distill-Qwen (q/k/v biases), Qwen3
 logit softcaps, alternating windows), Mixtral (top-2 MoE) and the
 DeepSeek-V2 family (MLA latent attention, DeepSeek MoE). `config_from_hf`
 reads a checkpoint's `config.json`; `resolve_config` prefers it over the
-catalog, as the JAX package does. Encoder families (embeddings) are not
-ported yet and raise.
+catalog, as the JAX package does. The embedders are here too: the BERT
+family encoders (`arch="encoder"`: nomic_bert and classic BERT, served by
+`models/embedder.py`) and Qwen3-Embedding, a Qwen3 decoder pooled at its
+last token (`models/llama.py:llama_encode`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
+    arch: str = "llama"  # llama (causal decoder) | mla | encoder (bidirectional embedder)
     vocab_size: int = 128_256
     dim: int = 4096
     n_layers: int = 32
@@ -35,6 +38,19 @@ class ModelConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     max_seq_len: int = 131_072
+    # embedders: the pooling (mean | cls for encoders, last for decoders)
+    # and the output width (0: dim); the encoder's variants, as JAX's:
+    # LayerNorm with bias or RMSNorm, post-LN residuals with an embedding
+    # norm, rope or a learned position table, a gated or a plain MLP,
+    # biases on every linear, and BERT's segment embeddings (segment 0)
+    pooling: str = "mean"
+    embed_dim: int = 0
+    enc_norm: str = "rms"  # rms | layer
+    enc_post_ln: bool = False
+    enc_pos: str = "rope"  # rope | learned
+    enc_gated: bool = True
+    enc_bias: bool = False
+    type_vocab_size: int = 0
     # family knobs: Qwen2 q/k/v biases; Qwen3 per-head q/k RMSNorm; the FFN
     # activation (gelu is the tanh approximation, as jax.nn.gelu); Gemma's
     # x * (1 + w) norms, sqrt(dim) embedding scale, softcaps on the logits
@@ -142,6 +158,7 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
     # not a published checkpoint
     "mla-8b": ModelConfig(
         name="mla-8b",
+        arch="mla",
         max_seq_len=131_072,
         vocab_size=128_256,
         dim=4096,
@@ -161,6 +178,7 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
     # from 4k to 160k
     "deepseek-v2-lite": ModelConfig(
         name="deepseek-v2-lite",
+        arch="mla",
         max_seq_len=163_840,
         vocab_size=102_400,
         dim=2048,
@@ -192,6 +210,7 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
     # shared experts, yarn rope
     "tiny-v2": ModelConfig(
         name="tiny-v2",
+        arch="mla",
         max_seq_len=512,
         vocab_size=512,
         dim=128,
@@ -221,6 +240,7 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
     # toy dense MLA config for tests
     "tiny-mla": ModelConfig(
         name="tiny-mla",
+        arch="mla",
         max_seq_len=512,
         vocab_size=512,
         dim=128,
@@ -454,12 +474,66 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
         post_norms=True,
         tie_embeddings=True,
     ),
+    # the published nomic_bert architecture (nomic-ai/nomic-embed-text-v1.5
+    # config.json; a checkpoint's own config.json wins): full rotary rope,
+    # post-LN LayerNorm, biasless gated SwiGLU, segment embeddings, mean
+    # pooling
+    "nomic-embed-text": ModelConfig(
+        name="nomic-embed-text",
+        arch="encoder",
+        vocab_size=30_528,
+        dim=768,
+        n_layers=12,
+        n_heads=12,
+        n_kv_heads=12,
+        ffn_hidden=3072,
+        rope_theta=10_000.0,
+        norm_eps=1e-12,
+        max_seq_len=8192,
+        enc_norm="layer",
+        enc_post_ln=True,
+        enc_gated=True,
+        enc_bias=False,
+        type_vocab_size=2,
+        pooling="mean",
+        embed_dim=768,
+    ),
+    # Qwen3-Embedding-8B: a Qwen3 causal LM (HF Qwen3ForCausalLM) pooled at
+    # its last token; it serves through EmbeddingEngine's decoder path
+    # (`llama.llama_encode`) and loads through the decoder mapping
+    "qwen3-embedding-8b": ModelConfig(
+        name="qwen3-embedding-8b",
+        vocab_size=151_936,
+        dim=4096,
+        n_layers=36,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_hidden=12_288,
+        head_dim=128,
+        rope_theta=1_000_000.0,
+        norm_eps=1e-6,
+        max_seq_len=32_768,
+        qk_norm=True,
+        tie_embeddings=True,  # encoding never reaches a head
+        pooling="last",
+        embed_dim=4096,
+    ),
+    # toy encoder for tests: rope, RMSNorm, pre-norm SwiGLU
+    "tiny-embed": ModelConfig(
+        name="tiny-embed",
+        arch="encoder",
+        vocab_size=512,
+        dim=64,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=4,
+        ffn_hidden=128,
+        rope_theta=10_000.0,
+        max_seq_len=512,
+        pooling="mean",
+        embed_dim=64,
+    ),
 }
-
-
-# Encoder families: the JAX package serves them as embedders, which the port
-# does not have yet (ROADMAP queue 1 item 8)
-_ENCODER_TYPES = ("bert", "nomic_bert")
 
 
 def _compact(s: str) -> str:
@@ -468,18 +542,96 @@ def _compact(s: str) -> str:
     return re.sub(r"[-_.:\s]", "", s.lower())
 
 
+_BERT_ACTS = ("gelu", "gelu_new", "gelu_pytorch_tanh", "relu", "silu")
+_NOMIC_ACTS = ("swiglu", "geglu", "silu", "gelu", "gelu_new", "relu")
+
+
+def _encoder_config_from_hf(doc: dict, mt: str, name: str) -> ModelConfig:
+    """The encoder families, classic BERT and nomic_bert, as the JAX package
+    reads them. What the encoder cannot compute is refused: an unknown
+    activation, nomic's prenorm variant, a partial rotary fraction, and
+    MLP bias flags that disagree with the attention's (one `enc_bias`
+    covers every linear)."""
+    if mt == "bert":
+        act = str(doc.get("hidden_act") or "gelu").lower()
+        if act not in _BERT_ACTS:
+            raise ValueError(f"unsupported hidden_act {act!r} for bert")
+        dim = int(doc["hidden_size"])
+        return ModelConfig(
+            name=name or str(doc.get("_name_or_path") or mt),
+            arch="encoder",
+            vocab_size=int(doc["vocab_size"]),
+            dim=dim,
+            n_layers=int(doc["num_hidden_layers"]),
+            n_heads=int(doc["num_attention_heads"]),
+            n_kv_heads=int(doc["num_attention_heads"]),
+            ffn_hidden=int(doc["intermediate_size"]),
+            norm_eps=float(doc.get("layer_norm_eps") or 1e-12),
+            max_seq_len=int(doc.get("max_position_embeddings") or 512),
+            act=act,
+            enc_norm="layer",
+            enc_post_ln=True,
+            enc_pos="learned",
+            enc_gated=False,
+            enc_bias=True,
+            type_vocab_size=int(doc.get("type_vocab_size") or 0),
+            pooling="mean",
+            embed_dim=dim,
+        )
+    # nomic_bert: GPT-2 style key names
+    dim = int(doc.get("n_embd") or doc.get("hidden_size") or 768)
+    n_heads = int(doc.get("n_head") or doc.get("num_attention_heads") or 12)
+    act = str(doc.get("activation_function") or "swiglu").lower()
+    if act not in _NOMIC_ACTS:
+        raise ValueError(f"unsupported activation_function {act!r} for nomic_bert")
+    if bool(doc.get("prenorm", False)):
+        raise ValueError("unsupported nomic_bert prenorm=true (post-LN only)")
+    rot_frac = float(doc.get("rotary_emb_fraction", 1.0) or 0.0)
+    qkv_bias = bool(doc.get("qkv_proj_bias", True))
+    for bias_key in ("mlp_fc1_bias", "mlp_fc2_bias"):
+        if bias_key in doc and bool(doc[bias_key]) != qkv_bias:
+            raise ValueError(
+                f"unsupported nomic_bert bias split: {bias_key}="
+                f"{bool(doc[bias_key])} but qkv_proj_bias={qkv_bias}"
+            )
+    if 0.0 < rot_frac < 1.0:
+        raise ValueError(
+            f"unsupported rotary_emb_fraction {rot_frac} for nomic_bert (only 0.0 or 1.0)"
+        )
+    return ModelConfig(
+        name=name or str(doc.get("_name_or_path") or mt),
+        arch="encoder",
+        vocab_size=int(doc["vocab_size"]),
+        dim=dim,
+        n_layers=int(doc.get("n_layer") or doc.get("num_hidden_layers") or 12),
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        ffn_hidden=int(doc.get("n_inner") or doc.get("intermediate_size") or 4 * dim),
+        rope_theta=float(doc.get("rotary_emb_base") or 10_000.0),
+        norm_eps=float(doc.get("layer_norm_epsilon") or 1e-12),
+        max_seq_len=int(doc.get("n_positions") or doc.get("max_position_embeddings") or 2048),
+        # swiglu: a silu gate; geglu: a gelu gate; other names pass through
+        act="silu" if act in ("swiglu", "silu") else "gelu" if act == "geglu" else act,
+        enc_norm="layer",
+        enc_post_ln=True,
+        enc_pos="rope" if rot_frac > 0 else "learned",
+        enc_gated="glu" in act,
+        enc_bias=qkv_bias,
+        type_vocab_size=int(doc.get("type_vocab_size") or 0),
+        pooling="mean",
+        embed_dim=dim,
+    )
+
+
 def config_from_hf(doc: dict, name: str = "") -> ModelConfig:
     """A ModelConfig from an HF checkpoint's config.json, as the JAX
-    package reads it, for the decoder families: llama, qwen2, qwen3,
-    mistral, mixtral, gemma2 and deepseek_v2. An encoder raises (the
-    embedders are ROADMAP queue 1 item 8), and so does any other type or
-    a rope scaling the port does not apply."""
+    package reads it: the decoder families llama, qwen2, qwen3, mistral,
+    mixtral, gemma2 and deepseek_v2, and the encoders bert and nomic_bert.
+    Any other type raises, and so does a rope scaling the port does not
+    apply."""
     mt = str(doc.get("model_type", "")).lower()
-    if mt in _ENCODER_TYPES:
-        raise ValueError(
-            f"HF model_type {mt!r} is an encoder (embeddings), which the port does not "
-            "serve yet: ROADMAP queue 1 item 8"
-        )
+    if mt in ("bert", "nomic_bert"):
+        return _encoder_config_from_hf(doc, mt, name)
     n_heads = int(doc.get("num_attention_heads", 32))
     kw: dict = dict(
         name=name or str(doc.get("_name_or_path") or mt or "hf-model"),
@@ -535,6 +687,7 @@ def config_from_hf(doc: dict, name: str = "") -> ModelConfig:
         )
     elif mt == "deepseek_v2":
         kw.update(
+            arch="mla",
             n_kv_heads=1,  # the latent cache poses as one KV head (mla.py)
             q_lora_rank=int(doc.get("q_lora_rank") or 0),
             kv_lora_rank=int(doc["kv_lora_rank"]),
@@ -563,7 +716,8 @@ def config_from_hf(doc: dict, name: str = "") -> ModelConfig:
     else:
         raise ValueError(
             f"unsupported HF model_type {mt!r} "
-            "(supported: llama, qwen2, qwen3, mistral, mixtral, gemma2, deepseek_v2)"
+            "(supported: llama, qwen2, qwen3, mistral, mixtral, gemma2, "
+            "deepseek_v2, bert, nomic_bert)"
         )
     if rs_type and kw.get("rope_factor", 1.0) <= 1.0 and rs_type != "default":
         # a scaling the port does not apply would degrade past the
@@ -573,24 +727,37 @@ def config_from_hf(doc: dict, name: str = "") -> ModelConfig:
 
 
 def config_from_hf_dir(path: str, name: str = "") -> ModelConfig:
-    """`config_from_hf` over a checkpoint directory's config.json."""
+    """`config_from_hf` over a checkpoint directory's config.json. For an
+    encoder, a sentence-transformers `1_Pooling/config.json` beside it
+    decides the pooling (config.json never records it); a malformed one
+    keeps the family's default."""
     with open(os.path.join(path, "config.json")) as f:
-        return config_from_hf(json.load(f), name=name)
+        cfg = config_from_hf(json.load(f), name=name)
+    pool_path = os.path.join(path, "1_Pooling", "config.json")
+    if cfg.arch == "encoder" and os.path.isfile(pool_path):
+        try:
+            with open(pool_path) as f:
+                pdoc = json.load(f)
+            if pdoc.get("pooling_mode_cls_token"):
+                cfg = dataclasses.replace(cfg, pooling="cls")
+            elif pdoc.get("pooling_mode_mean_tokens"):
+                cfg = dataclasses.replace(cfg, pooling="mean")
+        except Exception:  # malformed: the family's default
+            pass
+    return cfg
 
 
 def resolve_config(model, weights_dir: str = "") -> ModelConfig:
     """Config for a model name (or a ModelConfig, returned as it is) and an
     optional checkpoint directory: the directory's config.json describes
     the weights and wins; a malformed one falls back to the catalog, with
-    a warning, as in the JAX package. An encoder's config.json raises."""
+    a warning, as in the JAX package."""
     if not isinstance(model, str):
         return model
     if weights_dir and os.path.isfile(os.path.join(weights_dir, "config.json")):
         try:
             return config_from_hf_dir(weights_dir, name=model)
         except Exception as e:  # a malformed config.json: the catalog
-            if "ROADMAP" in str(e):  # an encoder, which the port cannot serve at all
-                raise
             logging.getLogger("models").warning(
                 "config.json in %s not usable (%s); falling back to the catalog entry for %r",
                 weights_dir, e, model,
@@ -636,6 +803,5 @@ def get_config(name: str) -> ModelConfig:
     if "gemma" in key:
         return MODEL_CONFIGS["gemma2-9b"]
     if "embed" in key:
-        raise KeyError(f"{name!r} is an embedding model, which the port does not serve yet: "
-                       "ROADMAP queue 1 item 8")
+        return MODEL_CONFIGS["nomic-embed-text"]
     raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_CONFIGS)}")

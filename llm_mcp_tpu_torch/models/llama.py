@@ -43,6 +43,9 @@ families never take the ragged chunk (the engine stages bucketed
 `llama_prefill_chunk_batch` groups for them, which mask windows and cap
 scores) nor the decode kernels: their decode step is `_decode_step_plain`,
 JAX's XLA branch, in plain torch.
+
+`llama_encode` runs the decoder as a text encoder (Qwen3-Embedding): the
+prefill layers without a cache, pooled at each row's last token.
 """
 
 from __future__ import annotations
@@ -74,11 +77,16 @@ def param_shapes(cfg: ModelConfig, fused: bool = False) -> dict[str, Any]:
     """Expected shape of every parameter, in the parameter tree's layout;
     with `fused`, the single-device layout of `quant.fuse_layer_weights`
     (`wqkv`, `w13` in place of wq/wk/wv and w1/w3). MLA configs
-    (kv_lora_rank > 0) take `mla.mla_param_shapes`."""
+    (kv_lora_rank > 0) take `mla.mla_param_shapes`, encoders
+    `embedder.embedder_param_shapes`."""
     if cfg.kv_lora_rank:
         from .mla import mla_param_shapes
 
         return mla_param_shapes(cfg, fused)
+    if cfg.arch == "encoder":
+        from .embedder import embedder_param_shapes
+
+        return embedder_param_shapes(cfg)
     hd = cfg.resolved_head_dim
     L, D, H, Hkv, Fh, V = (
         cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_hidden, cfg.vocab_size,
@@ -440,6 +448,30 @@ def llama_prefill(
             "q": torch.stack([k["q"] for k in ks]), "s": torch.stack([k["s"] for k in ks])
         }, {}
     return _logits(cfg, params, last), torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def llama_encode(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] int32 (right-padded)
+    lengths: torch.Tensor,  # [B] int32 true lengths
+) -> torch.Tensor:
+    """The causal decoder as a text encoder (Qwen3-Embedding: a Qwen3
+    causal LM pooled at its last token): the hidden state at each row's
+    last position, final-normed, in float32 and L2-normalized, [B, D].
+    Each layer is `prefill_layer` (the flash kernel on the card, once per
+    layer); its K/V are dropped as soon as it returns, since nothing is
+    cached."""
+    B, S = tokens.shape
+    h = _embed_in(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
+    cos, sin = rope_tables(cfg, cfg.resolved_head_dim, positions)
+    for li, win in enumerate(layer_windows(cfg)):
+        h, _ = prefill_layer(cfg, _layer(params, li), h, cos, sin, lengths, win)
+    last = h[torch.arange(B, device=h.device), (lengths.long() - 1) % S]
+    e = _norm(cfg, last, params["final_norm"]).float()
+    return e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True), min=1e-9)
 
 
 def ragged_write_targets(rowids, positions, slots, S: int) -> tuple:

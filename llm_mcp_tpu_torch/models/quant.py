@@ -20,7 +20,9 @@ KV cache's per-position scales into one int8 pseudo-head row.
 MLA and DeepSeek MoE trees (`models/mla.py`) quantize their attention
 linears and shared experts, in the main stack and in the dense prologue
 `dense_layers`; the routed expert banks stay in the model dtype, as in
-JAX. The sharding-spec part of the JAX module waits for multi-device
+JAX. Encoder trees (`models/embedder.py`) quantize their linears and the
+per-row embedding the same way; their norms, biases and position and
+type tables stay as they are. The sharding-spec part of the JAX module waits for multi-device
 serving.
 """
 
@@ -144,8 +146,8 @@ def logits_head(embed_or_head, h: torch.Tensor, tied: bool) -> torch.Tensor:
 
 
 def quantize_params(params: Params) -> Params:
-    """Quantize every dense linear of a Llama-family or MLA tree (both
-    stacks), plus the embedding (per-row scales, which are also
+    """Quantize every dense linear of a Llama-family, MLA or encoder tree
+    (both stacks), plus the embedding (per-row scales, which are also
     per-output-channel of its transpose, the tied head) and the LM head.
     Norm weights, biases, the q/k norms, the router and routed expert banks
     stay as they are (Mixtral's and DeepSeek's banks in the model dtype, as

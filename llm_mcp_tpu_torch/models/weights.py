@@ -23,9 +23,16 @@ Qwen2's biases; Qwen3's q/k norms; Mixtral's expert banks; DeepSeek-V2's
 MLA factorization with its interleaved rope columns); `load_llama_checkpoint`
 does the same into device tensors layer by layer, so host memory holds one
 layer's converted tensors at a time beside the file's pages.
-`llama_to_hf_tensors` is the inverse, for writing checkpoints. Native
-checkpoints (`save_native`/`load_native`) and the embedders' readers are
-not ported yet (ROADMAP queue 1 items 10 and 8).
+`llama_to_hf_tensors` is the inverse, for writing checkpoints.
+
+Encoder checkpoints (the embedders of `models/embedder.py`):
+`hf_to_embedder_params` reads classic BERT naming (separate q/k/v, an
+optional `bert.` prefix) and nomic_bert's (a fused `Wqkv`, post-LN
+`norm1`/`norm2`, the gated MLP's `fc11`/`fc12`), `encoder_to_hf_tensors`
+writes either, and `load_embedder_checkpoint` loads a directory onto the
+device. Qwen3-Embedding checkpoints are decoders and load through
+`load_llama_checkpoint`. Native checkpoints (`save_native`/`load_native`)
+are not ported yet (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -373,6 +380,181 @@ def _mla_to_hf_layer(cfg: ModelConfig, lp: dict, base: str) -> dict[str, torch.T
     return out
 
 
+# ---------------------------------------------------------------------------
+# HF encoder checkpoints (BERT, nomic_bert) -> the encoder tree
+# ---------------------------------------------------------------------------
+
+# (tree key, HF layer suffix, transpose?) of a classic BERT layer
+_BERT_LAYER_MAP = [
+    ("wq", "attention.self.query.weight", True),
+    ("bq", "attention.self.query.bias", False),
+    ("wk", "attention.self.key.weight", True),
+    ("bk", "attention.self.key.bias", False),
+    ("wv", "attention.self.value.weight", True),
+    ("bv", "attention.self.value.bias", False),
+    ("wo", "attention.output.dense.weight", True),
+    ("bo", "attention.output.dense.bias", False),
+    ("attn_norm", "attention.output.LayerNorm.weight", False),
+    ("attn_norm_b", "attention.output.LayerNorm.bias", False),
+    ("w1", "intermediate.dense.weight", True),
+    ("b1", "intermediate.dense.bias", False),
+    ("w2", "output.dense.weight", True),
+    ("b2", "output.dense.bias", False),
+    ("ffn_norm", "output.LayerNorm.weight", False),
+    ("ffn_norm_b", "output.LayerNorm.bias", False),
+]
+_LINEAR_BIASES = ("bq", "bk", "bv", "bo", "b1", "b2")
+# nomic's gated MLP is flash-attn's GatedMlp, whose forward splits fc1's
+# output into (y, gate) and activates the second: fc12 is the activated
+# gate (the tree's w1), fc11 the multiplicative path (w3)
+_NOMIC_LAYER_MAP = [
+    ("wo", "attn.out_proj.weight", True),
+    ("attn_norm", "norm1.weight", False),
+    ("attn_norm_b", "norm1.bias", False),
+    ("w1", "mlp.fc12.weight", True),
+    ("w3", "mlp.fc11.weight", True),
+    ("w2", "mlp.fc2.weight", True),
+    ("ffn_norm", "norm2.weight", False),
+    ("ffn_norm_b", "norm2.bias", False),
+]
+_NOMIC_BIASES = [("bo", "attn.out_proj.bias"), ("b1", "mlp.fc12.bias"),
+                 ("b3", "mlp.fc11.bias"), ("b2", "mlp.fc2.bias")]
+
+
+def hf_to_embedder_params(cfg: ModelConfig, tensors: dict) -> dict:
+    """Re-lay an HF encoder checkpoint (BERT or nomic_bert naming) out into
+    the stacked encoder tree, as CPU tensors in the file's dtypes. nomic's
+    fused Wqkv is split into wq, wk, wv. A missing tensor raises KeyError
+    naming it."""
+    prefix = "bert." if any(k.startswith("bert.") for k in tensors) else ""
+
+    def opt(name: str) -> torch.Tensor | None:
+        t = tensors.get(prefix + name)
+        return None if t is None else _as_tensor(t)
+
+    def get(name: str) -> torch.Tensor:
+        t = opt(name)
+        if t is None:
+            raise KeyError(f"checkpoint missing tensor {prefix + name!r}")
+        return t
+
+    nomic = any(".attn.Wqkv." in k for k in tensors)
+    layers: dict[str, list[torch.Tensor]] = {}
+    for i in range(cfg.n_layers):
+        lp: dict[str, torch.Tensor] = {}
+        if nomic:
+            base = f"encoder.layers.{i}."
+            lp["wq"], lp["wk"], lp["wv"] = (t.T for t in
+                                            get(base + "attn.Wqkv.weight").chunk(3, dim=0))
+            if cfg.enc_bias:
+                lp["bq"], lp["bk"], lp["bv"] = get(base + "attn.Wqkv.bias").chunk(3, dim=0)
+                lp.update({ours: get(base + suffix) for ours, suffix in _NOMIC_BIASES})
+            lp.update({ours: get(base + suffix).T if tr else get(base + suffix)
+                       for ours, suffix, tr in _NOMIC_LAYER_MAP})
+        else:
+            base = f"encoder.layer.{i}."
+            for ours, suffix, tr in _BERT_LAYER_MAP:
+                if ours in _LINEAR_BIASES and not cfg.enc_bias:
+                    continue
+                if ours.endswith("norm_b") and cfg.enc_norm != "layer":
+                    continue
+                lp[ours] = get(base + suffix).T if tr else get(base + suffix)
+        for k, t in lp.items():
+            layers.setdefault(k, []).append(t)
+
+    params: dict[str, Any] = {
+        "embed": get("embeddings.word_embeddings.weight"),
+        "layers": {k: torch.stack(v) for k, v in layers.items()},
+    }
+    if cfg.enc_pos == "learned":
+        params["pos_embed"] = get("embeddings.position_embeddings.weight")[: cfg.max_seq_len]
+    if cfg.type_vocab_size:
+        params["type_embed"] = get("embeddings.token_type_embeddings.weight")
+    if cfg.enc_post_ln:
+        ln = ("emb_ln.weight", "emb_ln.bias") if nomic else (
+            "embeddings.LayerNorm.weight", "embeddings.LayerNorm.bias")
+        ew, eb = opt(ln[0]), opt(ln[1])
+        if ew is None or eb is None:
+            raise KeyError("checkpoint missing embedding LayerNorm tensors")
+        params["embed_norm"], params["embed_norm_b"] = ew, eb
+    else:
+        params["final_norm"] = get("final_norm.weight")
+    return params
+
+
+def encoder_to_hf_tensors(cfg: ModelConfig, params: dict, *, naming: str = "bert") -> dict:
+    """The inverse of `hf_to_embedder_params`, as CPU tensors; `naming` is
+    "bert" (separate q/k/v) or "nomic" (fused Wqkv, fc11/fc12). The leaves
+    may be tensors or numpy arrays."""
+    t = _as_tensor
+    lt = {k: t(v) for k, v in params["layers"].items()}
+    out: dict[str, torch.Tensor] = {"embeddings.word_embeddings.weight": t(params["embed"])}
+    if "pos_embed" in params:
+        out["embeddings.position_embeddings.weight"] = t(params["pos_embed"])
+    if "type_embed" in params:
+        out["embeddings.token_type_embeddings.weight"] = t(params["type_embed"])
+    if cfg.enc_post_ln:
+        ln = ("emb_ln.weight", "emb_ln.bias") if naming == "nomic" else (
+            "embeddings.LayerNorm.weight", "embeddings.LayerNorm.bias")
+        out[ln[0]], out[ln[1]] = t(params["embed_norm"]), t(params["embed_norm_b"])
+    else:
+        out["final_norm.weight"] = t(params["final_norm"])
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in lt.items()}
+        if naming == "nomic":
+            base = f"encoder.layers.{i}."
+            out[base + "attn.Wqkv.weight"] = torch.cat([lp["wq"].T, lp["wk"].T, lp["wv"].T])
+            if cfg.enc_bias:
+                out[base + "attn.Wqkv.bias"] = torch.cat([lp["bq"], lp["bk"], lp["bv"]])
+                out.update({base + suffix: lp[ours] for ours, suffix in _NOMIC_BIASES})
+            out.update({base + suffix: lp[ours].T if tr else lp[ours]
+                        for ours, suffix, tr in _NOMIC_LAYER_MAP})
+        else:
+            base = f"encoder.layer.{i}."
+            out.update({base + suffix: lp[ours].T if tr else lp[ours]
+                        for ours, suffix, tr in _BERT_LAYER_MAP if ours in lp})
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def load_embedder_checkpoint(
+    cfg: ModelConfig,
+    ckpt_dir: str,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cpu",
+) -> dict:
+    """An HF encoder safetensors directory into the device tree in `dtype`
+    (encoder checkpoints are small: the host tree is built whole first).
+    Every key and shape is checked against the config."""
+    host = hf_to_embedder_params(cfg, read_checkpoint_dir(ckpt_dir))
+
+    def leaf(t: torch.Tensor, want: tuple, path: str) -> torch.Tensor:
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, expected {want}")
+        return t.to(device=device, dtype=dtype)
+
+    return _convert_tree(host, param_shapes(cfg), "", leaf)
+
+
+def _convert_tree(node: dict, spec: dict, path: str, leaf: Callable) -> dict:
+    """`leaf(value, shape, path)` over a tree whose keys must be `spec`'s;
+    a missing or unknown key raises naming it."""
+    unknown, missing = sorted(set(node) - set(spec)), sorted(set(spec) - set(node))
+    if unknown or missing:
+        raise KeyError(
+            f"parameter tree {path or '/'}: unknown keys {unknown}, missing keys {missing}")
+    out: dict[str, Any] = {}
+    for key, want in spec.items():
+        val = node[key]
+        if isinstance(want, dict):
+            if not isinstance(val, dict):
+                raise TypeError(f"{path}{key}: expected a sub-tree")
+            out[key] = _convert_tree(val, want, f"{path}{key}/", leaf)
+        else:
+            out[key] = leaf(val, want, f"{path}{key}")
+    return out
+
+
 def write_checkpoint_dir(ckpt_dir: str, tensors: dict, shards: int = 1,
                          config: dict | None = None) -> None:
     """Write HF-named tensors as `shards` safetensors files (about equal
@@ -435,24 +617,7 @@ def params_from_numpy(
         return {"q": torch.from_numpy(q.copy()).to(device),
                 "s": tensor(val["s"], s_want, f"{path}/s")}
 
-    def convert(node: dict[str, Any], spec: dict[str, Any], path: str) -> dict[str, Any]:
-        unknown = sorted(set(node) - set(spec))
-        missing = sorted(set(spec) - set(node))
-        if unknown or missing:
-            raise KeyError(
-                f"parameter tree {path or '/'}: unknown keys {unknown}, missing keys {missing}"
-            )
-        out: dict[str, Any] = {}
-        for key, want in spec.items():
-            val = node[key]
-            if isinstance(want, dict):
-                if not isinstance(val, dict):
-                    raise TypeError(f"{path}{key}: expected a sub-tree")
-                out[key] = convert(val, want, f"{path}{key}/")
-            elif isinstance(val, dict):
-                out[key] = quantized(val, want, f"{path}{key}")
-            else:
-                out[key] = tensor(val, want, f"{path}{key}")
-        return out
+    def leaf(val, want: tuple, path: str):
+        return quantized(val, want, path) if isinstance(val, dict) else tensor(val, want, path)
 
-    return convert(tree, expected, "")
+    return _convert_tree(tree, expected, "", leaf)

@@ -483,7 +483,8 @@ import torch
 import llm_mcp_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(llm_mcp_tpu_torch.__path__, "llm_mcp_tpu_torch.")]
 for name in ("llm_mcp_tpu_torch.models.weights", "llm_mcp_tpu_torch.executor.bpe",
-             "llm_mcp_tpu_torch.executor.tokenizer", "llm_mcp_tpu_torch.native"):
+             "llm_mcp_tpu_torch.executor.tokenizer", "llm_mcp_tpu_torch.native",
+             "llm_mcp_tpu_torch.models.embedder", "llm_mcp_tpu_torch.executor.embedding"):
     assert name in mods, name
 for name in mods:
     importlib.import_module(name)
@@ -539,6 +540,13 @@ for q in ("hello", "again", "third"):
 hits = eng.prefix_cache_stats()["hits"]
 eng.shutdown()
 assert hits == 1, hits
+# the embedders: an encoder and a decoder, float and int8
+from llm_mcp_tpu_torch.executor import EmbeddingEngine
+for name, quant in (("tiny-embed", ""), ("tiny-embed", "int8"), ("tiny-qwen3", "int8")):
+    emb = EmbeddingEngine(name, max_batch=2, max_seq_len=64, dtype=torch.float32, device="cpu",
+                          quant=quant)
+    vecs, ntok = emb.embed(["one", "two", "three"], dimensions=16)
+    assert len(vecs) == 3 and len(vecs[0]) == 16 and ntok > 0, (name, quant)
 bad = [k for k, v in sys.modules.items() if v is not None and
        (k.split(".")[0] in ("jax", "jaxlib", "llm_mcp_tpu"))]
 assert not bad, bad
@@ -572,6 +580,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     eng = GenerationEngine("tiny-llm", device="cpu", max_seq_len=64)
     assert eng.device.type == "cpu"
     eng.shutdown()
+    from llm_mcp_tpu_torch.executor import EmbeddingEngine
+
+    for name in ("tiny-embed", "tiny-qwen3"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EmbeddingEngine(name)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EmbeddingEngine(name, device="cuda", quant="int8")
+        assert EmbeddingEngine(name, device="cpu", max_seq_len=64).device.type == "cpu"
 
 
 def _jax_v2_params(quant: bool):

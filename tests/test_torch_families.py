@@ -337,24 +337,25 @@ def test_bias_and_qk_norm_matter(name, key, bump):
 
 
 def test_catalog_matches_jax():
-    """Every decoder entry of JAX's catalog, field for field on the fields
-    the port keeps, and the same aliases resolve to the same entries."""
+    """Every entry of JAX's catalog, the embedders among them, field for
+    field on the fields the port keeps, and the same aliases resolve to the
+    same entries."""
     from dataclasses import fields
 
     from llm_mcp_tpu.models.configs import MODEL_CONFIGS as JAX_CONFIGS
     from llm_mcp_tpu_torch.models.configs import MODEL_CONFIGS
 
-    decoders = [n for n, c in JAX_CONFIGS.items() if c.arch != "encoder"
-                and n != "qwen3-embedding-8b"]
-    assert set(decoders) <= set(MODEL_CONFIGS)
-    for n in decoders:
+    entries = list(JAX_CONFIGS)
+    assert set(entries) <= set(MODEL_CONFIGS)
+    for n in entries:
         for f in fields(MODEL_CONFIGS[n]):
             assert getattr(MODEL_CONFIGS[n], f.name) == getattr(JAX_CONFIGS[n], f.name), (n, f)
         assert MODEL_CONFIGS[n].attn_scale == JAX_CONFIGS[n].attn_scale
     for alias in ("llama3.1:8b", "meta-llama/Llama-3.1-8B-Instruct", "deepseek-r1:1.5b",
                   "deepseek-r1:7b", "deepseek-r1:8b", "Qwen/Qwen2.5-7B-Instruct",
                   "mistralai/Mistral-7B-v0.1", "google/gemma-2-9b-it", "mixtral:8x7b",
-                  "qwen2.5:0.5b", "DeepSeek-V2-Lite-Chat"):
+                  "qwen2.5:0.5b", "DeepSeek-V2-Lite-Chat", "nomic-embed-text:v1.5",
+                  "Qwen/Qwen3-Embedding-8B", "mxbai-embed-large"):
         assert get_config(alias).name == jax_get_config(alias).name, alias
 
 

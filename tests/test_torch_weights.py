@@ -11,8 +11,8 @@
     same tree bit for bit and gives the JAX loader's logits within 1e-5
     (f32), as does `hf_to_llama_params` of the shards; the port's
     `llama_to_hf_tensors` gives JAX's tensors;
-  - `resolve_config` on an unseen config.json, as JAX resolves it; an
-    encoder's raises naming the ROADMAP item;
+  - `resolve_config` on an unseen config.json, as JAX resolves it, an
+    encoder's (BERT) too;
   - an engine boots from a checkpoint directory (config.json, shards, the
     real-vocabulary tokenizer.json) and serves the JAX engine's greedy
     tokens from the same directory.
@@ -217,11 +217,19 @@ def test_resolve_config_unseen_matches_jax(tmp_path, doc):
 
 
 def test_encoder_config_raises_naming_roadmap(tmp_path):
+    """An encoder's config.json once raised, naming the ROADMAP item of the
+    embedders; now that the port serves them it resolves, field for field,
+    to the encoder config the JAX package resolves."""
+    from dataclasses import fields
+
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": "bert", "vocab_size": 100, "hidden_size": 64, "num_hidden_layers": 2,
          "num_attention_heads": 4, "intermediate_size": 128}))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
-        resolve_config("some-embedder", str(tmp_path))
+    mine = resolve_config("some-embedder", str(tmp_path))
+    theirs = jax_resolve_config("some-embedder", str(tmp_path))
+    assert mine.arch == "encoder" and mine.name == "some-embedder"
+    for f in fields(mine):
+        assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
 
 
 LLAMA_DOC = {
