@@ -10,6 +10,7 @@
     python3 chip_smoke.py --migrate   # the build and phase 17 alone
     python3 chip_smoke.py --fleet     # the build and phase 18 alone
     python3 chip_smoke.py --rpc       # the build and phase 19 alone
+    python3 chip_smoke.py --lint      # the build and phase 20 alone
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
                                       # (--planted=a,b: the named ones)
 
@@ -298,6 +299,17 @@ one run reads every check; the script then exits non-zero):
      p99) and eight threads of ClaimJob on one connection beside an open
      StreamJob (calls a second). Phase 19's counters must show the flash,
      int8 ragged and int8 decode kernels on A.
+ 20. the static-analysis suite and the kernel census on the card
+     (`lint_phase`, right after the kernel rows; `--lint` runs it alone):
+     `llm_mcp_tpu_torch.analysis.run_suite` on this checkout must report no
+     new finding (each pass's findings and ms are logged); every library of
+     `build.SOURCES` is built and loaded (the kernel phases' builds reused),
+     every `extern "C"` entry the census lists resolves through ctypes in
+     its library, and `nm -D --defined-only` shows no library exporting a C
+     entry the census lacks; in the full run every PORT_PARITY entry has a
+     row on the `kernels` line (each row names its `entry`) that was held
+     against its plain version without a failure. The phase must take under
+     LINT_BUDGET_S.
 
 After each model's engines are shut down and dropped, the device memory
 allocated must be back within RELEASE_SLACK of its value before they were
@@ -351,101 +363,104 @@ TOL = {"append_kv_bf16": BITWISE, "decode_attend_bf16": ATTN_TOL, "decode_attent
        "ragged_prefill_attend_mla_q8": ATTN_TOL, "ragged_prefill_attend_mla_q8_paged": ATTN_TOL}
 # the kernel arms and shapes the decoder families and the embedders add
 # (kernel_phase_families, kernel_phase_embed): row -> (its source, the
-# Pallas body it replaces, the phase whose served launches it reports); the
-# launches count under the row's `counter`
+# Pallas body it replaces, the phase whose served launches it reports, the
+# entry point it launches); the launches count under the row's `counter`
 FAMILY_ROWS = {
     "flash_prefill_attention_embed": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill.cu",
                                       "llm_mcp_tpu/kernels/attention.py:178",
-                                      "qwen3-embedding-8b bf16"),
+                                      "qwen3-embedding-8b bf16", "flash_prefill_bf16"),
     **{n: ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill_hd256.cu",
-           "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16")
+           "llm_mcp_tpu/kernels/attention.py:178", "gemma2-9b bf16", "flash_prefill_bf16_hd256")
        for n in ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")},
     **{f"ragged_prefill_attend_{a}_g{g}{p}": (
         "llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
         "llm_mcp_tpu/kernels/attention.py:" + ("2752" if a == "bf16" else "2908"),
         {("bf16", 7): "checkpoint", ("q8", 7): "qwen2.5-7b int8",
-         ("bf16", 6): "deepseek-r1-distill-qwen-1.5b bf16", ("q8", 6): None}[a, g])
+         ("bf16", 6): "deepseek-r1-distill-qwen-1.5b bf16", ("q8", 6): None}[a, g],
+        f"ragged_prefill_{a}{p}")
        for a in ("bf16", "q8") for g in (7, 6) for p in ("", "_paged")},
     **{f"decode_attend_{a}_g7{p}": (
         "llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
         "llm_mcp_tpu/kernels/attention.py:" + {("bf16", ""): "1142", ("bf16", "_paged"): "1312",
                                                ("q8", ""): "330", ("q8", "_paged"): "581"}[a, p],
-        "checkpoint" if a == "bf16" else "qwen2.5-7b int8")
+        "checkpoint" if a == "bf16" else "qwen2.5-7b int8", f"decode_attend_{a}{p}")
        for a in ("bf16", "q8") for p in ("", "_paged")},
 }
 TOL.update({n: ATTN_TOL for n in FAMILY_ROWS})
 # the head_dim-64 arms (kernel_phase_hd64): row -> (its source, the Pallas
 # body it replaces, the served phase whose launches it reports: G = 4 rows
 # Llama-3.2-1B bf16's, G = 7 rows Qwen2.5-0.5B int8's, where that served
-# configuration runs the arm)
+# configuration runs the arm; the entry point it launches)
 _HD64 = "llm_mcp_tpu_torch/kernels/csrc/"
 HD64_ROWS = {
     "flash_prefill_attention_hd64": (_HD64 + "flash_prefill_hd64.cu",
-                                     "llm_mcp_tpu/kernels/attention.py:178", "llama-3.2-1b bf16"),
+                                     "llm_mcp_tpu/kernels/attention.py:178", "llama-3.2-1b bf16",
+                                     "flash_prefill_bf16_hd64"),
     **{f"ragged_prefill_attend_{a}_g{g}{p}_hd64": (
         _HD64 + "ragged_prefill_hd64.cu",
         "llm_mcp_tpu/kernels/attention.py:" + ("2752" if a == "bf16" else "2908"),
         {("bf16", 4): "llama-3.2-1b bf16", ("q8", 7): "qwen2.5-0.5b int8",
-         ("q8", 4): "zoo llama-3.2-1b int8"}.get((a, g)))
+         ("q8", 4): "zoo llama-3.2-1b int8"}.get((a, g)), f"ragged_prefill_{a}{p}_hd64")
        for a in ("bf16", "q8") for g in (4, 7) for p in ("", "_paged")},
     **{f"decode_attend_{a}_g{g}{p}_hd64": (
         _HD64 + "decode_attend_hd64.cu",
         "llm_mcp_tpu/kernels/attention.py:" + {("bf16", ""): "1142", ("bf16", "_paged"): "1312",
                                                ("q8", ""): "330", ("q8", "_paged"): "581"}[a, p],
         {("bf16", 4): "llama-3.2-1b bf16", ("q8", 7): "qwen2.5-0.5b int8",
-         ("q8", 4): "zoo llama-3.2-1b int8"}.get((a, g)))
+         ("q8", 4): "zoo llama-3.2-1b int8"}.get((a, g)), f"decode_attend_{a}{p}_hd64")
        for a in ("bf16", "q8") for g in (4, 7) for p in ("", "_paged")},
     "append_kv_bf16_fused_hd64": (_HD64 + "decode_attend_hd64.cu",
-                                  "llm_mcp_tpu/kernels/attention.py:2508", "llama-3.2-1b bf16"),
+                                  "llm_mcp_tpu/kernels/attention.py:2508", "llama-3.2-1b bf16",
+                                  "decode_attend_bf16_hd64"),
     "append_kv_q8_fused_hd64": (_HD64 + "decode_attend_hd64.cu",
-                                "llm_mcp_tpu/kernels/attention.py:2349", "qwen2.5-0.5b int8"),
+                                "llm_mcp_tpu/kernels/attention.py:2349", "qwen2.5-0.5b int8",
+                                "decode_attend_q8_hd64"),
     "decode_attend_q8_row_hd64": (_HD64 + "decode_attend_hd64.cu",
-                                  "llm_mcp_tpu/kernels/attention.py:330", None),
+                                  "llm_mcp_tpu/kernels/attention.py:330", None,
+                                  "decode_attend_q8_hd64"),
     "decode_attention_hd64": (_HD64 + "decode_attend_hd64.cu",
-                              "llm_mcp_tpu/kernels/attention.py:298", None),
+                              "llm_mcp_tpu/kernels/attention.py:298", None,
+                              "decode_attention_bf16_hd64"),
 }
 TOL.update({n: BITWISE if "fused" in n else ATTN_TOL for n in HD64_ROWS})
+# the head_dim-128 rows: row -> (its source, the Pallas body it replaces,
+# the entry point it launches); the fused appends are written by the decode
+# entry points (append=True)
+_CSRC = "llm_mcp_tpu_torch/kernels/csrc/"
+_PALLAS = "llm_mcp_tpu/kernels/attention.py:"
 SOURCES = {
-    "append_kv_bf16": ("llm_mcp_tpu_torch/kernels/csrc/append_kv.cu",
-                       "llm_mcp_tpu/kernels/attention.py:2508"),
-    "decode_attend_bf16": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                           "llm_mcp_tpu/kernels/attention.py:1142"),
-    "decode_attention": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                         "llm_mcp_tpu/kernels/attention.py:298"),
-    "flash_prefill_attention": ("llm_mcp_tpu_torch/kernels/csrc/flash_prefill.cu",
-                                "llm_mcp_tpu/kernels/attention.py:178"),
-    "ragged_prefill_attend_bf16": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
-                                   "llm_mcp_tpu/kernels/attention.py:2752"),
-    "decode_attend_bf16_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                                 "llm_mcp_tpu/kernels/attention.py:1312"),
-    "ragged_prefill_attend_bf16_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
-                                         "llm_mcp_tpu/kernels/attention.py:2752"),
-    "append_kv_q8": ("llm_mcp_tpu_torch/kernels/csrc/append_kv_q8.cu",
-                     "llm_mcp_tpu/kernels/attention.py:2349"),
-    "decode_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                         "llm_mcp_tpu/kernels/attention.py:330"),
+    "append_kv_bf16": (_CSRC + "append_kv.cu", _PALLAS + "2508", "append_kv_bf16"),
+    "decode_attend_bf16": (_CSRC + "decode_attend.cu", _PALLAS + "1142", "decode_attend_bf16"),
+    "decode_attention": (_CSRC + "decode_attend.cu", _PALLAS + "298", "decode_attention_bf16"),
+    "flash_prefill_attention": (_CSRC + "flash_prefill.cu", _PALLAS + "178",
+                                "flash_prefill_bf16"),
+    "ragged_prefill_attend_bf16": (_CSRC + "ragged_prefill.cu", _PALLAS + "2752",
+                                   "ragged_prefill_bf16"),
+    "decode_attend_bf16_paged": (_CSRC + "decode_attend.cu", _PALLAS + "1312",
+                                 "decode_attend_bf16_paged"),
+    "ragged_prefill_attend_bf16_paged": (_CSRC + "ragged_prefill.cu", _PALLAS + "2752",
+                                         "ragged_prefill_bf16_paged"),
+    "append_kv_q8": (_CSRC + "append_kv_q8.cu", _PALLAS + "2349", "append_kv_q8"),
+    "decode_attend_q8": (_CSRC + "decode_attend.cu", _PALLAS + "330", "decode_attend_q8"),
     # the whole-row arm: JAX's whole-S body where no int8 block divides S
-    "decode_attend_q8_row": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                             "llm_mcp_tpu/kernels/attention.py:330"),
+    "decode_attend_q8_row": (_CSRC + "decode_attend.cu", _PALLAS + "330", "decode_attend_q8"),
     # the appends as the decode kernels write them (append=True)
-    "append_kv_bf16_fused": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                             "llm_mcp_tpu/kernels/attention.py:2508"),
-    "append_kv_q8_fused": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                           "llm_mcp_tpu/kernels/attention.py:2349"),
-    "decode_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend.cu",
-                               "llm_mcp_tpu/kernels/attention.py:581"),
-    "ragged_prefill_attend_q8": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
-                                 "llm_mcp_tpu/kernels/attention.py:2908"),
-    "ragged_prefill_attend_q8_paged": ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill.cu",
-                                       "llm_mcp_tpu/kernels/attention.py:2908"),
-    "decode_attend_q8_mla": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend_mla.cu",
-                             "llm_mcp_tpu/kernels/attention.py:1693"),
-    "decode_attend_q8_mla_paged": ("llm_mcp_tpu_torch/kernels/csrc/decode_attend_mla.cu",
-                                   "llm_mcp_tpu/kernels/attention.py:1924"),
-    **{n: ("llm_mcp_tpu_torch/kernels/csrc/ragged_prefill_mla.cu",
-           "llm_mcp_tpu/kernels/attention.py:3061")
-       for n in ("ragged_prefill_attend_mla", "ragged_prefill_attend_mla_paged",
-                 "ragged_prefill_attend_mla_q8", "ragged_prefill_attend_mla_q8_paged")},
+    "append_kv_bf16_fused": (_CSRC + "decode_attend.cu", _PALLAS + "2508",
+                             "decode_attend_bf16"),
+    "append_kv_q8_fused": (_CSRC + "decode_attend.cu", _PALLAS + "2349", "decode_attend_q8"),
+    "decode_attend_q8_paged": (_CSRC + "decode_attend.cu", _PALLAS + "581",
+                               "decode_attend_q8_paged"),
+    "ragged_prefill_attend_q8": (_CSRC + "ragged_prefill.cu", _PALLAS + "2908",
+                                 "ragged_prefill_q8"),
+    "ragged_prefill_attend_q8_paged": (_CSRC + "ragged_prefill.cu", _PALLAS + "2908",
+                                       "ragged_prefill_q8_paged"),
+    "decode_attend_q8_mla": (_CSRC + "decode_attend_mla.cu", _PALLAS + "1693",
+                             "decode_attend_q8_mla"),
+    "decode_attend_q8_mla_paged": (_CSRC + "decode_attend_mla.cu", _PALLAS + "1924",
+                                   "decode_attend_q8_mla_paged"),
+    **{f"ragged_prefill_attend_{m}": (_CSRC + "ragged_prefill_mla.cu", _PALLAS + "3061",
+                                      f"ragged_prefill_{m}")
+       for m in ("mla", "mla_paged", "mla_q8", "mla_q8_paged")},
 }
 # the kernels each served phase must launch (its counters are reset just
 # before it and read just after); the decode step appends from inside its
@@ -3300,7 +3315,17 @@ PLANTED = {
     "fleet_probe_drops_hbm_gb": (
         "discovery/runner.py", 'for key in ("platform", "chips", "hbm_gb", "service",',
         'for key in ("platform", "chips", "service",'),
+    # phase 20: an entry point the sources still declare (the static census
+    # agrees) built hidden, so its library does not export it; runs
+    # `--lint`, which must fail the lint phase
+    "census_entry_not_exported": (
+        "append_kv.cu", 'extern "C" int append_kv_bf16(',
+        'extern "C" __attribute__((visibility("hidden"))) int append_kv_bf16('),
 }
+# the faults that run another mode than `--kernels`, and the phase each
+# must fail
+PLANTED_MODES = {"fleet_probe_drops_hbm_gb": ("--fleet", "fleet phase"),
+                 "census_entry_not_exported": ("--lint", "lint phase")}
 # the rows each family-arm fault must fail (at least one of them)
 HD256_ROWS = ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")
 PLANTED_ROWS = {
@@ -3320,12 +3345,13 @@ Q8_DECODE_ROWS = ("decode_attend_q8", "decode_attend_q8_paged", "decode_attend_q
 def planted_phase() -> dict:
     """Each fault of PLANTED in a copy of the port and this script under
     build/planted/<fault>/, run there as `chip_smoke.py --kernels` (build,
-    the bf16, int8 and MLA kernel checks), or as `--fleet` for a fault in a
-    module (a source with a `/`); returns, per fault, the rows whose check
-    failed and every row's worst err/limit. A fault that no row catches
-    fails the run, and so does a fault in an MLA kernel, the int8 decode
-    kernel or its fused append that no row of that kernel catches, or a
-    module fault that does not fail the fleet phase."""
+    the bf16, int8 and MLA kernel checks), or in the mode PLANTED_MODES
+    names (`--fleet`; `--lint`, whose copy also holds the README, the tests
+    and the Pallas module the census reads); returns, per fault, the rows
+    whose check failed and every row's worst err/limit. A fault that no row
+    catches fails the run, and so does a fault in an MLA kernel, the int8
+    decode kernel or its fused append that no row of that kernel catches,
+    or a fault of PLANTED_MODES that does not fail its phase."""
     import shutil
 
     root = Path(__file__).resolve().parent
@@ -3340,14 +3366,22 @@ def planted_phase() -> dict:
         shutil.copytree(root / "llm_mcp_tpu_torch", dst / "llm_mcp_tpu_torch",
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
         shutil.copy2(root / "chip_smoke.py", dst / "chip_smoke.py")
-        fleet = "/" in src
-        path = dst / "llm_mcp_tpu_torch" / (src if fleet else f"kernels/csrc/{src}")
+        mode, phase = PLANTED_MODES.get(fault, ("--kernels", None))
+        if mode == "--lint":
+            # what the suite reads beside the port
+            shutil.copytree(root / "tests", dst / "tests",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy2(root / "README.md", dst / "README.md")
+            (dst / "llm_mcp_tpu" / "kernels").mkdir(parents=True)
+            shutil.copy2(root / "llm_mcp_tpu" / "kernels" / "attention.py",
+                         dst / "llm_mcp_tpu" / "kernels" / "attention.py")
+        path = dst / "llm_mcp_tpu_torch" / (src if "/" in src else f"kernels/csrc/{src}")
         text = path.read_text()
         if text.count(old) != 1:
             fail(f"planted fault {fault}: {old!r} is not in {src} exactly once")
         path.write_text(text.replace(old, new))
         t0 = time.time()
-        mode, head = ("--fleet", '{"fleet"') if fleet else ("--kernels", '{"kernels"')
+        head = '{"%s"' % mode[2:]
         proc = subprocess.run([sys.executable, "chip_smoke.py", mode], cwd=dst,
                               capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(head)]
@@ -3363,9 +3397,9 @@ def planted_phase() -> dict:
             "failures": res["failures"],
         }
         log(f"planted {fault}: failed rows {failed}")
-        if fleet:
-            if "fleet phase" not in failed:
-                check_failed(f"planted fault {fault} failed not the fleet phase: {failed}")
+        if phase:
+            if phase not in failed:
+                check_failed(f"planted fault {fault} failed not the {phase}: {failed}")
         elif not failed:
             check_failed(f"planted fault {fault} was caught by no row")
         elif src == "ragged_prefill_mla.cu" and not any(
@@ -4895,6 +4929,11 @@ def main() -> None:
         print(json.dumps({"rpc": rpc_phase(), "failures": FAILURES}), flush=True)
         print(card, flush=True)
         sys.exit(1 if FAILURES else 0)
+    if "--lint" in sys.argv[1:]:
+        # phase 20 alone (no kernel rows: its part (c) is the full run's)
+        print(json.dumps({"lint": lint_phase(), "failures": FAILURES}), flush=True)
+        print(card, flush=True)
+        sys.exit(1 if FAILURES else 0)
     if hd256_only:
         # the head_dim-256 flash rows alone: rows, then the verdict
         print(json.dumps({"kernels": kernel_phase_hd256(), "failures": FAILURES}), flush=True)
@@ -4910,6 +4949,7 @@ def main() -> None:
         # the kernel checks alone (planted-fault runs): rows, then the verdict
         print(json.dumps({"kernels": kernels, "failures": FAILURES}), flush=True)
         sys.exit(1 if FAILURES else 0)
+    lint = lint_phase(kernels)
     gemm = int8_gemm_phase()
 
     from llm_mcp_tpu_torch.api.inference import serve
@@ -4979,20 +5019,21 @@ def main() -> None:
     rows = []
     for name, r in kernels.items():
         if name in FAMILY_ROWS or name in HD64_ROWS:
-            src, replaces, phase = FAMILY_ROWS.get(name) or HD64_ROWS[name]
+            src, replaces, phase, entry = FAMILY_ROWS.get(name) or HD64_ROWS[name]
             served = ({"checkpoint": checkpoint}.get(phase) or families.get(phase)
                       or embed.get(phase, {}).get("served") or zoo.get(phase) or {})
             counter = r["counter"]
             if "_paged" in counter and "prefix" in served:
                 served = served["prefix"]
             row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                   "launches": served.get("launches", {}).get(counter, 0),
+                   "entry": entry, "launches": served.get("launches", {}).get(counter, 0),
                    "launches_from": phase or "none: no served configuration has this shape"}
             row.update(r)
             rows.append(row)
             continue
-        src, replaces = SOURCES[name]
-        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces}
+        src, replaces, entry = SOURCES[name]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "entry": entry}
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         # launches on the served path that drives the kernel; no served
@@ -5011,7 +5052,7 @@ def main() -> None:
                       "constrain": constrained, "spec": spec, "families": families,
                       "checkpoint": checkpoint, "embed": embed, "jobs": jobs,
                       "observe": observe, "zoo": zoo, "migrate": migrate, "fleet": fleet,
-                      "rpc": rpc, "seconds": time.time() - t_start}),
+                      "rpc": rpc, "lint": lint, "seconds": time.time() - t_start}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -7690,6 +7731,98 @@ def rpc_phase() -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         check_failed(f"rpc phase: {bad}")
+    return res
+
+
+# Phase 20: the port's static-analysis suite on this checkout, then its
+# kernel census held against the libraries nvcc built here. The suite is
+# AST-only and imports the standard library alone; the census half on the
+# card reads each library's dynamic symbols with binutils' nm.
+LINT_BUDGET_S = 10.0  # the phase's share of the run's time limit
+
+
+def _lint_row_entries() -> dict[str, str]:
+    """{row of the `kernels` line: the entry point it launches}."""
+    return {name: spec[-1] for rows in (SOURCES, FAMILY_ROWS, HD64_ROWS)
+            for name, spec in rows.items()}
+
+
+def lint_phase(kernels: dict | None = None) -> dict:
+    """(a) `run_suite` on the checkout: no new finding; each pass's
+    findings and ms logged. (b) every library of `build.SOURCES` built and
+    loaded (the kernel phases' builds reused), each census entry resolved
+    through ctypes in its library, and no library exporting a C entry the
+    census lacks (`nm -D --defined-only`). (c) with the kernel phases'
+    rows (the full run): every PORT_PARITY entry has a row, held against
+    its plain version in this run with no failure."""
+    import ctypes
+
+    from llm_mcp_tpu_torch.analysis import render_report, run_suite
+    from llm_mcp_tpu_torch.analysis.census import exported_entries, kernel_census
+    from llm_mcp_tpu_torch.analysis.core import RepoIndex
+    from llm_mcp_tpu_torch.kernels import build
+
+    t0 = time.time()
+    root = str(Path(__file__).resolve().parent)
+    index = RepoIndex(root)
+    suite = run_suite(root, index=index)
+    res: dict = {"passes": {r.pass_id: {"findings": len(r.findings), "ms": r.seconds * 1e3}
+                            for r in suite.results},
+                 "new": [f.fingerprint for f in suite.new],
+                 "baselined": [f.fingerprint for f in suite.baselined],
+                 "suite_s": suite.seconds}
+    for r in suite.results:
+        log(f"lint: [{r.pass_id}] {len(r.findings)} finding(s) in {r.seconds * 1e3:.1f} ms")
+    checks = {"(a) the suite: no new finding, the baseline parsed": suite.ok}
+    if not suite.ok:
+        log(f"lint: {render_report(suite)}")
+    t_card = time.time()
+    census = kernel_census(index)
+    checks["(b) the census's libraries are build.SOURCES"] = (
+        set(census.values()) == set(build.SOURCES))
+    build.build(build.SOURCES)
+    unresolved, unlisted, libs = [], {}, {}
+    for lib in build.SOURCES:
+        want = {e for e, owner in census.items() if owner == lib}
+        handle = build.load(lib)
+        for e in sorted(want):
+            try:
+                getattr(handle, e)
+            except AttributeError:
+                unresolved.append(f"{lib}:{e}")
+        nm = subprocess.run(["nm", "-D", "--defined-only", str(build.library_path(lib))],
+                            capture_output=True, text=True, timeout=60)
+        if nm.returncode != 0:
+            check_failed(f"lint phase: nm failed on {lib}: {nm.stderr.strip()}")
+            continue
+        exported = exported_entries(nm.stdout)
+        libs[lib] = sorted(exported)
+        if exported != want:
+            unlisted[lib] = {"exported_not_in_census": sorted(exported - want),
+                             "in_census_not_exported": sorted(want - exported)}
+    res.update(entries=len(census), libraries=libs, unresolved=unresolved, unlisted=unlisted,
+               card_s=time.time() - t_card)
+    checks["(b) every census entry resolves in its library"] = not unresolved
+    checks["(b) every library exports exactly its census entries"] = not unlisted
+    if kernels is not None:
+        parity = index.env(index.config["parity_registry"]).get("PORT_PARITY") or {}
+        entry_of = _lint_row_entries()
+        failed = {m.split(":")[0] for m in FAILURES}
+        held = {entry_of[n] for n in kernels if n in entry_of and n not in failed}
+        res["rows_by_entry"] = {e: sorted(n for n in kernels if entry_of.get(n) == e)
+                                for e in sorted(parity)}
+        checks["(c) every PORT_PARITY entry has a row held against its plain version"] = (
+            bool(parity) and set(parity) <= held)
+        res["entries_without_a_passing_row"] = sorted(set(parity) - held)
+    res["seconds"] = time.time() - t0
+    checks[f"phase 20 under {LINT_BUDGET_S:.0f} s"] = res["seconds"] < LINT_BUDGET_S
+    res["checks"] = checks
+    log(f"lint: {len(census)} entries in {len(libs)} libraries; suite {suite.seconds:.2f} s, "
+        f"card half {res['card_s']:.2f} s, phase {res['seconds']:.2f} s; "
+        f"unresolved {unresolved}, unlisted {unlisted}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"lint phase: {bad}")
     return res
 
 

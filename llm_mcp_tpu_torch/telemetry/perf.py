@@ -123,10 +123,9 @@ def card_peaks(device_name: str) -> tuple[float | None, float | None]:
     (`TPU_PEAK_TFLOPS`, `TPU_PEAK_HBM_GBPS`) when set, else the card's
     `CARD_PEAKS` entry, else None — never a guessed peak."""
     table = CARD_PEAKS.get(device_name or "")
-    out: list[float | None] = []
-    for i, name in enumerate(("TPU_PEAK_TFLOPS", "TPU_PEAK_HBM_GBPS")):
-        v = _env_float(name, 0.0)
-        out.append(v if v > 0 else (table[i] if table else None))
+    # each knob read by its literal name, so the knob registry sees it
+    knobs = (_env_float("TPU_PEAK_TFLOPS", 0.0), _env_float("TPU_PEAK_HBM_GBPS", 0.0))
+    out = [v if v > 0 else (table[i] if table else None) for i, v in enumerate(knobs)]
     return out[0], out[1]
 
 
