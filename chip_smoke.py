@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fleet     # the build and phase 18 alone
     python3 chip_smoke.py --rpc       # the build and phase 19 alone
     python3 chip_smoke.py --lint      # the build and phase 20 alone
+    python3 chip_smoke.py --mesh      # the build and phase 21 alone
     python3 chip_smoke.py --planted   # the faults of PLANTED, each in a copy
                                       # (--planted=a,b: the named ones)
 
@@ -310,6 +311,44 @@ one run reads every check; the script then exits non-zero):
      row on the `kernels` line (each row names its `entry`) that was held
      against its plain version without a failure. The phase must take under
      LINT_BUDGET_S.
+ 21. the dispatch plane and tensor parallelism (`mesh_phase`, last;
+     `--mesh` runs it alone): (a) one rank serves Llama-3.1-8B at int8
+     weights and KV (full depth and width, 16 slots, captured rounds,
+     compaction off as under a mesh) over HTTP: the four chats of phase 4
+     greedily and three requests on one long system prompt (a prefix hit
+     through the pool), one at a time, then the four chats at once; a probe
+     runs the model functions on one prompt (prefill, 4 greedy decode
+     steps) and keeps their f32 logits; the memory is released. (b) two
+     child processes on this card (`tp_rank_main`: JAX's process triplet,
+     `TPU_MESH_SHAPE=tp=2`, the collectives on `gloo` with CUDA tensors
+     staged through host memory, chosen explicitly) run the same probe on
+     their shards in lockstep, then boot the API as a user does
+     (`TPU_SLICE_CMD_ADDR`): rank 0's core server serves the same traffic,
+     the four chats at once included, rank 1 replays its steps. Each rank's
+     pid, device and backend; the collectives a decode step and their ms;
+     the int8 logits equal to (a)'s bit for bit (MESH_Q8_TOL), the probe's
+     greedy chain equal (or parting at a printed near tie), the served
+     texts and usage equal; the four chats at once finish with one rank's
+     prompt tokens (their texts reported against the one-at-a-time ones:
+     their chunking follows the timed budget); each rank's engine tally
+     shows the int8 decode and ragged kernels at the shard's heads (16 and
+     4), the rounds eager; the follower's replayed ops equal the leader's
+     emitted ones and its token ring the leader's; TTFT and tok/s of (a)
+     and (b); the two ranks' peak memory under 80 GB. (c) the follower
+     killed in the middle of a stream: the leader goes dead and the stream
+     ends with an error within MESH_TIMEOUT_S + 10 s. (d) bf16 over the
+     first 8 layers: the probe's logits within MESH_BF16_TOL of one rank's
+     over a 32-token greedy chat (prefill and 32 decode steps), its tokens
+     equal or parting where one rank's top-2 gap is within what the two
+     sides' logits differ by (a near tie), and a served 48-token bf16 chat
+     on a SliceEngine against one rank's with TPU_SPEC=0: its tokens equal,
+     or parting at a near tie judged on both sides' logits along one rank's
+     tokens (fed, `tp_probe(forced=)`; among the ids the engine samples),
+     those logits within MESH_BF16_TOL; the same chat with TPU_SPEC=1 is
+     reported, with the tokens before each side's verify rounds. The phase
+     must take under MESH_BUDGET_S. Two ranks on one card show that the
+     sharded program computes what one rank computes; they measure no
+     scaling.
 
 After each model's engines are shut down and dropped, the device memory
 allocated must be back within RELEASE_SLACK of its value before they were
@@ -3321,11 +3360,19 @@ PLANTED = {
     "census_entry_not_exported": (
         "append_kv.cu", 'extern "C" int append_kv_bf16(',
         'extern "C" __attribute__((visibility("hidden"))) int append_kv_bf16('),
+    # phase 21: a row-split w8a8 product quantizing with the rank's own
+    # absmax (not the MAX over tp); runs `--mesh`, whose int8 logits must
+    # then differ from one rank's
+    "tp_qdot_rank_local_absmax": (
+        "models/quant.py",
+        'amax = tp.all_reduce(xf.abs().amax(dim=-1, keepdim=True), "max")',
+        "amax = xf.abs().amax(dim=-1, keepdim=True)"),
 }
 # the faults that run another mode than `--kernels`, and the phase each
 # must fail
 PLANTED_MODES = {"fleet_probe_drops_hbm_gb": ("--fleet", "fleet phase"),
-                 "census_entry_not_exported": ("--lint", "lint phase")}
+                 "census_entry_not_exported": ("--lint", "lint phase"),
+                 "tp_qdot_rank_local_absmax": ("--mesh", "mesh phase")}
 # the rows each family-arm fault must fail (at least one of them)
 HD256_ROWS = ("flash_prefill_attention_hd256", "flash_prefill_attention_hd256_admit")
 PLANTED_ROWS = {
@@ -4929,6 +4976,11 @@ def main() -> None:
         print(json.dumps({"rpc": rpc_phase(), "failures": FAILURES}), flush=True)
         print(card, flush=True)
         sys.exit(1 if FAILURES else 0)
+    if "--mesh" in sys.argv[1:]:
+        # phase 21 alone: its result, then the verdict
+        print(json.dumps({"mesh": mesh_phase(), "failures": FAILURES}), flush=True)
+        print(card, flush=True)
+        sys.exit(1 if FAILURES else 0)
     if "--lint" in sys.argv[1:]:
         # phase 20 alone (no kernel rows: its part (c) is the full run's)
         print(json.dumps({"lint": lint_phase(), "failures": FAILURES}), flush=True)
@@ -5013,6 +5065,7 @@ def main() -> None:
     migrate = migrate_phase()
     fleet = fleet_phase()
     rpc = rpc_phase()
+    mesh = mesh_phase()
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
@@ -5052,7 +5105,8 @@ def main() -> None:
                       "constrain": constrained, "spec": spec, "families": families,
                       "checkpoint": checkpoint, "embed": embed, "jobs": jobs,
                       "observe": observe, "zoo": zoo, "migrate": migrate, "fleet": fleet,
-                      "rpc": rpc, "lint": lint, "seconds": time.time() - t_start}),
+                      "rpc": rpc, "lint": lint, "mesh": mesh,
+                      "seconds": time.time() - t_start}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -7823,6 +7877,715 @@ def lint_phase(kernels: dict | None = None) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         check_failed(f"lint phase: {bad}")
+    return res
+
+
+
+# Phase 21: the dispatch plane and tensor parallelism. (a) One rank serves
+# Llama-3.1-8B at int8 weights and int8 KV (full depth, captured rounds)
+# over HTTP, greedily and one request at a time; a probe records the f32
+# logits of a prompt's last position and of 4 greedy decode steps through
+# the model functions. (b) Two processes on the same card (tp=2, `gloo`
+# with host-staged CUDA tensors: NCCL refuses two ranks on one device) run
+# the same probe at their local heads in lockstep, then boot the API as a
+# user does (JAX's process triplet, TPU_MESH_SHAPE, TPU_SLICE_CMD_ADDR):
+# rank 0 serves the same traffic, rank 1 replays. (c) The follower is
+# killed in the middle of a stream: the leader goes dead and the stream
+# ends with an error. (d) bf16 over the first 8 layers: the probe over a
+# 32-token greedy chat, and one served 48-token chat (speculation off;
+# with it on, reported), at tp=2 against one rank, judged along one rank's
+# tokens where they part. Two
+# ranks on one card show that the
+# sharded program computes what one rank computes, that the kernels run at
+# the shard's head counts and that the follower replays every op; they
+# measure no scaling.
+
+MESH_MODEL = "llama-3.1-8b"
+MESH_DEVICE = "cuda"
+MESH_SEQ = 4096
+MESH_SLOTS = 16
+MESH_EMBED = "nomic-embed-text"
+MESH_BF16_LAYERS = 8
+MESH_PROBE_LEN = 97  # the probe prompt's tokens
+MESH_PROBE_STEPS = 4  # int8: the first 4 decode steps
+MESH_BF16_STEPS = 32  # bf16 (d): a 32-token greedy chat, token by token
+MESH_PROBE_S = 256  # the probe cache's length: the int8 decode's group is 256 keys at both widths
+MESH_TIMEOUT_S = 120.0  # the collectives' timeout (the process group's)
+MESH_BUDGET_S = 150.0
+# bf16 at tp=2: the row-split products are summed in float32 across the
+# ranks and rounded once more, so logits differ from one rank's; int8
+# weights and KV: every cross-rank sum is exact (int32 sums, a row and
+# zeros), so the logits must be equal bit for bit
+MESH_BF16_TOL = 0.25
+MESH_Q8_TOL = 0.0
+MESH_BF16_PROMPT = "Explain in one sentence why the sky is blue."
+MESH_CHAT_TOKENS = 16  # each served int8 request's tokens (the tp rounds are eager)
+MESH_BF16_CHAT_TOKENS = 48  # (d)'s served chat, over the cut depth
+# (d)'s served chat runs with TPU_SPEC=0 (held: every token a decode step
+# on both sides, the path the probe follows) and with TPU_SPEC=1 (reported,
+# with where each side's verify rounds began)
+MESH_BF16_SPEC = ("0", "1")
+MESH_KERNELS = ("decode_attend_q8", "ragged_prefill_attend_q8")  # decode_q8_split_kernel, ragged_prefill_q8_kernel
+
+
+def _mesh_ids(quantized: bool = True) -> list[int]:
+    """The probe's prompt: seeded ids (int8), or the bf16 chat's prompt in
+    the byte tokenizer's ids (d)."""
+    import numpy as np
+
+    if not quantized:
+        from llm_mcp_tpu_torch.executor.tokenizer import load_tokenizer
+
+        return list(load_tokenizer("").encode(MESH_BF16_PROMPT))
+    return [int(t) for t in np.random.default_rng(21).integers(3, 259, MESH_PROBE_LEN)]
+
+
+def _near_tie(ref, other, chain_ref: list, chain_other: list) -> dict:
+    """Where two greedy chains part, and whether the one-rank logits' top-2
+    gap there is within what the two sides' logits differ by (the only way
+    the argmax can flip): {"parts_at", "gap", "max_abs_diff", "near_tie"}."""
+    p = _first_diff(chain_ref, chain_other)
+    if p is None:
+        return {"parts_at": None, "gap": None, "max_abs_diff": None, "near_tie": True}
+    top2 = ref[p].topk(2).values
+    gap = float(top2[0] - top2[1])
+    diff = float((ref[p] - other[p]).abs().max())
+    return {"parts_at": p, "gap": gap, "max_abs_diff": diff, "near_tie": gap <= 2 * diff}
+
+
+def tp_probe(cfg, params, ids: list[int], mesh=None, quantized: bool = True,
+             steps_n: int = MESH_PROBE_STEPS, forced: list[int] | None = None) -> tuple:
+    """The model functions alone on one prompt: prefill, then `steps_n`
+    greedy decode steps on a one-row cache; under `mesh` (in its tp scope)
+    with this rank's heads. With `forced` (a token chain) step i feeds
+    forced[i] instead of the greedy token, over len(forced) - 1 steps, so
+    logits row j follows the prompt and forced[:j]. Returns (f32 logits
+    [steps + 1, V] on the host, the greedy token chain, per decode step the
+    collectives made and their ms)."""
+    import torch
+
+    from llm_mcp_tpu_torch.models import llama as TL
+    from llm_mcp_tpu_torch.parallel.mesh import tp_scope
+
+    dev = next(iter(_leaves(params["layers"]))).device
+    T = len(ids)
+    if forced is not None:
+        steps_n = len(forced) - 1
+
+    def i32(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    steps = []
+    with torch.inference_mode(), tp_scope(mesh):
+        logits, ks, vs = TL.llama_prefill(cfg, params, i32([ids]), i32([T]), quant_kv=quantized)
+        cache = TL.init_kv_cache(cfg, 1, MESH_PROBE_S, dtype=params["final_norm"].dtype,
+                                 device=dev, quantized=quantized)
+        for n, new in (("k", ks), ("v", vs)):
+            _tree(lambda c, x: c[:, 0, :, :T].copy_(x[:, 0]), cache[n], new)
+        ck, cv = cache["k"], cache["v"]
+        outs = [logits[0].float()]
+        chain = [int(outs[-1].argmax())]
+        for i in range(steps_n):
+            sync()
+            st0 = dict(mesh.stats) if mesh is not None else {}
+            t0 = time.perf_counter()
+            fed = chain[-1] if forced is None else forced[i]
+            lg, ck, cv = TL.llama_decode_step(cfg, params, ck, cv, i32([fed]), i32([T + i]))
+            sync()
+            step = {"ms": (time.perf_counter() - t0) * 1e3}
+            if mesh is not None:
+                step.update({k: mesh.stats[k] - st0[k] for k in ("all_reduce", "all_gather")},
+                            collective_ms=(mesh.stats["seconds"] - st0["seconds"]) * 1e3)
+            steps.append(step)
+            outs.append(lg[0].float())
+            chain.append(int(outs[-1].argmax()))
+    return torch.stack(outs).cpu(), chain, steps
+
+
+def _mesh_full_tree(cfg, quantized: bool, dev):
+    """The seeded random tree an engine makes for `cfg` (seed 0 on `dev`)."""
+    import torch
+
+    from llm_mcp_tpu_torch.models.llama import init_llama_params
+    from llm_mcp_tpu_torch.models.quant import init_llama_params_quantized
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    init = init_llama_params_quantized if quantized else init_llama_params
+    return init(cfg, g, torch.bfloat16 if dev.type == "cuda" else torch.float32, device=dev)
+
+
+def _mesh_say(tag: str, doc: dict) -> None:
+    os.write(1, (f"{tag} " + json.dumps(doc) + "\n").encode())
+
+
+@contextlib.contextmanager
+def _env_set(name: str, value: str):
+    """`name=value` in this process's environment while the block runs."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def _mesh_bf16_chat(eng) -> dict:
+    """(d)'s served chat on `eng` (not started; shut down after): its text,
+    usage and greedy tokens, and the tokens committed before each verify
+    round began."""
+    seen = _record_tokens(eng)
+    verify_at: list[int] = []
+    dx = eng._dx
+
+    def watched(op, *args):
+        if op == "verify":
+            verify_at.append(sum(len(t) for t in seen.values()))
+        return dx(op, *args)
+
+    eng._dx = watched
+    eng.start()
+    try:
+        out = eng.generate(MESH_BF16_PROMPT, max_tokens=MESH_BF16_CHAT_TOKENS, temperature=0.0)
+    finally:
+        eng.shutdown()
+    return {"text": out["text"], "usage": out["usage"],
+            "tokens": next(iter(seen.values()), []), "verify_at": verify_at}
+
+
+def tp_rank_main() -> None:
+    """One rank of phase 21, a child process (`python -c "import chip_smoke;
+    chip_smoke.tp_rank_main()"`, JAX's process triplet and TPU_MESH_SHAPE in
+    its environment, MESH_RANK_SPEC its JSON orders): the int8 and bf16
+    probes in lockstep with the other rank (the bf16 one also along one
+    rank's served chat), the bf16 chat on a SliceEngine with TPU_SPEC=0 and
+    1, then the API's own boot. SIGUSR1 writes a `meshstats` line: the kernel
+    launches of the process and of the engine's thread, the ops emitted or
+    replayed, the engine's local head counts, the peak memory."""
+    import dataclasses
+    import signal
+
+    import torch
+
+    from llm_mcp_tpu_torch.discovery import slices
+    from llm_mcp_tpu_torch.executor import SliceEngine
+    from llm_mcp_tpu_torch.executor import engine as E
+    from llm_mcp_tpu_torch.kernels import attention as K
+    from llm_mcp_tpu_torch.models.configs import get_config
+    from llm_mcp_tpu_torch.models.quant import gemm_layout
+    from llm_mcp_tpu_torch.parallel import distributed
+    from llm_mcp_tpu_torch.parallel.sharding import shard_tree_for
+
+    slices.METADATA_BASE = LOCAL_METADATA
+    spec = json.loads(os.environ["MESH_RANK_SPEC"])
+    engines: list = []
+    init = E.GenerationEngine.__init__
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        engines.append(self)
+
+    E.GenerationEngine.__init__ = recorded
+    dev = None if spec["device"] == "cuda" else spec["device"]
+    distributed.initialize(device=dev, timeout_s=MESH_TIMEOUT_S)
+    mesh = distributed.make_global_mesh(os.environ["TPU_MESH_SHAPE"], MESH_TIMEOUT_S, device=dev)
+    cuda = mesh.device.type == "cuda"
+
+    def stats(*_):
+        eng = engines[-1] if engines else None
+        _mesh_say("meshstats", {
+            "rank": mesh.rank, "launches": dict(K.LAUNCHES),
+            "engine_launches": dict(eng.kernel_launches) if eng else {},
+            "ops": dict(getattr(eng._backend, "counts", {})) if eng else {},
+            "heads": [eng._mcfg.n_heads, eng._mcfg.n_kv_heads] if eng else [],
+            "dead": eng.dead if eng else "", "graphs": bool(eng.cuda_graphs) if eng else None,
+            "ring": eng._d_last.tolist() if eng else [],
+            "peak_gib": torch.cuda.max_memory_reserved(mesh.device) / 2**30 if cuda else 0.0})
+
+    signal.signal(signal.SIGUSR1, stats)
+    _mesh_say("meshrank", {"rank": mesh.rank, "pid": os.getpid(), "device": str(mesh.device),
+                           "backend": mesh.backend, "world": mesh.world})
+    cfg = get_config(spec["model"])
+    for tag, quantized, layers in (("int8", True, cfg.n_layers),
+                                   ("bf16", False, spec["bf16_layers"])):
+        c = dataclasses.replace(cfg, n_layers=layers)
+        local = shard_tree_for(c, _mesh_full_tree(c, quantized, mesh.device), mesh)
+        if quantized:
+            local = gemm_layout(local)
+        lc = dataclasses.replace(c, n_heads=c.n_heads // mesh.tp,
+                                 n_kv_heads=c.n_kv_heads // mesh.tp, head_dim=c.resolved_head_dim)
+        logits, chain, steps = tp_probe(lc, local, _mesh_ids(quantized), mesh, quantized,
+                                        MESH_PROBE_STEPS if quantized else MESH_BF16_STEPS)
+        if mesh.rank == 0:
+            torch.save(logits, os.path.join(spec["out"], f"probe_{tag}.pt"))
+        _mesh_say("meshprobe", {"rank": mesh.rank, "tag": tag, "chain": chain, "steps": steps})
+        if not quantized:
+            # (d) the logits along one rank's served chat, its tokens fed
+            forced = tp_probe(lc, local, _mesh_ids(False), mesh, False,
+                              forced=spec["bf16_forced"])[0]
+            if mesh.rank == 0:
+                torch.save(forced, os.path.join(spec["out"], "probe_bf16_forced.pt"))
+        del local
+        if cuda:
+            torch.cuda.empty_cache()
+    # (d) one bf16 chat over the cut depth through a SliceEngine, with
+    # speculation off and on
+    c8 = dataclasses.replace(cfg, n_layers=spec["bf16_layers"])
+    for flag in MESH_BF16_SPEC:
+        with _env_set("TPU_SPEC", flag):
+            eng = SliceEngine(c8, mesh=mesh, cmd_addr=spec["cmd_bf16"][flag],
+                              params=_mesh_full_tree(c8, False, mesh.device), max_slots=4,
+                              max_seq_len=1024, prefill_chunk=512, decode_chunk=4, seed=0,
+                              dtype=torch.bfloat16 if cuda else torch.float32,
+                              device=mesh.device)
+        if mesh.rank == 0:
+            _mesh_say("meshbf16", dict(_mesh_bf16_chat(eng), spec=flag))
+        else:
+            eng.run_follower()
+        del eng
+        engines.clear()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    # (b) the API's boot, as a user runs it: rank 0 serves, rank 1 replays
+    K.reset_launches()
+    from llm_mcp_tpu_torch.api.__main__ import main as api_main
+
+    api_main(spec["argv"])
+    stats()
+    _mesh_say("meshexit", {"rank": mesh.rank})
+
+
+class _MeshRank:
+    """One rank's child process, its log and its `meshstats` lines."""
+
+    def __init__(self, rank: int, env: dict, root: str, tmp: str):
+        self.rank = rank
+        self.log_path = os.path.join(tmp, f"rank{rank}.log")
+        self._fh = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.tp_rank_main()"],
+            cwd=root, env=dict(env, JAX_PROCESS_ID=str(rank)), stdout=self._fh,
+            stderr=subprocess.STDOUT)
+
+    def text(self) -> str:
+        try:
+            return Path(self.log_path).read_text()
+        except OSError:
+            return ""
+
+    def lines(self, tag: str) -> list[dict]:
+        return [json.loads(m) for m in re.findall(rf"^{tag} (\{{.*\}})$", self.text(), re.M)]
+
+    def wait_line(self, tag: str, timeout_s: float, n: int = 1) -> list[dict]:
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            got = self.lines(tag)
+            if len(got) >= n:
+                return got
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        fail(f"mesh phase: rank {self.rank} wrote no {tag} line: {self.text()[-4000:]}")
+        return []
+
+    def stats(self) -> dict:
+        import signal
+
+        seen = len(self.lines("meshstats"))
+        self.proc.send_signal(signal.SIGUSR1)
+        return self.wait_line("meshstats", 30, seen + 1)[-1]
+
+    def stop(self, timeout_s: float = 60) -> int | None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self._fh.close()
+        return self.proc.returncode
+
+
+MESH_TRAFFIC = tuple((n, p, {"temperature": 0}) for n, p, _, _ in CHATS) + tuple(
+    (f"prefix-{i}", None, {"temperature": 0}) for i in range(3))
+
+
+def _mesh_traffic(base: str, model: str) -> dict:
+    """The four chats of `e2e_phase`, greedily, then three requests on one
+    long system prompt (the second stores its prefix, the third hits it
+    through the pool); streamed, one at a time, so that both sides batch
+    alike."""
+    out = {}
+    for name, prompt, kw in MESH_TRAFFIC:
+        if prompt is None:
+            i = int(name.split("-")[1])
+            out[name] = _mesh_chat(base, model, _messages(
+                SYSTEM_LONG, f"Question {i}: what is rule {i + 2}?"), **kw)
+        else:
+            out[name] = _mesh_chat(base, model, [{"role": "user", "content": prompt}], **kw)
+    return out
+
+
+def _mesh_at_once(base: str, model: str) -> dict:
+    """The four chats of `e2e_phase` sent at once, greedily: decode rounds
+    over several live rows, chunks of the long one riding them."""
+    out: dict = {}
+    ths = [threading.Thread(target=lambda n=n, p=p: out.__setitem__(n, _mesh_chat(
+        base, model, [{"role": "user", "content": p}], temperature=0)))
+        for n, p, _, _ in CHATS]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(600)
+    return out
+
+
+def _mesh_chat(base: str, model: str, messages: list[dict], max_tokens: int = MESH_CHAT_TOKENS,
+               first_evt: threading.Event | None = None, **kw) -> dict:
+    """One streamed chat: its text, usage, TTFT and end, and an error event
+    it carried; `first_evt` is set at its first token."""
+    r: dict = {}
+    body = {"model": model, "stream": True, "max_tokens": max_tokens, "messages": messages,
+            **kw}
+    t0 = time.perf_counter()
+    text: list[str] = []
+    try:
+        with _post(base + "/v1/chat/completions", body) as resp:
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                doc = json.loads(line[6:])
+                d = (doc.get("choices") or [{}])[0].get("delta", {}).get("content")
+                if d:
+                    if "t_first" not in r:
+                        r["t_first"] = time.perf_counter() - t0
+                        if first_evt is not None:
+                            first_evt.set()
+                    text.append(d)
+                if "error" in doc:
+                    r["error"] = doc["error"]
+                if doc.get("usage"):
+                    r["usage"] = doc["usage"]
+    except Exception as e:
+        r["error"] = f"{type(e).__name__}: {e}"
+    r.update(text="".join(text), t_end=time.perf_counter() - t0)
+    return r
+
+
+def _mesh_rates(traffic: dict) -> dict:
+    """Mean TTFT and decode tok/s of a traffic's requests."""
+    ttft = [r["t_first"] for r in traffic.values() if r.get("t_first") is not None]
+    rates = [(r["usage"]["completion_tokens"] - 1) / (r["t_end"] - r["t_first"])
+             for r in traffic.values()
+             if r.get("t_first") is not None and r.get("usage", {}).get("completion_tokens", 0) > 1
+             and r["t_end"] > r["t_first"]]
+    return {"ttft_ms_mean": 1e3 * sum(ttft) / max(1, len(ttft)),
+            "decode_tok_s_mean": sum(rates) / max(1, len(rates))}
+
+
+def _first_char_diff(a: str, b: str) -> int | None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def mesh_phase() -> dict:
+    """Phase 21 (module comment above): (a) one rank, (b) two tp ranks over
+    `gloo` on this card, (c) a dead follower, (d) bf16 over the cut depth.
+    Each rank's pid, device and backend, the collectives per decode step
+    and their ms, the logits' differences, the greedy tokens (or where they
+    part, with (a)'s top-2 gap there), each rank's kernel tally, the
+    follower's replayed ops against the leader's, TTFT and tok/s, and the
+    seconds a killed follower's stream took to end."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from llm_mcp_tpu_torch.api.inference import serve
+    from llm_mcp_tpu_torch.executor import GenerationEngine
+    from llm_mcp_tpu_torch.kernels import attention as K
+
+    t_phase = time.time()
+    card = card_line()
+    res: dict = {"card": card}
+    checks: dict[str, bool] = {}
+    dev = torch.device(MESH_DEVICE)
+    cuda = dev.type == "cuda"
+    dtype = torch.bfloat16 if cuda else torch.float32
+    ids = _mesh_ids()
+    # (a) one rank: the int8 configuration of record, captured, served over HTTP
+    t0 = time.time()
+    eng = GenerationEngine(MESH_MODEL, quant="int8", kv_quant="int8", max_slots=MESH_SLOTS,
+                           max_seq_len=MESH_SEQ, prefill_chunk=512, decode_compact="off",
+                           seed=0, dtype=dtype, device=dev)
+    cfg = eng.cfg
+    probe_a, chain_a, _ = tp_probe(cfg, eng.params, ids, None, True)
+    eng.start()
+    api = serve({cfg.name: eng}, "127.0.0.1", 0)
+    try:
+        one = _mesh_traffic(f"http://127.0.0.1:{api.port}", cfg.name)
+        one_once = _mesh_at_once(f"http://127.0.0.1:{api.port}", cfg.name)
+    finally:
+        api.shutdown()
+        eng.shutdown()
+    res["one_rank"] = {"graphs": eng.cuda_graphs, "rates": _mesh_rates(one),
+                       "seconds": time.time() - t0}
+    del eng, api
+    gc.collect()
+    # (d)'s reference: bf16 over the cut depth, one rank
+    c8 = dataclasses.replace(cfg, n_layers=MESH_BF16_LAYERS)
+    full8 = _mesh_full_tree(c8, False, dev)
+    probe_d, chain_d, _ = tp_probe(c8, full8, _mesh_ids(False), None, False, MESH_BF16_STEPS)
+    chats_d = {}
+    for flag in MESH_BF16_SPEC:
+        with _env_set("TPU_SPEC", flag):
+            e8 = GenerationEngine(c8, params=full8, max_slots=4, max_seq_len=1024,
+                                  prefill_chunk=512, decode_chunk=4, seed=0, dtype=dtype,
+                                  device=dev)
+        chats_d[flag] = _mesh_bf16_chat(e8)
+        banned = e8._banned  # ids the engine never samples (outside the tokenizer)
+        del e8
+    tok_d = chats_d["0"]["tokens"]
+    # the logits along the held chat's tokens, fed: both sides see the
+    # same prefix at every position, so a parting of the served chats can
+    # be judged where it happens
+    forced_d = tp_probe(c8, full8, _mesh_ids(False), None, False, forced=tok_d)[0]
+    del full8
+    gc.collect()
+    if cuda:
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        res["one_rank"]["released_gib"] = torch.cuda.memory_allocated() / 2**30
+    # (b) two ranks on this card
+    root = str(Path(__file__).resolve().parent)
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    http = _free_port()
+    argv = ["--model", MESH_MODEL, "--quant", "int8", "--kv-quant", "int8",
+            "--max-slots", str(MESH_SLOTS), "--max-seq-len", str(MESH_SEQ), "--prefill-chunk",
+            "512", "--decode-compact", "off", "--seed", "0", "--device", MESH_DEVICE,
+            "--host", "127.0.0.1", "--port", str(http), "--embed-model", MESH_EMBED]
+    env = dict(os.environ, PYTHONPATH=root, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               JAX_NUM_PROCESSES="2", TPU_MESH_SHAPE="tp=2",
+               TPU_SLICE_CMD_ADDR=f"127.0.0.1:{_free_port()}", CORE_GRPC_ADDR="127.0.0.1:0",
+               DB_PATH=os.path.join(tmp, "core.sqlite3"), DISCOVERY_INTERVAL="100000",
+               PLANNER_INTERVAL="0", TPU_WARMUP="0", LOG_LEVEL="INFO",
+               MESH_RANK_SPEC=json.dumps({
+                   "model": MESH_MODEL, "device": MESH_DEVICE, "out": tmp, "argv": argv,
+                   "bf16_layers": MESH_BF16_LAYERS, "bf16_forced": tok_d,
+                   "cmd_bf16": {f: f"127.0.0.1:{_free_port()}" for f in MESH_BF16_SPEC}}))
+    for k in ("TPU_MIGRATE", "TPU_MIGRATE_PEER", "CORE_GRPC_TARGET", "WORKER_LOAD_ENGINES"):
+        env.pop(k, None)
+    t0 = time.time()
+    ranks = [_MeshRank(r, env, root, tmp) for r in range(2)]
+    base = f"http://127.0.0.1:{http}"
+    two: dict = {}
+    try:
+        info = [rk.wait_line("meshrank", 120)[0] for rk in ranks]
+        res["ranks"] = info
+        for d in info:
+            log(f"mesh: rank {d['rank']} pid {d['pid']} on {d['device']}, backend {d['backend']} "
+                f"(explicit: CUDA tensors staged through host memory) [{card}]")
+        probes = {rk.rank: {p["tag"]: p for p in rk.wait_line("meshprobe", 240, 2)} for rk in ranks}
+        chats_tp = {c["spec"]: c for c in ranks[0].wait_line("meshbf16", 240,
+                                                              len(MESH_BF16_SPEC))}
+        deadline = time.time() + 300
+        while True:
+            try:
+                _get_json(base, "/health")
+                break
+            except OSError:
+                if time.time() > deadline or ranks[0].proc.poll() is not None:
+                    fail(f"mesh phase: the leader never served: {ranks[0].text()[-4000:]}")
+                time.sleep(0.2)
+        res["boot_s"] = time.time() - t0
+        t1 = time.time()
+        two = _mesh_traffic(base, MESH_MODEL)
+        res["traffic_s"] = time.time() - t1
+        t1 = time.time()
+        two_once = _mesh_at_once(base, MESH_MODEL)
+        res["at_once_s"] = time.time() - t1
+        # the follower has replayed every step the leader emitted
+        st = [rk.stats() for rk in ranks]
+        for _ in range(100):
+            if st[1]["ops"] == st[0]["ops"]:
+                break
+            time.sleep(0.1)
+            st = [rk.stats() for rk in ranks]
+        res["stats"] = st
+        # (c) the follower dies in the middle of a stream
+        killed: dict = {}
+        box: dict = {}
+        first = threading.Event()
+        th = threading.Thread(target=lambda: box.update(_mesh_chat(
+            base, MESH_MODEL, [{"role": "user", "content": "Count from one to one thousand."}],
+            max_tokens=2048, first_evt=first, temperature=0)))
+        th.start()
+        first.wait(60)
+        time.sleep(0.5)  # the stream is under way
+        t_kill = time.perf_counter()
+        ranks[1].proc.kill()
+        th.join(MESH_TIMEOUT_S + 30)
+        killed["seconds_to_error"] = time.perf_counter() - t_kill if not th.is_alive() else None
+        killed["error"] = box.get("error")
+        killed["tokens_before"] = len(box.get("text", ""))
+        after = ranks[0].stats()
+        killed["leader_dead"] = after["dead"]
+        res["dead_follower"] = killed
+    finally:
+        codes = [rk.stop() for rk in ranks]
+        res["exit_codes"] = codes
+        logs = {rk.rank: rk.text()[-3000:] for rk in ranks}
+    # the logits: (b) and (d) against one rank
+    p_b = torch.load(os.path.join(tmp, "probe_int8.pt"))
+    p_d = torch.load(os.path.join(tmp, "probe_bf16.pt"))
+    top2 = probe_a.topk(2, dim=-1).values
+    part_b = _near_tie(probe_a, p_b, chain_a, probes[0]["int8"]["chain"])
+    part_d = _near_tie(probe_d, p_d, chain_d, probes[0]["bf16"]["chain"])
+    # logits compare over the positions both sides reached on the same
+    # tokens: through the first parting, not past it
+    diff_b, diff_d = ((p - ref)[: (len(ref) if pt["parts_at"] is None else pt["parts_at"] + 1)]
+                      .abs().amax(dim=-1).tolist()
+                      for p, ref, pt in ((p_b, probe_a, part_b), (p_d, probe_d, part_d)))
+    res["logits"] = {
+        "int8_max_abs_by_position": diff_b, "int8_equal_bit_for_bit": bool(torch.equal(p_b, probe_a)),
+        "int8_top2_gap_by_position": (top2[:, 0] - top2[:, 1]).tolist(), "int8_chain": part_b,
+        "bf16_max_abs": max(diff_d), "bf16_chain": part_d, "bf16_tokens": len(chain_d)}
+    steps = probes[0]["int8"]["steps"]
+    res["collectives_per_decode_step"] = {
+        "int8": steps, "bf16": probes[0]["bf16"]["steps"],
+        "int8_mean": {k: sum(s[k] for s in steps) / len(steps)
+                      for k in ("all_reduce", "all_gather", "collective_ms", "ms")}}
+    # the group of the int8 decode by head count: at the probe's and the
+    # served lengths both widths take the same group (S a multiple of 256)
+    Hkv, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.resolved_head_dim
+    res["q8_group_by_heads"] = {
+        f"S={S}": {"one_rank": K.q8_contig_group(S, hd, Hkv, H),
+                   "tp2": K.q8_contig_group(S, hd, Hkv // 2, H // 2)}
+        for S in (MESH_PROBE_S, MESH_SEQ, 1000)}
+    # the traffic: identical text, or where it parts
+    texts = {}
+    for name in one:
+        a, b = one[name].get("text"), two.get(name, {}).get("text")
+        texts[name] = {"equal": a == b and one[name].get("usage") == two.get(name, {}).get("usage"),
+                       "parts_at_char": _first_char_diff(a or "", b or "") if a != b else None,
+                       "error": two.get(name, {}).get("error")}
+    res["texts"] = texts
+    res["rates"] = {"one_rank": res["one_rank"]["rates"], "tp2": _mesh_rates(two)}
+    # the four chats at once: their schedule follows arrival times and the
+    # scheduler's timed budget, and a chunk's boundary changes the int8
+    # cache's numbers (a chunk's own keys are bf16, earlier chunks' are
+    # read back as int8), so their texts are reported against the
+    # one-at-a-time ones, on one rank as on two; the follower's token ring
+    # after them is held to the leader's
+    res["at_once"] = {
+        who: {n: {"equal": r.get("text") == one[n].get("text"), "error": r.get("error"),
+                  "parts_at_char": _first_char_diff(one[n].get("text") or "", r.get("text") or "")
+                  if r.get("text") != one[n].get("text") else None}
+              for n, r in got.items()}
+        for who, got in (("one_rank", one_once), ("tp2", two_once))}
+    # the served bf16 chat (a SliceEngine at tp=2 against one rank's
+    # engine), speculation off: its tokens equal one rank's, or part where
+    # one rank's top-2 gap is within what the two sides' logits differ by,
+    # along one rank's tokens
+    p_df = torch.load(os.path.join(tmp, "probe_bf16_forced.pt"))
+    tok_tp = chats_tp["0"]["tokens"]
+    p_at = _first_diff(tok_d, tok_tp)
+    # the engines sample among the ids they allow: the gap is theirs
+    allowed = (torch.ones(p_df.shape[-1], dtype=torch.bool) if banned is None
+               else ~banned.cpu())
+    ids_ok = allowed.nonzero().squeeze(1)
+    fd, pd = forced_d[:, allowed], p_df[:, allowed]
+    part_chat = (_near_tie(fd, pd, tok_d, tok_tp) if p_at is None or p_at < len(tok_d)
+                 else {"parts_at": p_at, "gap": None, "max_abs_diff": None, "near_tie": False})
+    res["bf16_chat"] = {
+        "equal": tok_tp == tok_d and chats_tp["0"]["text"] == chats_d["0"]["text"],
+        "tokens": len(tok_d), "chain": part_chat,
+        "logits_max_abs": float((p_df - forced_d).abs().max()),
+        # where the probe's own greedy pick leaves the served tokens
+        "probe_argmax_leaves_served": {
+            "one_rank": _first_diff(ids_ok[fd.argmax(-1)].tolist(), tok_d),
+            "tp2": next((j for j in range(min(len(tok_tp), len(tok_d),
+                                              len(tok_d) if p_at is None else p_at + 1))
+                         if int(ids_ok[pd[j].argmax()]) != tok_tp[j]), None)},
+        "by_spec": {f: {"equal": chats_tp[f]["tokens"] == chats_d[f]["tokens"],
+                        "parts_at": _first_diff(chats_d[f]["tokens"], chats_tp[f]["tokens"]),
+                        "verify_at": {"one_rank": chats_d[f]["verify_at"],
+                                      "tp2": chats_tp[f]["verify_at"]},
+                        "one_rank": chats_d[f]["text"], "tp2": chats_tp[f]["text"]}
+                    for f in MESH_BF16_SPEC}}
+    st = res.get("stats", [{}, {}])
+    tally = {r: {n: st[r].get("engine_launches", {}).get(n, 0)
+                 + st[r].get("engine_launches", {}).get(n + "_paged", 0) for n in MESH_KERNELS}
+             for r in (0, 1)}
+    res["tally"] = tally
+    res["peak_gib"] = [s.get("peak_gib", 0.0) for s in st]
+    res["seconds"] = time.time() - t_phase
+    checks["(b) every rank on the card, backend gloo"] = all(
+        d["backend"] == "gloo" and d["device"].startswith(MESH_DEVICE) for d in res["ranks"])
+    checks["(b) int8 logits within tolerance of one rank's"] = max(diff_b) <= MESH_Q8_TOL
+    checks["(b) greedy probe tokens equal, or part at a printed near tie"] = part_b["near_tie"]
+    checks["(b) the served texts and usage equal one rank's"] = all(
+        t["equal"] for t in texts.values())
+    checks["(b) the int8 decode and ragged kernels launched on both ranks"] = all(
+        tally[r][n] > 0 for r in (0, 1) for n in MESH_KERNELS)
+    checks["(b) both engines at the shard's heads, rounds eager"] = all(
+        s.get("heads") == [cfg.n_heads // 2, cfg.n_kv_heads // 2] and s.get("graphs") is False
+        for s in st)
+    checks["(b) the follower replayed the leader's ops"] = bool(st[0].get("ops")) and (
+        st[0].get("ops") == st[1].get("ops"))
+    checks["(b) four chats at once finished, with one rank's prompt tokens"] = all(
+        not r.get("error") and r.get("usage", {}).get("completion_tokens", 0) > 0
+        and r["usage"].get("prompt_tokens") == one[n].get("usage", {}).get("prompt_tokens")
+        for n, r in two_once.items()) and len(two_once) == len(CHATS)
+    checks["(b) the follower's token ring equals the leader's"] = bool(st[0].get("ring")) and (
+        st[0].get("ring") == st[1].get("ring"))
+    checks["(b) peak memory of both ranks under 80 GB"] = sum(res["peak_gib"]) * 2**30 < 80e9
+    checks["(c) the killed follower's stream ended with an error in time"] = (
+        killed.get("seconds_to_error") is not None
+        and killed["seconds_to_error"] < MESH_TIMEOUT_S + 10 and bool(killed.get("error"))
+        and bool(killed.get("leader_dead")))
+    checks["(d) bf16 logits within tolerance of one rank's"] = max(diff_d) <= MESH_BF16_TOL
+    checks["(d) bf16 greedy tokens equal, or part at a printed near tie"] = part_d["near_tie"]
+    checks["(d) bf16 logits along one rank's served chat within tolerance"] = (
+        res["bf16_chat"]["logits_max_abs"] <= MESH_BF16_TOL)
+    checks["(d) the served bf16 chat equals one rank's, or parts at a printed near tie"] = (
+        res["bf16_chat"]["equal"] or (part_chat["parts_at"] is not None and part_chat["near_tie"]))
+    checks[f"phase 21 under {MESH_BUDGET_S:.0f} s"] = res["seconds"] < MESH_BUDGET_S
+    res["checks"] = checks
+    replayed = st[0].get("ops") == st[1].get("ops")
+    log(f"mesh: logits int8 max abs {max(diff_b):.3g} (bit for bit "
+        f"{res['logits']['int8_equal_bit_for_bit']}), bf16 {max(diff_d):.3g}; int8 chain "
+        f"{part_b}, bf16 chain of {len(chain_d)} {part_d}, served bf16 chat of "
+        f"{len(tok_d)} equal {res['bf16_chat']['equal']} {part_chat} (logits along it max abs "
+        f"{res['bf16_chat']['logits_max_abs']:.3g}; probe argmax leaves the served tokens at "
+        f"{res['bf16_chat']['probe_argmax_leaves_served']}; by TPU_SPEC "
+        + json.dumps({f: {k: v for k, v in d.items() if k not in ("one_rank", "tp2")}
+                      for f, d in res["bf16_chat"]["by_spec"].items()})
+        + "); texts equal "
+        f"{sum(t['equal'] for t in texts.values())}/{len(texts)}; at once equal one at a time: "
+        + ", ".join(f"{w} {sum(t['equal'] for t in d.values())}/{len(d)}"
+                    for w, d in res["at_once"].items())
+        + f"; tally {tally}; ops replayed = emitted {replayed}, rings equal "
+        f"{st[0].get('ring') == st[1].get('ring')}; "
+        f"collectives a decode step "
+        f"{res['collectives_per_decode_step']['int8_mean']}; rates {res['rates']}; dead "
+        f"follower {killed}; peak {res['peak_gib']} GiB; {res['seconds']:.1f} s [{card}]")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        check_failed(f"mesh phase: {bad}; rank logs: {logs}")
     return res
 
 

@@ -56,6 +56,8 @@ DEFAULT_CONFIG: dict = {
     "parity_registry": "tests/test_torch_port_parity.py",
     "smoke_module": "chip_smoke.py",
     "engine_module": "llm_mcp_tpu_torch/executor/engine.py",
+    # dispatch-surface inputs: the step vocabulary's module
+    "dispatch_module": "llm_mcp_tpu_torch/executor/dispatch.py",
     "zoo_module": "llm_mcp_tpu_torch/executor/zoo.py",
     "perf_module": "llm_mcp_tpu_torch/telemetry/perf.py",
     "recorder_module": "llm_mcp_tpu_torch/telemetry/recorder.py",
@@ -654,10 +656,9 @@ class SuiteResult:
 
 
 def default_passes() -> list:
-    """The five registered passes, in report order (JAX's order; its
-    dispatch-surface pass waits for the port's executor/dispatch.py).
-    Imported lazily so `core` stays importable from any of them."""
-    from . import census, donation, imports_lint, knobs, lock_order
+    """The six registered passes, in report order (JAX's order). Imported
+    lazily so `core` stays importable from any of them."""
+    from . import census, dispatch_surface, donation, imports_lint, knobs, lock_order
 
     return [
         lock_order.LockOrderPass(),
@@ -665,6 +666,7 @@ def default_passes() -> list:
         knobs.KnobRegistryPass(),
         imports_lint.ImportPurityPass(),
         census.RegistryCensusPass(),
+        dispatch_surface.DispatchSurfacePass(),
     ]
 
 

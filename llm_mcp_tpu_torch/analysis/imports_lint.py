@@ -8,8 +8,9 @@ Two halves:
    the flight recorder, tracer, perf observatory and workload capture
    (every layer imports telemetry, so telemetry must weigh nothing), the
    migration wire codec and the host-side KV pool, the n-gram drafter,
-   the constraint compiler's automata and masks, and the ranked locks.
-   Consumed twice, as in JAX:
+   the constraint compiler's automata and masks, and the ranked locks;
+   and one of the port's own, the dispatch plane (`executor/dispatch.py`,
+   the standard library alone). Consumed twice, as in JAX:
 
    - **statically** (this pass): module-level imports of each pinned
      module must resolve to stdlib + the entry's `allow` set. Lazy
@@ -190,6 +191,27 @@ PURITY_MANIFEST: tuple[PurityEntry, ...] = (
             """
         ),
         why="the wire codec runs on worker hosts; torch + numpy, no API",
+    ),
+    # the dispatch plane's step vocabulary and channel: the standard
+    # library alone (it reads torch.distributed lazily, for the world size)
+    PurityEntry(
+        key="dispatch",
+        path="llm_mcp_tpu_torch/executor/dispatch.py",
+        stubs=_EXE,
+        exercise=textwrap.dedent(
+            """
+            assert len(mod.DISPATCH_OPS) == 19 and not mod.LocalArraysBackend.spmd
+            class OnCard:
+                is_cuda = True
+            try:
+                mod.check_host_payload(({{"k": OnCard()}},))
+            except TypeError:
+                pass
+            else:
+                raise AssertionError("a CUDA payload passed")
+            """
+        ),
+        why="the follower's replay loop and the payload check weigh nothing",
     ),
     PurityEntry(
         key="memory",

@@ -92,6 +92,19 @@ tokens a second) meters the requests whose `X-Tenant-Id` header
     TPU_ZOO_MODELS=llama-3.2-1b,qwen2.5-0.5b TPU_ZOO_HOT=1 \
     TPU_TENANT_QUOTAS="alice=400,bob=4000" python -m llm_mcp_tpu_torch.api \
         --model llama-3.1-8b --quant int8 --kv-quant int8 --max-slots 16
+
+Tensor parallelism, as the JAX server boots it: `TPU_MESH_SHAPE` (e.g.
+`tp=2`) with the JAX package's process triplet (`JAX_COORDINATOR_ADDRESS`,
+`JAX_NUM_PROCESSES`, `JAX_PROCESS_ID`: `parallel/distributed.py` starts
+`torch.distributed` from it, backend `gloo`) and `TPU_SLICE_CMD_ADDR` (the
+leader's command channel, host:port). Every rank runs the same command;
+rank 0 serves the leader `SliceEngine` inside the core server, every other
+rank replays its steps (`run_follower`) and never binds HTTP. Each rank
+runs on `cuda:{rank % device_count}` (`--device cpu`: CPU ranks).
+
+    JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=0 \
+    TPU_MESH_SHAPE=tp=2 TPU_SLICE_CMD_ADDR=127.0.0.1:29501 \
+        python -m llm_mcp_tpu_torch.api --model llama-3.1-8b --quant int8 --kv-quant int8
 """
 
 from __future__ import annotations
@@ -141,6 +154,8 @@ def main(argv: list[str] | None = None) -> None:
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     server, grpc_server = boot(argv)
+    if server is None:
+        return  # a follower rank: its replay ended with the leader's stop
     stop.wait()
     logging.getLogger("main").info("shutting down")
     if grpc_server is not None:
@@ -152,7 +167,8 @@ def boot(argv: list[str] | None = None):
     """The engines, the started core server and, when `CORE_GRPC_ADDR`
     is set, the started gRPC server beside it, as the JAX `main` boots
     them. Returns (server, grpc_server or None); `main` serves until a
-    signal."""
+    signal. A follower rank of a mesh (`TPU_MESH_SHAPE`) replays the
+    leader's steps here until it stops, and returns (None, None)."""
     from ..utils.config import Config
     from ..utils.logging import setup_logging
 
@@ -203,6 +219,17 @@ def boot(argv: list[str] | None = None):
     zoo = None
     if os.environ.get("TPU_DISABLE_ENGINES", "") not in ("1", "true"):
         dtype = torch.bfloat16 if args.device != "cpu" else torch.float32
+        mesh = None
+        if cfg.tpu_mesh_shape:
+            # the process group first (from JAX's triplet), then this
+            # rank's mesh and device
+            from ..parallel import distributed
+
+            distributed.initialize(device="cpu" if args.device == "cpu" else None)
+            mesh = distributed.make_global_mesh(
+                cfg.tpu_mesh_shape, device="cpu" if args.device == "cpu" else None)
+            log.info("serving over %r (backend %s)", mesh, mesh.backend)
+            args.device = str(mesh.device)
         engine_kw = dict(
             max_slots=args.max_slots,
             max_seq_len=args.max_seq_len,
@@ -216,7 +243,24 @@ def boot(argv: list[str] | None = None):
             dtype=dtype,
             device=args.device,
         )
-        engine = GenerationEngine(args.model, weights_dir=args.weights_dir, **engine_kw).start()
+        if mesh is not None and mesh.size > 1:
+            from ..executor import SliceEngine
+
+            if not cfg.tpu_slice_cmd_addr:
+                raise ValueError(f"TPU_MESH_SHAPE={cfg.tpu_mesh_shape!r} spans {mesh.size} ranks: "
+                                 "set TPU_SLICE_CMD_ADDR (the leader's command channel)")
+            kw = {k: v for k, v in engine_kw.items() if k not in ("device",)}
+            engine = SliceEngine(args.model, mesh=mesh, cmd_addr=cfg.tpu_slice_cmd_addr,
+                                 weights_dir=args.weights_dir, **kw)
+            if mesh.rank != 0:
+                log.info("slice follower %d/%d on %s: replaying the leader's steps",
+                         mesh.rank, mesh.size, mesh.device)
+                engine.run_follower()
+                return None, None
+            engine.start()
+        else:
+            engine = GenerationEngine(args.model, weights_dir=args.weights_dir, mesh=mesh,
+                                      **engine_kw).start()
         gen_engines[args.model] = engine
         # processes that hand streams or prefixes to each other must hold
         # the same weights: this line lets an operator compare them

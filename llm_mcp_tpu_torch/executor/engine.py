@@ -172,6 +172,29 @@ raised, on a bad payload or another geometry) run on the engine thread,
 parked there by the calling thread. An imported chain becomes an ordinary
 entry: pool rows on the physical path, device rows on the contiguous one.
 
+The dispatch plane, as the JAX engine's (`dispatch.py`): every device
+mutation of the scheduling loop goes through one funnel, `_dx(op, *args)`,
+over the registry `_build_ops` builds (JAX's 19 op names, closures over
+`self` that take host payloads only: numpy arrays, CPU tensors, ints,
+strings). With the default `LocalArraysBackend` the funnel is a direct
+call. With `GSPMDBackend` and a `mesh` (`parallel/mesh.py`) of tp ranks,
+rank 0 leads: it emits every step to the other ranks, which replay it
+(`run_follower`) on their own shards: the weights sliced by JAX's
+Megatron specs (unfused, quantized first; `parallel/sharding.py`), the
+cache, the pool and the device round state at H/tp and Hkv/tp heads (the
+int8 cache per rank in its own fused layout), with the model's
+collectives inside the ops. Block tables stay host policy on the leader
+and ride the payload; ops the leader reads back (`snap`, `pfxexp`,
+`poolexp`) gather heads to it, and ops that take host rows (`insrows`,
+`insat`, `pfximp`, `pput`) slice each rank's heads from the payload. A
+failed step kills the engine under a mesh (`dead`: the followers replayed
+it, nothing can be rebuilt in step). Under a mesh of more than one rank
+the rounds run eagerly (collectives through `gloo` cannot be captured),
+compaction stays off (as JAX's auto rule) and the warm-up is off (it runs
+model steps outside the step program); dp, pp, sp and ep above 1, and MLA
+or MoE configurations under tp, are refused (ROADMAP.md queue 1 item 11).
+`SliceEngine` is the keyword surface of JAX's multi-host engine.
+
 Not ported yet (ROADMAP queue 1): capture of the ragged group and of the
 verify and masked rounds.
 """
@@ -179,6 +202,7 @@ verify and masked rounds.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import functools
 import logging
 import os
@@ -221,7 +245,15 @@ from ..models.quant import (
 from ..ops.sampling import apply_token_mask, sample_tokens, spec_verify
 from ..utils.device import resolve_device
 from ..utils.locks import OrderedLock
+from ..parallel.mesh import tp_scope
+from ..parallel.sharding import (
+    fused_heads_full,
+    fused_heads_local,
+    shard_tree_for,
+    supports_ragged_prefill,
+)
 from .common import fine_bucket, pow2_bucket
+from .dispatch import DispatchBackend, GSPMDBackend, LocalArraysBackend
 from .drafter import NGramDrafter
 from .graphs import RoundGraphs, device_sync
 from . import migration
@@ -525,7 +557,10 @@ class _PrefillGroup:
     keep: np.ndarray  # [n_tokens]
     wslot: np.ndarray
     wpos: np.ndarray
-    logits: torch.Tensor | None = None  # [R, V], once dispatched
+    # its last-token logits [R, V] park in the engine's `_x_logits[gid]`
+    # once launched, until the boundary sample ("bsample") takes them
+    gid: int = 0
+    launched: bool = False
     nvalid: np.ndarray | None = None  # bucketed: [Ab]
     bucket: int = 0
     skey: int = 0
@@ -586,8 +621,14 @@ class GenerationEngine:
         kv_quant: str = "",
         decode_compact: str = "auto",
         cuda_graphs: bool = True,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh: Any = None,
+        backend: DispatchBackend | None = None,
     ):
+        # a mesh (`parallel/mesh.py`) places this rank; its device is the
+        # engine's unless the caller names one
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         self.device = resolve_device(device)
         # a config.json beside the weights describes them and wins over the
         # catalog, as in the JAX engine
@@ -597,6 +638,24 @@ class GenerationEngine:
                              "(EmbeddingEngine), not generation")
         if self.device.type == "cuda":
             _check_kernel_shapes(self.cfg)
+        # The dispatch plane (module docstring, `dispatch.py`): every device
+        # mutation goes through `_dx`, which hands the (op, payload) step to
+        # the backend before it runs the op here. A dead engine (`dead`, a
+        # failed step under a mesh) rejects submits and releases the
+        # followers.
+        self.mesh = mesh
+        self._backend = backend if backend is not None else LocalArraysBackend()
+        self._spmd = bool(self._backend.spmd)
+        if self._spmd and mesh is None:
+            raise ValueError("a GSPMD dispatch backend requires a mesh")
+        self.dead: str = ""
+        self._dead_lock = threading.Lock()  # atomizes submit vs death
+        self._tp = self._check_mesh(mesh)
+        # the model's config on this rank: its local head counts under tp
+        self._mcfg = self.cfg if self._tp is None else dataclasses.replace(
+            self.cfg, n_heads=self.cfg.n_heads // self._tp.tp,
+            n_kv_heads=self.cfg.n_kv_heads // self._tp.tp,
+            head_dim=self.cfg.resolved_head_dim)
         self.dtype = dtype
         # the JAX engine's options and warnings: int8 weights, int8 KV, and
         # slot compaction (auto = on with the int8 cache, on one device)
@@ -613,7 +672,9 @@ class GenerationEngine:
         if dc not in ("auto", "on", "off"):
             log.warning("unknown decode_compact mode %r (auto|on|off); using auto", dc)
             dc = "auto"
-        self.decode_compact = dc == "on" or (dc == "auto" and self.kv_quant == "int8")
+        # auto stays single-device, as the JAX engine's rule
+        single = mesh is None or mesh.size == 1
+        self.decode_compact = dc == "on" or (dc == "auto" and self.kv_quant == "int8" and single)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.decode_chunk = decode_chunk
@@ -630,8 +691,9 @@ class GenerationEngine:
         cap = max(self.admit_batch * self.prefill_chunk, 1)
         self._ragged_cap = 1 << (cap.bit_length() - 1)
         # ragged chunks, as the JAX engine gates them: not for windows or
-        # softcaps, which no ragged kernel covers; those stage bucketed groups
-        self.ragged_prefill = not plain_attention(self.cfg)
+        # softcaps, which no ragged kernel covers (those stage bucketed
+        # groups), nor under a mesh with dp, sp or ep
+        self.ragged_prefill = not plain_attention(self.cfg) and supports_ragged_prefill(mesh)
 
         self.load_seconds = 0.0  # reading and placing a checkpoint
         if params is None and has_safetensors(weights_dir):
@@ -647,15 +709,33 @@ class GenerationEngine:
         # memory) comes to this engine's device, its strides kept
         params = _tree_to(params, self.device)
         if self.quant:
-            # a no-op on an int8 tree; then the single-device fused layout,
-            # stored K-contiguous for the int8 GEMM (both no-ops on a tree
-            # that has them)
-            params = gemm_layout(fuse_layer_weights(quantize_params(params)))
+            params = quantize_params(params)  # a no-op on an int8 tree
+        if self._tp is not None:
+            # quantized first, then this rank's slice (a row-split int8
+            # weight keeps the whole tree's scales); unfused, as JAX under a
+            # mesh: the fused wqkv/w13 columns interleave head groups
+            params = shard_tree_for(self.cfg, params, self._tp)
+        elif self.quant:
+            # the single-device fused layout (a no-op on a tree that has it)
+            params = fuse_layer_weights(params)
+        if self.quant:
+            params = gemm_layout(params)  # K-contiguous for the int8 GEMM
         _check_on_device(params, self.device)
         self.params = params
-        cache = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device=self.device,
+        cache = init_kv_cache(self._mcfg, max_slots, max_seq_len, dtype=dtype, device=self.device,
                               quantized=self.kv_quant == "int8")
         self._ck, self._cv = cache["k"], cache["v"]
+        # the whole cache's geometry (no storage): byte accounting, wire
+        # checks and host rows use the full heads, on every rank alike
+        full = init_kv_cache(self.cfg, max_slots, max_seq_len, dtype=dtype, device="meta",
+                             quantized=self.kv_quant == "int8")
+        self._full_ck, self._full_cv = full["k"], full["v"]
+        # op-owned device state (JAX's): parked group logits by gid, device
+        # prefix entries by eid
+        self._x_logits: dict[int, torch.Tensor] = {}
+        self._x_prefix: dict[int, tuple] = {}
+        self._gid_ctr = 0
+        self._eid_ctr = 0
         self._init_prefix_cache(prompt_cache_mb)
         # the int8 decode kernel's split arrivals: this engine's own buffer,
         # so two engines' launches on two streams never count into one word
@@ -674,7 +754,7 @@ class GenerationEngine:
             self._pool = KVPool(
                 max_slots=max_slots,
                 max_seq_len=max_seq_len,
-                bytes_per_slot=pytree_nbytes({"k": self._ck, "v": self._cv}) // max(1, max_slots),
+                bytes_per_slot=_nbytes(self._full_ck, self._full_cv) // max(1, max_slots),
                 watermark=float(os.environ.get("TPU_ADMIT_WATERMARK", "") or 1.5),
                 policy=os.environ.get("TPU_PREEMPT_POLICY", "") or "priority",
             )
@@ -750,8 +830,13 @@ class GenerationEngine:
         self._cooling: dict[int, int] = {}
         self._inflight: deque[_DispatchedRound] = deque()
         self._pending: _PendingRound | None = None
-        # the decode round as one CUDA graph a static shape; the CPU has none
-        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # the decode round as one CUDA graph a static shape; the CPU has none,
+        # and neither has a round whose collectives go through gloo
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda" and self._tp is None
+        if self._tp is not None:
+            log.info("rank %d of tp=%d on %s, collectives on %s: decode rounds run eagerly "
+                     "(a round with gloo collectives cannot be captured), warm-up off",
+                     self._tp.rank, self._tp.tp, self.device, self._tp.backend)
         self._graphs = RoundGraphs(self.device, self._gen) if self.cuda_graphs else None
 
         # Only real text ids and eos may be sampled: the model vocab may be
@@ -798,6 +883,9 @@ class GenerationEngine:
         self.cn_spec_accepted = 0
         self.cn_mask_s = 0.0  # host wall building the mask rows
         self._cn_step_fn = None  # the masked single step, built on first use
+        # a constrained round's token-ring writes (slots, tokens), taken by
+        # that round's verify or masked step op; None outside `_cn_round`
+        self._cn_ring: tuple | None = None
 
         # KV migration (migration.py), as the JAX engine: TPU_MIGRATE off
         # (the default) builds no queue, so every hook is a no-op. The
@@ -822,6 +910,32 @@ class GenerationEngine:
         self._stop_evt = threading.Event()
         self._thread: threading.Thread | None = None
         self._init_telemetry()
+        self._ops = self._build_ops()
+
+    def _check_mesh(self, mesh) -> Any:
+        """The mesh's tp view (None for one rank), after the refusals of
+        this slice: dp, pp, sp and ep above 1, MLA or MoE configurations
+        under tp, head or vocabulary counts tp does not divide, and a mesh
+        of more than one rank without the leader/follower backend (every
+        rank is a process here)."""
+        if mesh is None or mesh.size == 1:
+            return None
+        item = "not ported yet (ROADMAP.md queue 1 item 11)"
+        for ax in ("dp", "pp", "sp", "ep"):
+            if mesh.shape.get(ax, 1) > 1:
+                raise ValueError(f"mesh axis {ax}={mesh.shape[ax]}: {item}")
+        tp = mesh.shape["tp"]
+        cfg = self.cfg
+        if cfg.kv_lora_rank or cfg.n_experts:
+            raise ValueError(f"{cfg.name}: MLA and MoE under tp={tp} are {item}")
+        for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                        ("vocab_size", cfg.vocab_size)):
+            if n % tp:
+                raise ValueError(f"{cfg.name}: {what} {n} is not divisible by tp={tp}")
+        if not self._spmd:
+            raise ValueError("a mesh of more than one rank needs the leader/follower backend "
+                             "(GSPMDBackend): every rank is a process")
+        return mesh
 
     def _init_telemetry(self) -> None:
         """The observability plane, as the JAX engine builds it: the
@@ -874,10 +988,311 @@ class GenerationEngine:
         self._own_compiles: dict[tuple[str, str], dict[str, Any]] = {}
         self._own_compiles_lock = threading.Lock()
 
+    # -- the dispatch plane (dispatch.py) ----------------------------------
+
+    def _dx(self, op: str, *args):
+        """The dispatch funnel: every device mutation the scheduling loop
+        makes goes through here. The backend sees the (op, payload) step
+        first (followers replay the same closure from the same payload),
+        then the op runs here, in this rank's tp scope. Payloads are host
+        values; device state lives on `self`, read and written by the op
+        closures alone. A step that raises under a mesh kills the engine:
+        the frame went out already, so the followers ran (or wedged on) the
+        same op, and no local recovery puts every rank back in step."""
+        try:
+            self._backend.emit(op, args)
+            if self._tp is None:
+                return self._ops[op](*args)
+            with tp_scope(self._tp):
+                return self._ops[op](*args)
+        except Exception as e:
+            if self._spmd:
+                self._mark_dead(f"dispatch {op!r} failed: {e}")
+            raise
+
+    def run_follower(self) -> None:
+        """The replay loop of a rank that does not lead (blocking): every
+        received (op, payload) step runs the same op closure the leader
+        ran, on this rank's shards and in its tp scope. Returns on the
+        leader's stop; raises when the leader is presumed dead."""
+        K.bind_engine_tally(self.kernel_launches)
+        with torch.inference_mode(), tp_scope(self._tp):
+            self._backend.run_follower(self._ops)
+
+    def _mark_dead(self, msg: str) -> None:
+        """A poisoned dispatch under a mesh: the step went out to the
+        followers and device state cannot be rebuilt in step, so the engine
+        goes dead (submits reject, the loop exits and errors every request,
+        the followers get the stop frame from the loop's tail)."""
+        with self._dead_lock:
+            if not self.dead:
+                self.dead = msg or "dispatch failed"
+                log.error("engine dead: %s", self.dead)
+        self._stop_evt.set()
+        self._wake.set()
+
+    def _paged_payload(self, slots) -> np.ndarray | None:
+        """The paged operand's host part riding a payload: the block table
+        (host policy the followers do not keep) when any of `slots` reads a
+        block through the pool, else None (the unpaged kernels run)."""
+        if self._phys is None or not self._phys.paged(slots):
+            return None
+        return self._phys.table
+
+    def _table_dev(self, tbl: np.ndarray | None) -> torch.Tensor | None:
+        """A payload's table on the device: the cached upload on one rank
+        (one upload a mutation), the payload's own under a mesh."""
+        if tbl is None:
+            return None
+        return self._up(tbl) if self._spmd else self._phys.device_table(self.device)
+
+    def _paged_from(self, tbl: np.ndarray | None) -> dict | None:
+        dev = self._table_dev(tbl)
+        return None if dev is None else {"tbl": dev, "k": self._pool_k, "v": self._pool_v}
+
+    def _host_rows(self, side: Any) -> Any:
+        """One cache side's device rows [L, 1, H, T, ...] on the host with
+        every head: gathered over tp under a mesh (every rank gets them;
+        the leader reads them), pinned and queued on the card."""
+        if self._tp is not None:
+            side = fused_heads_full(side, self._tp)
+        return _map(self._to_host, side) if not (isinstance(side, dict) and not side) else {}
+
+    def _local_rows(self, side: Any) -> Any:
+        """Host rows with every head to this rank's heads (a no-op on one
+        rank)."""
+        if self._tp is None:
+            return side
+        return fused_heads_local(side, self.cfg.n_kv_heads, self._tp)
+
+    def _ring_write(self, ring: tuple | None) -> None:
+        """Token-ring entries from the host (slots, tokens): a constrained
+        round's rows, which a compacted round's pad rows may have aimed at."""
+        if ring is not None:
+            self._d_last[self._up(np.asarray(ring[0], dtype=np.int64))] = self._up(
+                np.asarray(ring[1], dtype=np.int32))
+
+    def _build_ops(self) -> dict:
+        """The step program's vocabulary: op name -> closure holding all
+        the device work of that step. The closures take host payloads,
+        read and write device state through `self`, and are the only code
+        that touches the caches, the pool, the parked logits, the prefix
+        entries and the round state after construction (the warm-up's
+        parked steps and the one-rank recovery aside); the dispatch-surface
+        pass reconciles this registry with `dispatch.DISPATCH_OPS` and the
+        engine's `_dx` sites, both ways."""
+        ops: dict[str, Any] = {}
+
+        def op_admit(tokens, lengths, ints, flts, cn=None):
+            # prefill, the rows into their slots, the first tokens sampled
+            # and written into the round state at their slots
+            logits, ks, vs = llama_prefill(
+                self._mcfg, self.params, self._up(tokens), self._up(lengths),
+                quant_kv=self.kv_quant == "int8")
+            bucket = tokens.shape[1]
+            n = len(ints) // 2
+            for i, slot in enumerate(ints[:n].tolist()):
+                _map(lambda c, k: c[:, slot, :, :bucket].copy_(k[:, i]), self._ck, ks)
+                _map(lambda c, v: c[:, slot, :, :bucket].copy_(v[:, i]), self._cv, vs)
+            return self._sample_rows(logits[:n], ints, flts, cn)
+
+        ops["admit"] = op_admit
+
+        def op_insert(eid, slots, live_n):
+            pk, pv = self._x_prefix[eid]
+            for slot in slots:
+                _map(lambda c, e: c[:, slot, :, :live_n].copy_(e[:, 0, :, :live_n]), self._ck, pk)
+                _map(lambda c, e: c[:, slot, :, :live_n].copy_(e[:, 0, :, :live_n]), self._cv, pv)
+
+        ops["insert"] = op_insert
+
+        def op_insrows(hk, hv, slots, live_n):
+            # host rows [0, live_n) of every head ride the payload (restore,
+            # migrate-in: a follower never saw this KV)
+            for c, rows in ((self._ck, self._local_rows(hk)), (self._cv, self._local_rows(hv))):
+                for i, b in enumerate(slots):
+                    _map(lambda x, r: x[:, b: b + 1, :, :live_n].copy_(
+                        r[:, i: i + 1, :, :live_n], non_blocking=True), c, rows)
+
+        ops["insrows"] = op_insrows
+
+        def op_insat(hk, hv, slot, start):
+            for c, rows in ((self._ck, self._local_rows(hk)), (self._cv, self._local_rows(hv))):
+                _map(lambda x, r: x[:, slot: slot + 1, :, start: start + r.shape[3]].copy_(
+                    r, non_blocking=True), c, rows)
+
+        ops["insat"] = op_insat
+
+        def op_chunk(gid, tokens, slots, starts, nvalid, keep, wslot, wpos, skey, tbl):
+            t, sl, st, nv, kp, ws, wp = self._upload_parts((
+                tokens.reshape(-1), slots, starts, nvalid, keep, wslot, wpos))
+            logits, self._ck, self._cv = llama_prefill_chunk_batch(
+                self._mcfg, self.params, self._ck, self._cv, t.reshape(tokens.shape), sl, st, nv,
+                skey=skey, paged=self._paged_from(tbl), writes=(kp, ws, wp))
+            self._x_logits[gid] = logits
+
+        ops["chunk"] = op_chunk
+
+        def op_ragged(gid, tokens, rowids, positions, slots, starts, last_idx, keep, wslot,
+                      wpos, tbl):
+            t, ri, po, sl, st, li, kp, ws, wp = self._upload_parts((
+                tokens, rowids, positions, slots, starts, last_idx, keep, wslot, wpos))
+            logits, self._ck, self._cv = llama_prefill_chunk_ragged(
+                self._mcfg, self.params, self._ck, self._cv, t, ri, po, sl, st, li,
+                paged=self._paged_from(tbl), writes=(kp, ws, wp))
+            self._x_logits[gid] = logits
+
+        ops["ragged"] = op_ragged
+
+        def op_bsample(gid, rows, ints, flts, cn=None):
+            # the activation sample off a parked group's last-token logits,
+            # with the finishing slots' round-state writes; the logits are
+            # released either way
+            logits = self._x_logits.pop(gid, None)
+            if logits is None or len(rows) == 0:
+                return None
+            return self._sample_rows(logits[list(rows)], ints, flts, cn)
+
+        ops["bsample"] = op_bsample
+
+        def op_decode(key, packed, tbl):
+            # one round at (Ba, compact, paged): the graph of the key on the
+            # card (captured on its first use), else eager
+            fn = functools.partial(self._round_fn, compact=key[1])
+            args = (self._up(packed), self._table_dev(tbl))
+            return fn(*args) if self._graphs is None else self._graphs.run(key, fn, args)
+
+        ops["decode"] = op_decode
+
+        def op_verify(packed, rows, n, width, n_writes, skey, tbl, cn=None, ring=None):
+            self._ring_write(ring)
+            return self._verify_fn(
+                self._up(packed), rows=rows, n=n, width=width, n_writes=n_writes, skey=skey,
+                paged=self._paged_from(tbl), cn=self._cn_dev(cn))
+
+        ops["verify"] = op_verify
+
+        def op_cnstep(packed, cn, tbl, ring=None):
+            # the masked single step is built on its first use, leader and
+            # follower alike: TPU_CONSTRAIN traffic alone builds it
+            self._ring_write(ring)
+            if self._cn_step_fn is None:
+                self._cn_step_fn = self._build_cn_step()
+            return self._cn_step_fn(self._up(packed), self._paged_from(tbl), self._cn_dev(cn))
+
+        ops["cnstep"] = op_cnstep
+
+        def op_samprow(b, temp, topk, topp, last):
+            # one slot's round state (a restore)
+            self._d_last[b] = last
+            self._d_temp[b] = temp
+            self._d_topk[b] = topk
+            self._d_topp[b] = topp
+
+        ops["samprow"] = op_samprow
+
+        def op_snap(b, Lb, start, srcs):
+            # host copies of slot b's rows [start, Lb) with every head; the
+            # physical table's indirection rides the payload as (in_arena,
+            # row, off) triples, so every rank cuts the same sources
+            bt = self._paging.block_tokens
+
+            def cut(arr, pool):
+                if isinstance(arr, dict):
+                    return {k: cut(arr[k], None if pool is None else pool[k]) for k in arr}
+                if srcs is None:
+                    return arr[:, b: b + 1, :, start:Lb]
+                parts = [arr[:, row: row + 1, :, off: off + bt] if in_arena
+                         else pool[:, row: row + 1] for in_arena, row, off in srcs]
+                return torch.cat(parts, dim=3)[:, :, :, start:Lb]
+
+            return (self._host_rows(cut(self._ck, self._pool_k)),
+                    self._host_rows(cut(self._cv, self._pool_v)))
+
+        ops["snap"] = op_snap
+
+        def op_pfxput(eid, slot, p0):
+            # a slot's rows [0, p0) as a device prefix entry
+            self._x_prefix[eid] = (
+                _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._ck),
+                _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._cv))
+
+        ops["pfxput"] = op_pfxput
+
+        def op_pfxdrop(eid):
+            self._x_prefix.pop(eid, None)
+
+        ops["pfxdrop"] = op_pfxdrop
+
+        def op_pfximp(eid, hk, hv):
+            # wire-decoded host rows (every head) become a device entry of
+            # this rank's heads
+            self._x_prefix[eid] = (
+                _map(lambda c, h: h.to(self.device, c.dtype), self._ck, self._local_rows(hk)),
+                _map(lambda c, h: h.to(self.device, c.dtype), self._cv, self._local_rows(hv)))
+
+        ops["pfximp"] = op_pfximp
+
+        def op_pfxexp(eid, p0):
+            pk, pv = self._x_prefix[eid]
+            return (self._host_rows(_map(lambda x: x[:, :, :, :p0], pk)),
+                    self._host_rows(_map(lambda x: x[:, :, :, :p0], pv)))
+
+        ops["pfxexp"] = op_pfxexp
+
+        def op_poolexp(prows, p0):
+            # a physical entry's pool rows as one contiguous [L, 1, H, p0,
+            # ...] host tree a side
+            def cut(pool):
+                return torch.cat([pool[:, r: r + 1] for r in prows], dim=3)[:, :, :, :p0]
+
+            return (self._host_rows(_map(cut, self._pool_k)),
+                    self._host_rows(_map(cut, self._pool_v)))
+
+        ops["poolexp"] = op_poolexp
+
+        def op_cow(slot, blk, prow):
+            # pool row `prow` into block `blk` of the slot's arena row
+            bt = self._paging.block_tokens
+            for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
+                _map(lambda a, q: a[:, slot, :, blk * bt: (blk + 1) * bt].copy_(q[:, prow]), c, p)
+
+        ops["cow"] = op_cow
+
+        def op_pput(kind, a, b, prow):
+            # prefix-pool row stores: "arena" copies a slot block (a = row,
+            # b = token offset), "pool" a pool row (a = source row), "host"
+            # uploads a wire-decoded block (a, b = its K and V host rows,
+            # every head; the tail past its length zeroed)
+            bt = self._paging.block_tokens
+            if kind == "arena":
+                for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
+                    _map(lambda x, q: q[:, prow].copy_(x[:, a, :, b: b + bt]), c, p)
+            elif kind == "pool":
+                for q in _leaves(self._pool_k, self._pool_v):
+                    q[:, prow] = q[:, a]
+            else:
+                def put(pool, h) -> None:
+                    seg = h[:, 0]
+                    n = seg.shape[2]
+                    pool[:, prow, :, :n].copy_(seg, non_blocking=True)
+                    if n < bt:
+                        pool[:, prow, :, n:].zero_()
+
+                for p, h in ((self._pool_k, self._local_rows(a)), (self._pool_v, self._local_rows(b))):
+                    _map(put, p, h)
+
+        ops["pput"] = op_pput
+
+        return ops
+
     # -- public surface ----------------------------------------------------
 
     def start(self) -> "GenerationEngine":
         if self._thread is None:
+            # the leader's channel first (a blocking accept of every
+            # follower): the loop never emits into a half-built channel
+            self._backend.start()
             self._thread = threading.Thread(target=self._run, name="gen-engine", daemon=True)
             self._thread.start()
             if self.stall_timeout_s > 0:
@@ -896,6 +1311,10 @@ class GenerationEngine:
         thread, self._thread = self._thread, None
         if thread is not None:
             thread.join(timeout=30)
+        # release the followers (the loop's tail sent stop already) and drop
+        # the command channel
+        self._backend.stop()
+        self._backend.close()
         self._abort_all("engine shutdown")
         while self._migrate_in is not None and not self._migrate_in.empty():
             # migrated-in snapshots never restored: their consumers wait on
@@ -911,11 +1330,13 @@ class GenerationEngine:
             self._flight.remove_dump_callback(self._dump_cb)  # the recorder outlives us
 
     def submit(self, req: GenRequest) -> GenRequest:
-        if self._stop_evt.is_set():
-            req.out.put({"type": "error", "error": "engine shutdown"})
-            req.out.put(_DONE)
-            return req
-        self._admit.put(req)
+        with self._dead_lock:
+            if self._stop_evt.is_set() or self.dead:
+                msg = f"engine dead: {self.dead}" if self.dead else "engine shutdown"
+                req.out.put({"type": "error", "error": msg})
+                req.out.put(_DONE)
+                return req
+            self._admit.put(req)
         self._wake.set()
         return req
 
@@ -1461,7 +1882,8 @@ class GenerationEngine:
                 else:
                     group = (self._pad_group(int(key[0])) if phase == "pf_rag" else
                              self._pad_group(0, (int(key[0]), int(key[1])), int(key[2])))
-                    self._group_call(group, paged=None)  # its logits are dropped
+                    self._group_call(group, tbl=None)
+                    self._x_logits.pop(group.gid, None)  # its logits are dropped
             self._sync()
         finally:
             self._compile_src = src
@@ -1478,7 +1900,7 @@ class GenerationEngine:
             packed = np.concatenate([np.full(Ba, S), np.zeros(Ba), [0]]).astype(np.int32)
         else:
             packed = np.concatenate([np.full(B, S), [0]]).astype(np.int32)
-        tbl = self._phys.device_table(self.device) if paged else None
+        tbl = self._phys.table if paged else None
         ring, gen = self._d_last.clone(), self._gen.get_state()
         self._round_call((Ba, compact, paged), packed, tbl)
         self._d_last.copy_(ring)
@@ -1515,6 +1937,11 @@ class GenerationEngine:
         ledger's are always added. Idempotent; a failing step records `fail`, is
         logged, and the plan goes on."""
         if not warmup_mod.warmup_enabled():
+            return None
+        if self._tp is not None:
+            # its parked steps run the model outside the step program, which
+            # would hang the followers in the first collective
+            log.info("warm-up off under tp=%d", self._tp.tp)
             return None
         if self._warmup is not None:
             return self._warmup
@@ -1683,7 +2110,7 @@ class GenerationEngine:
         self.prefix_import_rejects_total = 0
         # the pytree byte count, as JAX's: the same budget gives the same
         # prefix partition and pool rows
-        cache_bytes = _nbytes(self._ck, self._cv)
+        cache_bytes = _nbytes(self._full_ck, self._full_cv)
         self._paging = PagedKVManager(
             max_slots=self.max_slots,
             max_seq_len=self.max_seq_len,
@@ -1717,14 +2144,6 @@ class GenerationEngine:
             bt, self._paging.slot_partition, self._paging.prefix_partition,
             self._phys is not None,
         )
-
-    def _paged_operand(self, slots) -> dict | None:
-        """The model's `paged` operand when any of `slots` reads a block
-        through the pool (decided on the host from the tables), else None:
-        the unpaged kernels then run."""
-        if self._phys is None or not self._phys.paged(slots):
-            return None
-        return {"tbl": self._phys.device_table(self.device), "k": self._pool_k, "v": self._pool_v}
 
     @staticmethod
     def _common_len(a: tuple, b: tuple) -> int:
@@ -1761,16 +2180,14 @@ class GenerationEngine:
         slot's table (only an unaligned boundary block is copied);
         contiguous entries copy their rows into every slot."""
         P = ent["P"]
-        if "k" in ent:
-            for slot, _, _ in group:
-                _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._ck, ent["k"])
-                _map(lambda c, e: c[:, slot, :, :P].copy_(e[:, 0]), self._cv, ent["v"])
+        if "eid" in ent:
+            self._dx("insert", ent["eid"], [slot for slot, _, _ in group], P)
         for slot, req, ids in group:
             self._prefills[slot] = _PrefillState(req=req, ids=list(ids), done=P, shared_len=P,
                                                  shared_entry=ent)
             self._prefill_q.append(slot)
             ops = self._paging.admit_shared(slot, ent["key"], len(ids))
-            if "k" not in ent:
+            if "eid" not in ent:
                 self._phys_admit(slot, ent, ops)
 
     def _maybe_store_prefix(self, slot: int, ids: list[int]) -> None:
@@ -1797,9 +2214,7 @@ class GenerationEngine:
             self._evict_lru_prefix()
         if self._paging.prefix_register(key, p0) is None:
             return
-        # the entry's bytes: every leaf's per-(row, token) bytes times p0
-        nbytes = sum(x.numel() // (x.shape[1] * x.shape[3]) * p0 * x.element_size()
-                     for x in _leaves(self._ck, self._cv))
+        nbytes = self._entry_bytes(p0)
         if self._phys is not None:
             if not self._store_prefix_physical(slot, key):
                 self._paging.prefix_release(key)
@@ -1807,13 +2222,21 @@ class GenerationEngine:
                 return
             ent = {"P": p0, "bytes": nbytes, "key": key}
         else:
-            ent = {
-                "P": p0, "bytes": nbytes, "key": key,
-                "k": _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._ck),
-                "v": _map(lambda c: c[:, slot: slot + 1, :, :p0].clone(), self._cv),
-            }
+            # a contiguous entry: the rows live in the op-owned `_x_prefix`
+            ent = {"P": p0, "bytes": nbytes, "key": key, "eid": self._new_eid()}
+            self._dx("pfxput", ent["eid"], slot, p0)
         self._add_prefix_entry(key, ent)
         log.info("prefix cache: stored a %d-token prefix (%d entries)", p0, len(self._prefix_cache))
+
+    def _entry_bytes(self, p0: int) -> int:
+        """A p0-token entry's bytes: every leaf's per-(row, token) bytes
+        times p0, of the whole cache (every head, as JAX counts)."""
+        return sum(x.numel() // (x.shape[1] * x.shape[3]) * p0 * x.element_size()
+                   for x in _leaves(self._full_ck, self._full_cv))
+
+    def _new_eid(self) -> int:
+        self._eid_ctr += 1
+        return self._eid_ctr
 
     def _add_prefix_entry(self, key: tuple, ent: dict) -> None:
         """Index and publish a new entry, then evict LRU entries over the
@@ -1834,6 +2257,8 @@ class GenerationEngine:
         with self._prefix_pub_lock:
             self._prefix_pub.pop(old_key, None)
         self._paging.prefix_release(old["key"])
+        if "eid" in old:
+            self._dx("pfxdrop", old["eid"])
         if self._phys is not None:
             self._phys.sweep(self._paging.alive)
         bucket = self._prefix_by_len.get(old["P"])
@@ -1995,9 +2420,8 @@ class GenerationEngine:
             return None
         t0 = time.perf_counter()
         bt = self._paging.block_tokens
-        if "k" in ent:
-            hk, hv = (_map(lambda x: self._to_host(x[:, :, :, :P0]), ent[side])
-                      for side in ("k", "v"))
+        if "eid" in ent:
+            hk, hv = self._dx("pfxexp", ent["eid"], P0)
         else:
             lids = self._paging.prefix_ids(key)
             if lids is None or self._phys is None:
@@ -2053,8 +2477,7 @@ class GenerationEngine:
             self._evict_lru_prefix()
         if self._paging.prefix_register(key, P0) is None:
             return self._prefix_reject()
-        nbytes = sum(x.numel() // (x.shape[1] * x.shape[3]) * P0 * x.element_size()
-                     for x in _leaves(self._ck, self._cv))
+        nbytes = self._entry_bytes(P0)
         if self._phys is not None:
             if not self._import_prefix_physical(key, hk, hv):
                 self._paging.prefix_release(key)
@@ -2062,9 +2485,8 @@ class GenerationEngine:
                 return self._prefix_reject()
             ent = {"P": P0, "bytes": nbytes, "key": key}
         else:
-            ent = {"P": P0, "bytes": nbytes, "key": key,
-                   "k": _map(lambda c, h: h.to(self.device, c.dtype), self._ck, hk),
-                   "v": _map(lambda c, h: h.to(self.device, c.dtype), self._cv, hv)}
+            ent = {"P": P0, "bytes": nbytes, "key": key, "eid": self._new_eid()}
+            self._dx("pfximp", ent["eid"], hk, hv)
         self._add_prefix_entry(key, ent)
         if key not in self._prefix_cache:  # a budget smaller than the entry
             return self._prefix_reject()
@@ -2077,8 +2499,9 @@ class GenerationEngine:
         return True
 
     def _prefix_wire_compat(self, hk: Any, hv: Any, P0: int) -> bool:
-        """Whether decoded trees match the local cache's geometry: the same
-        leaves, layers, heads and trailing dims, one row of P0 tokens."""
+        """Whether decoded trees match the cache's geometry (every head):
+        the same leaves, layers, heads and trailing dims, one row of P0
+        tokens."""
         def same(ref, h) -> bool:
             if isinstance(ref, dict):
                 return (isinstance(h, dict) and set(ref) == set(h)
@@ -2088,7 +2511,7 @@ class GenerationEngine:
                     and h.shape[2] == ref.shape[2] and h.shape[3] == P0
                     and h.shape[4:] == ref.shape[4:])
 
-        return same(self._ck, hk) and same(self._cv, hv)
+        return same(self._full_ck, hk) and same(self._full_cv, hv)
 
     def _import_prefix_physical(self, key: tuple, hk: Any, hv: Any) -> bool:
         """Upload a decoded chain's blocks into fresh prefix-pool rows (the
@@ -2101,17 +2524,9 @@ class GenerationEngine:
         if rows is None:
             return False
         bt = self._paging.block_tokens
-
-        def put(pool, h, j: int, prow: int) -> None:
-            seg = h[:, 0, :, j * bt: (j + 1) * bt]
-            n = seg.shape[2]
-            pool[:, prow, :, :n].copy_(seg, non_blocking=True)
-            if n < bt:
-                pool[:, prow, :, n:].zero_()
-
         for j, prow in enumerate(rows):
-            for p, h in ((self._pool_k, hk), (self._pool_v, hv)):
-                _map(lambda pl, hh: put(pl, hh, j, int(prow)), p, h)
+            blk_k, blk_v = (_map(lambda h: h[:, :, :, j * bt: (j + 1) * bt], t) for t in (hk, hv))
+            self._dx("pput", "host", blk_k, blk_v, int(prow))
         return True
 
     def prefix_tier_stats(self) -> dict[str, float]:
@@ -2188,25 +2603,21 @@ class GenerationEngine:
             self._phys.sweep(self._paging.alive)
 
     # Device block copies, in place on the engine's stream (the JAX
-    # engine's `_cow_block_raw`, `_pool_put_arena_raw`, `_pool_put_pool_raw`),
-    # over every leaf: a fused int8 block moves all its payload heads (the
-    # packed pseudo-head too) and its plain scales together.
+    # engine's `_cow_block_raw`, `_pool_put_arena_raw`, `_pool_put_pool_raw`,
+    # ops "cow" and "pput"), over every leaf: a fused int8 block moves all
+    # its payload heads (the packed pseudo-head too) and its plain scales
+    # together.
 
     def _cow_block(self, slot: int, blk: int, prow: int) -> None:
         """Pool row `prow` into block `blk` of the slot's arena row."""
-        bt = self._paging.block_tokens
-        for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
-            _map(lambda a, b: a[:, slot, :, blk * bt: (blk + 1) * bt].copy_(b[:, prow]), c, p)
+        self._dx("cow", int(slot), int(blk), int(prow))
 
     def _pool_put_arena(self, row: int, off: int, prow: int) -> None:
         """One block of arena row `row` at token offset `off` into pool row `prow`."""
-        bt = self._paging.block_tokens
-        for c, p in ((self._ck, self._pool_k), (self._cv, self._pool_v)):
-            _map(lambda a, b: b[:, prow].copy_(a[:, row, :, off: off + bt]), c, p)
+        self._dx("pput", "arena", int(row), int(off), int(prow))
 
     def _pool_put_pool(self, src: int, dst: int) -> None:
-        for p in _leaves(self._pool_k, self._pool_v):
-            p[:, dst] = p[:, src]
+        self._dx("pput", "pool", int(src), 0, int(dst))
 
     def kv_scale_audit(self) -> int:
         """Positions (layer, row, head, token) of the arena and the pool
@@ -2235,6 +2646,7 @@ class GenerationEngine:
         frees every slot's table, which returns the last pool rows."""
         for x in _leaves(self._ck, self._cv):
             x.zero_()
+        self._x_logits.clear()
         while self._prefix_cache:
             self._evict_lru_prefix()
         if self._phys is not None:
@@ -2251,6 +2663,7 @@ class GenerationEngine:
                 # watchdog stamp: an idle loop iterates (the wait times
                 # out), so staleness accrues only inside a blocked call
                 self.last_progress = time.time()
+                self._backend.idle()  # liveness beacon while the queue is quiet
                 if self.stalled:
                     self.stalled = False
                     self._watchdog_transition("recovered")
@@ -2273,12 +2686,22 @@ class GenerationEngine:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     self._phase_s["idle"] += time.perf_counter() - t0
-            try:
-                self._drain()  # in-flight rounds' consumers get their tokens
-            except Exception as e:  # pragma: no cover - the device failed at shutdown
-                log.exception("in-flight rounds lost at shutdown")
-                self._recover(f"engine step failed: {e}")
+            if self.dead:
+                # a dead engine's rounds in flight ran on state the followers
+                # no longer share: every request ends with the error
+                self._inflight.clear()
+                self._pending = None
+                self._abort_all(f"engine dead: {self.dead}")
+            else:
+                try:
+                    self._drain()  # in-flight rounds' consumers get their tokens
+                except Exception as e:  # pragma: no cover - the device failed at shutdown
+                    log.exception("in-flight rounds lost at shutdown")
+                    self._recover(f"engine step failed: {e}")
             self._run_loop_calls()  # a caller waiting on the loop is released
+        # release the followers: the replay ends where the leader's loop
+        # ends (a clean shutdown and a dead engine alike)
+        self._backend.stop()
 
     def _run_loop_calls(self) -> None:
         """Run the calls other threads handed to the engine thread
@@ -2404,7 +2827,14 @@ class GenerationEngine:
     def _recover(self, msg: str) -> None:
         """After a failed step: deliver the tokens already fetched, drop the
         rounds in flight (they ran on the same caches), then reset the KV
-        state and error every request."""
+        state and error every request. Under a mesh the engine goes dead
+        instead (`_mark_dead`): the followers cannot rebuild in step."""
+        if self._spmd:
+            self._mark_dead(msg)
+            self._inflight.clear()
+            self._pending = None
+            self._abort_all(f"engine dead: {self.dead}")
+            return
         if self._pending is not None:
             pending, self._pending = self._pending, None
             try:
@@ -2430,17 +2860,29 @@ class GenerationEngine:
         if self.device.type == "cuda":
             device_sync(self.device)  # never inside another engine's capture
 
-    def _sample_first(self, logits: torch.Tensor, slots: list[int], reqs: list) -> np.ndarray:
-        """Activation: sample each prompt's first token from its logits and
-        write it and the request's sampling parameters into the device
-        round state at its slot (JAX's `op_bsample`); a constrained
-        request's first token is masked by its automaton and bias. Returns
-        the tokens on the host, for emission: a host sync."""
+    def _samp_payload(self, slots: list[int], reqs: list) -> tuple:
+        """An activation sample's host payload: ints [slots | top_k], floats
+        [temperature | top_p], and the constrained rows' masks (or None)."""
         n = len(slots)
         cn = self._cn_payload([r.cn for r in reqs], n)
-        ints = self._up(np.asarray(slots + [r.top_k for r in reqs], dtype=np.int32))
-        flts = self._up(np.asarray([r.temperature for r in reqs] + [r.top_p for r in reqs],
-                                   dtype=np.float32))
+        ints = np.asarray(slots + [r.top_k for r in reqs], dtype=np.int32)
+        flts = np.asarray([r.temperature for r in reqs] + [r.top_p for r in reqs],
+                          dtype=np.float32)
+        return ints, flts, cn
+
+    def _cn_dev(self, cn: tuple | None) -> tuple | None:
+        return None if cn is None else tuple(self._up(x) for x in cn)
+
+    def _sample_rows(self, logits: torch.Tensor, ints: np.ndarray, flts: np.ndarray,
+                     cn: tuple | None) -> torch.Tensor:
+        """Activation (inside ops "admit" and "bsample"): sample each
+        prompt's first token from its logits and write it and the request's
+        sampling parameters into the device round state at its slot (JAX's
+        `op_bsample`); a constrained request's first token is masked by its
+        automaton and bias. Returns the tokens on the device."""
+        n = len(ints) // 2
+        cn = self._cn_dev(cn)
+        ints, flts = self._up(ints), self._up(flts)
         idx, topk, temp, topp = ints[:n].long(), ints[n:], flts[:n], flts[n:]
         if self._banned is not None:
             logits = logits.masked_fill(self._banned, float("-inf"))
@@ -2451,13 +2893,13 @@ class GenerationEngine:
         self._d_temp[idx] = temp
         self._d_topk[idx] = topk
         self._d_topp[idx] = topp
-        return toks.cpu().numpy()
+        return toks
 
     def _round_fn(self, packed: torch.Tensor, tbl: torch.Tensor | None, *,
                   compact: bool) -> torch.Tensor:
         paged = None if tbl is None else {"tbl": tbl, "k": self._pool_k, "v": self._pool_v}
         return decode_round(
-            self.cfg, self.params, self._ck, self._cv,
+            self._mcfg, self.params, self._ck, self._cv,
             (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
             steps=self.decode_chunk, compact=compact, paged=paged, banned=self._banned,
             generator=self._gen, arrivals=self._q8_arrivals,
@@ -2493,10 +2935,8 @@ class GenerationEngine:
                 lens = lens.copy()
                 lens[cn_rows] = S
             packed = np.concatenate([lens, [rid]]).astype(np.int32)
-        paged = self._phys is not None and self._phys.paged(active)
-        # the tables do not change in a round
-        tbl = self._phys.device_table(self.device) if paged else None
-        key = (Ba, compact, paged)
+        tbl = self._paged_payload(active)  # the tables do not change in a round
+        key = (Ba, compact, tbl is not None)
         phase = "decode" if group is None else ("fused" if group.bucket else "fused_rag")
         sample = ("decode", *key) in self._seen_exec_shapes and self._perf.should_sample(phase)
         ev = self._perf_events(sample)
@@ -2532,18 +2972,15 @@ class GenerationEngine:
         self.compact_rounds += int(compact)
         return disp
 
-    def _round_call(self, key: tuple, packed: np.ndarray, tbl: torch.Tensor | None) -> torch.Tensor:
-        """One decode round at key (Ba, compact, paged): on the card the
-        graph of the key (captured on its first use), on the CPU eager. A
-        first use goes into the ledger: the graph's eager round and capture
-        (`RoundGraphs.first_call_s`), or the eager round's wall."""
-        fn = functools.partial(self._round_fn, compact=key[1])
+    def _round_call(self, key: tuple, packed: np.ndarray, tbl: np.ndarray | None) -> torch.Tensor:
+        """One decode round at key (Ba, compact, paged), op "decode": on the
+        card the graph of the key (captured on its first use), on the CPU
+        and under a mesh eager. A first use goes into the ledger: the
+        graph's eager round and capture (`RoundGraphs.first_call_s`), or
+        the eager round's wall."""
         first = self._note_exec_shape("decode", *key)
         t0 = time.perf_counter()
-        if self._graphs is None:
-            out = fn(self._up(packed), tbl)
-        else:
-            out = self._graphs.run(key, fn, (self._up(packed), tbl))
+        out = self._dx("decode", key, packed, tbl)
         if first:
             wall = (time.perf_counter() - t0 if self._graphs is None
                     else self._graphs.first_call_s[key])
@@ -2684,7 +3121,7 @@ class GenerationEngine:
         (`verify_round`), run eagerly."""
         def fn(packed: torch.Tensor, **kw):
             return verify_round(
-                self.cfg, self.params, self._ck, self._cv,
+                self._mcfg, self.params, self._ck, self._cv,
                 (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
                 banned=self._banned, generator=self._gen, **kw,
             )
@@ -2696,7 +3133,7 @@ class GenerationEngine:
         row's automaton mask, run eagerly."""
         def fn(packed: torch.Tensor, paged: dict | None, cn: tuple) -> torch.Tensor:
             return decode_round(
-                self.cfg, self.params, self._ck, self._cv,
+                self._mcfg, self.params, self._ck, self._cv,
                 (self._d_last, self._d_temp, self._d_topk, self._d_topp), packed,
                 steps=1, compact=True, paged=paged, banned=self._banned, generator=self._gen,
                 cn=cn, arrivals=self._q8_arrivals,
@@ -2735,9 +3172,10 @@ class GenerationEngine:
         """One verify round, synchronous (the pipeline is drained): pack
         the rows (A = pow2 rows, pads at slot B) into one i32 upload
         `[tokens (A*C) | slots | starts | nvalid | drafts (A*K) | ndraft |
-        keep | wslot | wpos]`, run `verify_round`, fetch (n_acc, final),
-        emit each row's accepted drafts and final token, and roll its
-        length forward to the accepted position."""
+        keep | wslot | wpos]`, run `verify_round` (op "verify", after a
+        constrained round's token-ring writes, `_cn_ring`), fetch (n_acc,
+        final), emit each row's accepted drafts and final token, and roll
+        its length forward to the accepted position."""
         t0 = time.perf_counter()
         B, S, Kd = self.max_slots, self.max_seq_len, self.spec_k
         C = Kd + 1
@@ -2779,7 +3217,7 @@ class GenerationEngine:
                 masks[i, : rows.shape[0]] = rows
                 self._bias_row(c, bids[i], bvals[i])
             self.cn_mask_s += time.perf_counter() - t_m
-            cn = (self._up(masks.view(np.int32)), self._up(bids), self._up(bvals))
+            cn = (masks.view(np.int32), bids, bvals)
         key = (A, C, skey, self._phys is not None, cn is not None)
         sample = self._perf_sample("verify", key)
         first = self._note_exec_shape("verify", *key)
@@ -2787,10 +3225,9 @@ class GenerationEngine:
             self._sync()
         t_call = time.perf_counter()
         ev = self._perf_events(sample)
-        n_acc, final = self._verify_fn(
-            self._up(packed), rows=A, n=n, width=C, n_writes=len(keep), skey=skey,
-            paged=self._paged_operand([b for b, _ in entries]), cn=cn,
-        )
+        ring, self._cn_ring = self._cn_ring, None
+        n_acc, final = self._dx("verify", packed, A, n, C, len(keep), skey,
+                                self._paged_payload([b for b, _ in entries]), cn, ring)
         t_launch = time.perf_counter()
         self._perf_events_end(ev)
         n_acc, final = torch.stack([n_acc, final]).cpu().numpy()  # the round's host sync
@@ -2883,9 +3320,9 @@ class GenerationEngine:
     def _cn_payload(self, cns: list, n_rows: int) -> tuple | None:
         """The mask operand of a round of `n_rows` rows, row i serving
         cursor cns[i] (None: unconstrained): (packed masks [n_rows, W] as
-        int32, bias ids, bias values) on the device, or None when nothing
-        is constrained (the unmasked path runs). Pad and unconstrained
-        rows get all-ones masks and no bias."""
+        int32, bias ids, bias values) on the host (the op uploads them), or
+        None when nothing is constrained (the unmasked path runs). Pad and
+        unconstrained rows get all-ones masks and no bias."""
         if not any(cn is not None for cn in cns):
             return None
         t0 = time.perf_counter()
@@ -2897,7 +3334,7 @@ class GenerationEngine:
                 masks[i] = cn.mask_row()
                 self._bias_row(cn, bids[i], bvals[i])
         self.cn_mask_s += time.perf_counter() - t0
-        return self._up(masks.view(np.int32)), self._up(bids), self._up(bvals)
+        return masks.view(np.int32), bids, bvals
 
     def _cn_round(self, cn_active: list[int]) -> None:
         """One synchronous round for the constrained slots: a masked verify
@@ -2905,15 +3342,19 @@ class GenerationEngine:
         one masked decode step. Their ring entries are written first from
         the host (each cursor's last consumed token): a compacted round's
         pad rows may have aimed at one of these rows."""
-        last = [self._slots[b].cn.consumed[-1] for b in cn_active]
-        self._d_last[self._up(np.asarray(cn_active, dtype=np.int64))] = self._up(
-            np.asarray(last, dtype=np.int32))
-        if self._verify_fn is not None and self._spec_cooldown <= 0:
-            entries = self._stage_spec(cn_active)
-            if entries is not None:
-                self._spec_round(entries)
-                return
-        self._cn_step_round(cn_active)
+        # the ring writes ride the round's own op ("verify" or "cnstep"),
+        # and never outlive this round: a raise before the op leaves none
+        # for a later round's rows
+        self._cn_ring = (list(cn_active), [self._slots[b].cn.consumed[-1] for b in cn_active])
+        try:
+            if self._verify_fn is not None and self._spec_cooldown <= 0:
+                entries = self._stage_spec(cn_active)
+                if entries is not None:
+                    self._spec_round(entries)
+                    return
+            self._cn_step_round(cn_active)
+        finally:
+            self._cn_ring = None
 
     def _cn_step_round(self, cn_active: list[int]) -> None:
         """One masked decode step for the constrained slots, compacted
@@ -2931,8 +3372,6 @@ class GenerationEngine:
         packed = np.concatenate([lens_in, ids, [0]]).astype(np.int32)
         t0 = time.perf_counter()
         cn = self._cn_payload([self._slots[b].cn for b in cn_active], Ba)
-        if self._cn_step_fn is None:
-            self._cn_step_fn = self._build_cn_step()
         key = (Ba, self._phys is not None)
         sample = self._perf_sample("cnstep", key)
         first = self._note_exec_shape("cnstep", *key)
@@ -2940,7 +3379,8 @@ class GenerationEngine:
             self._sync()
         t_call = time.perf_counter()
         ev = self._perf_events(sample)
-        out = self._cn_step_fn(self._up(packed), self._paged_operand(cn_active), cn)
+        ring, self._cn_ring = self._cn_ring, None
+        out = self._dx("cnstep", packed, cn, self._paged_payload(cn_active), ring)
         t_launch = time.perf_counter()
         self._perf_events_end(ev)
         toks = out[0].cpu().numpy()  # synchronous: the step's host sync
@@ -3034,17 +3474,7 @@ class GenerationEngine:
             _, sn = self._paging.table_view(b)
             if sn > 0 and start < sn * bt:
                 srcs = self._phys.row_sources(b, -(-end // bt))
-
-        def cut(arr, pool):
-            if isinstance(arr, dict):
-                return {k: cut(arr[k], None if pool is None else pool[k]) for k in arr}
-            if srcs is None:
-                return self._to_host(arr[:, b: b + 1, :, start:end])
-            parts = [arr[:, row: row + 1, :, off: off + bt] if in_arena else pool[:, row: row + 1]
-                     for in_arena, row, off in srcs]
-            return self._to_host(torch.cat(parts, dim=3)[:, :, :, start:end])
-
-        return cut(self._ck, self._pool_k), cut(self._cv, self._pool_v)
+        return self._dx("snap", int(b), int(end), int(start), srcs)
 
     def _shared_pool_rows(self, b: int, p0: int) -> list[int] | None:
         """Pool rows behind slot b's shared blocks [0, p0), read from the
@@ -3211,9 +3641,8 @@ class GenerationEngine:
         ledgered = False
         if start and snap.shared_entry is not None:
             ent = snap.shared_entry
-            if "k" in ent:  # a contiguous entry: its device rows back into [0, P)
-                _map(lambda c, e: c[:, b, :, :start].copy_(e[:, 0]), self._ck, ent["k"])
-                _map(lambda c, e: c[:, b, :, :start].copy_(e[:, 0]), self._cv, ent["v"])
+            if "eid" in ent:  # a contiguous entry: its device rows back into [0, P)
+                self._dx("insert", ent["eid"], [b], start)
             else:  # a physical one: re-pin, no rows move
                 if snap.migrated:
                     ops = self._paging.admit_shared(b, snap.shared_key, snap.length)
@@ -3222,14 +3651,15 @@ class GenerationEngine:
                 self._phys_admit(b, ent, ops)
                 ledgered = True
         end = snap.length
-        for c, rows in ((self._ck, snap.k_rows), (self._cv, snap.v_rows)):
-            _map(lambda x, r: x[:, b: b + 1, :, start:end].copy_(r[:, :, :, : end - start],
-                                                                  non_blocking=True), c, rows)
-        # the round state (JAX's `samprow`), then the host side
-        self._d_last[b] = snap.last_tok
-        self._d_temp[b] = snap.temperature
-        self._d_topk[b] = snap.top_k
-        self._d_topp[b] = snap.top_p
+        hk, hv = (_map(lambda r: r[:, :, :, : end - start], rows)
+                  for rows in (snap.k_rows, snap.v_rows))
+        if start:
+            self._dx("insat", hk, hv, int(b), int(start))
+        else:
+            self._dx("insrows", hk, hv, [int(b)], int(end))
+        # the round state, then the host side
+        self._dx("samprow", int(b), float(snap.temperature), int(snap.top_k),
+                 float(snap.top_p), int(snap.last_tok))
         self._lengths[b] = snap.length
         self._slots[b] = s
         if not ledgered:
@@ -3262,11 +3692,7 @@ class GenerationEngine:
         """The prefix-pool rows `rows` gathered into one contiguous
         [L, 1, H, p0, ...] host tree per side (a physical entry keeps no
         row copies of its own)."""
-        def cut(pool):
-            whole = torch.cat([pool[:, r: r + 1] for r in rows], dim=3)
-            return self._to_host(whole[:, :, :, :p0])
-
-        return _map(cut, self._pool_k), _map(cut, self._pool_v)
+        return self._dx("poolexp", [int(r) for r in rows], int(p0))
 
     def _wire_item(self, snap: KVSnapshot, source: str, t0: float | None = None) -> dict[str, Any]:
         """Serialize a host snapshot into an outbox item. A private-only
@@ -3283,8 +3709,8 @@ class GenerationEngine:
         if snap.shared_len and snap.shared_entry is not None:
             ent = snap.shared_entry
             snap.shared_key = ent["key"]
-            if "k" in ent:
-                shared_k, shared_v = _map(self._to_host, ent["k"]), _map(self._to_host, ent["v"])
+            if "eid" in ent:
+                shared_k, shared_v = self._dx("pfxexp", ent["eid"], int(ent["P"]))
             elif snap.shared_pool_rows is not None:
                 shared_k, shared_v = self._pool_rows_host(list(snap.shared_pool_rows),
                                                           snap.shared_len)
@@ -3605,13 +4031,14 @@ class GenerationEngine:
         sample = self._perf_sample("admit", (Ab, bucket))
         t_launch = time.perf_counter()
         ev = self._perf_events(sample)
-        logits, ks, vs = self._prefill_call(tokens, lengths)
-        for i, (slot, _, _) in enumerate(batch):
-            _map(lambda c, k: c[:, slot, :, :bucket].copy_(k[:, i]), self._ck, ks)
-            _map(lambda c, v: c[:, slot, :, :bucket].copy_(v[:, i]), self._cv, vs)
+        ints, flts, cn = self._samp_payload([slot for slot, _, _ in batch],
+                                            [req for _, req, _ in batch])
+        # op "admit": prefill, inserts and the first tokens; its first use
+        # at a shape is timed into the ledger
+        toks0 = self._first_use("admit", tokens.shape, lambda: self._dx(
+            "admit", tokens, lengths, ints, flts, cn))
         self._perf_events_end(ev)
-        toks0 = self._sample_first(logits[:A], [slot for slot, _, _ in batch],
-                                   [req for _, req, _ in batch])  # the host sync
+        toks0 = toks0.cpu().numpy()  # the host sync
         n_tok = sum(len(ids) for _, _, ids in batch)
         if sample:
             self._observe_sync_phase("admit", t0, t_launch, ev, n_tok, A)
@@ -3624,11 +4051,12 @@ class GenerationEngine:
                 s.prefill_compute_s += wall * (len(ids) / max(1, n_tok))
 
     def _prefill_call(self, tokens: np.ndarray, lengths: np.ndarray) -> tuple:
-        """The admission's prefill at [Ab, bucket]: its first use is timed
-        into the ledger (`_first_use`)."""
+        """A warm-up admit's prefill at [Ab, bucket], its K/V and logits
+        dropped: nothing is written (one rank only: the warm-up is off
+        under a mesh). Its first use is timed into the ledger."""
         return self._first_use(
             "admit", tokens.shape, lambda: llama_prefill(
-                self.cfg, self.params, self._up(tokens), self._up(lengths),
+                self._mcfg, self.params, self._up(tokens), self._up(lengths),
                 quant_kv=self.kv_quant == "int8"))
 
     def _activate_state(
@@ -3675,7 +4103,7 @@ class GenerationEngine:
             s.spec = NGramDrafter(self.spec_min_ngram, self.spec_max_ngram)
             s.spec.extend(ids)
         self._slots[slot] = s
-        self._lengths[slot] = P  # tok0 is in the token ring already (`_sample_first`)
+        self._lengths[slot] = P  # tok0 is in the token ring already (`_sample_rows`)
         # tok0's K/V is written at position P by the first decode round
         emit, finish = self._process_token(s, tok0, P - 1)
         if emit:
@@ -3831,12 +4259,14 @@ class GenerationEngine:
     def _launch_group(self, group: _PrefillGroup) -> bool:
         """Enqueue a staged group's chunk (no host sync): its descriptors
         and write targets go up as one packed i32 upload, and its
-        last-token logits stay on the device in `group.logits`. A ragged
-        group runs `llama_prefill_chunk_ragged`, a bucketed one
+        last-token logits stay on the device, parked under the group's gid
+        (ops "ragged" / "chunk"). A ragged group runs
+        `llama_prefill_chunk_ragged`, a bucketed one
         `llama_prefill_chunk_batch`. False when it failed (its requests are
         errored)."""
         try:
-            self._group_call(group, self._paged_operand([slot for slot, _, _ in group.metas]))
+            self._group_call(group, self._paged_payload([slot for slot, _, _ in group.metas]))
+            group.launched = True
             return True
         except Exception as e:
             self._fail_group(group, e)
@@ -3851,31 +4281,23 @@ class GenerationEngine:
             return "chunk", (group.tokens.shape[0], group.bucket, group.skey, phys)
         return "pf_rag", (group.padded, 0, phys)
 
-    def _group_call(self, group: _PrefillGroup, paged: dict | None) -> None:
-        """Enqueue a group's chunk (raises on failure); its first use at a
-        shape is timed into the ledger."""
+    def _group_call(self, group: _PrefillGroup, tbl: np.ndarray | None) -> None:
+        """Enqueue a group's chunk (raises on failure), its logits parked
+        under a fresh gid; its first use at a shape is timed into the
+        ledger."""
         phase, key = self._group_key(group)
-        self._first_use(phase, key, self._group_launch, group, paged)
+        self._gid_ctr += 1
+        group.gid = self._gid_ctr
+        self._first_use(phase, key, self._group_launch, group, tbl)
 
-    def _group_launch(self, group: _PrefillGroup, paged: dict | None) -> None:
+    def _group_launch(self, group: _PrefillGroup, tbl: np.ndarray | None) -> None:
         if group.bucket:
-            tokens, slots, starts, nvalid, keep, wslot, wpos = self._upload_parts((
-                group.tokens.reshape(-1), group.slots, group.starts, group.nvalid,
-                group.keep, group.wslot, group.wpos))
-            group.logits, self._ck, self._cv = llama_prefill_chunk_batch(
-                self.cfg, self.params, self._ck, self._cv, tokens.reshape(group.tokens.shape),
-                slots, starts, nvalid, skey=group.skey, paged=paged,
-                writes=(keep, wslot, wpos),
-            )
-            return
-        tokens, rowids, positions, slots, starts, last_idx, keep, wslot, wpos = (
-            self._upload_parts((group.tokens, group.rowids, group.positions, group.slots,
-                                group.starts, group.last_idx, group.keep, group.wslot,
-                                group.wpos)))
-        group.logits, self._ck, self._cv = llama_prefill_chunk_ragged(
-            self.cfg, self.params, self._ck, self._cv, tokens, rowids, positions, slots,
-            starts, last_idx, paged=paged, writes=(keep, wslot, wpos),
-        )
+            self._dx("chunk", group.gid, group.tokens, group.slots, group.starts, group.nvalid,
+                     group.keep, group.wslot, group.wpos, group.skey, tbl)
+        else:
+            self._dx("ragged", group.gid, group.tokens, group.rowids, group.positions,
+                     group.slots, group.starts, group.last_idx, group.keep, group.wslot,
+                     group.wpos, tbl)
 
     def _run_prefill_group(self, group: _PrefillGroup) -> None:
         """A group with no decode round to ride: run it alone and time it
@@ -3909,7 +4331,7 @@ class GenerationEngine:
         """Advance chunk progress of a dispatched group and activate the
         prompts whose last chunk landed, sampling their first tokens from
         the group's logits."""
-        if group.logits is None:
+        if not group.launched:
             return  # the launch failed
         try:
             fin = []
@@ -3917,10 +4339,13 @@ class GenerationEngine:
                 st.done += n
                 if st.done >= len(st.ids):
                     fin.append((i, slot, st))
+            # op "bsample" releases the parked logits whether a row finished
+            # or not
+            ints, flts, cn = self._samp_payload([slot for _, slot, _ in fin],
+                                                [st.req for _, _, st in fin])
+            toks0 = self._dx("bsample", group.gid, [i for i, _, _ in fin], ints, flts, cn)
             if fin:
-                toks0 = self._sample_first(group.logits[[i for i, _, _ in fin]],
-                                           [slot for _, slot, _ in fin],
-                                           [st.req for _, _, st in fin])
+                toks0 = toks0.cpu().numpy()
             for k, (_, slot, st) in enumerate(fin):
                 self._prefill_q.remove(slot)
                 del self._prefills[slot]
@@ -3928,7 +4353,7 @@ class GenerationEngine:
                                      st.shared_entry, st.prefill_s)
         except Exception as e:
             self._fail_group(group, e)
-        group.logits = None
+        group.launched = False
 
     def _fail_group(self, group: _PrefillGroup, e: Exception) -> None:
         log.exception("chunked prefill failed")
@@ -4159,3 +4584,71 @@ class GenerationEngine:
                 break
         for req in failed:
             self._error(req, msg)
+
+
+# ---------------------------------------------------------------------------
+# SliceEngine: the multi-rank spelling of the one engine (JAX's). The
+# leader/follower behaviour lives in the GSPMDBackend dispatch seam alone;
+# this is the constructor that wires it, with JAX's keyword surface.
+# ---------------------------------------------------------------------------
+
+SliceRequest = GenRequest
+
+
+class SliceEngine(GenerationEngine):
+    """`GenerationEngine` over a `GSPMDBackend`. Build it in every rank
+    with the same arguments and that rank's `mesh`
+    (`parallel.distributed.make_global_mesh`); `.start()` on rank 0,
+    `.run_follower()` on every other rank (both inherited). Keeps JAX's
+    keyword surface: `cmd_addr`, `connect_timeout_s`, the strict
+    quant-with-checkpoint error and the `max_slots % dp` check."""
+
+    def __init__(
+        self,
+        model: str | ModelConfig = "tiny-llm",
+        *,
+        mesh: Any,
+        cmd_addr: str,
+        max_slots: int = 8,
+        max_seq_len: int = 256,
+        dtype: torch.dtype = torch.bfloat16,
+        decode_chunk: int = 8,
+        quant: str = "",
+        weights_dir: str = "",
+        tokenizer: Tokenizer | None = None,
+        seed: int = 0,
+        connect_timeout_s: float = 60.0,
+        prefill_chunk: int = 0,
+        target_ttft_ms: float = 2000.0,
+        **engine_kw: Any,
+    ):
+        if quant not in ("", "int8") and weights_dir:
+            # the engine downgrades an unknown quant mode to a warning; a
+            # multi-rank boot must not serve other bytes than asked on
+            # every rank
+            raise NotImplementedError(
+                f"slice engine quant={quant!r} with a checkpoint (only 'int8' is supported)")
+        if mesh is not None:
+            dp = mesh.shape.get("dp", 1)
+            if max_slots % max(dp, 1) != 0:
+                raise ValueError(f"max_slots {max_slots} must divide over dp={dp}")
+        super().__init__(
+            model,
+            mesh=mesh,
+            backend=GSPMDBackend(cmd_addr, connect_timeout_s=connect_timeout_s,
+                                 world_size=mesh.world if mesh is not None else None),
+            max_slots=max_slots,
+            max_seq_len=max_seq_len,
+            dtype=dtype,
+            decode_chunk=decode_chunk,
+            quant=quant,
+            weights_dir=weights_dir,
+            tokenizer=tokenizer,
+            seed=seed,
+            prefill_chunk=prefill_chunk,
+            target_ttft_ms=target_ttft_ms,
+            **engine_kw,
+        )
+        self.process_index = mesh.rank if mesh is not None else 0
+        self.process_count = mesh.world if mesh is not None else 1
+        self.is_leader = self.process_index == 0

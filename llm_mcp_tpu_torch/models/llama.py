@@ -30,6 +30,17 @@ prefix pool [L, PXB, Hkv, bt, hd] of `executor/physical.py`) makes the
 attention reads go through the tables. Writes stay table-free: they land
 at private positions, which are identity-homed in the arena.
 
+Tensor parallelism (`parallel/`): a rank runs these functions on its own
+slice of the tree (JAX's Megatron specs, `parallel/sharding.py`) with a
+config at its local head counts, inside `parallel.mesh.tp_scope`. The
+collectives sit where GSPMD puts JAX's: the row-sharded `wo` and `w2`
+products are summed over tp (`quant.qdot_rows`), the vocab-parallel
+embedding is summed and the head's logits gathered (`_embed_in`,
+`_logits`). Attention runs the port's kernels on the rank's local heads
+(H/tp and Hkv/tp, G unchanged): JAX forces its XLA path under a mesh only
+because an unwrapped `pallas_call` cannot take GSPMD arrays, and a rank's
+shards here are plain local tensors.
+
 MLA configs (kv_lora_rank > 0, the DeepSeek-V2 family) dispatch from each
 entry point to `mla.py`, as in JAX; `_ffn_residual` runs a layer with a
 "router" through `moe.moe_ffn` (Mixtral's layers and DeepSeek's MoE stack).
@@ -64,7 +75,15 @@ from ..kernels.attention import (
     ragged_prefill_attend_q8,
 )
 from ..ops.norms import rms_norm
-from .quant import INV127, embed_lookup, logits_head, pack_scales, qdot, scale_pack_width
+from .quant import (
+    INV127,
+    embed_lookup_tp,
+    logits_head_tp,
+    pack_scales,
+    qdot,
+    qdot_rows,
+    scale_pack_width,
+)
 from ..ops.rope import apply_rope, rope_tables
 from .configs import ModelConfig
 
@@ -310,7 +329,7 @@ def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor):
 
 
 def _attn_residual(cfg: ModelConfig, lp: Params, ctx: torch.Tensor, h: torch.Tensor):
-    out = qdot(ctx, lp["wo"])
+    out = qdot_rows(ctx, lp["wo"])
     if cfg.post_norms:
         out = _norm(cfg, out, lp["post_attn_norm"])
     return h + out
@@ -339,9 +358,9 @@ def _ffn_residual(
     elif "w13" in lp:
         g13 = qdot(x, lp["w13"])
         Fh = g13.shape[-1] // 2
-        out = qdot(_act(cfg, g13[..., :Fh]) * g13[..., Fh:], lp["w2"])
+        out = qdot_rows(_act(cfg, g13[..., :Fh]) * g13[..., Fh:], lp["w2"])
     else:
-        out = qdot(_act(cfg, qdot(x, lp["w1"])) * qdot(x, lp["w3"]), lp["w2"])
+        out = qdot_rows(_act(cfg, qdot(x, lp["w1"])) * qdot(x, lp["w3"]), lp["w2"])
     if cfg.post_norms:
         out = _norm(cfg, out, lp["post_ffn_norm"])
     return h + out
@@ -363,7 +382,7 @@ def plain_attention(cfg: ModelConfig) -> bool:
 
 
 def _embed_in(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    h = embed_lookup(params["embed"], tokens)
+    h = embed_lookup_tp(params["embed"], tokens)
     if cfg.embed_scale:  # Gemma: sqrt(dim), rounded to the activation dtype first
         h = h * float(torch.tensor(cfg.dim**0.5, dtype=h.dtype))
     return h
@@ -372,7 +391,7 @@ def _embed_in(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.T
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = _norm(cfg, h, params["final_norm"])
     src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return _softcap(logits_head(src, h, tied=cfg.tie_embeddings), cfg.logit_softcap)
+    return _softcap(logits_head_tp(src, h, tied=cfg.tie_embeddings), cfg.logit_softcap)
 
 
 def prefill_layer(

@@ -22,8 +22,17 @@ linears and shared experts, in the main stack and in the dense prologue
 `dense_layers`; the routed expert banks stay in the model dtype, as in
 JAX. Encoder trees (`models/embedder.py`) quantize their linears and the
 per-row embedding the same way; their norms, biases and position and
-type tables stay as they are. The sharding-spec part of the JAX module waits for multi-device
-serving.
+type tables stay as they are.
+
+Under tensor parallelism (`parallel/`): `quantized_specs` maps the
+sharding specs onto a quantized tree as JAX's does (a row-sharded weight
+keeps the whole tree's per-channel scales), and the products of the
+row-sharded weights (`wo`, `w2`) go through `qdot_rows`, whose w8a8 arm
+takes the activation's absmax over the whole contraction axis (a MAX over
+tp) before it rounds, then sums the int32 partial products over tp (exact)
+and only then applies the scales, so each rank's result equals the one
+device's bit for bit. The vocab-parallel embedding (`embed_lookup_tp`) and
+the gathered logits (`logits_head_tp`) are exact too.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+
+from ..parallel.mesh import current_tp
 
 Params = dict[str, Any]
 
@@ -121,6 +132,27 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def qdot_rows(x: torch.Tensor, w) -> torch.Tensor:
+    """`qdot` of a weight whose contraction rows are split over tp (`wo`,
+    `w2`: x holds this rank's columns of the activation). Outside a tp
+    scope it is `qdot`. w8a8: the row absmax is the MAX over tp of the
+    local ones (JAX's absmax under GSPMD reduces over the whole axis), the
+    int32 partial products are summed over tp (exact), then scaled. A float
+    weight's partial products are summed over tp in float32 (their rounding
+    differs from one product's)."""
+    tp = current_tp()
+    if tp is None:
+        return qdot(x, w)
+    if isinstance(w, dict):
+        xf = x.float()
+        amax = tp.all_reduce(xf.abs().amax(dim=-1, keepdim=True), "max")
+        xa = torch.clamp(amax * INV127, min=1e-30)
+        x8 = torch.round(xf / xa).to(torch.int8)
+        y = tp.all_reduce(_int_matmul(x8, w["q"]), "sum")
+        return (y.float() * xa * w["s"].float()).to(x.dtype)
+    return tp.all_reduce((x @ w).float(), "sum").to(x.dtype)
+
+
 def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows for token ids; per-row scales when quantized (the
     activation dtype follows the scale dtype)."""
@@ -143,6 +175,58 @@ def logits_head(embed_or_head, h: torch.Tensor, tied: bool) -> torch.Tensor:
         return y * s.float()
     head = embed_or_head.T if tied else embed_or_head
     return (h @ head).float()
+
+
+def embed_lookup_tp(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """`embed_lookup` of a vocab-parallel table (this rank's rows [r*Vl,
+    (r+1)*Vl)): ids outside the rank's range give zero rows, and the sum
+    over tp leaves each id its one real row (exact). Outside a tp scope it
+    is `embed_lookup`."""
+    tp = current_tp()
+    if tp is None:
+        return embed_lookup(embed, tokens)
+    vl = (embed["q"] if isinstance(embed, dict) else embed).shape[0]
+    local = tokens.long() - tp.tp_rank * vl
+    ok = (local >= 0) & (local < vl)
+    rows = embed_lookup(embed, local.clamp(0, vl - 1))
+    return tp.all_reduce(torch.where(ok[..., None], rows, torch.zeros_like(rows)), "sum")
+
+
+def logits_head_tp(embed_or_head, h: torch.Tensor, tied: bool) -> torch.Tensor:
+    """`logits_head` of a vocab-parallel head: this rank's [..., V/tp]
+    columns, gathered over tp to [..., V] float32 on every rank (exact).
+    Outside a tp scope it is `logits_head`."""
+    y = logits_head(embed_or_head, h, tied)
+    tp = current_tp()
+    return y if tp is None else tp.all_gather(y, dim=-1)
+
+
+def quantized_specs(specs: Params) -> Params:
+    """JAX's `quantized_specs`: a sharding-spec tree
+    (`parallel/sharding.py:llama_param_specs`, tuples of axis names) mapped
+    onto the quantized tree's shape. `q` keeps the weight's spec, `s` drops
+    the contracted axis (the scales are per output channel), so a weight
+    whose rows are split keeps the whole tree's scales on every rank."""
+    def drop(spec: tuple, axis: int) -> tuple:
+        t = list(spec)
+        del t[axis]
+        return tuple(t)
+
+    def quant_block(block: Params) -> Params:
+        b = dict(block)
+        for k in LAYER_QUANT_KEYS:
+            if k in b:
+                b[k] = {"q": b[k], "s": drop(b[k], -2)}
+        return b
+
+    out: Params = dict(specs)
+    for key in LAYER_STACKS:
+        if key in specs:
+            out[key] = quant_block(specs[key])
+    out["embed"] = {"q": specs["embed"], "s": drop(specs["embed"], -1)}
+    if "lm_head" in specs:
+        out["lm_head"] = {"q": specs["lm_head"], "s": drop(specs["lm_head"], -2)}
+    return out
 
 
 def quantize_params(params: Params) -> Params:

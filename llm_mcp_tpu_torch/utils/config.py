@@ -113,6 +113,13 @@ class Config:
     )
     tpu_max_slots: int = field(default_factory=lambda: getenv_int("TPU_MAX_SLOTS", 32))
     tpu_max_seq_len: int = field(default_factory=lambda: getenv_int("TPU_MAX_SEQ_LEN", 2048))
+    # the mesh the generation engine serves over (parallel/mesh.py syntax,
+    # e.g. "tp=2"; empty: one device) and, with more than one rank, the
+    # leader's command-channel address: rank 0 serves the leader
+    # SliceEngine inside CoreServer, every other rank replays its steps
+    # (run_follower) and never binds HTTP
+    tpu_mesh_shape: str = field(default_factory=lambda: getenv("TPU_MESH_SHAPE", ""))
+    tpu_slice_cmd_addr: str = field(default_factory=lambda: getenv("TPU_SLICE_CMD_ADDR", ""))
     tpu_quant: str = field(default_factory=lambda: getenv("TPU_QUANT", ""))  # "" | int8
     tpu_kv_quant: str = field(default_factory=lambda: getenv("TPU_KV_QUANT", ""))  # "" | int8
     tpu_prefill_chunk: int = field(default_factory=lambda: getenv_int("TPU_PREFILL_CHUNK", 512))

@@ -18,6 +18,11 @@ to the routed device's address or to the cloud provider. With
 (`rpc/client.py:GrpcCoreClient`) to the core's `CORE_GRPC_ADDR` instead of
 HTTP; a target that is down surfaces as the transport's errors (the
 worker retries them), never as a switch to HTTP.
+
+`TPU_MESH_SHAPE` (with JAX's process triplet and `TPU_SLICE_CMD_ADDR`, as
+`python -m llm_mcp_tpu_torch.api`) serves the generator over a tp mesh of
+processes: rank 0 is the worker with the leader engine, every other rank
+replays its steps and never claims a job.
 """
 
 from __future__ import annotations
@@ -53,8 +58,31 @@ def main(argv: list[str] | None = None) -> None:
 
         dtype = torch.bfloat16 if args.device != "cpu" else torch.float32
         model = cfg.tpu_model
-        gen_engines[model] = GenerationEngine(
+        mesh = None
+        if cfg.tpu_mesh_shape:
+            from ..executor import SliceEngine
+            from ..parallel import distributed
+
+            distributed.initialize(device="cpu" if args.device == "cpu" else None)
+            mesh = distributed.make_global_mesh(
+                cfg.tpu_mesh_shape, device="cpu" if args.device == "cpu" else None)
+            args.device = str(mesh.device)
+            if mesh.size > 1:
+                eng = SliceEngine(
+                    model, mesh=mesh, cmd_addr=cfg.tpu_slice_cmd_addr,
+                    max_slots=cfg.tpu_max_slots, max_seq_len=cfg.tpu_max_seq_len, dtype=dtype,
+                    weights_dir=cfg.tpu_weights_dir, quant=cfg.tpu_quant,
+                    kv_quant=cfg.tpu_kv_quant, prefill_chunk=cfg.tpu_prefill_chunk,
+                    decode_compact=cfg.tpu_decode_compact,
+                    prompt_cache_mb=cfg.tpu_prompt_cache_mb,
+                    target_ttft_ms=cfg.tpu_target_ttft_ms)
+                if mesh.rank != 0:
+                    eng.run_follower()
+                    return
+                gen_engines[model] = eng.start()
+        gen_engines[model] = gen_engines.get(model) or GenerationEngine(
             model,
+            mesh=mesh,
             max_slots=cfg.tpu_max_slots,
             max_seq_len=cfg.tpu_max_seq_len,
             dtype=dtype,

@@ -44,7 +44,8 @@ from llm_mcp_tpu_torch.analysis.lock_order import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PASS_IDS = {"lock-order", "donation", "knob-registry", "import-purity", "registry-census"}
+PASS_IDS = {"lock-order", "donation", "knob-registry", "import-purity", "registry-census",
+            "dispatch-surface"}
 
 
 def _mini_repo(tmp_path, files: dict[str, str]) -> str:
@@ -440,11 +441,77 @@ def test_cli_json_carries_jax_v1_keys():
     assert set(doc) == jax_keys
     assert doc["version"] == 1 and doc["ok"] is True
     assert {p["pass"] for p in doc["passes"]} == PASS_IDS
-    assert len(doc["knob_registry"]) == 66
+    assert len(doc["knob_registry"]) == 68  # TPU_MESH_SHAPE, TPU_SLICE_CMD_ADDR joined
     assert doc["lock_ranks"] == {"migration": 5, "engine.stats": 10, "kvpool": 20, "paging": 30}
     bad = subprocess.run([sys.executable, "-c", _CLI, "--bogus"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert bad.returncode == 2
+
+
+# ---------------------------------------------------------------------------
+# the dispatch-surface pass: clean on the port, and JAX's findings on a
+# planted copy of the port's engine and dispatch module, key for key
+# ---------------------------------------------------------------------------
+
+_ENGINE = "llm_mcp_tpu_torch/executor/engine.py"
+_DISPATCH = "llm_mcp_tpu_torch/executor/dispatch.py"
+_DX_CONFIG = {"package": "llm_mcp_tpu_torch", "engine_module": _ENGINE,
+              "dispatch_module": _DISPATCH}
+_APPENDED = "\n\n    def _planted(self, op):\n        {}\n"
+DX_PLANTS = {
+    # DISPATCH_OPS loses "cow": dispatched unpublished, registered unpublished
+    "op_missing_from_dispatch_ops": (
+        {_DISPATCH: lambda s: s.replace('    "cow",      #', '    #', 1)},
+        {"op-unpublished:cow", "op-unregistered:cow"}),
+    # "cow" still registered and published, but its only site bypasses _dx
+    "op_registered_never_dispatched": (
+        {_ENGINE: lambda s: s.replace('self._dx("cow", ', 'self._ops["cow"](', 1)},
+        {"op-undispatched:cow"}),
+    "non_literal_dx": (
+        {_ENGINE: lambda s: s + _APPENDED.format("return self._dx(op)")},
+        {"dx-nonliteral-op"}),
+    "cmdleader_outside_dispatch": (
+        {"llm_mcp_tpu_torch/executor/rogue.py": lambda s: (
+            "from .dispatch import CmdLeader\n\nLEAD = CmdLeader('127.0.0.1:0', 1)\n")},
+        {"mirror-channel:CmdLeader:llm_mcp_tpu_torch/executor/rogue.py"}),
+    "emit_outside_dx": (
+        {_ENGINE: lambda s: s + _APPENDED.format("self._backend.emit(op, ())")},
+        {"emit-outside-funnel:emit:_planted"}),
+}
+
+
+def _dx_tree(tmp_path, edits: dict) -> str:
+    files = {}
+    for rel in (_ENGINE, _DISPATCH):
+        files[rel] = open(os.path.join(REPO, rel)).read()
+    for rel, edit in edits.items():
+        files[rel] = edit(files.get(rel, ""))
+    for rel, body in files.items():
+        p = tmp_path / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(body)
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("case", sorted(DX_PLANTS))
+def test_dispatch_surface_finds_jax_findings_on_a_planted_engine(tmp_path, case):
+    from llm_mcp_tpu.analysis.dispatch_surface import DispatchSurfacePass as JDispatch
+    from llm_mcp_tpu_torch.analysis.dispatch_surface import DispatchSurfacePass
+
+    clean = _dx_tree(tmp_path / "clean", {})
+    assert DispatchSurfacePass().run(core.RepoIndex(clean, _DX_CONFIG)) == []
+    edits, want = DX_PLANTS[case]
+    root = _dx_tree(tmp_path / "bad", edits)
+    got = {f.key for f in DispatchSurfacePass().run(core.RepoIndex(root, _DX_CONFIG))}
+    jax_got = {f.key for f in JDispatch().run(jcore.RepoIndex(root, _DX_CONFIG))}
+    assert got == jax_got == want
+
+
+def test_dispatch_surface_clean_on_the_port(real_index):
+    from llm_mcp_tpu_torch.analysis.dispatch_surface import DispatchSurfacePass
+
+    assert DispatchSurfacePass().run(real_index) == []
+    assert real_index.config["dispatch_module"] == _DISPATCH
 
 
 @pytest.fixture(scope="module")
@@ -479,7 +546,7 @@ def test_analysis_imports_only_the_standard_library(real_index):
     numpy and JAX unimportable)."""
     stdlib = sys.stdlib_module_names
     files = real_index.files_under("llm_mcp_tpu_torch/analysis")
-    assert len(files) == 8, files
+    assert len(files) == 9, files  # dispatch_surface.py joined the eight
     for rel in files:
         for name, line in all_imports(real_index.ast(rel), rel):
             assert (name.split(".")[0] in stdlib

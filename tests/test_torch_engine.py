@@ -511,7 +511,11 @@ for name in ("llm_mcp_tpu_torch.models.weights", "llm_mcp_tpu_torch.executor.bpe
              "llm_mcp_tpu_torch.mcp", "llm_mcp_tpu_torch.mcp.bridge",
              "llm_mcp_tpu_torch.mcp.stdio", "llm_mcp_tpu_torch.mcp.tools",
              "llm_mcp_tpu_torch.mcp.__main__", "llm_mcp_tpu_torch.rpc",
-             "llm_mcp_tpu_torch.rpc.server", "llm_mcp_tpu_torch.rpc.client"):
+             "llm_mcp_tpu_torch.rpc.server", "llm_mcp_tpu_torch.rpc.client",
+             "llm_mcp_tpu_torch.executor.dispatch", "llm_mcp_tpu_torch.parallel",
+             "llm_mcp_tpu_torch.parallel.mesh", "llm_mcp_tpu_torch.parallel.sharding",
+             "llm_mcp_tpu_torch.parallel.distributed",
+             "llm_mcp_tpu_torch.analysis.dispatch_surface"):
     assert name in mods, name
 for name in mods:
     importlib.import_module(name)
